@@ -7,25 +7,37 @@ Phases, each printing one JSON line per item:
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
 3. kernel checks: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (OPT-6.7B: B=16, N=N_kv=32, D=128; prefill S=256 with
-   left pads; decode past length 272 in a 320-slot bf16 / 384-slot int8 cache);
-4. main path: InferenceEngine for opt-6.7b at full width and depth with random
-   bf16 weights, 16 prompts x 256 tokens, 32 new tokens, generate(fused=True),
-   once with bf16 KV and once with int8 KV; the launch counters, zeroed just
-   before one run and read just after it, must show 32 prefill launches and
-   32 x 31 decode launches of the KV type's kernel; prefill ms and decode
-   tokens/s are the median of 5 runs;
+   the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
+   prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
+   384-slot int8 cache). Quantized matmuls at M = 16 (decode rows) and 4096
+   (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
+   without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
+4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
+   and depth with random weights, 16 prompts x 256 tokens, 32 new tokens:
+   bf16 weights with bf16 and with int8 KV; bench.py's two candidates
+   (int8dyn+int8kv, w4a8+int8kv); weight-only int8, int4 g128 and NF4 g128
+   with bf16 KV; and a GPTQ checkpoint (OPT-6.7B width at 2 layers,
+   synthesized in AutoGPTQ's packing) as woq_int4z and retagged as
+   woq_int4z_dyn. The launch counters, zeroed just before one run and read
+   just after it, must show each path's kernels; for the bf16 paths and the
+   two candidates prefill ms and decode tokens/s are the median of 5 runs.
+   Each configuration's weights are freed before the next is made;
 5. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
-   (bf16, kernels) against the CPU (fp32, plain versions), both KV types;
-6. device breakdown: one more main-path run per KV type under the profiler,
-   device time by kernel and the device's idle share;
+   (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
+   bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv and
+   weight-only int4 g128;
+6. device breakdown: one more main-path run per timed configuration under the
+   profiler (weights made anew), device time by kernel and the idle share;
 7. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 30 calls, L2 flushed before
-   each) and the wrapper's host time, beside the least time the card could
-   take for the same bytes or FLOPs. Profiling comes last because a profiler
-   session slows the process's later launches.
+   each; the kernel's also from CUDA events, as a cross-check) and the
+   wrapper's host time, beside the least time the card could take for the
+   same bytes or operations; torch._int_mm over a row- and a column-major
+   int8 weight. Profiling comes last because a
+   profiler session slows the process's later launches.
 
-Then the kernels line, the card's name and power limit, and as the last line
+Then the kernels line (for the quantized matmuls, the decode wqkv call: M=16,
+K=4096, N=12288), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it exits 2 at once.
 It imports nothing of JAX or of the JAX package.
@@ -44,8 +56,10 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 REPS = 30
-TIMED_RUNS = 5  # main-path generate calls per KV type
+TIMED_RUNS = 5  # generate calls of each timed main path
+NEW_TOKENS = 32
 
 B, N, D = 16, 32, 128  # OPT-6.7B heads at batch 16
 PROMPT = 256
@@ -54,6 +68,31 @@ PADS = [0, 3, 7, 15, 31, 64, 100, 200] + [0] * 8  # left pads per row
 KERNEL_TOL = 2e-2  # bf16 outputs of O(1): a few ulps; kernel and plain version
 # differ in summation order and in where the probabilities round
 PARITY_TOL = 5e-2  # logits, bf16 model on the card vs fp32 on the CPU
+# int8 activations: a bf16 activation can land on the other side of a rounding
+# boundary of its int8 code from its fp32 twin (|x| / s_x * 127 moves by up to
+# 127 * 2^-9 codes), so whole codes differ between the two runs; the same
+# happens between bf16 and fp32 runs of the plain versions on the CPU alone
+PARITY_TOL_INT8_ACT = 0.15
+MATMUL_TOL = 1e-4  # quantized matmuls: max |kernel - plain| over max |plain|. Both
+# sum exact products (int32 / float64 integers, or bf16 x bf16 in fp32); the
+# fp32 sums of group partials and of scaled groups run in another order, and
+# the scales multiply in other places: ~1e-6 observed, 2e-5 for one fp32 sum
+# over 16384 terms (per-channel int8 at fc2, M = 4096)
+OPT_KN = {"wqkv": (4096, 12288), "fc2": (16384, 4096), "head": (4096, 50304)}  # OPT-6.7B
+MATMUL_M = (16, 4096)  # decode rows (16 sequences), prefill rows (16 x 256)
+GROUP = 128
+# bench.py's two candidates (bench.py:68-78) and the weight-only formats
+CANDIDATES = {
+    "int8dyn+int8kv": (dict(weight_dtype="int8", group_size=-1, kv_cache_dtype="int8",
+                            act_quant="dynamic"), {}),
+    "w4a8+int8kv": (dict(weight_dtype="int4", group_size=128, kv_cache_dtype="int8",
+                         act_quant="dynamic"), {"w4a8_matmul": 1}),
+}
+WEIGHT_ONLY = {
+    "woq-int8": dict(weight_dtype="int8", group_size=-1),
+    "woq-int4-g128": dict(weight_dtype="int4", group_size=128),
+    "woq-nf4-g128": dict(weight_dtype="nf4", group_size=128),
+}
 
 
 def emit(obj) -> None:
@@ -113,6 +152,25 @@ def device_ms(fn) -> float:
     return total_us / REPS / 1e3
 
 
+def event_ms(fn) -> float:
+    """Device time of one call of ``fn`` from a CUDA-event pair around it, L2
+    cold, mean of REPS: the flush before each pair keeps the card busy while
+    the host queues ``fn``, so the pair spans the call's kernels back to back.
+    A cross-check of device_ms, whose trace can miss kernels."""
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(REPS):
+        _flush()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / REPS
+
+
 def host_us(fn, n: int = 200) -> float:
     """Host time of one call of ``fn`` (Python, checks and launch), GPU work queued."""
     torch.cuda.synchronize()
@@ -124,8 +182,8 @@ def host_us(fn, n: int = 200) -> float:
     return dt / n * 1e6
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOP_PER_S * 1e3
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -233,16 +291,142 @@ def kernel_checks(ca, quantize_kv):
     return rows
 
 
+def matmul_cases(cm, quantize_act):
+    """The quantized-matmul kernel cases, one shape at a time (each yields its
+    inputs, made from a seeded generator, so the timing phase makes the same
+    ones anew): kernel, plain version, library yardstick and bound. The
+    library calls read more bytes than the kernels: ``torch._int_mm`` reads
+    the unpacked int8 codes (twice the packed bytes, column-major; its 16
+    decode rows are padded to 32, the least it takes), ``torch.mm`` the
+    dequantized bf16 weight (2x int8, 4x int4); neither is on the port's path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randint(lo, hi, *shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32).to(dtype)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 1e-3 + 1e-3
+
+    from lia_tpu_torch.ops.quant import QuantizedWeight, dequantize, unpack_nibbles
+
+    for shape, (K, N) in OPT_KN.items():
+        ng = K // GROUP
+        packed = randint(0, 256, K // 2, N, dtype=torch.uint8)
+        # the library yardstick's operand, column-major: _int_mm's fast layout
+        codes8 = (unpack_nibbles(packed) - 8).to(torch.int8).t().contiguous().t()
+        i8 = randint(-127, 128, K, N, dtype=torch.int8)
+        s, s1 = scales(ng, N), scales(1, N)
+        z = randint(0, 16, ng, N, dtype=torch.float32)
+        deq = {kind: dequantize(QuantizedWeight(q, sc, fmt, zz), torch.bfloat16) for kind, (q, sc, fmt, zz) in {
+            "int8": (i8, s1, "woq_int8", None), "int4": (packed, s, "woq_int4", None),
+            "nf4": (packed, s, "woq_nf4", None), "int4z": (packed, s, "woq_int4z", z)}.items()}
+        for M in MATMUL_M:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+            xq, sx = quantize_act(x)
+            xq_pad = torch.cat([xq, xq.new_zeros(max(0, 32 - M), K)])
+            io = 4 * M * N  # f32 output
+
+            def w4a8(zz):
+                nbytes = M * K + 4 * M + K * N // 2 + 4 * ng * N * (1 if zz is None else 2) + io
+                return dict(kernel=lambda: cm.w4a8_matmul(xq, sx, packed, s, zz),
+                            plain=lambda: cm.w4a8_matmul_plain(xq, sx, packed, s, zz),
+                            library=lambda: torch._int_mm(xq_pad, codes8),
+                            bound=bound(nbytes, 2 * M * K * N, PEAK_INT8_OP_PER_S))
+
+            def woq(kind, q, sc, zz=None):
+                nbytes = 2 * M * K + q.numel() + 4 * sc.numel() * (1 if zz is None else 2) + io
+                if zz is None:
+                    k, p = (lambda: cm.woq_matmul(x, q, sc, kind)), (lambda: cm.woq_matmul_plain(x, q, sc, kind))
+                else:
+                    k, p = (lambda: cm.woq4z_matmul(x, q, sc, zz)), (lambda: cm.woq4z_matmul_plain(x, q, sc, zz))
+                w = deq[kind]
+                return dict(kernel=k, plain=p, library=lambda: torch.mm(x, w, out_dtype=torch.float32),
+                            bound=bound(nbytes, 2 * M * K * N))
+
+            for name, variant, case in (
+                ("w4a8_matmul", "g128", w4a8(None)),
+                ("w4a8_matmul", "g128 zero-points", w4a8(z)),
+                ("woq_matmul", "int8 per-channel", woq("int8", i8, s1)),
+                ("woq_matmul", "int4 g128", woq("int4", packed, s)),
+                ("woq_matmul", "nf4 g128", woq("nf4", packed, s)),
+                ("woq4z_matmul", "g128", woq("int4z", packed, s, z)),
+            ):
+                case.update(name=name, variant=variant, M=M, K=K, N=N, shape=shape,
+                            representative=(M == 16 and shape == "wqkv"
+                                            and variant in ("g128", "int4 g128")))
+                yield case
+
+
+MATMUL_ROWS = {
+    "w4a8_matmul": ("lia_tpu_torch/csrc/w4a8_matmul.cu", "lia_tpu/ops/pallas_matmul.py:409"),
+    "woq4z_matmul": ("lia_tpu_torch/csrc/woq_matmul.cu", "lia_tpu/ops/pallas_matmul.py:601"),
+    "woq_matmul": ("lia_tpu_torch/csrc/woq_matmul.cu", "lia_tpu/ops/pallas_matmul.py:658"),
+}
+
+
+def matmul_kernel_checks(cm, quantize_act):
+    """Each quantized-matmul case against its plain version; returns the kernels
+    line's rows (their representative case: decode wqkv)."""
+    rows = {}
+    for c in matmul_cases(cm, quantize_act):
+        out, ref = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{c['name']} {c['variant']}: non-finite output")
+        abs_err = (out - ref).abs().max().item()
+        rel = abs_err / max(ref.abs().max().item(), 1e-30)
+        emit({"phase": "kernel_check", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
+              "K": c["K"], "N": c["N"], "max_abs_err": abs_err, "rel_err": rel, "tol": MATMUL_TOL})
+        check(rel <= MATMUL_TOL, f"{c['name']} {c['variant']} M={c['M']} K={c['K']} N={c['N']}: "
+                                 f"relative error {rel} > {MATMUL_TOL}")
+        if c["representative"]:
+            source, replaces = MATMUL_ROWS[c["name"]]
+            rows[c["name"]] = dict(source=source, replaces=replaces, max_abs_err=abs_err)
+        del out, ref
+    return rows
+
+
+def matmul_kernel_times(cm, quantize_act, rows) -> None:
+    """Device times of every quantized-matmul case (kernel, plain version, library
+    call) beside its bound; the representative cases fill the kernels line."""
+    for c in matmul_cases(cm, quantize_act):
+        t = dict(ms=device_ms(c["kernel"]), event_ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
+                 plain_ms=device_ms(c["plain"]), library_ms=device_ms(c["library"]),
+                 bound_ms=c["bound"][0], bound_by=c["bound"][1])
+        emit({"phase": "kernel_time", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
+              "K": c["K"], "N": c["N"], **t})
+        if c["representative"]:
+            rows[c["name"]].update(t, bound=c["bound"])
+
+
+def int_mm_layout() -> None:
+    """torch._int_mm (the int8 x int8 formats' matmul) over OPT-6.7B's wqkv
+    weight in row-major and in column-major layout, at decode (16 rows padded
+    to 32) and prefill rows: the layout ``to_device`` keeps on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    K, N = OPT_KN["wqkv"]
+    w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    w_col = w.t().contiguous().t()
+    for M in (32, 4096):
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+        check(torch.equal(torch._int_mm(xq, w), torch._int_mm(xq, w_col)), "int_mm: layouts disagree")
+        emit({"phase": "int_mm_layout", "M": M, "K": K, "N": N,
+              "row_major_ms": device_ms(lambda: torch._int_mm(xq, w)),
+              "col_major_ms": device_ms(lambda: torch._int_mm(xq, w_col))})
+
+
 def kernel_times(rows) -> None:
     """Device times of each kernel, its plain version and the library call, and
     the wrapper's host time. Runs last: a profiler session leaves the process's
     launches slower (measured on the card: eager decode loses ~40% after one)."""
     for name, r in rows.items():
         r["ms"] = device_ms(r["kernel"])
+        r["event_ms"] = event_ms(r["kernel"])
         r["host_us"] = host_us(r["kernel"])
         r["plain_ms"] = device_ms(r["plain"])
         r["library_ms"] = device_ms(r["library"]) if r["library"] else None
-        emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "host_us": r["host_us"],
+        emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "event_ms": r["event_ms"], "host_us": r["host_us"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
 
@@ -252,34 +436,49 @@ def kernel_times(rows) -> None:
 # ---------------------------------------------------------------------------
 
 
-def main_path(ca, kv: str, cfg, params, prompts):
+def launch_counts(ca, cm) -> dict:
+    return {**ca.launch_counts(), **cm.launch_counts()}
+
+
+def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forward: dict, timed: bool):
+    """One configuration through ``generate(fused=True)``. The counters are zeroed
+    just before one run and read just after: prefill attention once per layer,
+    decode attention per layer per step, and each matmul kernel of
+    ``per_forward`` that many times per forward pass (prefill and 31 steps).
+    ``timed``: a warm-up first and TIMED_RUNS runs (median and all) of prefill
+    ms and decode tokens/s; else the counted run's own numbers. The weights
+    live only as long as this call."""
     from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.ops import kv_cache as kvc
 
-    engine = InferenceEngine(cfg, params, RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
-    gen = GenerationConfig(max_new_tokens=32)
-    engine.generate(prompts, gen, fused=True)  # warm-up (cuBLAS handles, kernel loads)
+    engine = InferenceEngine(cfg, make_params(), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    if timed:
+        engine.generate(prompts, gen, fused=True)  # warm-up (cuBLAS handles, kernel loads)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ca.reset_launch_counts()
+    cm.reset_launch_counts()
     res = engine.generate(prompts, gen, fused=True)
-    launches = ca.launch_counts()
+    launches = launch_counts(ca, cm)
     L, steps = cfg.num_layers, gen.max_new_tokens - 1
-    decode_kernel = "decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"
     expected = {name: 0 for name in launches}
     expected["flash_attention_prefill"] = L
-    expected[decode_kernel] = L * steps
-    check(launches == expected, f"{kv} KV: launches {launches} != expected {expected}")
+    expected["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] = L * steps
+    for name, n in per_forward.items():
+        expected[name] = n * (1 + steps)
+    check(launches == expected, f"{label}: launches {launches} != expected {expected}")
     seqs = res.sequences
-    check(seqs.shape == (len(prompts), gen.max_new_tokens), f"sequences shape {seqs.shape}")
-    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), "token outside the vocabulary")
+    check(seqs.shape == (len(prompts), gen.max_new_tokens), f"{label}: sequences shape {seqs.shape}")
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{label}: token outside the vocabulary")
     peak = torch.cuda.max_memory_allocated()
     # the eager loop is bound by host time, and the host's cores are shared:
     # report the median of TIMED_RUNS runs (the counted one first) and all of them
-    runs = [res.summary()] + [engine.generate(prompts, gen, fused=True).summary()
-                              for _ in range(TIMED_RUNS - 1)]
+    runs = [res.summary()]
+    if timed:
+        runs += [engine.generate(prompts, gen, fused=True).summary() for _ in range(TIMED_RUNS - 1)]
 
     # logits of the same path are finite (outside the counted run)
     with torch.inference_mode():
@@ -291,23 +490,66 @@ def main_path(ca, kv: str, cfg, params, prompts):
         nxt = logits.argmax(-1).to(torch.int32)[:, None]
         pos = torch.full_like(nxt, len(prompts[0]))
         logits2, _ = T.decode_step(cfg, engine.params, nxt, pos, cache)
-        check(logits.shape == (len(prompts), cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
-        check(bool(torch.isfinite(logits).all() and torch.isfinite(logits2).all()), "non-finite logits")
+        check(logits.shape == (len(prompts), cfg.vocab_size), f"{label}: logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(logits2).all()), f"{label}: non-finite logits")
 
     def med(key, scale=1.0):
         return statistics.median(r[key] * scale for r in runs), [r[key] * scale for r in runs]
 
     record = {
-        "phase": "main_path", "model": cfg.name, "layers": L, "kv": kv, "batch": len(prompts),
-        "prompt": len(prompts[0]), "new_tokens": gen.max_new_tokens, "launches": launches,
-        "peak_mem_gb": peak / 1e9,
+        "phase": "main_path", "config": label, "model": cfg.name, "layers": L, "kv": kv,
+        "batch": len(prompts), "prompt": len(prompts[0]), "new_tokens": gen.max_new_tokens,
+        "launches": launches, "peak_mem_gb": peak / 1e9,
     }
     for key, name, scale in (("first_token_latency_s", "prefill_ms", 1e3),
                              ("decode_tokens_per_s", "decode_tokens_per_s", 1.0),
                              ("total_latency_s", "total_s", 1.0)):
         record[name], record[name + "_runs"] = med(key, scale)
     emit(record)
-    return launches, engine, gen, record["total_s"]
+    del engine, cache, logits, logits2
+    torch.cuda.empty_cache()
+    return launches, record["total_s"]
+
+
+def gptq_params(cfg, seed: int):
+    """An OPT tree from a synthesized AutoGPTQ state dict (numpy): random
+    codes, zero-points and scales in GPTQ's packing (g = 128, trivial g_idx),
+    the rest random fp, through ``params_from_gptq_state_dict`` (lossless
+    woq_int4z records). Scales of 0.006/4.3205 give weights of about the fp
+    dummy's spread."""
+    from lia_tpu_torch.utils.gptq import params_from_gptq_state_dict
+
+    rng = np.random.default_rng(seed)
+    H, F, V = cfg.hidden_size, cfg.ffn_size, cfg.vocab_size
+
+    def r(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32) * 0.006).astype(np.float32)
+
+    def pack(codes, zeros):  # AutoGPTQ: 8 codes per int32 along K, zero - 1 along N
+        qweight = np.zeros((codes.shape[0] // 8, codes.shape[1]), np.uint32)
+        qzeros = np.zeros((zeros.shape[0], zeros.shape[1] // 8), np.uint32)
+        for i in range(8):
+            qweight |= codes[i::8].astype(np.uint32) << (4 * i)
+            qzeros |= (zeros[:, i::8] - 1).astype(np.uint32) << (4 * i)
+        return qweight.view(np.int32), qzeros.view(np.int32)
+
+    pre = "model.decoder."
+    sd = {pre + "embed_tokens.weight": r(V, H), pre + "embed_positions.weight": r(cfg.max_position_embeddings + 2, H),
+          pre + "final_layer_norm.weight": np.ones(H, np.float32), pre + "final_layer_norm.bias": np.zeros(H, np.float32)}
+    for i in range(cfg.num_layers):
+        lp = f"{pre}layers.{i}."
+        for name, (K, N) in (("self_attn.q_proj", (H, H)), ("self_attn.k_proj", (H, H)),
+                             ("self_attn.v_proj", (H, H)), ("self_attn.out_proj", (H, H)),
+                             ("fc1", (H, F)), ("fc2", (F, H))):
+            codes = rng.integers(0, 16, (K, N), dtype=np.uint8)
+            zeros = rng.integers(1, 16, (K // GROUP, N), dtype=np.uint8)
+            sd[lp + name + ".qweight"], sd[lp + name + ".qzeros"] = pack(codes, zeros)
+            sd[lp + name + ".scales"] = np.full((K // GROUP, N), 0.006 / 4.3205, np.float16)
+            sd[lp + name + ".g_idx"] = (np.arange(K) // GROUP).astype(np.int32)
+            sd[lp + name + ".bias"] = np.zeros(N, np.float32)
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[lp + ln + ".weight"], sd[lp + ln + ".bias"] = np.ones(H, np.float32), np.zeros(H, np.float32)
+    return params_from_gptq_state_dict(cfg, sd, group_size=GROUP)
 
 
 def _short(kernel: str) -> str:
@@ -316,23 +558,33 @@ def _short(kernel: str) -> str:
     return name.split("<")[0].split("(")[0].split("::")[-1][:60]
 
 
-def device_breakdown(engine, gen, prompts, kv: str, wall_s: float) -> None:
-    """Device time by kernel over one more main-path run under the profiler, and
-    the idle share against the median wall time of the unprofiled runs."""
+def device_breakdown(label: str, cfg, make_params, prompts, kv: str, wall_s: float) -> None:
+    """Device time by kernel over one more main-path run under the profiler
+    (the weights made anew), and the idle share against the median wall time
+    of the unprofiled runs."""
     from torch.profiler import ProfilerActivity, profile
 
+    from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+
+    engine = InferenceEngine(cfg, make_params(), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    engine.generate(prompts, gen, fused=True)  # warm-up
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.generate(prompts, gen, fused=True)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     emit({
-        "phase": "device_breakdown", "kv": kv, "device_busy_s": busy_s, "wall_s": wall_s,
-        "idle_share": 1 - busy_s / wall_s,
+        "phase": "device_breakdown", "config": label, "kv": kv, "device_busy_s": busy_s,
+        "wall_s": wall_s, "idle_share": 1 - busy_s / wall_s,
         "top_kernels": [{"kernel": _short(e.key),
                          "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top],
     })
+    del engine
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +592,11 @@ def device_breakdown(engine, gen, prompts, kv: str, wall_s: float) -> None:
 # ---------------------------------------------------------------------------
 
 
-def parity(kv: str):
+def parity(label: str, kv: str, quant=None):
+    """OPT-6.7B width at 2 layers, one tree on both sides: the card (bf16 model,
+    kernels) against the CPU (fp32 model, plain versions; quantized records
+    move as they are)."""
+    from lia_tpu_torch.config import QuantConfig
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops import kv_cache as kvc
@@ -348,7 +604,8 @@ def parity(kv: str):
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
     cfg = get_config("opt-6.7b").replace(num_layers=2)
-    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    qc = None if quant is None else QuantConfig(**quant)
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1, quant=qc))
     cfg32 = cfg.replace(dtype="float32")
     params32 = to_device(params, "cpu", torch.float32)
     rng = np.random.default_rng(1)
@@ -376,21 +633,26 @@ def parity(kv: str):
     gpu = run("cuda", cfg, params, torch.bfloat16)
     cpu = run("cpu", cfg32, params32, torch.float32)
     err = (gpu - cpu).abs().max().item()
-    emit({"phase": "parity", "kv": kv, "layers": 2, "batch": 2, "prompt": 64, "decode_steps": 4,
-          "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(), "tol": PARITY_TOL,
-          "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
-    check(bool(torch.isfinite(gpu).all()), f"parity {kv}: non-finite logits on the card")
-    check(err <= PARITY_TOL, f"parity {kv}: max abs logit err {err} > {PARITY_TOL}")
+    tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
+    emit({"phase": "parity", "config": label, "kv": kv, "layers": 2, "batch": 2, "prompt": 64,
+          "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
+          "tol": tol, "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
+    check(bool(torch.isfinite(gpu).all()), f"parity {label}: non-finite logits on the card")
+    check(err <= tol, f"parity {label}: max abs logit err {err} > {tol}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from lia_tpu_torch.config import QuantConfig
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops import _build
     from lia_tpu_torch.ops import cuda_attention as ca
-    from lia_tpu_torch.ops.quant import quantize_kv
+    from lia_tpu_torch.ops import cuda_matmul as cm
+    from lia_tpu_torch.ops.quant import quantize_act, quantize_kv, retag_dynamic_act
     from lia_tpu_torch.utils.checkpoint import device_dummy_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -405,33 +667,62 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": sorted(paths)})
 
     rows = kernel_checks(ca, quantize_kv)
+    mm_rows = matmul_kernel_checks(cm, quantize_act)
 
     cfg = get_config("opt-6.7b")
-    params = device_dummy_params(cfg, seed=0)
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size, (16, PROMPT)).tolist()
-    paths = {kv: main_path(ca, kv, cfg, params, prompts) for kv in ("none", "int8")}
-    launches = {kv: p[0] for kv, p in paths.items()}
-    del params
+    L = cfg.num_layers
+    per_fwd = 4 * L + 1  # matmul kernel calls per forward: wqkv, wo, fc1, fc2 per layer, the head
 
-    parity("none")
-    parity("int8")
+    # (label, make_params, kv, kernel calls per forward) of the timed paths;
+    # the device breakdowns make their weights anew from the same recipe
+    timed = [(f"bf16 weights, {kv} KV", lambda: device_dummy_params(cfg, seed=0), kv, {})
+             for kv in ("none", "int8")]
+    for label, (qkw, kernels) in CANDIDATES.items():
+        qc = QuantConfig(**qkw)
+        timed.append((label, lambda qc=qc: device_dummy_params(cfg, seed=0, quant=qc), qc.kv_cache_dtype,
+                      {name: n * per_fwd for name, n in kernels.items()}))
+    launches, walls = {}, {}
+    for label, make, kv, calls in timed:
+        launches[label], walls[label] = main_path(ca, cm, label, cfg, make, prompts, kv, calls, timed=True)
+    for label, qkw in WEIGHT_ONLY.items():
+        launches[label], _ = main_path(
+            ca, cm, label, cfg, lambda qc=QuantConfig(**qkw): device_dummy_params(cfg, seed=0, quant=qc),
+            prompts, "none", {"woq_matmul": per_fwd}, timed=False)
+    cfg2 = cfg.replace(num_layers=2)  # GPTQ: no head record (OPT ties it), 4 linears per layer
+    gptq = gptq_params(cfg2, seed=0)
+    launches["gptq woq_int4z"], _ = main_path(ca, cm, "gptq woq_int4z", cfg2, lambda: gptq, prompts, "none",
+                                              {"woq4z_matmul": 4 * cfg2.num_layers}, timed=False)
+    launches["gptq woq_int4z_dyn"], _ = main_path(
+        ca, cm, "gptq woq_int4z_dyn", cfg2, lambda: retag_dynamic_act(gptq), prompts, "none",
+        {"w4a8_matmul": 4 * cfg2.num_layers}, timed=False)
+    del gptq
+
+    parity("bf16 weights, none KV", "none")
+    parity("bf16 weights, int8 KV", "int8")
+    for label, (qkw, _) in CANDIDATES.items():
+        parity(label, qkw["kv_cache_dtype"], qkw)
+    parity("woq-int4-g128", "none", WEIGHT_ONLY["woq-int4-g128"])
 
     # every profiler session comes after the timed runs
-    for kv, (_, engine, gen, wall_s) in paths.items():
-        device_breakdown(engine, gen, prompts, kv, wall_s)
-    del paths, engine
-    torch.cuda.empty_cache()
+    for label, make, kv, _ in timed:
+        device_breakdown(label, cfg, make, prompts, kv, walls[label])
     kernel_times(rows)
+    matmul_kernel_times(cm, quantize_act, mm_rows)
+    int_mm_layout()
 
-    from_run = {"flash_attention_prefill": "none", "decode_attention_fresh": "none",
-                "decode_attention_fresh_int8": "int8"}
+    from_run = {"flash_attention_prefill": "bf16 weights, none KV",
+                "decode_attention_fresh": "bf16 weights, none KV",
+                "decode_attention_fresh_int8": "bf16 weights, int8 KV",
+                "w4a8_matmul": "w4a8+int8kv", "woq_matmul": "woq-int4-g128",
+                "woq4z_matmul": "gptq woq_int4z"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[from_run[name]][name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        for name, r in rows.items()
+        for name, r in {**rows, **mm_rows}.items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -3,8 +3,11 @@
 A copy of ``lia_tpu/config.py`` with the same fields and defaults, so that a
 configuration converts one-to-one between the two packages (the port must not
 import ``lia_tpu``: that pulls in jax). Fields the port does not act on yet
-(tiering policies, meshes, weight quantization) are kept for parity; the engine
-raises when one is set away from its default.
+(tiering policies, meshes) are kept for parity; the engine raises when one is
+set away from its default. As in the reference, the weight fields of
+:class:`QuantConfig` are read where a tree is quantized or drawn
+(``quantize_params``, ``init_dummy_params``); the engine runs whatever tree it
+is given.
 
 The reference (ece-fast-lab/ISCA-2025-LIA) spreads configuration over three tiers:
 argparse CLI flags (examples/cpu/inference/python/llm/run.py:196-215), kwargs smuggled

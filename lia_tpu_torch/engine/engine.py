@@ -12,9 +12,11 @@ Two decode drivers, as in the reference:
   graph is later work, and nothing in the loop (no ``.item()``, no host-side
   length) stands in the way of a capture.
 
-The tiered weight scheduler, meshes, beam search, speculative decoding, weight
-quantization and the logits processors are not ported yet; asking for any of
-them raises.
+Quantized weights come as an already-quantized tree (``quantize_params``,
+``init_dummy_params(quant=...)``, a GPTQ checkpoint), as in the reference;
+the engine fuses and places it. The tiered weight scheduler, meshes, beam
+search, speculative decoding and the logits processors are not ported yet;
+asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -88,8 +90,6 @@ def _unsupported(runtime: RuntimeConfig) -> List[str]:
         out.append("tiered weight streaming / placement policies")
     if runtime.mesh_shape != default.mesh_shape:
         out.append("meshes")
-    if runtime.quant.enabled:
-        out.append("weight quantization")
     if not runtime.use_pallas:
         out.append("running without the kernels (use_pallas=False)")
     if runtime.quant.kv_cache_dtype not in ("none", "int8"):
@@ -107,10 +107,11 @@ class InferenceEngine:
         runtime: RuntimeConfig = RuntimeConfig(),
         device=None,
     ):
-        """``params``: a parameter tree of tensors (e.g. ``init_dummy_params`` or
-        ``params_from_jax``), moved to ``device``. ``device`` defaults to
-        ``"cuda"``, and the engine raises when no GPU is present; tests pass
-        ``device="cpu"``, where attention runs the kernels' plain versions."""
+        """``params``: a parameter tree of tensors and quantized records (e.g.
+        ``init_dummy_params`` or ``params_from_jax``), moved to ``device``.
+        ``device`` defaults to ``"cuda"``, and the engine raises when no GPU is
+        present; tests pass ``device="cpu"``, where the kernels' plain versions
+        run."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("InferenceEngine needs a CUDA device (pass device='cpu' to run on the CPU)")

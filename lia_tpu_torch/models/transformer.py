@@ -8,9 +8,11 @@ views; the decode loop keeps the cache read-only inside the layer loop and
 commits every layer's fresh K/V with one write per step, as the reference does.
 
 The projections, MLP and lm_head are plain matmuls (cuBLAS through torch),
-as they are plain XLA dots in the reference; attention goes through the
-front doors of :mod:`lia_tpu_torch.ops.attention`. RoPE, ALiBi, mixture of
-experts and weight quantization are not ported yet and raise.
+as they are plain XLA dots in the reference, or, for a quantized weight
+record, :func:`lia_tpu_torch.ops.quant.quantized_matmul` (the quantized-matmul
+kernels); attention goes through the front doors of
+:mod:`lia_tpu_torch.ops.attention`. RoPE, ALiBi and mixture of experts are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from lia_tpu_torch.config import Activation, ModelConfig, Norm, torch_dtype
 from lia_tpu_torch.ops import attention as att
 from lia_tpu_torch.ops import kv_cache as kvc
 from lia_tpu_torch.ops.norms import layernorm, rmsnorm
+from lia_tpu_torch.ops.quant import is_quantized, matmul_f32, quantized_matmul
 
 Params = Dict[str, Any]
 
@@ -40,9 +43,18 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
 
 
+def _layer(v: Any, idx: int) -> Any:
+    if isinstance(v, dict):
+        return layer_params(v, idx)
+    if is_quantized(v):
+        return v.map(lambda t: t[idx])
+    return v[idx]
+
+
 def layer_params(layers: Params, idx: int) -> Params:
-    """Layer ``idx`` of the stacked layer tree, as views."""
-    return {k: layer_params(v, idx) if isinstance(v, dict) else v[idx] for k, v in layers.items()}
+    """Layer ``idx`` of the stacked layer tree, as views (a quantized record's
+    codes, scales and zero-points each indexed)."""
+    return {k: _layer(v, idx) for k, v in layers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -50,13 +62,21 @@ def layer_params(layers: Params, idx: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w (+ b) for a ``[in, out]`` weight; returns x.dtype.
+def linear(x: torch.Tensor, w: Any, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b) for a ``[in, out]`` weight or a quantized record; returns x.dtype.
 
     The reference accumulates in fp32, adds the bias in fp32 and rounds once.
+    A quantized product comes back in fp32 and takes the bias the same way.
     ``addmm`` folds the bias into the same product, so it rounds once too; the
     sums run in another order (and cuBLAS may reduce bf16 split-K partials in
     bf16), so bf16 results agree with the reference to a tolerance."""
+    if is_quantized(w):
+        y = quantized_matmul(x, w)
+        if b is None:
+            return y.to(x.dtype)
+        # y + b in fp32, rounded once to x's type: one pass over y (the eager
+        # decode loop pays for every launch)
+        return torch.add(y, b, out=torch.empty_like(y, dtype=x.dtype))
     x2 = x.reshape(-1, x.shape[-1])
     y = x2 @ w if b is None else torch.addmm(b, x2, w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
@@ -180,26 +200,22 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, positions: tor
     return x.to(torch_dtype(cfg.dtype))
 
 
-def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., E] @ w [E, V] with fp32 accumulation and fp32 output."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.dtype == torch.float32:
-        y = x2 @ w.float()
-    elif x2.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        y = x2.float() @ w.float()
-    return y.reshape(*x.shape[:-1], w.shape[-1])
-
-
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Hidden → vocab logits (fp32). Callers slice to the last token first."""
+    """Hidden → vocab logits (fp32). Callers slice to the last token first.
+
+    A quantized head (a transposed copy for tied embeddings) goes through
+    :func:`quantized_matmul`; an int4 head's vocab is padded to a multiple of
+    128, and the pad columns are sliced off before anything reads the logits
+    (a zero logit could win an argmax)."""
     if "final_norm" in params:
         x = norm(cfg, params["final_norm"], x)
     if "proj_out" in params:
         x = linear(x, params["proj_out"])
     w = params["lm_head"] if "lm_head" in params else params["embed_tokens"].T
-    y = _logits(x, w)
+    if is_quantized(w):
+        y = quantized_matmul(x, w)[..., : cfg.vocab_size]
+    else:
+        y = matmul_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
     if "lm_head_bias" in params:
         y = y + params["lm_head_bias"].float()
     return y

@@ -5,7 +5,7 @@ shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 header is included, so a build takes seconds). All sources build in parallel,
 one ``nvcc`` process each, at the first call of :func:`library` or
 :func:`build_all`. A library's file name carries a hash of its source, the
-shared header and the flags, so an edited source rebuilds and an unchanged one
+shared headers and the flags, so an edited source rebuilds and an unchanged one
 is loaded as it is. The libraries go to ``lia_tpu_torch/_build/`` (listed in
 ``.gitignore``). A failed build raises :class:`BuildError` with nvcc's output.
 """
@@ -39,6 +39,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "decode_fresh_int8": {
         "lia_decode_fresh_int8": [P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+    },
+    "w4a8_matmul": {
+        "lia_w4a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    },
+    "woq_matmul": {
+        "lia_woq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
 }
 

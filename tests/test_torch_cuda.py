@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions,
+and the model on the card against the CPU.
 
 These tests need a CUDA device and skip elsewhere. They import nothing of JAX
 (the machine with the card has none), so run them there without the test
@@ -122,3 +123,124 @@ def test_model_on_the_card_matches_the_cpu(cuda, kv):
     counts = ca.launch_counts()
     assert counts["flash_attention_prefill"] == 2
     assert counts["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] == 8
+
+
+# ---------------------------------------------------------------------------
+# quantized matmuls
+# ---------------------------------------------------------------------------
+
+MM_TOL = 1e-4  # relative to the largest |output|: fp32 sums in another order
+
+
+def _rel_err(out, ref):
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _mm_inputs(gen, M, K, N, gs):
+    from lia_tpu_torch.ops.quant import quantize_act
+
+    ng = 1 if gs < 0 else K // gs
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    xq, sx = quantize_act(x)
+    packed = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    i8 = torch.randint(-128, 128, (K, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    s = torch.rand(ng, N, generator=gen, device="cuda") * 0.01 + 0.001
+    z = torch.randint(0, 16, (ng, N), generator=gen, device="cuda").float()
+    return x, xq, sx, packed, i8, s, z
+
+
+MM_SHAPES = [(16, 256, 96, 32), (3, 128, 64, -1), (40, 512, 200, 64), (16, 1024, 4100, 128), (130, 256, 40, 16)]
+
+
+@pytest.mark.parametrize("M,K,N,gs", MM_SHAPES)
+def test_w4a8_kernel_matches_plain(cuda, M, K, N, gs):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    _, xq, sx, packed, _, s, z = _mm_inputs(gen, M, K, N, gs)
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    for zz in (None, z):
+        before = cm.w4a8_matmul.launches
+        out = cm.w4a8_matmul(xq, sx, packed, s, zz)
+        assert cm.w4a8_matmul.launches == before + 1
+        assert _rel_err(out, cm.w4a8_matmul_plain(xq, sx, packed, s, zz)) <= MM_TOL
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "nf4", "int4z"])
+@pytest.mark.parametrize("M,K,N,gs", MM_SHAPES)
+def test_woq_kernels_match_plain(cuda, kind, M, K, N, gs):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, _, _, packed, i8, s, z = _mm_inputs(gen, M, K, N, gs)
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    if kind == "int4z":
+        out, ref = cm.woq4z_matmul(x, packed, s, z), cm.woq4z_matmul_plain(x, packed, s, z)
+    else:
+        q = i8 if kind == "int8" else packed
+        out, ref = cm.woq_matmul(x, q, s, kind), cm.woq_matmul_plain(x, q, s, kind)
+    assert _rel_err(out, ref) <= MM_TOL
+
+
+def test_quantized_matmul_wrappers_raise_on_the_card(cuda):
+    """What the kernels do not take raises on a CUDA tensor; nothing falls back."""
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, xq, sx, packed, i8, s, z = _mm_inputs(gen, 16, 256, 64, 32)
+    with pytest.raises(TypeError):  # the weight-only kernel takes bf16 activations
+        cm.woq_matmul(x.float(), packed, s, "int4")
+    with pytest.raises(ValueError):  # K/2 = 24 rows: no kernel
+        cm.woq_matmul(x[:, :48].contiguous(), packed[:24], s[:6], "int4")
+    with pytest.raises(ValueError):  # three groups cannot split over the packed halves
+        cm.w4a8_matmul(xq[:, :96].contiguous(), sx, packed[:48], s[:3])
+    with pytest.raises(ValueError):  # not contiguous
+        cm.woq_matmul(x, i8.t().contiguous().t(), s[:1], "int8")
+
+
+@pytest.mark.parametrize("fmt", ["int8dyn+int8kv", "w4a8+int8kv", "woq-int4-g128", "woq-nf4-g128"])
+def test_quantized_model_on_the_card_matches_the_cpu(cuda, fmt):
+    """opt-125m widths at 2 layers, one quantized tree: the card (bf16, kernels)
+    against the CPU (fp32, plain versions), prefill and 4 decode steps."""
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import cuda_matmul as cm
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.ops.quant import quantize_params
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    qkw, kv = {
+        "int8dyn+int8kv": (dict(weight_dtype="int8", group_size=-1, act_quant="dynamic"), "int8"),
+        "w4a8+int8kv": (dict(weight_dtype="int4", group_size=128, act_quant="dynamic"), "int8"),
+        "woq-int4-g128": (dict(weight_dtype="int4", group_size=128), "none"),
+        "woq-nf4-g128": (dict(weight_dtype="nf4", group_size=128), "none"),
+    }[fmt]
+    cfg = get_config("opt-125m").replace(num_layers=2)
+    cfg32 = cfg.replace(dtype="float32")
+    params = quantize_params(cfg32, init_dummy_params(cfg32, seed=0, scale=0.02), QuantConfig(**qkw))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32))
+    mask = torch.ones(2, 32, dtype=torch.bool)
+    mask[1, :10] = False
+    steps = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, 2, 1)).astype(np.int32))
+    cm.reset_launch_counts()
+
+    def run(device, c, dtype):
+        p = to_device(params, device, dtype)
+        cache = kvc.init_cache(c, 2, 64, dtype, quantized=kv == "int8", device=device)
+        logits, cache = T.prefill(c, p, tokens.to(device), mask.to(device), cache)
+        out = [logits.cpu()]
+        pos = mask.to(device).to(torch.int32).sum(1, keepdim=True)
+        for i, t in enumerate(steps):
+            logits, cache = T.decode_step(c, p, t.to(device), pos + i, cache)
+            out.append(logits.cpu())
+        return torch.stack(out)
+
+    gpu, cpu = run(cuda, cfg, torch.bfloat16), run("cpu", cfg32, torch.float32)
+    # int8 activations: bf16 and fp32 activations can round to neighbouring
+    # codes, which moves the logits more than bf16 rounding alone
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=0.15 if "8kv" in fmt else 5e-2)
+    expected = {"w4a8_matmul": 0, "woq_matmul": 0, "woq4z_matmul": 0}
+    if fmt != "int8dyn+int8kv":  # int8 activations x int8 weights go to torch._int_mm
+        # unfused q/k/v: six linears per layer, two layers, the head; 5 forwards
+        expected["w4a8_matmul" if fmt == "w4a8+int8kv" else "woq_matmul"] = (6 * 2 + 1) * 5
+    assert cm.launch_counts() == expected

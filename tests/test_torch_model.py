@@ -152,8 +152,7 @@ def test_unported_features_raise(model):
     with pytest.raises(NotImplementedError):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, num_beams=2))
     for rt in (RuntimeConfig(stream_weights=True), RuntimeConfig(hbm_percentage=50),
-               RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(quant=QuantConfig(weight_dtype="int8")),
-               RuntimeConfig(use_pallas=False)):
+               RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tcfg, tp, rt, device="cpu")
     with pytest.raises(NotImplementedError):
