@@ -9,7 +9,9 @@ Phases, each printing one JSON line per item:
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
-   384-slot int8 cache). Quantized matmuls at M = 16 (decode rows) and 4096
+   384-slot int8 cache; write-then-attend decode over a 320-slot plane holding
+   273 tokens, also at G = 4 and through the stacked entry at a layer offset).
+   Quantized matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
@@ -22,13 +24,31 @@ Phases, each printing one JSON line per item:
    just after it, must show each path's kernels; for the bf16 paths and the
    two candidates prefill ms and decode tokens/s are the median of 5 runs.
    Each configuration's weights are freed before the next is made;
-5. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
+5. tiered: LIA's offload path, InferenceEngine.generate over a tiering
+   RuntimeConfig at OPT-6.7B full width and depth, same prompts, from one
+   host tree (bf16) made once on the card from the seed and copied out: h2d
+   (copy rates of one streamed layer's bytes), then tier-h50-p3 (half
+   resident, the rest streamed), tier-h50-p3-ring3 (the same with
+   max_inflight_layers=3: a ring of 3, two layers in flight ahead),
+   tier-h0-p3-int8kv (all streamed, int8 KV),
+   tier-h50-p0 (KV on the host), tier-h50-p0-p2-mb4 (prefill policy 0 in 4
+   minibatches, decode policy 2: host attention), tier-p1-2layer (policy 1,
+   2 layers, 2 prompts of 64 tokens, all on the CPU) and, over an int8dyn
+   tree, tier-h50-p3-int8dyn against the resident engine on the same tree.
+   Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
+   bytes streamed and copy-stream ms per step, peak device memory under a
+   residency limit, exact launch counts;
+6. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv and
-   weight-only int4 g128;
-6. device breakdown: one more main-path run per timed configuration under the
+   weight-only int4 g128; and the tiered scheduler at 4 layers (half
+   resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
+   policy 3 over int8dyn weights and int8 KV;
+7. device breakdown: one more main-path run per timed configuration under the
    profiler (weights made anew), device time by kernel and the idle share;
-7. kernel times: each kernel's, its plain version's and a PyTorch library
+   for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
+   attention per step;
+8. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 30 calls, L2 flushed before
    each; the kernel's also from CUDA events, as a cross-check) and the
    wrapper's host time, beside the least time the card could take for the
@@ -37,7 +57,10 @@ Phases, each printing one JSON line per item:
    profiler session slows the process's later launches.
 
 Then the kernels line (for the quantized matmuls, the decode wqkv call: M=16,
-K=4096, N=12288), the card's name and power limit, and as the last line
+K=4096, N=12288; decode_attention's and the stacked entry's launches from
+tier-h50-p3, where the stacked entry, on no path of the reference, launches
+0 times), the card's name and power
+limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it exits 2 at once.
 It imports nothing of JAX or of the JAX package.
@@ -45,6 +68,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -81,6 +105,29 @@ MATMUL_TOL = 1e-4  # quantized matmuls: max |kernel - plain| over max |plain|. B
 OPT_KN = {"wqkv": (4096, 12288), "fc2": (16384, 4096), "head": (4096, 50304)}  # OPT-6.7B
 MATMUL_M = (16, 4096)  # decode rows (16 sequences), prefill rows (16 x 256)
 GROUP = 128
+TIERED_RUNS = 3  # generate calls of each timed tiering configuration
+TIER_MARGIN_GB = 2.5  # device memory the residency check leaves for activations (int8dyn
+# prefill at b16 x 256 needed 2.1 GB beside its weights and KV on the H100)
+# (name, KV, hbm_percentage, (prefill, decode) policy, minibatches, max_inflight_layers,
+# timed): the tiering configurations over bf16 weights at OPT-6.7B full width and depth
+TIERED = [
+    ("tier-h50-p3", "none", 50, (3, 3), 1, 2, True),
+    ("tier-h50-p3-ring3", "none", 50, (3, 3), 1, 3, True),
+    ("tier-h0-p3-int8kv", "int8", 0, (3, 3), 1, 2, False),
+    ("tier-h50-p0", "none", 50, (0, 0), 1, 2, True),
+    ("tier-h50-p0-p2-mb4", "none", 50, (0, 2), 4, 2, True),
+]
+# (name, (prefill, decode) policy, KV, weight quantization or None): the tiered
+# scheduler at 4 layers, half resident, on the card against the CPU
+TIER_PARITY = [
+    ("tier-parity-p3", (3, 3), "none", None),
+    ("tier-parity-p0", (0, 0), "none", None),
+    ("tier-parity-p0-p2", (0, 2), "none", None),
+    ("tier-parity-p3-int8kv", (3, 3), "int8", None),
+    ("tier-parity-p0-int8kv", (0, 0), "int8", None),
+    ("tier-parity-p0-p2-int8kv", (0, 2), "int8", None),
+    ("tier-parity-p3-int8dyn", (3, 3), "int8", dict(weight_dtype="int8", group_size=-1, act_quant="dynamic")),
+]
 # bench.py's two candidates (bench.py:68-78) and the weight-only formats
 CANDIDATES = {
     "int8dyn+int8kv": (dict(weight_dtype="int8", group_size=-1, kv_cache_dtype="int8",
@@ -266,6 +313,51 @@ def kernel_checks(ca, quantize_kv):
         plain=lambda: ca.decode_attention_fresh_plain(qd, kf, vf, kc, vc, li, sm, ln),
         library=lambda: F.scaled_dot_product_attention(qdt, kp, vp, attn_mask=sdpa_dmask),
         bound=bound(past_keys * N * D * 2 * 2 + io_bytes + sm.numel(), 4 * D * N * (past_keys + B)),
+    )
+
+    # write-then-attend decode (the tiered scheduler's streamed layers): the
+    # plane holds the token at slot PAST, and the length (PAST + 1) counts it
+    ln_inc = torch.tensor(PAST + 1, dtype=torch.int32, device="cuda")
+    kp_inc, vp_inc = kp, vp  # layer li with the fresh token written
+    plane_keys = sum(n + 1 for n in n_keys)
+    plane_bound = bound(plane_keys * N * D * 2 * 2 + 4 * qd.numel() + 4 + sm.numel(), 4 * D * N * plane_keys)
+    out = ca.decode_attention(qd, kp_inc, vp_inc, sm_inc, ln_inc)
+    ref = ca.decode_attention_plain(qd, kp_inc, vp_inc, sm_inc, ln_inc)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "decode_attention: non-finite output")
+    rows["decode_attention"] = dict(
+        source="lia_tpu_torch/csrc/decode.cu",
+        replaces="lia_tpu/ops/pallas_attention.py:404",
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        kernel=lambda: ca.decode_attention(qd, kp_inc, vp_inc, sm_inc, ln_inc),
+        plain=lambda: ca.decode_attention_plain(qd, kp_inc, vp_inc, sm_inc, ln_inc),
+        library=lambda: F.scaled_dot_product_attention(qdt, kp_inc, vp_inc, attn_mask=sdpa_dmask),
+        bound=plane_bound,
+    )
+    # GQA (G = 4: 8 kv heads under 32 query heads) over the same slots
+    kg, vg = randn(B, N // 4, 320, D), randn(B, N // 4, 320, D)
+    out = ca.decode_attention(qd, kg, vg, sm_inc, ln_inc)
+    ref = ca.decode_attention_plain(qd, kg, vg, sm_inc, ln_inc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    emit({"phase": "kernel_check", "kernel": "decode_attention", "variant": "GQA G=4", "max_abs_err": err,
+          "tol": KERNEL_TOL})
+    check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL, f"decode_attention GQA: max abs err {err}")
+    # the stacked entry (B7): layer li of the stacked cache, read in place
+    kc_inc, vc_inc = kc.clone(), vc.clone()
+    kc_inc[li], vc_inc[li] = kp_inc, vp_inc
+    out = ca.decode_attention_stacked(qd, kc_inc, vc_inc, li, sm_inc, ln_inc)
+    ref = ca.decode_attention_stacked_plain(qd, kc_inc, vc_inc, li, sm_inc, ln_inc)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "decode_attention_stacked: non-finite output")
+    rows["decode_attention_stacked"] = dict(
+        source="lia_tpu_torch/csrc/decode.cu",
+        replaces="lia_tpu/ops/pallas_attention.py:505",
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        kernel=lambda: ca.decode_attention_stacked(qd, kc_inc, vc_inc, li, sm_inc, ln_inc),
+        plain=lambda: ca.decode_attention_stacked_plain(qd, kc_inc, vc_inc, li, sm_inc, ln_inc),
+        library=lambda: F.scaled_dot_product_attention(qdt, kc_inc[li], vc_inc[li], attn_mask=sdpa_dmask),
+        bound=plane_bound,
     )
 
     sm8 = slot_mask(384)
@@ -588,7 +680,360 @@ def device_breakdown(label: str, cfg, make_params, prompts, kv: str, wall_s: flo
 
 
 # ---------------------------------------------------------------------------
-# phase 5: parity
+# phase 5: tiered weight streaming (the scheduler's path)
+# ---------------------------------------------------------------------------
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree (a quantized record's q, s, z)."""
+    from lia_tpu_torch.runtime.weight_manager import tree_tensors
+
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+
+
+def first_layers(tree, n: int):
+    """The tree with its stacked layers cut to the first ``n`` (views)."""
+    from lia_tpu_torch.runtime.weight_manager import stacked_prefix
+
+    return {k: (v if k != "layers" else stacked_prefix(v, n)) for k, v in tree.items()}
+
+
+def host_tree(cfg, quant=None):
+    """OPT-6.7B's fused tree, drawn on the card from the seed, in (pageable)
+    host memory in the card's layout (to_host); the device copy is freed. The
+    weight manager packs each streamed layer into pinned memory itself."""
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_host
+
+    t0 = time.perf_counter()
+    dev = fuse_projections(cfg, device_dummy_params(cfg, seed=0, quant=quant))
+    host = to_host(dev, "cuda")
+    del dev
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return host, time.perf_counter() - t0
+
+
+def h2d_bandwidth(nbytes: int) -> None:
+    """Host-device copy rates for one streamed layer's bytes: pinned and pageable
+    H2D, pinned and pageable D2H (host clock around REPS copies and a sync):
+    the card's counterpart of the reference's Microbench.h2d_bandwidth."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.ones(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.ones(nbytes, dtype=torch.uint8)
+    check(pinned.is_pinned(), "h2d: the pinned buffer is not pinned")
+
+    def gbps(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return nbytes * reps / (time.perf_counter() - t0) / 1e9
+
+    emit({"phase": "h2d", "bytes": nbytes,
+          "h2d_pinned_gb_s": gbps(lambda: dev.copy_(pinned, non_blocking=True)),
+          "h2d_pageable_gb_s": gbps(lambda: dev.copy_(pageable)),
+          "d2h_pinned_gb_s": gbps(lambda: pinned.copy_(dev, non_blocking=True)),
+          "d2h_pageable_gb_s": gbps(lambda: pageable.copy_(dev))})
+
+
+def tiered_expected(cfg, n_res: int, kv: str, policies, nm: int, batch: int) -> dict:
+    """Kernel launches of one tiered generate, from the scheduler's code: the
+    resident layers run flash prefill and the fresh-merge decode kernel; the
+    streamed layers run flash prefill once per minibatch and ``decode_attention``
+    per step where their plan attends on the card (policies 0 and 3), and no
+    kernel where it attends on the host (1, 2, 4)."""
+    from lia_tpu_torch.ops import cuda_attention as ca
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    L, steps = cfg.num_layers, NEW_TOKENS - 1
+    n_str = L - n_res
+    card = {0: True, 1: False, 2: False, 3: True, 4: False}
+    chunks = nm if nm > 1 and batch % nm == 0 else 1
+    out = {name: 0 for name in {**ca.launch_counts(), **cm.launch_counts()}}
+    out["flash_attention_prefill"] = n_res + (n_str * chunks if card[policies[0]] else 0)
+    out["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] = n_res * steps
+    out["decode_attention"] = n_str * steps if card[policies[1]] else 0
+    return out
+
+
+def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, policies, nm: int, inflight: int,
+                timed: bool):
+    """One tiering configuration through ``InferenceEngine.generate``: launch
+    counts zeroed just before one run and read just after it, checked exactly;
+    the copy stream's bytes and time (CUDA events on it); peak device memory
+    against what may live there (the resident layers, the ring, the device KV,
+    the embeddings and head, and a margin for activations); with ``timed``,
+    TIERED_RUNS runs (median and all). Returns (tokens, launches, engine)."""
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, tree, tiered_runtime(kv, hbm, policies, nm, inflight))
+    init_s = time.perf_counter() - t0
+    sched = engine.scheduler
+    check(sched is not None, f"{name}: the engine built no scheduler")
+    wm = sched.wm
+    check(all(t.is_pinned() for t in wm._packed), f"{name}: a streamed layer is not in pinned memory")
+    # before any run, the card holds the resident layers, the ring and the
+    # embeddings and head, and nothing of the streamed layers
+    rep = wm.memory_report()
+    held = torch.cuda.memory_allocated() - base
+    owned = rep["resident_bytes"] + rep["ring_bytes"] + tree_bytes(engine.params)
+    check(held <= owned + 64e6, f"{name}: the engine holds {held / 1e9:.3f} GB on the card, "
+                                f"{owned / 1e9:.3f} GB expected: streamed layers stayed on the card")
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    B = len(prompts)
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    wm.copy_stats()
+    with host_attention_clock() as host_attn:
+        res = engine.generate(prompts, gen)
+    launches = launch_counts(ca, cm)
+    copies = wm.copy_stats()
+    peak = torch.cuda.max_memory_allocated()
+    expected = tiered_expected(cfg, wm.n_resident, kv, policies, nm, B)
+    check(launches == expected, f"{name}: launches {launches} != expected {expected}")
+    seqs = res.sequences
+    check(seqs.shape == (B, NEW_TOKENS), f"{name}: sequences shape {seqs.shape}")
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{name}: token outside the vocabulary")
+    runs = [res.summary()]
+    if timed:
+        runs += [engine.generate(prompts, gen).summary() for _ in range(TIERED_RUNS - 1)]
+    wm.copy_stats()
+
+    # what may live on the card during a run: the resident prefix, the ring,
+    # the device KV (resident segment, and the streamed one unless it is on
+    # the host), the embeddings and head, and TIER_MARGIN_GB for activations
+    bucket = 128 if kv == "int8" else 64
+    max_len = -(-(len(prompts[0]) + NEW_TOKENS) // bucket) * bucket
+    per_layer_kv = 2 * B * cfg.num_kv_heads * max_len * (cfg.head_dim * (1 if kv == "int8" else 2)
+                                                          + (4 if kv == "int8" else 0))
+    kv_layers = wm.n_resident + (0 if sched.kv_host else cfg.num_layers - wm.n_resident)
+    limit = (rep["resident_bytes"] + rep["ring_bytes"] + kv_layers * per_layer_kv + tree_bytes(engine.params)
+             + TIER_MARGIN_GB * 1e9)
+    check(peak < limit, f"{name}: peak device memory {peak / 1e9:.2f} GB above the residency limit "
+                        f"{limit / 1e9:.2f} GB: streamed layers stayed on the card")
+    passes = NEW_TOKENS  # the prompt and each decode step stream every streamed layer once
+    med = {}
+    for key, out_key, scale in (("first_token_latency_s", "prefill_ms", 1e3),
+                                ("decode_tokens_per_s", "decode_tokens_per_s", 1.0)):
+        vals = [r[key] * scale for r in runs]
+        med[out_key], med[out_key + "_runs"] = statistics.median(vals), vals
+    emit({"phase": "tiered", "config": name, "model": cfg.name, "layers": cfg.num_layers, "kv": kv,
+          "hbm_percentage": hbm, "resident_layers": wm.n_resident, "prefill_policy": policies[0],
+          "decode_policy": policies[1], "num_minibatch": nm, "max_inflight_layers": inflight, "batch": B, "prompt": len(prompts[0]),
+          "new_tokens": NEW_TOKENS, **med, "init_s": init_s,
+          "bytes_per_decode_step": copies["bytes"] / passes, "copy_ms_per_step": copies["copy_ms"] / passes,
+          "host_attention_ms_per_pass": host_attn[0] / passes * 1e3,
+          "copy_gb_per_s": copies["bytes"] / max(copies["copy_ms"], 1e-9) / 1e6,
+          "held_after_init_gb": held / 1e9, "peak_mem_gb": peak / 1e9, "residency_limit_gb": limit / 1e9,
+          "memory": rep,
+          "host_threads": torch.get_num_threads(), "launches": launches})
+    return seqs, launches, engine
+
+
+def tiered_runtime(kv: str, hbm: int, policies, nm: int, inflight: int = 2):
+    from lia_tpu_torch.config import QuantConfig, RuntimeConfig
+
+    return RuntimeConfig(hbm_percentage=hbm, stream_weights=hbm == 0, prefill_policy=policies[0],
+                         decode_policy=policies[1], num_minibatch=nm, max_inflight_layers=inflight,
+                         quant=QuantConfig(kv_cache_dtype=kv))
+
+
+@contextlib.contextmanager
+def host_attention_clock():
+    """Host clock around every call of the host tier's attention (policies 1,
+    2 and 4 attend on the CPU); yields a one-element list of seconds spent."""
+    from lia_tpu_torch.ops import attention as att
+
+    spent = [0.0]
+    originals = {n: getattr(att, n) for n in ("attend_decode_host", "attend_prefill_host")}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    try:
+        for n, fn in originals.items():
+            setattr(att, n, timed(fn))
+        yield spent
+    finally:
+        for n, fn in originals.items():
+            setattr(att, n, fn)
+
+
+def tiered_breakdown(name: str, engine, prompts) -> None:
+    """Where the time of one tiered generate goes, under the profiler: device
+    time in kernels (compute) and in copies (the weight stream, KV and
+    activations crossing), host attention (policies 2/4: host clock around
+    the host tier's attention calls), and the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lia_tpu_torch.config import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    with host_attention_clock() as spent, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copy_s = sum(e.self_device_time_total for e in events if "Memcpy" in e.key) / 1e6
+    compute_s = sum(e.self_device_time_total for e in events if "Memcpy" not in e.key) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "tiered_breakdown", "config": name, "wall_s": wall, "device_compute_s": compute_s,
+          "device_copy_s": copy_s, "host_attention_s": spent[0], "per_step_ms": {
+              "wall": wall / NEW_TOKENS * 1e3, "compute": compute_s / NEW_TOKENS * 1e3,
+              "copy": copy_s / NEW_TOKENS * 1e3, "host_attention": spent[0] / NEW_TOKENS * 1e3},
+          "top": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top]})
+
+
+def tiered_parity() -> None:
+    """OPT-6.7B width at 4 layers, half resident: prefill and 4 decode steps of
+    the scheduler on the card (bf16, kernels, streamed weights) against the
+    CPU (fp32, plain versions and the host tier's golden attention) over the
+    same tree, for each TIER_PARITY configuration (int8 KV: the streamed
+    layers dequantize each plane and run decode_attention on the card)."""
+    from lia_tpu_torch.config import QuantConfig, RuntimeConfig
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.runtime.scheduler import StreamingScheduler
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config("opt-6.7b").replace(num_layers=4)
+    cfg32 = cfg.replace(dtype="float32")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), bool)
+    mask[1, :14] = False
+    tokens[1, :14] = 1
+    steps = rng.integers(2, cfg.vocab_size, (4, 2)).astype(np.int32)
+    pos = mask.sum(1).astype(np.int32)
+
+    def run(sched, device):
+        with torch.inference_mode():
+            logits, state = sched.prefill_pass(tokens, mask, 128)
+            out = [logits.float().cpu()]
+            for i, st in enumerate(steps):
+                logits, state = sched.decode_pass(torch.from_numpy(st).to(device),
+                                                  torch.from_numpy(pos + i).to(device), state)
+                out.append(logits.float().cpu())
+            return torch.stack(out)
+
+    trees = {}
+    for label, (p, d), kv, quant in TIER_PARITY:
+        key = json.dumps(quant)
+        if key not in trees:
+            trees.clear()
+            qc = None if quant is None else QuantConfig(**quant)
+            params = fuse_projections(cfg, device_dummy_params(cfg, seed=1, quant=qc))
+            trees[key] = params, to_device(params, "cpu", torch.float32)
+        params, params32 = trees[key]
+        rt = RuntimeConfig(hbm_percentage=50, prefill_policy=p, decode_policy=d,
+                           quant=QuantConfig(kv_cache_dtype=kv))
+        gpu = run(StreamingScheduler(cfg, rt, params, "cuda"), "cuda")
+        cpu = run(StreamingScheduler(cfg32, rt, params32, "cpu"), "cpu")
+        err = (gpu - cpu).abs().max().item()
+        tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
+        emit({"phase": "parity", "config": label, "layers": 4, "hbm_percentage": 50, "prefill_policy": p,
+              "decode_policy": d, "kv": kv, "weights": (quant or {}).get("weight_dtype", "bf16"), "batch": 2,
+              "prompt": 64, "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
+              "tol": tol, "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
+        check(bool(torch.isfinite(gpu).all()), f"parity {label}: non-finite logits on the card")
+        check(err <= tol, f"parity {label}: max abs logit err {err} > {tol}")
+    trees.clear()
+    torch.cuda.empty_cache()
+
+
+def tiered_phase(ca, cm, cfg, prompts):
+    """The tiering configurations at OPT-6.7B full width and depth: bf16
+    weights from one pinned host tree (h50-p3, h0-p3 over int8 KV, h50-p0,
+    h50-p0-p2 with 4 minibatches, and policy 1 at 2 layers over 2 short
+    prompts), then int8dyn weights (h50-p3 over int8 KV) against the resident
+    engine on the same tree. Returns (launches by configuration, the bf16 host
+    tree, the engines to break down later)."""
+    from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine, pack_prompts
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.runtime.weight_manager import slice_layer
+
+    tree, make_s = host_tree(cfg)
+    layer_bytes = tree_bytes(slice_layer(tree["layers"], 0))
+    emit({"phase": "host_tree", "weights": "bf16", "gb": tree_bytes(tree) / 1e9, "seconds": make_s})
+    h2d_bandwidth(layer_bytes)
+    launches = {}
+    for name, kv, hbm, policies, nm, inflight, timed in TIERED:
+        _, launches[name], engine = tiered_path(ca, cm, name, cfg, tree, prompts, kv, hbm, policies, nm, inflight,
+                                                timed)
+        del engine
+    # policy 1 (all host) at 2 layers over 2 prompts of 64 tokens: the host's
+    # bf16 matmuls are the cost, and no kernel runs
+    cfg2 = cfg.replace(num_layers=2)
+    _, launches["tier-p1-2layer"], engine = tiered_path(
+        ca, cm, "tier-p1-2layer", cfg2, first_layers(tree, 2), [p[:64] for p in prompts[:2]], "none", 0, (1, 1), 1,
+        2, timed=False)
+    del engine
+
+    # int8dyn weights over int8 KV: the streamed layers' codes arrive column-major
+    # (torch._int_mm's fast layout); the prompt's logits equal the resident
+    # engine's on the same tree bit for bit (prefill runs the same kernels
+    # over the same bytes). Decode differs in one place: the resident layers'
+    # int8 fresh-merge kernel folds the K scales into fp32 scores, the
+    # streamed layers dequantize the plane to bf16 first and attend (as
+    # lia_tpu's attend_decode does), so the first step's logits agree to a
+    # tolerance and greedy tokens of random weights may part after it
+    qc = QuantConfig(weight_dtype="int8", group_size=-1, kv_cache_dtype="int8", act_quant="dynamic")
+    tree8, make_s = host_tree(cfg, qc)
+    emit({"phase": "host_tree", "weights": "int8dyn", "gb": tree_bytes(tree8) / 1e9, "seconds": make_s})
+    seqs, launches["tier-h50-p3-int8dyn"], engine = tiered_path(ca, cm, "tier-h50-p3-int8dyn", cfg, tree8, prompts,
+                                                               "int8", 50, (3, 3), 1, 2, timed=False)
+    wm = engine.scheduler.wm
+    streamed = wm.get_layer(cfg.num_layers - 1)["attn"]["wqkv"].q
+    check(streamed.stride(-2) == 1, f"int8dyn: streamed codes are not column-major (strides {streamed.stride()})")
+    from lia_tpu_torch.ops import kv_cache as kvc
+
+    tokens, mask = pack_prompts(prompts, 1)
+    pos = torch.from_numpy(mask.sum(1).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        tier_logits, state = engine.scheduler.prefill_pass(tokens, mask, 384)
+        nxt = tier_logits.argmax(-1).to(torch.int32)
+        tier_step, _ = engine.scheduler.decode_pass(nxt, pos, state)
+    del engine, state
+    resident = InferenceEngine(cfg, tree8, RuntimeConfig(quant=QuantConfig(kv_cache_dtype="int8")))
+    ref = resident.generate(prompts, GenerationConfig(max_new_tokens=NEW_TOKENS)).sequences
+    with torch.inference_mode():
+        cache = kvc.init_cache(cfg, len(prompts), 384, torch.bfloat16, quantized=True, device="cuda")
+        res_logits, cache = T.prefill(cfg, resident.params, torch.from_numpy(tokens).cuda(),
+                                      torch.from_numpy(mask).cuda(), cache)
+        res_step, _ = T.decode_step(cfg, resident.params, nxt[:, None], pos[:, None], cache)
+    prefill_diff = (tier_logits - res_logits).abs().max().item()
+    step_diff = (tier_step - res_step).abs().max().item()
+    agree = float((seqs == ref).mean())
+    emit({"phase": "tiered_vs_resident", "config": "tier-h50-p3-int8dyn", "prefill_logits_max_abs_diff": prefill_diff,
+          "step_logits_max_abs_diff": step_diff, "step_tol": PARITY_TOL_INT8_ACT,
+          "step_argmax_agree": float((tier_step.argmax(-1) == res_step.argmax(-1)).float().mean()),
+          "tokens_agree": agree, "first_divergent_step": int(np.argmax((seqs != ref).any(0))) if agree < 1 else None})
+    check(prefill_diff == 0.0, f"int8dyn: tiered prefill logits differ from the resident engine's by {prefill_diff}")
+    check(step_diff <= PARITY_TOL_INT8_ACT, f"int8dyn: first decode step's logits differ by {step_diff}")
+    del resident, cache, tree8
+    torch.cuda.empty_cache()
+    return launches, tree
+
+
+# ---------------------------------------------------------------------------
+# phase 6: parity
 # ---------------------------------------------------------------------------
 
 
@@ -705,9 +1150,21 @@ def main() -> int:
         parity(label, qkw["kv_cache_dtype"], qkw)
     parity("woq-int4-g128", "none", WEIGHT_ONLY["woq-int4-g128"])
 
+    tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
+    launches.update(tier_launches)
+    tiered_parity()
+
     # every profiler session comes after the timed runs
     for label, make, kv, _ in timed:
         device_breakdown(label, cfg, make, prompts, kv, walls[label])
+    from lia_tpu_torch.engine.engine import InferenceEngine
+
+    for name, kv, hbm, policies, nm, inflight, _ in TIERED:
+        if name in ("tier-h50-p3", "tier-h50-p0-p2-mb4"):
+            engine = InferenceEngine(cfg, tree, tiered_runtime(kv, hbm, policies, nm, inflight))
+            tiered_breakdown(name, engine, prompts)
+            del engine
+    del tree
     kernel_times(rows)
     matmul_kernel_times(cm, quantize_act, mm_rows)
     int_mm_layout()
@@ -716,7 +1173,8 @@ def main() -> int:
                 "decode_attention_fresh": "bf16 weights, none KV",
                 "decode_attention_fresh_int8": "bf16 weights, int8 KV",
                 "w4a8_matmul": "w4a8+int8kv", "woq_matmul": "woq-int4-g128",
-                "woq4z_matmul": "gptq woq_int4z"}
+                "woq4z_matmul": "gptq woq_int4z", "decode_attention": "tier-h50-p3",
+                "decode_attention_stacked": "tier-h50-p3"}  # no reference path runs the stacked entry
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[from_run[name]][name], "max_abs_err": r["max_abs_err"],

@@ -14,9 +14,16 @@ Two decode drivers, as in the reference:
 
 Quantized weights come as an already-quantized tree (``quantize_params``,
 ``init_dummy_params(quant=...)``, a GPTQ checkpoint), as in the reference;
-the engine fuses and places it. The tiered weight scheduler, meshes, beam
-search, speculative decoding and the logits processors are not ported yet;
-asking for any of them raises.
+the engine fuses and places it.
+
+A tiering :class:`RuntimeConfig` (``hbm_percentage < 100``, ``stream_weights``
+or a policy other than 3) hands the tree to the tiered scheduler
+(:class:`lia_tpu_torch.runtime.scheduler.StreamingScheduler`): the first
+``hbm_percentage``% of layers go to the device, the rest stay in pinned host
+memory and stream in layer by layer, and ``generate`` runs the scheduler's
+stepwise loop (``fused`` is ignored there, as in the reference; ``on_token``
+raises). Meshes, beam search, speculative decoding and the logits processors
+are not ported yet; asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -85,9 +92,6 @@ class GenerationResult:
 def _unsupported(runtime: RuntimeConfig) -> List[str]:
     default = RuntimeConfig()
     out = []
-    if (runtime.hbm_percentage < 100 or runtime.stream_weights
-            or runtime.prefill_policy != 3 or runtime.decode_policy != 3):
-        out.append("tiered weight streaming / placement policies")
     if runtime.mesh_shape != default.mesh_shape:
         out.append("meshes")
     if not runtime.use_pallas:
@@ -98,7 +102,7 @@ def _unsupported(runtime: RuntimeConfig) -> List[str]:
 
 
 class InferenceEngine:
-    """Owns the device parameters and the generation loops."""
+    """Owns the device parameters (or the tiered scheduler) and the generation loops."""
 
     def __init__(
         self,
@@ -123,9 +127,17 @@ class InferenceEngine:
         self.cfg = cfg
         self.runtime = runtime
         self.device = torch.device(device)
+        self.scheduler = None
         if runtime.fuse_projections:
             params = fuse_projections(cfg, params)
-        self.params = to_device(params, self.device)
+        if (runtime.hbm_percentage < 100 or runtime.stream_weights
+                or runtime.prefill_policy != 3 or runtime.decode_policy != 3):
+            from lia_tpu_torch.runtime.scheduler import StreamingScheduler
+
+            self.scheduler = StreamingScheduler(cfg, runtime, params, self.device)
+            self.params = self.scheduler.top  # embeddings, norms, head
+        else:
+            self.params = to_device(params, self.device)
 
     def _slot_bucket(self) -> int:
         """KV slot rounding, as the reference's (64 for bf16 KV, 128 for int8 KV),
@@ -143,9 +155,9 @@ class InferenceEngine:
     ) -> GenerationResult:
         """Generate ``gen.max_new_tokens`` tokens per prompt. ``on_token``, if
         given, is called with the ``[B]`` int token array as each step completes
-        (stepwise loop only)."""
-        if on_token is not None and fused:
-            raise ValueError("on_token streaming needs the stepwise loop (fused=False)")
+        (stepwise resident loop only)."""
+        if on_token is not None and (fused or self.scheduler is not None):
+            raise ValueError("on_token streaming needs the stepwise resident loop (fused=False, no tiered scheduler)")
         if gen.num_beams > 1:
             raise NotImplementedError("beam search is not ported yet")
         if _needs_processors(gen):
@@ -158,15 +170,17 @@ class InferenceEngine:
         B, S = tokens_np.shape
         bucket = self._slot_bucket()
         max_len = -(-(S + gen.max_new_tokens) // bucket) * bucket
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        lat = LatencyStats()
+        if self.scheduler is not None:
+            return self.scheduler.generate(tokens_np, mask_np, gen, max_len, lat, generator)
         tokens = torch.from_numpy(tokens_np).to(dev)
         mask = torch.from_numpy(mask_np).to(dev)
         cache = kvc.init_cache(
             cfg, B, max_len, torch_dtype(cfg.dtype),
             quantized=self.runtime.quant.kv_cache_dtype == "int8", device=dev,
         )
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
-        lat = LatencyStats()
 
         t0 = time.perf_counter()
         logits, cache = T.prefill(cfg, self.params, tokens, mask, cache)

@@ -1,5 +1,6 @@
 """Functional transformer decoder (port of ``lia_tpu/models/transformer.py``,
-the OPT main path: prefill and the fused-merge decode step).
+the OPT main path: prefill, the fused-merge decode step, and the per-layer
+write-then-attend decode layer that the tiered scheduler runs).
 
 The model is a pure function over a parameter tree whose decoder layers are
 stacked ``[L, ...]``, as in the reference. Where the reference scans over the
@@ -13,6 +14,13 @@ record, :func:`lia_tpu_torch.ops.quant.quantized_matmul` (the quantized-matmul
 kernels); attention goes through the front doors of
 :mod:`lia_tpu_torch.ops.attention`. RoPE, ALiBi and mixture of experts are not
 ported yet and raise.
+
+The layer functions take ``host=True`` for the tiered scheduler's host tier
+(policies 1, 2 and 4 run layers or attention on the CPU): attention is then
+the golden model (:func:`lia_tpu_torch.ops.attention.attend_prefill_host`,
+:func:`~lia_tpu_torch.ops.attention.attend_decode_host`), as the reference
+runs its host functions with Pallas disabled; on CPU tensors the quantized
+linears take the plain matmuls (:func:`lia_tpu_torch.ops.quant.quantized_matmul`).
 """
 
 from __future__ import annotations
@@ -145,10 +153,19 @@ def attn_in(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tens
     return qkv_project(cfg, lp, h, positions)
 
 
-def attn_core_prefill(cfg, q, k, v, k_layer, v_layer, start, attn_ctx: att.PrefillAttn):
+def attn_core_prefill(cfg, q, k, v, k_layer, v_layer, start, attn_ctx: att.PrefillAttn, host: bool = False):
     """Prompt attention over the fresh chunk, then the cache write (in place)."""
-    attn_out = att.attend_prefill(q, k, v, attn_ctx)
+    attn_out = (att.attend_prefill_host if host else att.attend_prefill)(q, k, v, attn_ctx)
     k_layer, v_layer = kvc.update_layer(k_layer, v_layer, k, v, start)
+    return attn_out, k_layer, v_layer
+
+
+def attn_core_decode(cfg, q, k, v, k_layer, v_layer, start, attn_ctx: att.DecodeAttn, host: bool = False):
+    """Decode attention over one layer plane, update then attend: the fresh K/V
+    are written at ``start`` (in place) and ``attn_ctx`` covers the cache
+    INCLUDING them. The piece policies 2/4 run on the host over host KV."""
+    k_layer, v_layer = kvc.update_layer(k_layer, v_layer, k, v, start)
+    attn_out = (att.attend_decode_host if host else att.attend_decode)(q, k_layer, v_layer, attn_ctx)
     return attn_out, k_layer, v_layer
 
 
@@ -170,10 +187,18 @@ def attn_post_mlp(cfg: ModelConfig, lp: Params, residual: torch.Tensor, attn_out
     return x
 
 
-def decoder_layer_prefill(cfg, lp, x, k_layer, v_layer, start, attn_ctx, positions):
+def decoder_layer_prefill(cfg, lp, x, k_layer, v_layer, start, attn_ctx, positions, host: bool = False):
     """One decoder layer over a full (bucketed) prompt."""
     q, k, v = attn_in(cfg, lp, x, positions)
-    attn_out, k_layer, v_layer = attn_core_prefill(cfg, q, k, v, k_layer, v_layer, start, attn_ctx)
+    attn_out, k_layer, v_layer = attn_core_prefill(cfg, q, k, v, k_layer, v_layer, start, attn_ctx, host)
+    return attn_post_mlp(cfg, lp, x, attn_out), k_layer, v_layer
+
+
+def decoder_layer_decode(cfg, lp, x, k_layer, v_layer, start, attn_ctx, positions, host: bool = False):
+    """One decoder layer for one decode step, write-then-attend over its own
+    cache plane (``start`` = the slot written, ``attn_ctx`` includes it)."""
+    q, k, v = attn_in(cfg, lp, x, positions)
+    attn_out, k_layer, v_layer = attn_core_decode(cfg, q, k, v, k_layer, v_layer, start, attn_ctx, host)
     return attn_post_mlp(cfg, lp, x, attn_out), k_layer, v_layer
 
 
@@ -226,19 +251,31 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def prefill_layers(cfg, layers: Params, x, cache: kvc.KVCache, ctx: att.PrefillAttn, positions, n_layers: int):
+    """Decoder layers ``0 .. n_layers-1`` of a stacked tree over a prompt, each
+    writing its plane of ``cache`` in place at ``cache.length``; returns the
+    hidden states. The cache's mask and length are not advanced."""
+    for i in range(n_layers):
+        x, _, _ = decoder_layer_prefill(
+            cfg, layer_params(layers, i), x,
+            kvc.index_layer_kv(cache.k, i), kvc.index_layer_kv(cache.v, i), cache.length, ctx, positions,
+        )
+    return x
+
+
+def prefill_positions(input_mask: torch.Tensor) -> torch.Tensor:
+    """Pad-aware positions of a left-padded prompt."""
+    return torch.cumsum(input_mask.to(torch.int32), dim=1) - 1
+
+
 def run_prefill_layers(cfg, params, tokens, input_mask, cache: kvc.KVCache):
     """Embed + all decoder layers; returns (hidden [B, S, H], cache). The cache is
     written in place and returned with its length advanced."""
     check_supported(cfg)
-    positions = torch.cumsum(input_mask.to(torch.int32), dim=1) - 1  # pad-aware
+    positions = prefill_positions(input_mask)
     x = embed(cfg, params, tokens, positions)
     ctx = att.prefill_attn_ctx(input_mask, cfg.sliding_window)
-    start = cache.length
-    for i in range(cfg.num_layers):
-        x, _, _ = decoder_layer_prefill(
-            cfg, layer_params(params["layers"], i), x,
-            kvc.index_layer_kv(cache.k, i), kvc.index_layer_kv(cache.v, i), start, ctx, positions,
-        )
+    x = prefill_layers(cfg, params["layers"], x, cache, ctx, positions, cfg.num_layers)
     return x, kvc.advance(cache, input_mask, tokens.shape[1])
 
 

@@ -34,6 +34,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_prefill": {
         "lia_flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, I, P],
     },
+    "decode": {
+        "lia_decode": [P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+    },
     "decode_fresh": {
         "lia_decode_fresh": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
     },

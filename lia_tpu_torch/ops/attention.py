@@ -5,10 +5,15 @@ Layouts as in the reference: hidden [B, S, H]; Q [B, S, N, D]; K/V head-major
 replicated.
 
 :func:`attend` is the general masked golden model. The front doors
-:func:`attend_prefill` and :func:`attend_decode_fresh` go through the kernel
-wrappers of :mod:`lia_tpu_torch.ops.cuda_attention`: the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor. ALiBi biases are not ported yet;
-the front doors raise when a context carries one.
+:func:`attend_prefill`, :func:`attend_decode_fresh` and :func:`attend_decode`
+go through the kernel wrappers of :mod:`lia_tpu_torch.ops.cuda_attention`: the
+CUDA kernel for a CUDA tensor, its plain version for a CPU tensor. ALiBi
+biases are not ported yet; the front doors raise when a context carries one.
+
+:func:`attend_prefill_host` and :func:`attend_decode_host` are the tiered
+scheduler's host tier (policies 1, 2 and 4 place attention on the CPU): the
+golden model over CPU tensors, as the reference runs its host functions with
+Pallas disabled. They never reach a kernel wrapper.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from lia_tpu_torch.ops import cuda_attention as ca
-from lia_tpu_torch.ops.quant import is_quantized_kv
+from lia_tpu_torch.ops.quant import dequantize_kv, is_quantized_kv
 
 NEG_INF = -1e30  # large-negative additive mask; avoids NaNs from true -inf rows
 
@@ -139,3 +144,31 @@ def attend_decode_fresh(
     return ca.decode_attention_fresh(
         q, kf, vf, k_cache_full, v_cache_full, layer_idx, ctx.slot_mask, ctx.length
     )
+
+
+def attend_decode(q: torch.Tensor, k_cache, v_cache, ctx: DecodeAttn) -> torch.Tensor:
+    """Decode attention over one layer plane [B, N_kv, S_max, D] that already
+    holds this step's token (write-then-attend: ``ctx.length`` includes it).
+    INT8 planes (:class:`QuantizedKV`) are dequantized to q's type first, as
+    the reference does; then the ``decode_attention`` kernel (plain version on
+    the CPU)."""
+    _no_bias(ctx.bias)
+    if is_quantized_kv(k_cache):
+        k_cache, v_cache = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
+    return ca.decode_attention(q, k_cache, v_cache, ctx.slot_mask, ctx.length)
+
+
+def attend_prefill_host(q, k, v, ctx: PrefillAttn) -> torch.Tensor:
+    """Host-tier prefill attention: the golden model over the causal ∧ padding
+    (∧ window) mask."""
+    _no_bias(ctx.bias)
+    return attend(q, k, v, ctx.mask)
+
+
+def attend_decode_host(q: torch.Tensor, k_cache, v_cache, ctx: DecodeAttn) -> torch.Tensor:
+    """Host-tier decode attention over one layer plane that already holds this
+    step's token: the golden model (INT8 planes dequantized to q's type)."""
+    _no_bias(ctx.bias)
+    if is_quantized_kv(k_cache):
+        k_cache, v_cache = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
+    return attend(q, k_cache, v_cache, ctx.mask)

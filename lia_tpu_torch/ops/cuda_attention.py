@@ -81,6 +81,31 @@ def _cache_allow(slot_mask, length, S_max, device):
     return (pos < lengths[:, None]) & (pos >= starts[:, None])  # [B, S_max]
 
 
+def decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale=None):
+    """One query per sequence over one layer plane's [start, length), all in
+    fp32; the plane already holds this step's token and ``length`` counts it.
+    q [B, 1, N, D]; k/v [B, N_kv, S_max, D]; slot_mask [B, S_max]; length int,
+    0-dim or [B]."""
+    B, _, N, D = q.shape
+    _, Nkv, S_max, _ = k_cache.shape
+    G = N // Nkv
+    qs = q.float().reshape(B, Nkv, G, D) * _sscale(scale, D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qs, k_cache.float())
+    allow = _cache_allow(slot_mask, length, S_max, q.device)
+    s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allow[:, None, None], torch.exp2(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / l.clamp(min=1e-30)
+    return out.reshape(B, 1, N, D).to(q.dtype)
+
+
+def decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None):
+    """:func:`decode_attention_plain` over layer ``layer_idx`` of the stacked
+    cache [L, B, N_kv, S_max, D]."""
+    return decode_attention_plain(q, k_cache[layer_idx], v_cache[layer_idx], slot_mask, length, scale)
+
+
 def decode_attention_fresh_plain(
     q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
 ):
@@ -209,19 +234,78 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     return out
 
 
-def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
+def _plane_checks(q, plane_shape, slot_mask, lengths):
+    """q [B, 1, N, D] against one cache plane's shape [B, N_kv, S_max, D]."""
     B, one, N, D = q.shape
-    L, Bc, Nkv, S_max, Dc = cache.shape
+    Bc, Nkv, S_max, Dc = plane_shape
     if one != 1 or Bc != B or Dc != D:
-        raise ValueError(f"q {tuple(q.shape)} does not match cache {tuple(cache.shape)}")
-    if k_fresh.shape != (B, Nkv, 1, D) or v_fresh.shape != k_fresh.shape:
-        raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache plane {tuple(plane_shape)}")
     if slot_mask.shape != (B, S_max) or slot_mask.dtype is not torch.bool:
         raise ValueError("slot_mask must be [B, S_max] bool")
     if lengths.ndim and lengths.shape != (B,):
         raise ValueError("length must be a scalar or [B]")
     if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
         raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+
+
+def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
+    """q and the fresh k/v against a stacked cache [L, B, N_kv, S_max, D]."""
+    if cache.dim() != 5:
+        raise ValueError(f"the cache must be [L, B, N_kv, S_max, D], got {tuple(cache.shape)}")
+    _plane_checks(q, cache.shape[1:], slot_mask, lengths)
+    B, _, _, D = q.shape
+    if k_fresh.shape != (B, cache.shape[2], 1, D) or v_fresh.shape != k_fresh.shape:
+        raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
+
+
+def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length, scale):
+    """Launch ``lia_decode`` over one plane of ``plane_shape`` [B, N_kv, S_max,
+    D] at kc_ptr/vc_ptr (inside k_cache/v_cache)."""
+    from lia_tpu_torch.ops import _build
+
+    B, _, N, D = q.shape
+    _, Nkv, S_max, _ = plane_shape
+    q = q.contiguous()
+    lengths = _lengths(length, q.device)
+    stream = _stream(q, k_cache, v_cache, slot_mask, lengths)
+    is_bf16 = _float_kind(q, k_cache, v_cache)
+    _plane_checks(q, plane_shape, slot_mask, lengths)
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("k/v caches differ in shape")
+    out = torch.empty_like(q)
+    rc = _build.library("decode").lia_decode(
+        q.data_ptr(), kc_ptr, vc_ptr, slot_mask.data_ptr(), lengths.data_ptr(),
+        1 if lengths.ndim else 0, out.data_ptr(), B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
+    )
+    return rc, out
+
+
+def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None):
+    """Decode attention over one layer plane [B, N_kv, S_max, D] that already
+    holds this step's token; ``length`` (0-dim or [B]) includes it."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale)
+    rc, out = _decode(q, k_cache.data_ptr(), v_cache.data_ptr(), k_cache.shape, k_cache, v_cache,
+                      slot_mask, length, scale)
+    _raise_on(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention_stacked(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None):
+    """:func:`decode_attention` over layer ``layer_idx`` of the stacked cache
+    [L, B, N_kv, S_max, D], read in place (the kernel starts at the layer's
+    offset). Backs both of the reference's stacked entry points
+    (``decode_attention_stacked`` and ``decode_attention_stacked_dma``)."""
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale)
+    if k_cache.dim() != 5:
+        raise ValueError(f"the cache must be [L, B, N_kv, S_max, D], got {tuple(k_cache.shape)}")
+    rc, out = _decode(q, _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx), k_cache.shape[1:],
+                      k_cache, v_cache, slot_mask, length, scale)
+    _raise_on(rc, "decode_attention_stacked")
+    decode_attention_stacked.launches += 1
+    return out
 
 
 def decode_attention_fresh(
@@ -293,7 +377,10 @@ def decode_attention_fresh_int8(
     return out
 
 
-KERNELS = (flash_attention_prefill, decode_attention_fresh, decode_attention_fresh_int8)
+KERNELS = (
+    flash_attention_prefill, decode_attention_fresh, decode_attention_fresh_int8,
+    decode_attention, decode_attention_stacked,
+)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -10,6 +10,11 @@ donation), every write here is **in place**: :func:`update_layer`,
 given, and return them (or the cache) only for symmetry with the reference.
 ``length`` is a 0-dim int32 tensor on the cache's device and write offsets are
 computed from it on the device, so a decode step never syncs with the host.
+
+The tiered scheduler keeps the streamed layers' cache in host memory under
+policies 0, 1, 2 and 4 (``init_cache(..., device="cpu", pin_memory=True)``:
+pinned when the accelerator is CUDA, so its planes move with asynchronous
+copies); every function here works on host tensors as on device ones.
 """
 
 from __future__ import annotations
@@ -46,23 +51,26 @@ def init_cache(
     dtype=torch.bfloat16,
     quantized: bool = False,
     device=None,
+    pin_memory: bool = False,
 ) -> KVCache:
-    """Zeroed cache. ``quantized=True`` stores INT8 planes + per-token f32 scales."""
+    """Zeroed cache. ``quantized=True`` stores INT8 planes + per-token f32 scales.
+    ``pin_memory=True`` allocates a host cache in page-locked memory (``device``
+    must be the CPU)."""
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device, pin_memory=pin_memory)
 
     def plane():
         if quantized:
-            return QuantizedKV(
-                torch.zeros(shape, dtype=torch.int8, device=device),
-                torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            )
-        return torch.zeros(shape, dtype=dtype, device=device)
+            return QuantizedKV(zeros(shape, torch.int8), zeros(shape[:-1], torch.float32))
+        return zeros(shape, dtype)
 
     return KVCache(
         k=plane(),
         v=plane(),
-        length=torch.zeros((), dtype=torch.int32, device=device),
-        mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
+        length=zeros((), torch.int32),
+        mask=zeros((batch, max_len), torch.bool),
     )
 
 
@@ -71,6 +79,17 @@ def index_layer_kv(plane: Any, idx: int) -> Any:
     if is_quantized_kv(plane):
         return QuantizedKV(plane.q[idx], plane.s[idx])
     return plane[idx]
+
+
+def set_layer_kv(plane: Any, layer_plane: Any, idx: int) -> Any:
+    """Write layer ``idx`` back into a stacked K or V plane, in place. A view
+    from :func:`index_layer_kv` already wrote through, and is not copied."""
+    pairs = zip(plane, layer_plane) if is_quantized_kv(plane) else [(plane, layer_plane)]
+    for full, layer in pairs:
+        dst = full[idx]
+        if dst.data_ptr() != layer.data_ptr():
+            dst.copy_(layer)
+    return plane
 
 
 def _slots(start: Offset, n: int, device) -> torch.Tensor:

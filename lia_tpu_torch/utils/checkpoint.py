@@ -20,6 +20,9 @@ quantized weight is a :class:`~lia_tpu_torch.ops.quant.QuantizedWeight` record.
   bf16 leaves convert through their 16-bit pattern, so ``ml_dtypes`` is never
   imported.
 - :func:`params_from_hf_state_dict`: a Hugging Face OPT state dict to the tree.
+- :func:`to_device` places a tree on the accelerator; :func:`to_host` keeps it
+  in host memory in the layout ``to_device`` gives it there, for the tiered
+  scheduler's streamed layers.
 """
 
 from __future__ import annotations
@@ -298,6 +301,22 @@ def to_device(tree: Any, device, dtype=None) -> Any:
     if dtype is not None and tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device=device)
+
+
+def to_host(tree: Any, device) -> Any:
+    """A parameter tree in host memory, laid out as :func:`to_device` lays it out
+    on ``device`` (the accelerator the tree will be streamed to): int8 × int8
+    formats' codes column-major when ``device`` is CUDA, every other leaf with
+    its strides kept. A leaf already in host memory in that layout is kept as
+    it is (no copy); pinning is the weight manager's, which packs each
+    streamed layer into one pinned buffer."""
+    if isinstance(tree, dict):
+        return {k: to_host(v, device) for k, v in tree.items()}
+    if is_quantized(tree):
+        if torch.device(device).type == "cuda" and tree.fmt in _INT_MM_FORMATS:
+            tree = tree._replace(q=tree.q.transpose(-1, -2).contiguous().transpose(-1, -2))
+        return tree.map(lambda t: t.cpu())
+    return tree.cpu()
 
 
 def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:

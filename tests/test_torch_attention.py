@@ -255,8 +255,11 @@ def test_plain_path_counts_no_launch(rng):
     q = torch.from_numpy(rng.standard_normal((2, 16, 4, 16)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
     ca.flash_attention_prefill(q, k, k, torch.ones(2, 16, dtype=torch.bool))
+    ca.decode_attention(t["q"], t["k"][0], t["v"][0], sm, 21)
+    ca.decode_attention_stacked(t["q"], t["k"], t["v"], 1, sm, 21)
     assert ca.launch_counts() == {
         "flash_attention_prefill": 0, "decode_attention_fresh": 0, "decode_attention_fresh_int8": 0,
+        "decode_attention": 0, "decode_attention_stacked": 0,
     }
 
 
@@ -270,3 +273,147 @@ def test_int8_fresh_round_trip_matches_lia_tpu(rng, dtype):
     ref = j_dequantize_kv(j_quantize_kv(jx), jx.dtype)
     out = dequantize_kv(quantize_kv(tx), tx.dtype)
     np.testing.assert_array_equal(f32(out), f32(ref))
+
+
+# ---------------------------------------------------------------------------
+# decode_attention (write-then-attend over one plane) and its stacked entry
+# ---------------------------------------------------------------------------
+
+DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gqa", [False, True])
+@pytest.mark.parametrize("length,pads", [(5, (0, 0)), (9, (2, 4)), (16, (0, 3))])
+def test_decode_plain_matches_pallas(rng, length, pads, gqa, dtype):
+    """The cases of lia_tpu's decode kernel test: lengths, left pads, GQA; the
+    plane already holds the token, and ``length`` counts it."""
+    B, S_max, N, D = 2, 16, 4, 16
+    Nkv = 2 if gqa else N
+    q = rng.standard_normal((B, 1, N, D)).astype(np.float32)
+    k = rng.standard_normal((B, Nkv, S_max, D)).astype(np.float32)
+    v = rng.standard_normal((B, Nkv, S_max, D)).astype(np.float32)
+    sm = slot_mask(B, S_max, length, pads)
+    (jq, tq), (jk, tk), (jv, tv) = both(q, dtype), both(k, dtype), both(v, dtype)
+    ref = pa.decode_attention(jq, jk, jv, jnp.asarray(sm), jnp.asarray(length, jnp.int32), block_k=8, interpret=True)
+    out = ca.decode_attention(tq, tk, tv, torch.from_numpy(sm), torch.tensor(length, dtype=torch.int32))
+    assert out.dtype == tq.dtype and out.shape == (B, 1, N, D)
+    tol = DECODE_TOL[dtype]
+    np.testing.assert_allclose(f32(out), f32(ref), rtol=tol, atol=tol)
+
+
+def test_decode_plain_ignores_stale_slots(rng):
+    """Slots past ``length`` never leak, even where the slot mask is stale."""
+    B, S_max, N, D = 1, 16, 2, 8
+    q = torch.from_numpy(rng.standard_normal((B, 1, N, D)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, N, S_max, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, N, S_max, D)).astype(np.float32))
+    mask_all = torch.ones(B, S_max, dtype=torch.bool)
+    a = ca.decode_attention(q, k, v, mask_all, 6)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 8:], v2[:, :, 8:] = 99.0, -99.0
+    b = ca.decode_attention(q, k2, v2, mask_all, 6)
+    ref = pa.decode_attention(jnp.asarray(q.numpy()), jnp.asarray(k2.numpy()), jnp.asarray(v2.numpy()),
+                              jnp.asarray(mask_all.numpy()), jnp.asarray(6, jnp.int32), block_k=8, interpret=True)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    np.testing.assert_allclose(f32(b), f32(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["prefetch", "dma"])
+def test_decode_stacked_plain_matches_pallas(rng, variant):
+    """Both of lia_tpu's stacked entry points (the scalar-prefetch and the
+    manual-DMA form, the same math) against the port's one stacked wrapper."""
+    L, B, Nkv, S, D, G = 3, 2, 4, 32, 16, 2
+    N = Nkv * G
+    q = rng.standard_normal((B, 1, N, D)).astype(np.float32)
+    k = rng.standard_normal((L, B, Nkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((L, B, Nkv, S, D)).astype(np.float32)
+    sm = slot_mask(B, S, 21, (0, 6))
+    fn = pa.decode_attention_stacked if variant == "prefetch" else pa.decode_attention_stacked_dma
+    ref = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(1, jnp.int32), jnp.asarray(sm),
+             jnp.asarray(21, jnp.int32), block_k=8, interpret=True)
+    out = ca.decode_attention_stacked(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 1,
+                                      torch.from_numpy(sm), torch.tensor(21, dtype=torch.int32))
+    np.testing.assert_allclose(f32(out), f32(ref), rtol=1e-5, atol=1e-5)
+    plane = ca.decode_attention(torch.from_numpy(q), torch.from_numpy(k[1]), torch.from_numpy(v[1]),
+                                torch.from_numpy(sm), 21)
+    torch.testing.assert_close(out, plane, rtol=0, atol=0)
+
+
+def test_decode_plain_window_matches_pallas(rng):
+    """A sliding window reaches the kernel through the slot mask: the past-only
+    context drops the old slots (both packages agree), the token's slot joins
+    it, and the kernel over length + 1 sees exactly the last W positions."""
+    B, S_max, N, D, W, length = 2, 32, 4, 16, 8, 20
+    q = rng.standard_normal((B, 1, N, D)).astype(np.float32)
+    k = rng.standard_normal((B, N, S_max, D)).astype(np.float32)
+    v = rng.standard_normal((B, N, S_max, D)).astype(np.float32)
+    sm = slot_mask(B, S_max, length, (0, 3))
+    jctx = jatt.decode_attn_ctx(jnp.asarray(sm), jnp.asarray(length, jnp.int32), W)
+    tctx = att.decode_attn_ctx(torch.from_numpy(sm), torch.tensor(length, dtype=torch.int32), W)
+    np.testing.assert_array_equal(tctx.slot_mask.numpy(), np.asarray(jctx.slot_mask))
+    j_inc = jctx.slot_mask.at[:, length].set(True)
+    t_inc = tctx.slot_mask.clone()
+    t_inc[:, length] = True
+    ref = pa.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_inc,
+                              jnp.asarray(length + 1, jnp.int32), block_k=8, interpret=True)
+    out = ca.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), t_inc, length + 1)
+    np.testing.assert_allclose(f32(out), f32(ref), rtol=1e-5, atol=1e-5)
+    keep = np.zeros((B, 1, S_max), bool)
+    keep[:, :, length - W + 1 : length + 1] = True
+    golden = att.attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(keep))
+    np.testing.assert_allclose(f32(out), f32(golden), rtol=1e-5, atol=1e-5)
+
+
+def test_decode_plain_takes_per_row_lengths(rng):
+    x = _decode_inputs(rng, True)
+    t = {n: torch.from_numpy(a) for n, a in x.items()}
+    sm = torch.from_numpy(slot_mask(2, 32, 22, (0, 4)))
+    per_row = ca.decode_attention(t["q"], t["k"][0], t["v"][0], sm, torch.tensor([22, 22], dtype=torch.int32))
+    scalar = ca.decode_attention(t["q"], t["k"][0], t["v"][0], sm, 22)
+    torch.testing.assert_close(per_row, scalar, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("gqa", [False, True])
+def test_attend_decode_front_door_matches_lia_tpu(rng, kv, gqa):
+    """``attend_decode`` (kernel plain version) and ``attend_decode_host`` (the
+    host tier's golden model) against lia_tpu's ``attend_decode``, whose CPU
+    path is its golden model; INT8 planes are dequantized first on all sides."""
+    x = _decode_inputs(rng, gqa)
+    length = 20
+    sm = slot_mask(2, 32, length, (0, 5))
+    jctx = jatt.decode_attn_ctx(jnp.asarray(sm), jnp.asarray(length, jnp.int32))
+    tctx = att.decode_attn_ctx(torch.from_numpy(sm), torch.tensor(length, dtype=torch.int32))
+    if kv == "int8":
+        jk, jv = j_quantize_kv(jnp.asarray(x["k"][1])), j_quantize_kv(jnp.asarray(x["v"][1]))
+        tk, tv = (QuantizedKV(torch.from_numpy(np.array(a.q)), torch.from_numpy(np.array(a.s))) for a in (jk, jv))
+    else:
+        jk, jv = jnp.asarray(x["k"][1]), jnp.asarray(x["v"][1])
+        tk, tv = torch.from_numpy(x["k"][1]), torch.from_numpy(x["v"][1])
+    ref = jatt.attend_decode(jnp.asarray(x["q"]), jk, jv, jctx)
+    tq = torch.from_numpy(x["q"])
+    for out in (att.attend_decode(tq, tk, tv, tctx), att.attend_decode_host(tq, tk, tv, tctx)):
+        np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_host_prefill_attention_matches_lia_tpu(rng):
+    B, S, N, Nkv, D = 2, 16, 4, 2, 8
+    q = rng.standard_normal((B, S, N, D)).astype(np.float32)
+    k = rng.standard_normal((B, Nkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, Nkv, S, D)).astype(np.float32)
+    mask = left_pad_mask(B, S, (0, 7))
+    ref = jatt.attend_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jatt.prefill_attn_ctx(jnp.asarray(mask)))
+    out = att.attend_prefill_host(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                  att.prefill_attn_ctx(torch.from_numpy(mask)))
+    valid = mask[:, :, None, None]
+    np.testing.assert_allclose(f32(out) * valid, f32(ref) * valid, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_front_doors_reject_alibi_bias():
+    q = torch.zeros(1, 1, 2, 8)
+    k = torch.zeros(1, 2, 4, 8)
+    ctx = att.decode_attn_ctx(torch.ones(1, 4, dtype=torch.bool), torch.tensor(4), bias=torch.zeros(1, 2, 4))
+    for fn in (att.attend_decode, att.attend_decode_host):
+        with pytest.raises(NotImplementedError):
+            fn(q, k, k, ctx)

@@ -244,3 +244,102 @@ def test_quantized_model_on_the_card_matches_the_cpu(cuda, fmt):
         # unfused q/k/v: six linears per layer, two layers, the head; 5 forwards
         expected["w4a8_matmul" if fmt == "w4a8+int8kv" else "woq_matmul"] = (6 * 2 + 1) * 5
     assert cm.launch_counts() == expected
+
+
+# ---------------------------------------------------------------------------
+# write-then-attend decode and the tiered scheduler
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, G, D):
+    """decode_attention over one plane (the token written, length counting it)
+    and its stacked entry at a layer offset, against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    L, B, Nkv, S_max, length = 3, 3, 2, 128, 78
+    N = Nkv * G
+    q = _randn(gen, B, 1, N, D, dtype=dtype)
+    kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=dtype), _randn(gen, L, B, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    for b, p in enumerate((0, 9, 77)):
+        sm[b, p:length] = True
+    ln = torch.tensor(length, dtype=torch.int32, device=cuda)
+    before = (ca.decode_attention.launches, ca.decode_attention_stacked.launches)
+    out = ca.decode_attention(q, kc[1].contiguous(), vc[1].contiguous(), sm, ln)
+    ref = ca.decode_attention_plain(q, kc[1], vc[1], sm, ln)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    out2 = ca.decode_attention_stacked(q, kc, vc, 1, sm, ln)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    assert (ca.decode_attention.launches, ca.decode_attention_stacked.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_weight_manager_ring_on_the_card(cuda, overlap):
+    """The ring on the card: every streamed layer (prefetched on the copy
+    stream, ring - 1 ahead, as the scheduler does) is bit-equal to the host
+    tree's layer in the card's layout, column-major int8 codes included, and
+    the packed host buffers are pinned."""
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops.quant import quantize_params
+    from lia_tpu_torch.runtime.weight_manager import TieredWeightManager, slice_layer, tree_tensors
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_host
+
+    cfg = get_config("opt-125m").replace(num_layers=6)
+    qc = QuantConfig(weight_dtype="int8", group_size=-1, act_quant="dynamic")
+    layers = to_host(quantize_params(cfg, init_dummy_params(cfg, seed=2), qc)["layers"], cuda)
+    wm = TieredWeightManager(layers, 6, hbm_percentage=34, overlap=overlap, device=cuda)
+    assert wm.n_resident == 2 and all(b.is_pinned() for b in wm._packed)
+    wm.prefetch(2)
+    for idx in range(2, 6):
+        wm.prefetch_after(idx)
+        got = wm.get_layer(idx)
+        for a, b in zip(tree_tensors(got), tree_tensors(slice_layer(layers, idx))):
+            assert a.is_cuda and a.stride() == b.stride()
+            assert torch.equal(a.cpu(), b)
+        torch.cuda.current_stream().synchronize()
+    stats = wm.copy_stats()
+    assert stats["copies"] == 4 and stats["copy_ms"] > 0
+    wm.close()
+
+
+@pytest.mark.parametrize("policies", [(3, 3), (0, 0), (0, 2), (1, 1)])
+def test_tiered_engine_on_the_card_matches_the_cpu(cuda, policies):
+    """opt-125m widths at 4 layers, half resident: the tiered scheduler on the
+    card (bf16, kernels, streamed weights) against the CPU (fp32), prefill and
+    4 decode steps."""
+    from lia_tpu_torch.config import RuntimeConfig
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.runtime.scheduler import StreamingScheduler
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    cfg = get_config("opt-125m").replace(num_layers=4)
+    params = init_dummy_params(cfg, seed=0, scale=0.02)
+    rt = RuntimeConfig(hbm_percentage=50, prefill_policy=policies[0], decode_policy=policies[1])
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32)
+    mask = np.ones((2, 32), bool)
+    mask[1, :10] = False
+    steps = rng.integers(2, cfg.vocab_size, (4, 2)).astype(np.int32)
+
+    def run(device, c, dtype):
+        sched = StreamingScheduler(c, rt, to_device(params, "cpu", dtype), device)
+        logits, state = sched.prefill_pass(tokens, mask, 64)
+        out = [logits.cpu()]
+        pos = mask.sum(1).astype(np.int32)
+        for i, t in enumerate(steps):
+            logits, state = sched.decode_pass(torch.from_numpy(t).to(device), torch.from_numpy(pos + i).to(device),
+                                              state)
+            out.append(logits.cpu())
+        return torch.stack(out)
+
+    ca.reset_launch_counts()
+    gpu = run(cuda, cfg, torch.bfloat16)
+    counts = ca.launch_counts()
+    cpu = run("cpu", cfg.replace(dtype="float32"), torch.float32)
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=5e-2)
+    card = policies[1] in (0, 3)
+    assert counts["decode_attention"] == (2 * 4 if card else 0)
+    assert counts["decode_attention_fresh"] == 2 * 4

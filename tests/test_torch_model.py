@@ -151,8 +151,7 @@ def test_unported_features_raise(model):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, repetition_penalty=1.2))
     with pytest.raises(NotImplementedError):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, num_beams=2))
-    for rt in (RuntimeConfig(stream_weights=True), RuntimeConfig(hbm_percentage=50),
-               RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
+    for rt in (RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tcfg, tp, rt, device="cpu")
     with pytest.raises(NotImplementedError):
