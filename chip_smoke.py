@@ -10,8 +10,11 @@ Phases, each printing one JSON line per item:
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
    384-slot int8 cache; write-then-attend decode over a 320-slot plane holding
-   273 tokens, also at G = 4 and through the stacked entry at a layer offset).
-   Quantized matmuls at M = 16 (decode rows) and 4096
+   273 tokens, also at G = 4 and through the stacked entry at a layer offset;
+   paged decode over a shuffled 2-layer pool, bs 16, 16 rows of 1-1000 tokens
+   with the fresh merge, also at C = 4, G = 4 and D = 64; chunk-over-cache
+   attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots), as a
+   left-padded first chunk (B=2, C=128) and with a window). Quantized matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
@@ -38,17 +41,33 @@ Phases, each printing one JSON line per item:
    Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
    bytes streamed and copy-stream ms per step, peak device memory under a
    residency limit, exact launch counts;
-6. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
+6. serving: ContinuousBatcher at OPT-6.7B full width and depth (bf16 weights
+   made once), one seeded workload of 64 requests submitted together (32
+   share a 256-token prefix and add 16-256 tokens, 32 have 64-512 unique
+   tokens; 16-128 new tokens each, no EOS), max_batch 16, max_len 1024, pages
+   of 16, after a warm-up of a few requests: serve-slab (bf16 KV),
+   serve-slab-int8kv, serve-paged (prefix caching), serve-paged-noapc,
+   serve-paged-chunk256 (prefill_chunk 256, no prefix cache) and
+   serve-paged-fused8 (fused_steps 8). Each line: stats() (tokens/s, TTFT
+   and TPOT percentiles, steps, dispatches, prefix hits), wall time, peak
+   memory and the launch counts, checked exactly against the batcher's own
+   counters; every request's length and vocabulary, and every page back at
+   the end. serve_http: the HTTP front end over serve-paged's batcher, 8
+   concurrent /generate requests, /stats and /health. serving_parity:
+   OPT-6.7B width at 2 layers, the batcher's functions in its order (prefill,
+   page commit, a prefix-cache admission, 4 paged decode steps; insert_slot
+   and 4 ragged steps over a bf16 and an int8 slab), card against CPU;
+7. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv and
    weight-only int4 g128; and the tiered scheduler at 4 layers (half
    resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
    policy 3 over int8dyn weights and int8 KV;
-7. device breakdown: one more main-path run per timed configuration under the
+8. device breakdown: one more main-path run per timed configuration under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
    attention per step;
-8. kernel times: each kernel's, its plain version's and a PyTorch library
+9. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 30 calls, L2 flushed before
    each; the kernel's also from CUDA events, as a cross-check) and the
    wrapper's host time, beside the least time the card could take for the
@@ -59,7 +78,8 @@ Phases, each printing one JSON line per item:
 Then the kernels line (for the quantized matmuls, the decode wqkv call: M=16,
 K=4096, N=12288; decode_attention's and the stacked entry's launches from
 tier-h50-p3, where the stacked entry, on no path of the reference, launches
-0 times), the card's name and power
+0 times; paged_decode_attention's from serve-paged, flash_attention_cached's
+from serve-paged-chunk256), the card's name and power
 limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it exits 2 at once.
@@ -115,7 +135,7 @@ TIERED = [
     ("tier-h50-p3-ring3", "none", 50, (3, 3), 1, 3, True),
     ("tier-h0-p3-int8kv", "int8", 0, (3, 3), 1, 2, False),
     ("tier-h50-p0", "none", 50, (0, 0), 1, 2, True),
-    ("tier-h50-p0-p2-mb4", "none", 50, (0, 2), 4, 2, True),
+    ("tier-h50-p0-p2-mb4", "none", 50, (0, 2), 4, 2, False),  # host attention: ~40 s a run
 ]
 # (name, (prefill, decode) policy, KV, weight quantization or None): the tiered
 # scheduler at 4 layers, half resident, on the card against the CPU
@@ -140,10 +160,30 @@ WEIGHT_ONLY = {
     "woq-int4-g128": dict(weight_dtype="int4", group_size=128),
     "woq-nf4-g128": dict(weight_dtype="nf4", group_size=128),
 }
+# continuous-batching serving (ContinuousBatcher) at OPT-6.7B full width and
+# depth: one seeded workload of SERVE_REQUESTS requests submitted together
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_LEN, SERVE_BLOCK = 64, 16, 1024, 16
+SERVE_PREFIX = 256  # the shared prefix of half the requests
+SERVING = [
+    ("serve-slab", dict()),
+    ("serve-slab-int8kv", dict(kv_quantized=True)),
+    ("serve-paged", dict(paged=True)),
+    ("serve-paged-noapc", dict(paged=True, prefix_cache=False)),
+    ("serve-paged-chunk256", dict(paged=True, prefill_chunk=256, prefix_cache=False)),
+    ("serve-paged-fused8", dict(paged=True, fused_steps=8)),
+]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def phase_time(name: str) -> None:
+    """The script's wall clock at the end of a phase (where the time limit goes)."""
+    emit({"phase": "phase_time", "after": name, "seconds": time.perf_counter() - _T0})
 
 
 def check(cond: bool, msg: str) -> None:
@@ -377,9 +417,132 @@ def kernel_checks(ca, quantize_kv):
         library=None,  # no PyTorch call attends over an int8 cache with per-token scales
         bound=bound(past_keys * N * (D + 4) * 2 + io_bytes + sm8.numel(), 4 * D * N * (past_keys + B)),
     )
+    rows.update(serving_kernel_checks(ca, randn, dpads))
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
+    return rows
+
+
+def paged_case(randn, lengths, C: int, Nkv: int, G: int, Dh: int, P: int = SERVE_MAX_LEN // SERVE_BLOCK,
+               bs: int = SERVE_BLOCK, L: int = 2):
+    """A shuffled two-layer paged pool at serving's shapes (P table entries per
+    row): each row's pages are drawn at random from blocks 1.., the table's
+    unused entries hold the null page 0; q [B, C, N, D] and the fresh chunk
+    [B, N_kv, C, D]."""
+    Bq = len(lengths)
+    nb = Bq * P + 1
+    kp, vp = randn(L, nb, Nkv, bs, Dh), randn(L, nb, Nkv, bs, Dh)
+    g = torch.Generator()
+    g.manual_seed(3)
+    perm = torch.randperm(nb - 1, generator=g) + 1
+    table = torch.zeros(Bq, P, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        used = -(-n // bs)
+        table[b, :used] = perm[b * P : b * P + used].to(torch.int32)
+    q = randn(Bq, C, Nkv * G, Dh)
+    kf, vf = randn(Bq, Nkv, C, Dh), randn(Bq, Nkv, C, Dh)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table.cuda(), lens, kf, vf
+
+
+def cached_case(randn, Bq: int, C: int, base: int, pads, S_max: int = SERVE_MAX_LEN):
+    """A chunk of C rows over an S_max-slot plane that holds it at [base, base +
+    C), each row's validity starting at its pad (a first chunk's pad rows, or
+    0 over a cached prefix)."""
+    q = randn(Bq, C, N, D)
+    kc, vc = randn(Bq, N, S_max, D), randn(Bq, N, S_max, D)
+    sm = torch.zeros(Bq, S_max, dtype=torch.bool, device="cuda")
+    for b, p in enumerate(pads):
+        sm[b, p : base + C] = True
+    return q, kc, vc, torch.tensor(base, dtype=torch.int32, device="cuda"), sm
+
+
+def serving_kernel_checks(ca, randn, dpads):
+    """paged_decode_attention (B5) and flash_attention_cached (B6) against their
+    plain versions at serving's shapes (OPT-6.7B heads, bs 16, 1024 slots),
+    and the timing rows of the kernels line: B5 at B2's row's keys (16 rows,
+    lengths 272 - pad), B6 as a prefix-cache suffix (B=1, C=256, base=768)."""
+    import torch.nn.functional as F
+
+    def compare(name, variant, out, ref, valid=None):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name} {variant}: non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        err = (diff if valid is None else diff * valid).max().item()
+        emit({"phase": "kernel_check", "kernel": name, "variant": variant, "max_abs_err": err, "tol": KERNEL_TOL})
+        check(err <= KERNEL_TOL, f"{name} {variant}: max abs err {err} > {KERNEL_TOL}")
+        return err
+
+    # B5: ragged lengths 1..1000 over a shuffled pool, C=1 with the fresh merge;
+    # then C=4, GQA (G=4) and D=64
+    lengths = np.linspace(1, 1000, B).astype(int).tolist()
+    for variant, C, Nkv, G, Dh in (("C=1", 1, N, 1, D), ("C=4", 4, N, 1, D), ("GQA G=4", 1, N // 4, 4, D),
+                                   ("D=64", 1, N, 1, 64)):
+        q, kp, vp, table, lens, kf, vf = paged_case(randn, lengths, C, Nkv, G, Dh)
+        args = (q, kp, vp, 1, table, lens, kf, vf)
+        compare("paged_decode_attention", variant, ca.paged_decode_attention(*args),
+                ca.paged_decode_attention_plain(*args))
+    del kp, vp
+    rows = {}
+    # the timed case: B2's keys (lengths 272 - pad), C=1, layer 1 of a 2-layer
+    # pool of the pages those need (its inputs live until the timing phase)
+    t_lengths = [PAST - p for p in dpads]
+    q, kp, vp, table, lens, kf, vf = paged_case(randn, t_lengths, 1, N, 1, D, P=-(-(PAST + 1) // SERVE_BLOCK))
+    args = (q, kp, vp, 1, table, lens, kf, vf)
+    err = compare("paged_decode_attention", "timed: lengths 272 - pad", ca.paged_decode_attention(*args),
+                  ca.paged_decode_attention_plain(*args))
+    # yardstick: SDPA over the same keys gathered into a contiguous plane, the
+    # fresh token written at each row's length (the gather is not timed)
+    S = table.shape[1] * SERVE_BLOCK
+    kg = kp[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, N, S, D)
+    vg = vp[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, N, S, D)
+    rows_idx = torch.arange(B, device="cuda")
+    kg[rows_idx, :, lens.long()] = kf[:, :, 0]
+    vg[rows_idx, :, lens.long()] = vf[:, :, 0]
+    gmask = (torch.arange(S, device="cuda")[None, :] <= lens[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+    keys = sum(t_lengths)
+    table_bytes = table.numel() * 4 + lens.numel() * 4
+    rows["paged_decode_attention"] = dict(
+        source="lia_tpu_torch/csrc/paged_decode.cu",
+        replaces="lia_tpu/ops/paged.py:601",
+        max_abs_err=err,
+        kernel=lambda: ca.paged_decode_attention(*args),
+        plain=lambda: ca.paged_decode_attention_plain(*args),
+        library=lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=gmask),
+        bound=bound(keys * N * D * 2 * 2 + 4 * q.numel() * 2 + table_bytes, 4 * D * N * (keys + B)),
+    )
+
+    # B6: a prefix-cache suffix (B=1, C=256, base=768 of 1024 slots), a first
+    # chunk with left pads (B=2, C=128, base=0), and a sliding window
+    for variant, Bq, C, base, pads, window in (("APC suffix", 1, 256, 768, [0], None),
+                                               ("first chunk, left pads", 2, 128, 0, [5, 77], None),
+                                               ("window 300", 1, 256, 768, [0], 300)):
+        q6, kc6, vc6, b6, sm6 = cached_case(randn, Bq, C, base, pads)
+        valid = torch.zeros(Bq, C, 1, 1, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(pads):
+            valid[b, max(p - base, 0):] = True
+        err6 = compare("flash_attention_cached", variant,
+                       ca.flash_attention_cached(q6, kc6, vc6, b6, sm6, window=window),
+                       ca.flash_attention_cached_plain(q6, kc6, vc6, b6, sm6, window=window), valid)
+        if variant == "APC suffix":
+            timed6 = (q6, kc6, vc6, b6, sm6, err6)
+    q6, kc6, vc6, b6, sm6, err6 = timed6
+    C6, base6 = q6.shape[1], int(b6)
+    qpos = base6 + torch.arange(C6, device="cuda")
+    cmask = ((torch.arange(SERVE_MAX_LEN, device="cuda")[None, :] <= qpos[:, None]) & sm6[0][None, :])[None, None]
+    keys6 = sum(base6 + t + 1 for t in range(C6))
+    q6t = q6.transpose(1, 2)
+    rows["flash_attention_cached"] = dict(
+        source="lia_tpu_torch/csrc/flash_cached.cu",
+        replaces="lia_tpu/ops/pallas_attention.py:310",
+        max_abs_err=err6,
+        kernel=lambda: ca.flash_attention_cached(q6, kc6, vc6, b6, sm6),
+        plain=lambda: ca.flash_attention_cached_plain(q6, kc6, vc6, b6, sm6),
+        library=lambda: F.scaled_dot_product_attention(q6t, kc6, vc6, attn_mask=cmask),
+        bound=bound(2 * kc6.numel() * 2 + 2 * q6.numel() * 2 + sm6.numel() + 4, 4 * D * N * keys6),
+    )
     return rows
 
 
@@ -517,9 +680,11 @@ def kernel_times(rows) -> None:
         r["event_ms"] = event_ms(r["kernel"])
         r["host_us"] = host_us(r["kernel"])
         r["plain_ms"] = device_ms(r["plain"])
-        r["library_ms"] = device_ms(r["library"]) if r["library"] else None
+        r["library_ms"], lib_by = (device_ms(r["library"]), "profiler") if r["library"] else (None, None)
+        if r["library_ms"] == 0.0:  # the trace holds none of its kernels (a library may launch a CUDA graph)
+            r["library_ms"], lib_by = event_ms(r["library"]), "events"
         emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "event_ms": r["event_ms"], "host_us": r["host_us"],
-              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"], "library_timed_by": lib_by,
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
 
 
@@ -818,8 +983,10 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
     kv_layers = wm.n_resident + (0 if sched.kv_host else cfg.num_layers - wm.n_resident)
     limit = (rep["resident_bytes"] + rep["ring_bytes"] + kv_layers * per_layer_kv + tree_bytes(engine.params)
              + TIER_MARGIN_GB * 1e9)
-    check(peak < limit, f"{name}: peak device memory {peak / 1e9:.2f} GB above the residency limit "
-                        f"{limit / 1e9:.2f} GB: streamed layers stayed on the card")
+    # against what the engine added to what the card held before it was made
+    # (the kernel checks' inputs, kept for the timing phase)
+    check(peak - base < limit, f"{name}: peak device memory {(peak - base) / 1e9:.2f} GB above the residency "
+                               f"limit {limit / 1e9:.2f} GB: streamed layers stayed on the card")
     passes = NEW_TOKENS  # the prompt and each decode step stream every streamed layer once
     med = {}
     for key, out_key, scale in (("first_token_latency_s", "prefill_ms", 1e3),
@@ -833,7 +1000,8 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
           "bytes_per_decode_step": copies["bytes"] / passes, "copy_ms_per_step": copies["copy_ms"] / passes,
           "host_attention_ms_per_pass": host_attn[0] / passes * 1e3,
           "copy_gb_per_s": copies["bytes"] / max(copies["copy_ms"], 1e-9) / 1e6,
-          "held_after_init_gb": held / 1e9, "peak_mem_gb": peak / 1e9, "residency_limit_gb": limit / 1e9,
+          "held_after_init_gb": held / 1e9, "peak_mem_gb": peak / 1e9, "held_before_gb": base / 1e9,
+          "residency_limit_gb": limit / 1e9,
           "memory": rep,
           "host_threads": torch.get_num_threads(), "launches": launches})
     return seqs, launches, engine
@@ -1033,7 +1201,279 @@ def tiered_phase(ca, cm, cfg, prompts):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: parity
+# phase 6: continuous-batching serving
+# ---------------------------------------------------------------------------
+
+
+def serving_workload(vocab: int):
+    """SERVE_REQUESTS requests from one seed, in a shuffled order: half share a
+    SERVE_PREFIX-token prefix followed by 16-256 unique tokens, half are unique
+    with 64-512 tokens; max_new_tokens 16-128 each, and no EOS."""
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(2, vocab, SERVE_PREFIX).tolist()
+    half = SERVE_REQUESTS // 2
+    prompts = [prefix + rng.integers(2, vocab, int(rng.integers(16, 257))).tolist() for _ in range(half)]
+    prompts += [rng.integers(2, vocab, int(rng.integers(64, 513))).tolist() for _ in range(half)]
+    new = rng.integers(16, 129, SERVE_REQUESTS).tolist()
+    order = rng.permutation(SERVE_REQUESTS)
+    return [prompts[i] for i in order], [new[i] for i in order]
+
+
+def serving_expected(cfg, opts: dict, stats: dict, prompts, names) -> dict:
+    """Kernel launches of one serving run, from the batcher's own counters:
+    every decode step runs one attention kernel per layer (the paged kernel
+    over the pool, the fresh-merge kernel over the slab); every admission runs
+    one prefill attention per layer: flash_attention_cached per chunk of a
+    chunked admission (prefill_chunk, no prefix cache: ceil(n / chunk) chunks)
+    and per prefix-cache hit (one suffix chunk), flash_attention_prefill for
+    every other admission. Nothing else launches (bf16 weights: cuBLAS)."""
+    L, steps = cfg.num_layers, int(stats["decode_steps"])
+    out = {name: 0 for name in names}
+    if opts.get("paged"):
+        out["paged_decode_attention"] = L * steps
+    else:
+        out["decode_attention_fresh_int8" if opts.get("kv_quantized") else "decode_attention_fresh"] = L * steps
+    chunk = opts.get("prefill_chunk")
+    hits = int(stats.get("prefix_hits", 0))
+    if chunk:
+        out["flash_attention_cached"] = L * sum(-(-len(p) // chunk) for p in prompts)
+    else:
+        out["flash_attention_cached"] = L * hits
+        out["flash_attention_prefill"] = L * (len(prompts) - hits)
+    return out
+
+
+def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens):
+    """One serving configuration: SERVE_REQUESTS requests through a fresh
+    ContinuousBatcher, counters zeroed just before the run and read just after
+    it and checked exactly, every request's length and vocabulary, and (paged)
+    the pool's accounting at the end. Returns (launches, the batcher)."""
+    import gc
+
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.serving import ContinuousBatcher
+
+    gc.collect()  # the HTTP handler class of serve_http holds the last batcher in a reference cycle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the weights, and the kernel checks' inputs
+    cb = ContinuousBatcher(cfg, params, max_batch=SERVE_MAX_BATCH, max_len=SERVE_MAX_LEN,
+                           gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, **opts)
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [cb.submit(p, max_new_tokens=n) for p, n in zip(prompts, new_tokens)]
+    done = {r.req_id: r.output for r in cb.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(ca, cm)
+    peak = torch.cuda.max_memory_allocated()
+    stats = cb.stats()
+    check(sorted(done) == sorted(ids), f"{name}: {len(done)} of {len(ids)} requests finished")
+    for i, n in zip(ids, new_tokens):
+        out = done[i]
+        check(len(out) == n, f"{name}: request {i} returned {len(out)} tokens, asked for {n}")
+        check(all(0 <= t < cfg.vocab_size for t in out), f"{name}: request {i}: a token outside the vocabulary")
+    if cb.paged:
+        check(bool((cb.page_rc == 0).all()), f"{name}: nonzero page refcounts after the run")
+        n_back = len(cb.free_blocks) + len(cb.cached_pages)
+        check(n_back == cb.num_blocks - 1, f"{name}: {n_back} pages back of {cb.num_blocks - 1}")
+    expected = serving_expected(cfg, opts, stats, prompts, launches)
+    check(launches == expected, f"{name}: launches {launches} != expected {expected}")
+    if name == "serve-paged":
+        check(stats["prefix_hits"] >= 1, f"{name}: no prefix-cache hit")
+    keys = ("tokens_per_s", "p50_ttft_s", "p90_ttft_s", "p99_ttft_s", "p50_tpot_s", "p90_tpot_s", "p99_tpot_s",
+            "decode_steps", "decode_dispatches", "steps_per_dispatch", "prefix_hits", "prefix_tokens_reused")
+    emit({"phase": "serving", "config": name, "model": cfg.name, "layers": cfg.num_layers, **opts,
+          "requests": len(prompts), "max_batch": SERVE_MAX_BATCH,
+        "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts),
+        "new_tokens": sum(new_tokens), **{k: stats[k] for k in keys if k in stats}, "wall_s": wall,
+        "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches})
+    return launches, cb
+
+
+def serve_http(cb) -> None:
+    """The port's HTTP front end over a full-depth paged batcher: 8 concurrent
+    /generate requests, each output's length, /stats' request count, /health.
+    The engine thread owns every CUDA call; everything stops at the end."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from lia_tpu_torch.serve import ServingFrontend, make_handler
+
+    before = len(cb.done)
+    frontend = ServingFrontend(cb)
+    frontend.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(frontend))
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request(method, path, None if body is None else json.dumps(body), {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out = (r.status, json.loads(r.read()))
+        conn.close()
+        return out
+
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(2, 50000, int(rng.integers(8, 200))).tolist(), int(rng.integers(4, 33))) for _ in range(8)]
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i, p=p, n=n: results.__setitem__(
+            i, call("POST", "/generate", {"prompt_ids": p, "max_new_tokens": n}))) for i, (p, n) in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        health = call("GET", "/health")
+        stats = call("GET", "/stats")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        frontend.stop()
+    check(sorted(results) == list(range(8)), f"serve_http: {len(results)} of 8 requests answered")
+    for i, (p, n) in enumerate(reqs):
+        status, out = results[i]
+        check(status == 200 and len(out["output_ids"]) == n, f"serve_http: request {i}: {status} {out}")
+    check(health == (200, {"status": "ok"}), f"serve_http: /health answered {health}")
+    check(stats[0] == 200 and stats[1]["requests"] == before + 8, f"serve_http: /stats answered {stats}")
+    emit({"phase": "serve_http", "requests": 8, "wall_s": wall, "stats_requests": stats[1]["requests"],
+          "ttft_s": [results[i][1]["ttft_s"] for i in range(8)],
+          "latency_s": [results[i][1]["latency_s"] for i in range(8)]})
+
+
+def serving_phase(ca, cm, cfg):
+    """Every SERVING configuration over one bf16 tree (fused once), after a
+    warm-up of a few requests; then the HTTP front end over serve-paged's
+    batcher. Returns the launches by configuration."""
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.serving import ContinuousBatcher
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=0))
+    prompts, new_tokens = serving_workload(cfg.vocab_size)
+    for opts in (dict(paged=True), dict()):  # warm-up: kernels, cuBLAS handles, the allocator
+        warm = ContinuousBatcher(cfg, params, max_batch=4, max_len=SERVE_MAX_LEN, block_size=SERVE_BLOCK,
+                                 gen=GenerationConfig(max_new_tokens=8), **opts)
+        for p in prompts[:4]:
+            warm.submit(p)
+        warm.run()
+        del warm
+    launches = {}
+    for name, opts in SERVING:
+        launches[name], cb = serving_path(ca, cm, name, opts, cfg, params, prompts, new_tokens)
+        if name == "serve-paged":
+            serve_http(cb)
+        del cb
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_parity() -> None:
+    """OPT-6.7B width at 2 layers, the functions the batcher calls in its order,
+    on the card (bf16, kernels) against the CPU (fp32, plain versions) over the
+    same tree: a prompt's prefill into a one-row cache, its commit to pages,
+    a second prompt sharing its first 64 tokens admitted from the prefix
+    cache (seed_prefix_cache + prefill_chunk + commit), then 4 paged decode
+    steps of both; and both prompts through insert_slot into a slab, then 4
+    ragged decode steps, over bf16 and over int8 KV. Logits within PARITY_TOL."""
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.ops import paged as pg
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+    from lia_tpu_torch.engine.engine import bucket_length, pack_prompts
+
+    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg32 = cfg.replace(dtype="float32")
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    params32 = to_device(params, "cpu", torch.float32)
+    rng = np.random.default_rng(6)
+    a = rng.integers(2, cfg.vocab_size, 100).tolist()
+    b = a[:64] + rng.integers(2, cfg.vocab_size, 37).tolist()
+    steps = rng.integers(2, cfg.vocab_size, (4, 2)).astype(np.int32)
+    bs, P, S_max = SERVE_BLOCK, 16, 256
+    row_a = np.zeros(P, np.int32)
+    row_a[:8] = [9, 3, 14, 1, 7, 22, 5, 11]  # shuffled pages; 100 + 4 tokens need 7
+    row_b = np.zeros(P, np.int32)
+    row_b[:8] = list(row_a[:4]) + [2, 17, 8, 30]  # shares a's first 4 pages (64 tokens)
+    seed_row = np.zeros(P, np.int32)
+    seed_row[:4] = row_a[:4]  # the pages the prefix-cache seed reads
+
+    def paged(device, c, p, dtype):
+        dev = torch.device(device)
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        with torch.inference_mode():
+            kp = torch.zeros(c.num_layers, 32, c.num_kv_heads, bs, c.head_dim, dtype=dtype, device=dev)
+            vp = torch.zeros_like(kp)
+            toks, mask = pack_prompts([a], 1, bucket=bucket_length(len(a)))
+            seg = kvc.init_cache(c, 1, toks.shape[1], dtype, device=dev)
+            la, seg = T.prefill(c, p, t(toks), t(mask), seg)
+            pad = toks.shape[1] - len(a)
+            pg.write_prompt_all_layers(kp, vp, seg.k[:, 0, :, pad:], seg.v[:, 0, :, pad:], t(row_a), len(a))
+            seed = pg.seed_prefix_cache(kp, vp, t(seed_row), 64, bucket_length(len(b)))
+            lb, seed = T.prefill_chunk(c, p, t([b[64:]]), torch.ones(1, len(b) - 64, dtype=torch.bool, device=dev),
+                                       seed)
+            pg.write_prompt_all_layers(kp, vp, seed.k[:, 0], seed.v[:, 0], t(row_b), len(b), 64)
+            out = [la.float().cpu(), lb.float().cpu()]
+            table, lengths = t(np.stack([row_a, row_b])), np.asarray([len(a), len(b)], np.int32)
+            for st in steps:
+                logits, _, _ = pg.decode_step_paged(c, p, t(st[:, None]), t(lengths), kp, vp, table, t(lengths),
+                                                    torch.ones(2, dtype=torch.bool, device=dev))
+                out.append(logits.float().cpu())
+                lengths = lengths + 1
+            return out
+
+    def slab(device, c, p, dtype, quantized):
+        dev = torch.device(device)
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        with torch.inference_mode():
+            cache = kvc.init_cache(c, 2, S_max, dtype, quantized=quantized, device=dev)
+            cache = cache._replace(length=torch.zeros(2, dtype=torch.int32, device=dev))
+            out = []
+            for slot, prompt in enumerate((a, b)):
+                toks, mask = pack_prompts([prompt], 1)
+                seg = kvc.init_cache(c, 1, S_max, dtype, quantized=quantized, device=dev)
+                logits, seg = T.prefill(c, p, t(toks), t(mask), seg)
+                kvc.insert_slot(cache, seg, slot)
+                out.append(logits.float().cpu())
+            pos = np.asarray([len(a), len(b)], np.int32)
+            for st in steps:
+                logits, cache = T.decode_step_ragged(c, p, t(st[:, None]), t(pos), cache,
+                                                     torch.ones(2, dtype=torch.bool, device=dev))
+                out.append(logits.float().cpu())
+                pos = pos + 1
+            return out
+
+    runs = [("paged + prefix cache", lambda d, c, p, dt: paged(d, c, p, dt)),
+            ("slab, bf16 KV", lambda d, c, p, dt: slab(d, c, p, dt, False)),
+            ("slab, int8 KV", lambda d, c, p, dt: slab(d, c, p, dt, True))]
+    for label, fn in runs:
+        gpu = fn("cuda", cfg, params, torch.bfloat16)
+        cpu = fn("cpu", cfg32, params32, torch.float32)
+        errs = [(g - c_).abs().max().item() for g, c_ in zip(gpu, cpu)]
+        err = max(errs)
+        emit({"phase": "serving_parity", "config": label, "layers": 2, "prompts": [len(a), len(b)],
+              "shared_prefix": 64, "decode_steps": len(steps), "max_abs_err": err, "max_abs_err_by_call": errs,
+              "max_abs_logit": max(c_.abs().max().item() for c_ in cpu), "tol": PARITY_TOL,
+              "argmax_agree": float(np.mean([bool((g.argmax(-1) == c_.argmax(-1)).all()) for g, c_ in zip(gpu, cpu)]))})
+        check(all(bool(torch.isfinite(g).all()) for g in gpu), f"serving_parity {label}: non-finite logits")
+        check(err <= PARITY_TOL, f"serving_parity {label}: max abs logit err {err} > {PARITY_TOL}")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: parity
 # ---------------------------------------------------------------------------
 
 
@@ -1113,6 +1553,7 @@ def main() -> int:
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)
+    phase_time("kernel checks")
 
     cfg = get_config("opt-6.7b")
     rng = np.random.default_rng(0)
@@ -1149,10 +1590,16 @@ def main() -> int:
     for label, (qkw, _) in CANDIDATES.items():
         parity(label, qkw["kv_cache_dtype"], qkw)
     parity("woq-int4-g128", "none", WEIGHT_ONLY["woq-int4-g128"])
+    phase_time("main path and parity")
 
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
     launches.update(tier_launches)
     tiered_parity()
+    phase_time("tiered")
+
+    launches.update(serving_phase(ca, cm, cfg))
+    serving_parity()
+    phase_time("serving")
 
     # every profiler session comes after the timed runs
     for label, make, kv, _ in timed:
@@ -1165,16 +1612,19 @@ def main() -> int:
             tiered_breakdown(name, engine, prompts)
             del engine
     del tree
+    phase_time("device breakdowns")
     kernel_times(rows)
     matmul_kernel_times(cm, quantize_act, mm_rows)
     int_mm_layout()
+    phase_time("kernel times")
 
     from_run = {"flash_attention_prefill": "bf16 weights, none KV",
                 "decode_attention_fresh": "bf16 weights, none KV",
                 "decode_attention_fresh_int8": "bf16 weights, int8 KV",
                 "w4a8_matmul": "w4a8+int8kv", "woq_matmul": "woq-int4-g128",
                 "woq4z_matmul": "gptq woq_int4z", "decode_attention": "tier-h50-p3",
-                "decode_attention_stacked": "tier-h50-p3"}  # no reference path runs the stacked entry
+                "decode_attention_stacked": "tier-h50-p3",  # no reference path runs the stacked entry
+                "paged_decode_attention": "serve-paged", "flash_attention_cached": "serve-paged-chunk256"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[from_run[name]][name], "max_abs_err": r["max_abs_err"],

@@ -1,0 +1,33 @@
+// Chunk-over-cache causal GQA flash attention, bf16 in and out: C prompt rows
+// attend the cache plane that already holds them (chunked prefill, prefix-cache
+// admission).
+//
+// Replaces lia_tpu/ops/pallas_attention.py:flash_attention_cached
+// (_flash_cached_kernel). The body is flash_attn.cuh's kernel: chunk row t
+// sits at slot base_b + t and attends keys [start_b, base_b + t] (with a
+// window, only keys > base_b + t - window), start_b = base_b + C -
+// popcount(slot_mask[b]); base_b (a scalar or [B]) and the slot mask are read
+// from device memory, so an admission never syncs with the host. The three-loop
+// kv walk of the TPU kernel (Mosaic runs both branches of a cond) and its
+// block-divisibility rule are not carried over: tiles before start_b // 64 and
+// past each row tile's frontier base_b + t are skipped, and S_max is any
+// length.
+//
+// What bounds it on an H100: bytes at serving's shapes. At OPT-6.7B (32 heads,
+// D = 128), a 256-row chunk at base 768 of a 1024-slot plane does ~3.8 GFLOP
+// against ~21 MB of q, K, V and out (~6 us of memory traffic, ~4 us of bf16
+// tensor-core work); the grid splits the chunk's rows over
+// blocks as flash_prefill.cu splits a prompt, so a batch of one still fills
+// the card (4 row tiles x 32 kv heads).
+#include "flash_attn.cuh"
+
+// bases: int32, [B] (base_stride 1) or one value (base_stride 0). Returns a
+// cudaError_t value: 0 on a successful launch. D must be 64 or 128 and G = N /
+// Nkv at most 64.
+extern "C" int lia_flash_cached(const void* q, const void* k, const void* v, const void* slot_mask,
+                                const void* bases, int base_stride, void* out, int B, int C,
+                                int S_max, int N, int Nkv, int D, float sscale, int window,
+                                void* stream) {
+  return lia_flash::dispatch(q, k, v, slot_mask, bases, base_stride, out, B, C, S_max, N, Nkv, D,
+                             sscale, window, stream);
+}

@@ -89,6 +89,13 @@ class GenerationResult:
         return self.latency.summary(batch or self.sequences.shape[0])
 
 
+def needs_scheduler(runtime: RuntimeConfig) -> bool:
+    """True when a runtime config tiers the weights or places a phase off the
+    card, which the tiered scheduler runs."""
+    return (runtime.hbm_percentage < 100 or runtime.stream_weights
+            or runtime.prefill_policy != 3 or runtime.decode_policy != 3)
+
+
 def _unsupported(runtime: RuntimeConfig) -> List[str]:
     default = RuntimeConfig()
     out = []
@@ -130,8 +137,7 @@ class InferenceEngine:
         self.scheduler = None
         if runtime.fuse_projections:
             params = fuse_projections(cfg, params)
-        if (runtime.hbm_percentage < 100 or runtime.stream_weights
-                or runtime.prefill_policy != 3 or runtime.decode_policy != 3):
+        if needs_scheduler(runtime):
             from lia_tpu_torch.runtime.scheduler import StreamingScheduler
 
             self.scheduler = StreamingScheduler(cfg, runtime, params, self.device)

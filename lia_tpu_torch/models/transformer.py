@@ -1,6 +1,7 @@
 """Functional transformer decoder (port of ``lia_tpu/models/transformer.py``,
-the OPT main path: prefill, the fused-merge decode step, and the per-layer
-write-then-attend decode layer that the tiered scheduler runs).
+the OPT main path: prefill, the fused-merge decode step, the per-layer
+write-then-attend decode layer that the tiered scheduler runs, and continuous
+batching's chunked prefill and ragged decode step).
 
 The model is a pure function over a parameter tree whose decoder layers are
 stacked ``[L, ...]``, as in the reference. Where the reference scans over the
@@ -285,6 +286,32 @@ def prefill(cfg, params, tokens, input_mask, cache: kvc.KVCache) -> Tuple[torch.
     return lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
+def prefill_chunk(cfg, params, tokens, chunk_mask, cache: kvc.KVCache) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """Run ONE chunk of a longer prompt against the existing cache: tokens and
+    chunk_mask [B, C] (False only as a left-pad prefix of a first chunk, so
+    validity stays contiguous). Logical positions continue from the real
+    tokens cached so far; each layer writes the chunk into its plane at
+    ``cache.length`` (in place) and attends over the valid slots up to each
+    row (:func:`lia_tpu_torch.ops.attention.attend_prefill_cached`). Returns the
+    chunk's last-token logits [B, V] fp32 and the cache, its mask and length
+    advanced."""
+    check_supported(cfg)
+    C = tokens.shape[1]
+    base = cache.length
+    prev_real = cache.mask.to(torch.int32).sum(dim=1)
+    positions = prev_real[:, None] + torch.cumsum(chunk_mask.to(torch.int32), dim=1) - 1
+    x = embed(cfg, params, tokens, positions)
+    cache = kvc.advance(cache, chunk_mask, C)  # the mask now covers the chunk's slots
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        kl, vl = kvc.index_layer_kv(cache.k, i), kvc.index_layer_kv(cache.v, i)
+        q, k, v = attn_in(cfg, lp, x, positions)
+        kvc.update_layer(kl, vl, k, v, base)
+        attn_out = att.attend_prefill_cached(q, kl, vl, base, cache.mask, cfg.sliding_window)
+        x = attn_post_mlp(cfg, lp, x, attn_out)
+    return lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
+
+
 def decode_layers_scan(cfg, layers: Params, x, ck, cv, start, ctx: att.DecodeAttn, positions, n_layers: int):
     """All decode layers for one token. The cache is read-only inside the loop:
     each layer's attention merges the fresh token in the kernel, and one write
@@ -316,4 +343,22 @@ def decode_step(cfg, params, tokens, positions, cache: kvc.KVCache) -> Tuple[tor
     cache = cache._replace(k=k_new, v=v_new)
     B = tokens.shape[0]
     cache = kvc.advance(cache, torch.ones((B, 1), dtype=torch.bool, device=tokens.device), 1)
+    return lm_head(cfg, params, x)[:, 0, :], cache
+
+
+def decode_step_ragged(cfg, params, tokens, logical_pos, cache: kvc.KVCache, active) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """One decode step over a ragged batch (continuous batching): every row has
+    its own cache length (``cache.length`` [B]) and logical position
+    (``logical_pos`` [B]). Inactive rows still compute (fixed shapes), but
+    their writes never become valid slots and their lengths do not advance
+    (:func:`lia_tpu_torch.ops.kv_cache.advance_ragged`). Returns (logits [B, V]
+    fp32, cache)."""
+    check_supported(cfg)
+    positions = logical_pos[:, None]
+    x = embed(cfg, params, tokens, positions)
+    ctx = att.decode_attn_ctx(cache.mask, cache.length, cfg.sliding_window)
+    x, k_new, v_new = decode_layers_scan(
+        cfg, params["layers"], x, cache.k, cache.v, cache.length, ctx, positions, cfg.num_layers
+    )
+    cache = kvc.advance_ragged(cache._replace(k=k_new, v=v_new), active)
     return lm_head(cfg, params, x)[:, 0, :], cache

@@ -34,6 +34,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_prefill": {
         "lia_flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, I, P],
     },
+    "flash_cached": {
+        "lia_flash_cached": [P, P, P, P, P, I, P, I, I, I, I, I, I, F, I, P],
+    },
     "decode": {
         "lia_decode": [P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
     },
@@ -42,6 +45,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "decode_fresh_int8": {
         "lia_decode_fresh_int8": [P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+    },
+    "paged_decode": {
+        "lia_paged_decode": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, I, I, P],
     },
     "w4a8_matmul": {
         "lia_w4a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -1,14 +1,15 @@
-"""Attention ops (port of ``lia_tpu/ops/attention.py``, the aligned-batch path).
+"""Attention ops (port of ``lia_tpu/ops/attention.py``).
 
 Layouts as in the reference: hidden [B, S, H]; Q [B, S, N, D]; K/V head-major
 [B, N_kv, S_kv, D]. GQA reshapes Q to [B, S, N_kv, G, D]; K/V heads are never
 replicated.
 
 :func:`attend` is the general masked golden model. The front doors
-:func:`attend_prefill`, :func:`attend_decode_fresh` and :func:`attend_decode`
-go through the kernel wrappers of :mod:`lia_tpu_torch.ops.cuda_attention`: the
-CUDA kernel for a CUDA tensor, its plain version for a CPU tensor. ALiBi
-biases are not ported yet; the front doors raise when a context carries one.
+:func:`attend_prefill`, :func:`attend_prefill_cached`,
+:func:`attend_decode_fresh` and :func:`attend_decode` go through the kernel
+wrappers of :mod:`lia_tpu_torch.ops.cuda_attention`: the CUDA kernel for a
+CUDA tensor, its plain version for a CPU tensor. ALiBi biases are not ported
+yet; the front doors raise when a context carries one.
 
 :func:`attend_prefill_host` and :func:`attend_decode_host` are the tiered
 scheduler's host tier (policies 1, 2 and 4 place attention on the CPU): the
@@ -98,12 +99,14 @@ def prefill_attn_ctx(input_mask, window=None, bias=None) -> PrefillAttn:
 
 
 def decode_attn_ctx(slot_mask, length, window=None, bias=None) -> DecodeAttn:
-    """Decode context over the cache's valid slots. ``length`` is past-only (the
-    query sits at position ``length``); with ``window``, slots ``<= length - window``
-    leave the validity mask so the query sees exactly the last ``window`` positions."""
+    """Decode context over the cache's valid slots. ``length`` (scalar, or [B]
+    with one length per row) is past-only (the query sits at position
+    ``length``); with ``window``, slots ``<= length - window`` leave the validity
+    mask so the query sees exactly the last ``window`` positions."""
     if window is not None:
         pos = torch.arange(slot_mask.shape[1], device=slot_mask.device)[None, :]
-        slot_mask = slot_mask & (pos > torch.as_tensor(length, device=slot_mask.device) - window)
+        lengths = torch.as_tensor(length, device=slot_mask.device).reshape(-1, 1)
+        slot_mask = slot_mask & (pos > lengths - window)
     return DecodeAttn(slot_mask, length, bias)
 
 
@@ -116,6 +119,25 @@ def attend_prefill(q, k, v, ctx: PrefillAttn) -> torch.Tensor:
     """Prefill attention over a left-padded prompt (flash kernel / plain version)."""
     _no_bias(ctx.bias)
     return ca.flash_attention_prefill(q, k, v, ctx.input_mask, window=ctx.window)
+
+
+def attend_prefill_cached(
+    q: torch.Tensor,  # [B, C, N, D] chunk queries
+    k_cache,  # [B, N_kv, S_max, D] cache plane (chunk already written)
+    v_cache,
+    base,  # int, 0-dim or [B]: cache length before the chunk
+    slot_mask: torch.Tensor,  # [B, S_max] validity incl. the chunk's rows
+    window: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Chunk-over-cache causal attention (chunked prefill, prefix-cache
+    admission): row t attends the valid slots up to ``base + t``. An INT8 plane
+    is dequantized to q's type first, as the reference does; then the
+    ``flash_attention_cached`` kernel (plain version on the CPU)."""
+    _no_bias(bias)
+    if is_quantized_kv(k_cache):
+        k_cache, v_cache = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
+    return ca.flash_attention_cached(q, k_cache, v_cache, base, slot_mask, window=window)
 
 
 def attend_decode_fresh(

@@ -10,9 +10,12 @@ tests hold it against the Pallas kernel and the card holds the kernel against
 it. Each wrapper counts its launches in ``<wrapper>.launches``.
 
 Validity is a contiguous range per sequence, as in the TPU kernels: ``[start, S)``
-for a left-padded prompt and ``[start, length)`` over a cache, with
-``start = length - popcount(mask)``. The kernels count it on the device and read
-``length`` from device memory, so a decode step never syncs with the host.
+for a left-padded prompt, ``[start, base + t]`` for chunk row t over a cache
+plane and ``[start, length)`` for decode over one, with ``start`` the end of the
+range minus ``popcount(mask)``; ``[0, length)`` over a paged pool, whose pages
+the kernel finds through the block table. The kernels count it on the device and
+read ``length``, ``base`` and the block table from device memory, so a decode
+step or an admission never syncs with the host.
 """
 
 from __future__ import annotations
@@ -49,29 +52,41 @@ def _lengths(length: Union[int, torch.Tensor], device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None):
-    """Causal attention over a left-padded prompt, with the kernel's precision:
-    dots of input-type values summed in fp32, the scale applied after the dot
-    in exp2 units, probabilities rounded to V's type before P.V.
-    q [B, S, N, D]; k/v [B, N_kv, S, D]; input_mask [B, S] bool → [B, S, N, D].
-    Fully masked (pad) query rows are finite but meaningless, as in the kernel."""
-    B, S, N, D = q.shape
-    Nkv = k.shape[1]
+def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=None, window=None):
+    """Chunk-over-cache causal attention with the kernel's precision: dots of
+    input-type values summed in fp32, the scale applied after the dot in exp2
+    units, probabilities rounded to V's type before P.V. q [B, C, N, D]; k/v
+    [B, N_kv, S_max, D] already holding the chunk; base int, 0-dim or [B];
+    slot_mask [B, S_max] bool → [B, C, N, D]. Chunk row t sits at slot
+    base_b + t and attends [start_b, base_b + t] (with ``window``, only keys
+    > base_b + t - window), start_b = base_b + C - popcount(slot_mask[b]).
+    Fully masked (pad) rows are finite but meaningless, as in the kernel."""
+    B, C, N, D = q.shape
+    _, Nkv, S_max, _ = k_cache.shape
     G = N // Nkv
-    qf = q.float().reshape(B, S, Nkv, G, D)
-    s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k.float()) * _sscale(scale, D)
-    pos = torch.arange(S, device=q.device)
-    starts = _contiguous_starts(input_mask, torch.tensor(S, device=q.device))
-    masked = (pos[None, :] > pos[:, None])[None] | (pos[None, None, :] < starts[:, None, None])
+    bases = _lengths(base, q.device).expand(B)
+    starts = bases + C - slot_mask.to(torch.int32).sum(dim=1)
+    qf = q.float().reshape(B, C, Nkv, G, D)
+    s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k_cache.float()) * _sscale(scale, D)
+    qpos = (bases[:, None] + torch.arange(C, device=q.device))[:, :, None]  # [B, C, 1]
+    kpos = torch.arange(S_max, device=q.device)[None, None, :]
+    masked = (kpos > qpos) | (kpos < starts[:, None, None])
     if window is not None:
-        masked = masked | (pos[None, :] <= pos[:, None] - window)[None]
+        masked = masked | (kpos <= qpos - window)
     s = torch.where(masked[:, None, None], torch.full_like(s, NEG_INF), s)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype).float(), v_cache.float())
     out = acc / l.clamp(min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, N, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, N, D).to(q.dtype)
+
+
+def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None):
+    """Causal attention over a left-padded prompt: :func:`flash_attention_cached_plain`
+    with base 0 over the prompt's own plane (the kernel's precision).
+    q [B, S, N, D]; k/v [B, N_kv, S, D]; input_mask [B, S] bool → [B, S, N, D]."""
+    return flash_attention_cached_plain(q, k, v, 0, input_mask, scale, window)
 
 
 def _cache_allow(slot_mask, length, S_max, device):
@@ -161,6 +176,42 @@ def decode_attention_fresh_int8_plain(
     return out.reshape(B, 1, N, D).to(q.dtype)
 
 
+def paged_decode_attention_plain(
+    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None
+):
+    """C queries per sequence over layer ``layer_idx`` of a paged pool [L, nb,
+    N_kv, bs, D], all in fp32: keys [0, length_b) of the pages
+    ``block_table[b]`` in order, then (with the fresh chunk [B, N_kv, C, D])
+    chunk row c merges fresh keys 0..c. q [B, C, N, D]; block_table int [B, P];
+    lengths int, 0-dim or [B]. A row with nothing to attend gives 0."""
+    B, C, N, D = q.shape
+    _, _, Nkv, bs, _ = k_pool.shape
+    P = block_table.shape[1]
+    G = N // Nkv
+    S = P * bs
+
+    def gather(pool):  # the pages of each sequence in order: [B, N_kv, P*bs, D]
+        pages = pool[layer_idx][block_table.long()]  # [B, P, N_kv, bs, D]
+        return pages.permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, D).float()
+
+    k, v = gather(k_pool), gather(v_pool)
+    lens = _lengths(lengths, q.device).expand(B)
+    allow = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, :].expand(B, C, S)
+    if k_fresh is not None:
+        k = torch.cat([k, k_fresh.float()], dim=2)
+        v = torch.cat([v, v_fresh.float()], dim=2)
+        tri = torch.tril(torch.ones(C, C, dtype=torch.bool, device=q.device))
+        allow = torch.cat([allow, tri.expand(B, C, C)], dim=2)
+    qs = q.float().reshape(B, C, Nkv, G, D) * _sscale(scale, D)
+    s = torch.einsum("bchgd,bhkd->bhgck", qs, k)
+    s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allow[:, None, None], torch.exp2(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgck,bhkd->bhgcd", p, v) / l.clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, N, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -204,6 +255,24 @@ def _layer_ptr(t: torch.Tensor, layer_idx: int) -> int:
     return t.data_ptr() + layer_idx * t.stride(0) * t.element_size()
 
 
+def _flash_checks(q, k, v, kv_mask, bases):
+    """q [B, C, N, D] against a bf16 plane [B, N_kv, S_kv, D] and its mask."""
+    B, C, N, D = q.shape
+    Nkv, S_kv = k.shape[1], k.shape[2]
+    if q.dtype is not torch.bfloat16 or k.dtype is not torch.bfloat16 or v.dtype is not torch.bfloat16:
+        raise TypeError(f"the flash kernels take bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("q/k/v must be 16-byte aligned (the kernel loads 16-byte vectors)")
+    if k.shape != (B, Nkv, S_kv, D) or v.shape != k.shape:
+        raise ValueError(f"k/v must be [B, N_kv, S, D] = {(B, Nkv, S_kv, D)}, got {tuple(k.shape)}, {tuple(v.shape)}")
+    if kv_mask.shape != (B, S_kv) or kv_mask.dtype is not torch.bool:
+        raise ValueError(f"the mask must be [B, S] = {(B, S_kv)} bool")
+    if bases is not None and bases.ndim and bases.shape != (B,):
+        raise ValueError("base must be a scalar or [B]")
+    if D not in KERNEL_DIMS or N % Nkv or N // Nkv > 64:
+        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+
+
 def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     """Causal GQA flash attention over a left-padded prompt → [B, S, N, D]."""
     if q.device.type == "cpu":
@@ -214,16 +283,9 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     Nkv = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     stream = _stream(q, k, v, input_mask)
-    if q.dtype is not torch.bfloat16 or k.dtype is not torch.bfloat16 or v.dtype is not torch.bfloat16:
-        raise TypeError(f"the prefill kernel takes bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
-        raise ValueError("q/k/v must be 16-byte aligned (the kernel loads 16-byte vectors)")
-    if k.shape != (B, Nkv, S, D) or v.shape != k.shape:
-        raise ValueError(f"k/v must be [B, N_kv, S, D] = {(B, Nkv, S, D)}, got {tuple(k.shape)}, {tuple(v.shape)}")
-    if input_mask.shape != (B, S) or input_mask.dtype is not torch.bool:
-        raise ValueError("input_mask must be [B, S] bool")
-    if D not in KERNEL_DIMS or N % Nkv or N // Nkv > 64:
-        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+    if k.shape[2] != S:
+        raise ValueError(f"k/v must hold the prompt's {S} positions, got {tuple(k.shape)}")
+    _flash_checks(q, k, v, input_mask, None)
     out = torch.empty_like(q)
     rc = _build.library("flash_prefill").lia_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), input_mask.data_ptr(), out.data_ptr(),
@@ -231,6 +293,32 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     )
     _raise_on(rc, "flash_attention_prefill")
     flash_attention_prefill.launches += 1
+    return out
+
+
+def flash_attention_cached(q, k_cache, v_cache, base, slot_mask, scale=None, window=None):
+    """Chunk-over-cache causal attention: the chunk's queries [B, C, N, D] over
+    the cache plane [B, N_kv, S_max, D] that already holds the chunk at
+    [base_b, base_b + C) → [B, C, N, D]. ``base`` (int, 0-dim or [B]) and the
+    slot mask are read on the device."""
+    if q.device.type == "cpu":
+        return flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale, window)
+    from lia_tpu_torch.ops import _build
+
+    B, C, N, D = q.shape
+    Nkv, S_max = k_cache.shape[1], k_cache.shape[2]
+    q = q.contiguous()
+    bases = _lengths(base, q.device)
+    stream = _stream(q, k_cache, v_cache, slot_mask, bases)
+    _flash_checks(q, k_cache, v_cache, slot_mask, bases)
+    out = torch.empty_like(q)
+    rc = _build.library("flash_cached").lia_flash_cached(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), slot_mask.data_ptr(), bases.data_ptr(),
+        1 if bases.ndim else 0, out.data_ptr(), B, C, S_max, N, Nkv, D, _sscale(scale, D), int(window or 0),
+        stream,
+    )
+    _raise_on(rc, "flash_attention_cached")
+    flash_attention_cached.launches += 1
     return out
 
 
@@ -377,9 +465,55 @@ def decode_attention_fresh_int8(
     return out
 
 
+def paged_decode_attention(
+    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None
+):
+    """C queries per sequence [B, C, N, D] over layer ``layer_idx`` of a paged
+    pool [L, nb, N_kv, bs, D], read in place through the block table (int32
+    [B, P]) with per-row ``lengths`` (int32 [B], or one for all); with the
+    fresh chunk [B, N_kv, C, D], chunk row c merges fresh keys 0..c. The table
+    and lengths are read on the device."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh, v_fresh, scale
+        )
+    from lia_tpu_torch.ops import _build
+
+    B, C, N, D = q.shape
+    if k_pool.dim() != 5:
+        raise ValueError(f"the pool must be [L, nb, N_kv, bs, D], got {tuple(k_pool.shape)}")
+    _, _, Nkv, bs, Dp = k_pool.shape
+    P = block_table.shape[1] if block_table.dim() == 2 else 0
+    q = q.contiguous()
+    lengths = _lengths(lengths, q.device)
+    fresh = () if k_fresh is None else (k_fresh.contiguous(), v_fresh.contiguous())
+    stream = _stream(q, k_pool, v_pool, block_table, lengths, *fresh)
+    is_bf16 = _float_kind(q, k_pool, v_pool, *fresh)
+    if Dp != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"q {tuple(q.shape)} does not match the pools {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    if block_table.shape != (B, P) or block_table.dtype is not torch.int32:
+        raise ValueError("block_table must be int32 [B, P]")
+    if lengths.ndim and lengths.shape != (B,):
+        raise ValueError("lengths must be a scalar or [B]")
+    if fresh and (fresh[0].shape != (B, Nkv, C, D) or fresh[1].shape != fresh[0].shape):
+        raise ValueError("fresh k/v must be [B, N_kv, C, D]")
+    if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
+        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+    kf_ptr, vf_ptr = (fresh[0].data_ptr(), fresh[1].data_ptr()) if fresh else (None, None)
+    out = torch.empty_like(q)
+    rc = _build.library("paged_decode").lia_paged_decode(
+        q.data_ptr(), kf_ptr, vf_ptr, _layer_ptr(k_pool, layer_idx), _layer_ptr(v_pool, layer_idx), block_table.data_ptr(),
+        lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
+        B, C, N, Nkv, P, bs, D, _sscale(scale, D), is_bf16, int(bool(fresh)), stream,
+    )
+    _raise_on(rc, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
 KERNELS = (
     flash_attention_prefill, decode_attention_fresh, decode_attention_fresh_int8,
-    decode_attention, decode_attention_stacked,
+    decode_attention, decode_attention_stacked, flash_attention_cached, paged_decode_attention,
 )
 for _fn in KERNELS:
     _fn.launches = 0

@@ -1,4 +1,4 @@
-"""Preallocated KV cache (port of ``lia_tpu/ops/kv_cache.py``, aligned-batch part).
+"""Preallocated KV cache (port of ``lia_tpu/ops/kv_cache.py``, the slab cache).
 
 Layout as in the reference: a stacked ``[L, B, N_kv, S_max, D]`` cache, head-major
 so that each head's ``[S_max, D]`` plane is contiguous, plus a ``[B, S_max]`` slot
@@ -6,10 +6,12 @@ validity mask and a scalar length.
 
 Unlike the reference, whose arrays are immutable (XLA aliases the buffer under
 donation), every write here is **in place**: :func:`update_layer`,
-:func:`write_token_all` and :func:`advance` modify the cache tensors they are
-given, and return them (or the cache) only for symmetry with the reference.
-``length`` is a 0-dim int32 tensor on the cache's device and write offsets are
-computed from it on the device, so a decode step never syncs with the host.
+:func:`write_token_all`, :func:`advance`, :func:`advance_ragged` and
+:func:`insert_slot` modify the cache tensors they are given, and return them (or
+the cache) only for symmetry with the reference. ``length`` is an int32 tensor
+on the cache's device, 0-dim for an aligned batch or [B] for continuous
+batching (each row its own length), and write offsets are computed from it on
+the device, so a decode step never syncs with the host.
 
 The tiered scheduler keeps the streamed layers' cache in host memory under
 policies 0, 1, 2 and 4 (``init_cache(..., device="cpu", pin_memory=True)``:
@@ -92,14 +94,27 @@ def set_layer_kv(plane: Any, layer_plane: Any, idx: int) -> Any:
     return plane
 
 
-def _slots(start: Offset, n: int, device) -> torch.Tensor:
-    """Slot indices ``start .. start+n-1`` as an int64 tensor on ``device``."""
+def _slots(start: Offset, n: int, size: int, device) -> torch.Tensor:
+    """Slot indices ``start .. start+n-1`` on ``device``: an int64 [n] tensor for a
+    uniform start, [B, n] for a per-row [B] start. The start is clamped to
+    ``[0, size - n]``, as the reference's ``dynamic_update_slice`` clamps it."""
     ar = torch.arange(n, device=device)
     if isinstance(start, torch.Tensor):
-        if start.ndim != 0:
-            raise NotImplementedError("ragged [B] write offsets are not ported yet")
-        return ar + start.to(device=device, dtype=torch.int64)
-    return ar + int(start)
+        st = start.to(device=device, dtype=torch.int64).clamp(0, size - n)
+        return st[:, None] + ar if st.ndim else st + ar
+    return ar + min(max(int(start), 0), size - n)
+
+
+def _write_plane(plane: torch.Tensor, new: torch.Tensor, start: Offset, dim: int) -> None:
+    """``plane[..., start:start+n, ...] = new`` along ``dim``, in place. A [B]
+    start gives row b (the axis two before the slot axis) its own offset."""
+    idx = _slots(start, new.shape[dim], plane.shape[dim], plane.device)
+    if idx.ndim == 1:
+        plane.index_copy_(dim, idx, new)
+        return
+    shape = [1] * new.dim()
+    shape[dim - 2], shape[dim] = idx.shape
+    plane.scatter_(dim, idx.view(shape).expand(new.shape), new)
 
 
 def _write(plane: Any, new: Any, start: Offset, dim: int) -> Any:
@@ -107,12 +122,10 @@ def _write(plane: Any, new: Any, start: Offset, dim: int) -> Any:
     A quantized plane quantizes the fresh values per token on write."""
     if is_quantized_kv(plane):
         newq = new if is_quantized_kv(new) else quantize_kv(new)
-        idx = _slots(start, newq.q.shape[dim], plane.q.device)
-        plane.q.index_copy_(dim, idx, newq.q)
-        plane.s.index_copy_(dim, idx, newq.s)
+        _write_plane(plane.q, newq.q, start, dim)
+        _write_plane(plane.s, newq.s, start, dim)
         return plane
-    idx = _slots(start, new.shape[dim], plane.device)
-    plane.index_copy_(dim, idx, new.to(plane.dtype))
+    _write_plane(plane, new.to(plane.dtype), start, dim)
     return plane
 
 
@@ -121,7 +134,7 @@ def update_layer(
     v_layer: Any,
     new_k: Any,  # [B, N_kv, S_new, D] (head-major)
     new_v: Any,
-    start: Offset,  # uniform write offset
+    start: Offset,  # uniform write offset, or [B] (one per row)
 ):
     """Write new K/V at [start : start+S_new] of one layer, in place."""
     return _write(k_layer, new_k, start, 2), _write(v_layer, new_v, start, 2)
@@ -131,13 +144,36 @@ def write_token_all(plane_full: Any, new_stack: Any, start: Offset) -> Any:
     """Write ONE decode step's fresh K or V for ALL layers at once, in place.
 
     ``plane_full``: [L, B, N_kv, S_max, D] (tensor or QuantizedKV);
-    ``new_stack``: [L, B, N_kv, 1, D] (tensor or QuantizedKV)."""
+    ``new_stack``: [L, B, N_kv, 1, D] (tensor or QuantizedKV); ``start`` uniform
+    or [B] (continuous batching: each row writes at its own length)."""
     return _write(plane_full, new_stack, start, 3)
 
 
 def advance(cache: KVCache, new_mask: torch.Tensor, n_new: int) -> KVCache:
     """Mark ``n_new`` slots from ``cache.length`` with ``new_mask`` ([B, n_new] bool),
     in place, and return the cache with its length advanced."""
-    idx = _slots(cache.length, n_new, cache.mask.device)
+    idx = _slots(cache.length, n_new, cache.mask.shape[1], cache.mask.device)
     cache.mask.index_copy_(1, idx, new_mask.to(device=cache.mask.device, dtype=torch.bool))
     return cache._replace(length=cache.length + n_new)
+
+
+def advance_ragged(cache: KVCache, active: torch.Tensor) -> KVCache:
+    """Per-slot advance for continuous batching (``cache.length`` is [B]): each
+    row's just-written slot takes its ``active`` flag, in place, and only
+    active rows' lengths grow."""
+    idx = _slots(cache.length, 1, cache.mask.shape[1], cache.mask.device)
+    cache.mask.scatter_(1, idx, active.to(torch.bool)[:, None])
+    return cache._replace(length=cache.length + active.to(cache.length.dtype))
+
+
+def insert_slot(cache: KVCache, seg: KVCache, slot: int) -> KVCache:
+    """Copy a freshly prefilled one-sequence cache ``seg`` (batch 1, the same
+    S_max) into batch row ``slot``, in place: its planes (an INT8 cache's codes
+    and scales), its mask, and its scalar length as this row's length."""
+    for big, small in ((cache.k, seg.k), (cache.v, seg.v)):
+        pairs = zip(big, small) if is_quantized_kv(big) else [(big, small)]
+        for b, s_ in pairs:
+            b[:, slot].copy_(s_[:, 0])
+    cache.mask[slot].copy_(seg.mask[0])
+    cache.length[slot].copy_(seg.length)
+    return cache

@@ -308,16 +308,16 @@ class StreamingScheduler:
     # -- passes not ported yet -------------------------------------------------
 
     def init_serving_state(self, *args, **kwargs):
-        _unported("ragged serving", "ROADMAP A8 and B6 flash_attention_cached")
+        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
 
     def insert_slot_state(self, *args, **kwargs):
-        _unported("ragged serving", "ROADMAP A8 and B6 flash_attention_cached")
+        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
 
     def decode_pass_ragged(self, *args, **kwargs):
-        _unported("ragged serving", "ROADMAP A8 and B6 flash_attention_cached")
+        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
 
     def decode_pass_paged(self, *args, **kwargs):
-        _unported("paged serving", "B5 paged_decode_attention")
+        _unported("paged serving", "the scheduler's serving passes, ROADMAP A10")
 
     def reorder_state(self, *args, **kwargs):
         _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
@@ -332,13 +332,13 @@ class StreamingScheduler:
         _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
 
     def ragged_state(self, *args, **kwargs):
-        _unported("the chunked verify pass", "B6 flash_attention_cached")
+        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
 
     def verify_pass(self, *args, **kwargs):
-        _unported("the chunked verify pass", "B6 flash_attention_cached")
+        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
 
     def accept_state(self, *args, **kwargs):
-        _unported("the chunked verify pass", "B6 flash_attention_cached")
+        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
 
     def score_logprobs(self, *args, **kwargs):
         _unported("scoring", "the engine's scoring, ROADMAP A7")

@@ -257,9 +257,13 @@ def test_plain_path_counts_no_launch(rng):
     ca.flash_attention_prefill(q, k, k, torch.ones(2, 16, dtype=torch.bool))
     ca.decode_attention(t["q"], t["k"][0], t["v"][0], sm, 21)
     ca.decode_attention_stacked(t["q"], t["k"], t["v"], 1, sm, 21)
+    ca.flash_attention_cached(q, k, k, 0, torch.ones(2, 16, dtype=torch.bool))
+    ca.paged_decode_attention(t["q"], t["k"], t["v"], 0, torch.zeros(2, 4, dtype=torch.int32),
+                              torch.tensor([3, 5], dtype=torch.int32))
     assert ca.launch_counts() == {
         "flash_attention_prefill": 0, "decode_attention_fresh": 0, "decode_attention_fresh_int8": 0,
-        "decode_attention": 0, "decode_attention_stacked": 0,
+        "decode_attention": 0, "decode_attention_stacked": 0, "flash_attention_cached": 0,
+        "paged_decode_attention": 0,
     }
 
 
@@ -417,3 +421,90 @@ def test_decode_front_doors_reject_alibi_bias():
     for fn in (att.attend_decode, att.attend_decode_host):
         with pytest.raises(NotImplementedError):
             fn(q, k, k, ctx)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_cached (a prompt chunk over the cache plane) and its front door
+# ---------------------------------------------------------------------------
+
+
+def _cached_inputs(rng, B, C, N, Nkv, S_max, D):
+    return (rng.standard_normal((B, C, N, D)).astype(np.float32),
+            rng.standard_normal((B, Nkv, S_max, D)).astype(np.float32),
+            rng.standard_normal((B, Nkv, S_max, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gqa", [False, True])
+@pytest.mark.parametrize("bases,starts,window", [
+    ((12, 12), (0, 0), 8),  # lia_tpu's window cases: 12 cached tokens, chunk at [12, 20)
+    ((12, 12), (0, 0), 100),
+    ((12, 20), (0, 5), None),  # per-row bases, a left-padded cache
+    ((0, 0), (3, 5), None),  # a first chunk with left pads (pad rows not compared)
+    ((24, 0), (2, 6), 5),
+])
+def test_flash_cached_plain_matches_pallas(rng, bases, starts, window, gqa, dtype):
+    B, C, N, S_max, D = 2, 8, 4, 32, 16
+    Nkv = 2 if gqa else N
+    q, k, v = _cached_inputs(rng, B, C, N, Nkv, S_max, D)
+    sm = np.zeros((B, S_max), bool)
+    for b, (base, st) in enumerate(zip(bases, starts)):
+        sm[b, st : base + C] = True
+    (jq, tq), (jk, tk), (jv, tv) = both(q, dtype), both(k, dtype), both(v, dtype)
+    jb = jnp.asarray(bases, jnp.int32)
+    ref = pa.flash_attention_cached(jq, jk, jv, jb, jnp.asarray(sm), block_k=16, window=window, interpret=True)
+    out = ca.flash_attention_cached(tq, tk, tv, torch.tensor(bases, dtype=torch.int32), torch.from_numpy(sm),
+                                    window=window)
+    assert out.dtype == tq.dtype and out.shape == (B, C, N, D)
+    valid = np.zeros((B, C, 1, 1), bool)  # rows at a valid slot
+    for b, (base, st) in enumerate(zip(bases, starts)):
+        valid[b, max(st - base, 0):] = True
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(f32(out) * valid, f32(ref) * valid, rtol=tol, atol=tol)
+    assert np.isfinite(f32(out)).all()
+
+
+def test_flash_cached_plain_scalar_base_equals_per_row(rng):
+    q, k, v = (torch.from_numpy(a) for a in _cached_inputs(rng, 2, 8, 4, 4, 32, 16))
+    sm = torch.zeros(2, 32, dtype=torch.bool)
+    sm[:, 3:20] = True
+    a = ca.flash_attention_cached(q, k, v, torch.tensor(12, dtype=torch.int32), sm)
+    b = ca.flash_attention_cached(q, k, v, torch.tensor([12, 12], dtype=torch.int32), sm)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("gqa", [False, True])
+def test_attend_prefill_cached_front_door_matches_lia_tpu(rng, kv, gqa):
+    """lia_tpu's front door on the CPU runs its golden mask; the port's runs the
+    kernel's plain version. INT8 planes are dequantized first on both sides."""
+    B, C, N, S_max, D = 2, 8, 4, 32, 16
+    Nkv = 2 if gqa else N
+    q, k, v = _cached_inputs(rng, B, C, N, Nkv, S_max, D)
+    base = 16
+    sm = np.zeros((B, S_max), bool)
+    sm[0, : base + C] = True
+    sm[1, 6 : base + C] = True
+    if kv == "int8":
+        jk, jv = j_quantize_kv(jnp.asarray(k)), j_quantize_kv(jnp.asarray(v))
+        tk, tv = (QuantizedKV(torch.from_numpy(np.array(a.q)), torch.from_numpy(np.array(a.s))) for a in (jk, jv))
+    else:
+        jk, jv, tk, tv = jnp.asarray(k), jnp.asarray(v), torch.from_numpy(k), torch.from_numpy(v)
+    ref = jatt.attend_prefill_cached(jnp.asarray(q), jk, jv, jnp.asarray(base, jnp.int32), jnp.asarray(sm))
+    out = att.attend_prefill_cached(torch.from_numpy(q), tk, tv, torch.tensor(base, dtype=torch.int32),
+                                    torch.from_numpy(sm))
+    np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
+    with pytest.raises(NotImplementedError):
+        att.attend_prefill_cached(torch.from_numpy(q), tk, tv, base, torch.from_numpy(sm), bias=torch.zeros(1))
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_ctx_takes_per_row_lengths(window):
+    """A [B] past length (continuous batching) gives each row its own window,
+    as lia_tpu's decode_attn_ctx does."""
+    sm = slot_mask(3, 24, 20, (0, 2, 6))
+    lengths = np.asarray([20, 11, 17], np.int32)
+    jctx = jatt.decode_attn_ctx(jnp.asarray(sm), jnp.asarray(lengths), window)
+    tctx = att.decode_attn_ctx(torch.from_numpy(sm), torch.from_numpy(lengths), window)
+    np.testing.assert_array_equal(tctx.slot_mask.numpy(), np.asarray(jctx.slot_mask))
+    np.testing.assert_array_equal(tctx.mask.numpy(), np.asarray(jctx.mask))

@@ -343,3 +343,122 @@ def test_tiered_engine_on_the_card_matches_the_cpu(cuda, policies):
     card = policies[1] in (0, 3)
     assert counts["decode_attention"] == (2 * 4 if card else 0)
     assert counts["decode_attention_fresh"] == 2 * 4
+
+
+# ---------------------------------------------------------------------------
+# serving: chunk-over-cache and paged decode attention, the batcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("per_row_base", [False, True])
+@pytest.mark.parametrize("N,Nkv,D", [(8, 8, 64), (8, 2, 128), (16, 2, 128), (32, 4, 64)])
+def test_flash_cached_kernel_matches_plain(cuda, N, Nkv, D, per_row_base, window):
+    """A chunk of C rows over a 200-slot plane that holds it: left pads (a first
+    chunk), a cached prefix with base > 0, and per-row bases."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, C, S_max, dtype = 3, 72, 200, torch.bfloat16
+    bases = [0, 96, 128] if per_row_base else [96] * B
+    q = _randn(gen, B, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, B, Nkv, S_max, D, dtype=dtype), _randn(gen, B, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    starts = [5, 0, 30]  # row 0 under per-row bases: 5 pad rows of a first chunk
+    for b, (s, base) in enumerate(zip(starts, bases)):
+        sm[b, s : base + C] = True
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda) if per_row_base else torch.tensor(
+        bases[0], dtype=torch.int32, device=cuda)
+    before = ca.flash_attention_cached.launches
+    out = ca.flash_attention_cached(q, kc, vc, base, sm, window=window)
+    assert ca.flash_attention_cached.launches == before + 1
+    ref = ca.flash_attention_cached_plain(q, kc, vc, base, sm, window=window)
+    valid = torch.zeros(B, C, 1, 1, dtype=torch.bool, device=cuda)  # rows at a valid slot
+    for b, (s, bb) in enumerate(zip(starts, bases)):
+        valid[b, max(s - bb, 0):] = True
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.isfinite(out.float()).all()
+
+
+def _paged_case(gen, dtype, B, C, G, D, L=2, Nkv=2, bs=16, P=8, lengths=(0, 37, 128)):
+    """A shuffled pool: each sequence's pages are drawn at random from blocks
+    1.., and the table's unused entries hold the null page 0."""
+    nb = B * P + 1
+    N = Nkv * G
+    kp, vp = _randn(gen, L, nb, Nkv, bs, D, dtype=dtype), _randn(gen, L, nb, Nkv, bs, D, dtype=dtype)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(0))[: B * P] + 1
+    table = torch.zeros(B, P, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        used = -(-n // bs)
+        table[b, :used] = perm[b * P : b * P + used].to(torch.int32)
+    q = _randn(gen, B, C, N, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, C, D, dtype=dtype), _randn(gen, B, Nkv, C, D, dtype=dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table.cuda(), lens, kf, vf
+
+
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (8, 64), (2, 64)])
+def test_paged_decode_kernel_matches_plain(cuda, G, D, dtype, C, fresh):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, dtype, 3, C, G, D)
+    args = (q, kp, vp, 1, table, lens) + ((kf, vf) if fresh else ())
+    before = ca.paged_decode_attention.launches
+    out = ca.paged_decode_attention(*args)
+    assert ca.paged_decode_attention.launches == before + 1
+    ref = ca.paged_decode_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if not fresh:  # row 0 has no key and no fresh token
+        assert (out[0] == 0).all()
+
+
+def test_paged_and_cached_wrappers_raise_on_the_card(cuda):
+    """What the kernels do not take raises on a CUDA tensor; nothing falls back."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, torch.bfloat16, 3, 1, 1, 128)
+    with pytest.raises(ValueError):  # an int64 table
+        ca.paged_decode_attention(q, kp, vp, 0, table.long(), lens)
+    with pytest.raises(ValueError):  # layer out of range
+        ca.paged_decode_attention(q, kp, vp, 2, table, lens)
+    with pytest.raises(TypeError):  # the chunk kernel takes bf16 only
+        ca.flash_attention_cached(q.float(), kp[0, :3].float(), vp[0, :3].float(), 0,
+                                  torch.ones(3, 2, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["paged", "paged-chunked", "slab-int8kv"])
+def test_batcher_on_the_card_matches_the_cpu(cuda, mode):
+    """opt-125m widths at 2 layers: the batcher on the card (bf16, kernels)
+    serves the requests a CPU batcher (fp32) serves, with the same step count;
+    every page comes back, and the kernels of the mode ran."""
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.serving import ContinuousBatcher
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    cfg = get_config("opt-125m").replace(num_layers=2)
+    params = init_dummy_params(cfg, seed=0, scale=0.02)
+    kw = dict(max_batch=3, max_len=128, gen=GenerationConfig(max_new_tokens=5))
+    kw.update({"paged": dict(paged=True), "paged-chunked": dict(paged=True, prefill_chunk=32),
+               "slab-int8kv": dict(kv_quantized=True)}[mode])
+    rng = np.random.default_rng(0)
+    shared = rng.integers(2, cfg.vocab_size, 40).tolist()
+    prompts = [shared + [7, 8], rng.integers(2, cfg.vocab_size, 19).tolist(), shared + [9, 10, 11], [5, 6]]
+    ca.reset_launch_counts()
+    cb = ContinuousBatcher(cfg, params, device=cuda, **kw)
+    for p in prompts:
+        cb.submit(p)
+    done = {r.req_id: r.output for r in cb.run()}
+    counts = ca.launch_counts()
+    cpu = ContinuousBatcher(cfg.replace(dtype="float32"), to_device(params, "cpu", torch.float32), device="cpu", **kw)
+    for p in prompts:
+        cpu.submit(p)
+    ref = {r.req_id: r.output for r in cpu.run()}
+    assert sorted(done) == sorted(ref) and all(len(done[i]) == 5 for i in done)
+    assert cb.stats()["decode_steps"] == cpu.stats()["decode_steps"]
+    steps = int(cb.stats()["decode_steps"])
+    if mode == "slab-int8kv":
+        assert counts["decode_attention_fresh_int8"] == 2 * steps and counts["paged_decode_attention"] == 0
+    else:
+        assert counts["paged_decode_attention"] == 2 * steps and counts["decode_attention_fresh"] == 0
+        assert counts["flash_attention_cached"] > 0  # the shared prefix hit, or the chunks
+        assert (cb.page_rc == 0).all() and len(cb.free_blocks) + len(cb.cached_pages) == cb.num_blocks - 1

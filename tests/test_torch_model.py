@@ -182,3 +182,81 @@ def test_bucket_and_pack_match_lia_tpu():
     assert [bucket_length(n) for n in (1, 16, 17, 100, 300)] == [jb(n) for n in (1, 16, 17, 100, 300)]
     for a, b in zip(pack_prompts(PROMPTS, 1), jpack(PROMPTS, 1)):
         np.testing.assert_array_equal(a, b)
+
+
+def _planes_close(tplane, jplane, mask: np.ndarray) -> None:
+    """The two packages' cache planes agree over the valid slots of ``mask``
+    [B, S]: fp32 to 1e-4, INT8 as dequantized values to one code step (a
+    value ~1e-6 from a rounding boundary may take the neighbouring code)."""
+    if hasattr(jplane, "q"):
+        t = tplane.q.float().numpy() * tplane.s.numpy()[..., None]
+        j = np.asarray(jplane.q, np.float32) * np.asarray(jplane.s)[..., None]
+        tol = float(np.asarray(jplane.s).max()) * 1.01
+    else:
+        t, j, tol = tplane.numpy(), np.asarray(jplane), 1e-4
+    S = mask.shape[1]
+    assert (np.abs(t[..., :S, :] - j[..., :S, :]) * mask[None, :, None, :, None]).max() <= tol
+
+
+@pytest.mark.parametrize("kv", ["none", "int8"])
+def test_prefill_chunk_matches_lia_tpu_and_full_prefill(model, kv):
+    """A left-padded 32-token prompt in two 16-token chunks (the first with
+    pads) against lia_tpu's prefill_chunk: logits ≤ 1e-4 and the same cache;
+    over bf16/fp32 KV the last chunk's logits equal a full prefill's."""
+    jcfg, jp, tcfg, tp = model
+    tokens_np, mask_np = pack_prompts([list(range(3, 23)), list(range(40, 70))], pad_id=1, bucket=32)
+    B, S_max, q = 2, 64, kv == "int8"
+    jc = jkvc.init_cache(jcfg, B, S_max, jnp.float32, quantized=q)
+    tc = kvc.init_cache(tcfg, B, S_max, torch.float32, quantized=q)
+    jchunk = jax.jit(partial(JT.prefill_chunk, jcfg))
+    for off in (0, 16):
+        sl = slice(off, off + 16)
+        jl, jc = jchunk(jp, jnp.asarray(tokens_np[:, sl]), jnp.asarray(mask_np[:, sl]), jc)
+        tl, tc = T.prefill_chunk(tcfg, tp, torch.from_numpy(tokens_np[:, sl]), torch.from_numpy(mask_np[:, sl]), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+    assert int(tc.length) == int(jc.length) == 32
+    np.testing.assert_array_equal(tc.mask.numpy(), np.asarray(jc.mask))
+    for tp_, jp_ in ((tc.k, jc.k), (tc.v, jc.v)):
+        _planes_close(tp_, jp_, mask_np)
+    if not q:  # over INT8 the chunks attend to dequantized K/V, a full prefill to its own
+        full, _ = T.prefill(tcfg, tp, torch.from_numpy(tokens_np), torch.from_numpy(mask_np),
+                            kvc.init_cache(tcfg, B, S_max, torch.float32))
+        np.testing.assert_allclose(tl.numpy(), full.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv", ["none", "int8"])
+def test_decode_step_ragged_matches_lia_tpu(model, kv):
+    """Two rows admitted with different buckets through insert_slot (per-row
+    lengths 16 and 32), then 4 ragged steps with row 1 inactive in one of them:
+    logits ≤ 1e-4 against lia_tpu and the same lengths and masks."""
+    jcfg, jp, tcfg, tp = model
+    B, S_max, q = 2, 64, kv == "int8"
+    jc = jkvc.init_cache(jcfg, B, S_max, jnp.float32, quantized=q)
+    jc = jc._replace(length=jnp.zeros((B,), jnp.int32))
+    tc = kvc.init_cache(tcfg, B, S_max, torch.float32, quantized=q)
+    tc = tc._replace(length=torch.zeros(B, dtype=torch.int32))
+    pos = []
+    for slot, prompt in enumerate(([5, 6, 7, 8, 9], list(range(60, 80)))):
+        toks, mask = pack_prompts([prompt], pad_id=1)
+        jseg = jkvc.init_cache(jcfg, 1, S_max, jnp.float32, quantized=q)
+        tseg = kvc.init_cache(tcfg, 1, S_max, torch.float32, quantized=q)
+        _, jseg = JT.prefill(jcfg, jp, jnp.asarray(toks), jnp.asarray(mask), jseg)
+        _, tseg = T.prefill(tcfg, tp, torch.from_numpy(toks), torch.from_numpy(mask), tseg)
+        jc = jkvc.insert_slot(jc, jseg, jnp.asarray(slot, jnp.int32))
+        tc = kvc.insert_slot(tc, tseg, slot)
+        pos.append(len(prompt))
+    np.testing.assert_array_equal(tc.length.numpy(), [16, 32])
+    pos = np.asarray(pos, np.int32)
+    steps = np.random.default_rng(1).integers(2, tcfg.vocab_size, (4, B)).astype(np.int32)
+    jstep = jax.jit(partial(JT.decode_step_ragged, jcfg))
+    for i, tok in enumerate(steps):
+        active = np.array([True, i != 2])
+        jl, jc = jstep(jp, jnp.asarray(tok[:, None]), jnp.asarray(pos), jc, jnp.asarray(active))
+        tl, tc = T.decode_step_ragged(tcfg, tp, torch.from_numpy(tok[:, None]), torch.from_numpy(pos), tc,
+                                      torch.from_numpy(active))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+        pos = pos + active
+    np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
+    np.testing.assert_array_equal(tc.mask.numpy(), np.asarray(jc.mask))
+    for tp_, jp_ in ((tc.k, jc.k), (tc.v, jc.v)):
+        _planes_close(tp_, jp_, tc.mask.numpy())

@@ -10,6 +10,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -270,11 +271,57 @@ def test_cache_writes_match_lia_tpu(rng, quantized):
     _assert_cache_equal(tc, jc)
 
 
-def test_ragged_offsets_are_not_ported_yet():
-    cfg = treg.get_config("opt-tiny")
-    c = kvc.init_cache(cfg, 2, 16, torch.float32)
-    with pytest.raises(NotImplementedError):
-        kvc.write_token_all(c.k, torch.zeros(2, 2, 4, 1, 16), torch.tensor([1, 2]))
+def test_ragged_offsets_are_not_ported_yet(rng):
+    """Ragged [B] write offsets (continuous batching), once unported, now match
+    lia_tpu over fp32 and INT8 caches: write_token_all and update_layer at
+    per-row starts, advance_ragged with an inactive row, and insert_slot of a
+    one-row segment."""
+    for quantized in (False, True):
+        _check_ragged_writes(rng, quantized)
+
+
+def _check_ragged_writes(rng, quantized):
+    cfg = jreg.get_config("opt-tiny")
+    L, B, S_max, Nkv, D = cfg.num_layers, 3, 32, cfg.num_kv_heads, cfg.head_dim
+    jc, tc = _random_cache(rng, cfg, B, S_max, quantized)
+    starts = np.asarray([4, 17, 9], np.int32)
+    jc = jc._replace(length=jnp.asarray(starts))
+    tc = tc._replace(length=torch.from_numpy(starts.copy()))
+    step_k = rng.standard_normal((L, B, Nkv, 1, D)).astype(np.float32)
+    step_v = rng.standard_normal((L, B, Nkv, 1, D)).astype(np.float32)
+    jc = jc._replace(k=jkvc.write_token_all(jc.k, jnp.asarray(step_k), jc.length),
+                     v=jkvc.write_token_all(jc.v, jnp.asarray(step_v), jc.length))
+    kvc.write_token_all(tc.k, torch.from_numpy(step_k), tc.length)
+    kvc.write_token_all(tc.v, torch.from_numpy(step_v), tc.length)
+    active = np.asarray([True, False, True])
+    jc = jkvc.advance_ragged(jc, jnp.asarray(active))
+    tc = kvc.advance_ragged(tc, torch.from_numpy(active))
+    np.testing.assert_array_equal(tc.length.numpy(), [5, 17, 10])
+    _assert_cache_equal_ragged(tc, jc)
+
+    # a 3-token write into layer 1 at per-row starts
+    new_k = rng.standard_normal((B, Nkv, 3, D)).astype(np.float32)
+    jk2, jv2 = jkvc.update_layer(jkvc.index_layer_kv(jc.k, 1), jkvc.index_layer_kv(jc.v, 1),
+                                 jnp.asarray(new_k), jnp.asarray(new_k), jc.length)
+    jc = jc._replace(k=jkvc.set_layer_kv(jc.k, jk2, 1), v=jkvc.set_layer_kv(jc.v, jv2, 1))
+    kvc.update_layer(kvc.index_layer_kv(tc.k, 1), kvc.index_layer_kv(tc.v, 1),
+                     torch.from_numpy(new_k), torch.from_numpy(new_k), tc.length)
+    _assert_cache_equal_ragged(tc, jc)
+
+    # a prefilled one-row segment spliced into row 1
+    jseg, tseg = _random_cache(rng, cfg, 1, S_max, quantized)
+    seg_mask = np.zeros((1, S_max), bool)
+    seg_mask[0, 3:16] = True
+    jseg = jseg._replace(length=jnp.asarray(16, jnp.int32), mask=jnp.asarray(seg_mask))
+    tseg = tseg._replace(length=torch.tensor(16, dtype=torch.int32), mask=torch.from_numpy(seg_mask))
+    jc = jkvc.insert_slot(jc, jseg, jnp.asarray(1, jnp.int32))
+    assert kvc.insert_slot(tc, tseg, 1) is tc  # in place
+    _assert_cache_equal_ragged(tc, jc)
+
+
+def _assert_cache_equal_ragged(tc, jc):
+    _assert_cache_equal(tc._replace(length=torch.tensor(0)), jc._replace(length=jnp.asarray(0)))
+    np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
 
 
 def test_greedy_matches_lia_tpu(rng):
@@ -294,6 +341,26 @@ def test_warped_probs_match_lia_tpu(rng, temperature, top_k, top_p):
         sampling.warped_probs(torch.from_numpy(logits), tg).numpy(),
         np.asarray(jsampling.warped_probs(jnp.asarray(logits), jg)),
         rtol=1e-5, atol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_per_row_warped_probs_match_lia_tpu(rng, seed):
+    """Per-row temperature, top-k (0 = off) and top-p (a [B] threshold): the
+    port's warp against lia_tpu's sample_per_row warp (temperature,
+    apply_top_k_rows, apply_top_p), compared as probabilities."""
+    logits = (np.random.default_rng(seed).standard_normal((4, 64)) * 2).astype(np.float32)
+    temp = np.asarray([1.0, 0.7, 1.3, 0.4], np.float32)
+    topk = np.asarray([0, 5, 1, 20], np.int32)
+    topp = np.asarray([1.0, 1.0, 0.8, 0.6], np.float32)
+    x = jnp.asarray(logits) / jnp.maximum(jnp.asarray(temp), 1e-6)[:, None]
+    ref = jax.nn.softmax(jsampling.apply_top_p(jsampling.apply_top_k_rows(x, jnp.asarray(topk)), jnp.asarray(topp)), -1)
+    out = torch.softmax(sampling.warp_logits_rows(torch.from_numpy(logits), torch.from_numpy(temp),
+                                                  torch.from_numpy(topk), torch.from_numpy(topp)), -1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(
+        sampling.apply_top_k_rows(torch.from_numpy(logits), torch.from_numpy(topk)).numpy(),
+        np.asarray(jsampling.apply_top_k_rows(jnp.asarray(logits), jnp.asarray(topk))),
     )
 
 
