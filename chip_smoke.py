@@ -14,7 +14,9 @@ Phases, each printing one JSON line per item:
    paged decode over a shuffled 2-layer pool, bs 16, 16 rows of 1-1000 tokens
    with the fresh merge, also at C = 4, G = 4 and D = 64; chunk-over-cache
    attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots), as a
-   left-padded first chunk (B=2, C=128) and with a window). Quantized matmuls at M = 16 (decode rows) and 4096
+   left-padded first chunk (B=2, C=128) and with a window; grouped-beam decode,
+   bf16 and int8, over 4 groups of 4 beams with a 256-slot prompt (group pads
+   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0). Quantized matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
@@ -57,17 +59,30 @@ Phases, each printing one JSON line per item:
    OPT-6.7B width at 2 layers, the batcher's functions in its order (prefill,
    page commit, a prefix-cache admission, 4 paged decode steps; insert_slot
    and 4 ragged steps over a bf16 and an int8 slab), card against CPU;
-7. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
+7. beam and score: InferenceEngine.generate_beam at OPT-6.7B full width and
+   depth, 4 seeded prompts cut to 256/240/200/160 tokens, 4 beams, 32 new
+   tokens, no EOS: beam-nb4 (grouped, bf16 KV) and beam-nb4-int8kv (median of
+   3), beam-nb4-expanded, beam-nb4-proc (repetition penalty 1.2,
+   no_repeat_ngram_size 3), tier-h50-p3-beam (grouped under the scheduler)
+   and tier-h50-p0-beam (expanded, host KV), one run each. Each line: prefill
+   ms, decode row-tokens/s (16 rows x 31 steps over the decode seconds), the
+   bytes a step's beam shuffle rewrites, peak memory, exact launch counts.
+   score: loglikelihood of 16 records of 256 + 32 tokens, resident and
+   tier-h50-p3, ms per call, the two agreeing. beam_parity: OPT-6.7B width at
+   2 layers, a grouped beam cache and 4 beam_decode_step calls (the CPU run's
+   tokens and shuffles forced on both sides) and score_logprobs, card against
+   CPU, bf16 and int8 KV;
+8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv and
    weight-only int4 g128; and the tiered scheduler at 4 layers (half
    resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
    policy 3 over int8dyn weights and int8 KV;
-8. device breakdown: one more main-path run per timed configuration under the
+9. device breakdown: one more main-path run per timed configuration under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
-   attention per step;
-9. kernel times: each kernel's, its plain version's and a PyTorch library
+   attention per step; one more beam-nb4 run;
+10. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 30 calls, L2 flushed before
    each; the kernel's also from CUDA events, as a cross-check) and the
    wrapper's host time, beside the least time the card could take for the
@@ -79,7 +94,8 @@ Then the kernels line (for the quantized matmuls, the decode wqkv call: M=16,
 K=4096, N=12288; decode_attention's and the stacked entry's launches from
 tier-h50-p3, where the stacked entry, on no path of the reference, launches
 0 times; paged_decode_attention's from serve-paged, flash_attention_cached's
-from serve-paged-chunk256), the card's name and power
+from serve-paged-chunk256, the beam kernels' from beam-nb4 and
+beam-nb4-int8kv), the card's name and power
 limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it exits 2 at once.
@@ -164,6 +180,12 @@ WEIGHT_ONLY = {
 # depth: one seeded workload of SERVE_REQUESTS requests submitted together
 SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_LEN, SERVE_BLOCK = 64, 16, 1024, 16
 SERVE_PREFIX = 256  # the shared prefix of half the requests
+# beam search at OPT-6.7B full width and depth: BEAM_GROUPS seeded prompts cut to
+# BEAM_PROMPT_LENS tokens, BEAM_NB beams each, NEW_TOKENS new tokens, no EOS
+BEAM_GROUPS, BEAM_NB, BEAM_RUNS = 4, 4, 3
+BEAM_PROMPT_LENS = (256, 240, 200, 160)
+BEAM_PROMPT, BEAM_PADS, BEAM_TLEN = 256, (0, 7, 31, 100), 16  # the beam kernels' check shape
+SCORE_CONT = 32  # scoring: 16 records of a 256-token context and a 32-token continuation
 SERVING = [
     ("serve-slab", dict()),
     ("serve-slab-int8kv", dict(kv_quantized=True)),
@@ -418,6 +440,7 @@ def kernel_checks(ca, quantize_kv):
         bound=bound(past_keys * N * (D + 4) * 2 + io_bytes + sm8.numel(), 4 * D * N * (past_keys + B)),
     )
     rows.update(serving_kernel_checks(ca, randn, dpads))
+    rows.update(beam_kernel_checks(ca, quantize_kv, randn))
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
@@ -543,6 +566,88 @@ def serving_kernel_checks(ca, randn, dpads):
         library=lambda: F.scaled_dot_product_attention(q6t, kc6, vc6, attn_mask=cmask),
         bound=bound(2 * kc6.numel() * 2 + 2 * q6.numel() * 2 + sm6.numel() + 4, 4 * D * N * keys6),
     )
+    return rows
+
+
+def beam_case(ca, quantize_kv, randn, int8: bool, Nkv: int = N, Dh: int = D, tlen: int = BEAM_TLEN, L: int = 2):
+    """Grouped-beam kernel inputs at the beam path's shapes (OPT-6.7B heads,
+    BEAM_GROUPS groups of BEAM_NB beams over a BEAM_PROMPT-slot prompt with the
+    groups' left pads BEAM_PADS, ``tlen`` tail slots of a 32-slot bf16 or
+    128-slot int8 tail), over layer 1 of a 2-layer cache: (kernel, plain
+    version, args, prompt keys per group)."""
+    B = BEAM_GROUPS * BEAM_NB
+    q = randn(B, 1, N, Dh)
+    kf, vf = randn(B, Nkv, 1, Dh), randn(B, Nkv, 1, Dh)
+    pm = torch.zeros(BEAM_GROUPS, BEAM_PROMPT, dtype=torch.bool, device="cuda")
+    for g, p in enumerate(BEAM_PADS):
+        pm[g, p:] = True
+    lens = (pm, torch.tensor(BEAM_PROMPT, dtype=torch.int32, device="cuda"),
+            torch.tensor(tlen, dtype=torch.int32, device="cuda"), BEAM_NB)
+    T_max = 128 if int8 else 32
+    if int8:
+        planes = [x for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (B, T_max)) for _ in range(2)
+                  for x in quantize_kv(randn(L, rows, Nkv, S, Dh, dtype=torch.float32))]
+        return ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain, (q, kf, vf, *planes, 1, *lens)
+    planes = [randn(L, rows, Nkv, S, Dh) for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (B, T_max)) for _ in range(2)]
+    return ca.decode_beam_attention, ca.decode_beam_attention_plain, (q, kf, vf, *planes, 1, *lens)
+
+
+def beam_kernel_checks(ca, quantize_kv, randn):
+    """decode_beam_attention (B9) and decode_beam_attention_int8 (B10) against
+    their plain versions at the beam path's shape (4 groups of 4 beams, 32
+    heads, D = 128, a 256-slot prompt with group pads 0/7/31/100, tail length
+    16), then at G = 4, D = 64 and tail length 0; the timing rows of the
+    kernels line. The library yardstick is SDPA over each beam's concatenated
+    view [group prompt | tail | fresh] (int8: dequantized to bf16), the
+    concatenation not timed."""
+    import torch.nn.functional as F
+
+    from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
+
+    rows = {}
+    for int8, name, source, replaces in ((False, "decode_beam_attention", "lia_tpu_torch/csrc/beam_decode.cu",
+                                          "lia_tpu/ops/pallas_attention.py:813"),
+                                         (True, "decode_beam_attention_int8", "lia_tpu_torch/csrc/beam_decode_int8.cu",
+                                          "lia_tpu/ops/pallas_attention.py:992")):
+        for variant, kw in (("GQA G=4", dict(Nkv=N // 4)), ("D=64", dict(Dh=64)), ("tail 0", dict(tlen=0))):
+            kernel, plain, args = beam_case(ca, quantize_kv, randn, int8, **kw)
+            out, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            emit({"phase": "kernel_check", "kernel": name, "variant": variant, "max_abs_err": err, "tol": KERNEL_TOL})
+            check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL, f"{name} {variant}: max abs err {err}")
+        kernel, plain, args = beam_case(ca, quantize_kv, randn, int8)
+        out, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        q, kf, vf = args[:3]
+        B = q.shape[0]
+        group = torch.arange(B, device="cuda") // BEAM_NB
+        if int8:
+            kp, vp, kt, vt = (dequantize_kv(QuantizedKV(c[1], sc[1])) for c, sc in zip(args[3:11:2], args[4:11:2]))
+            row_bytes = D + 4  # int8 codes and an f32 scale
+        else:
+            kp, vp, kt, vt = (x[1] for x in args[3:7])
+            row_bytes = 2 * D
+        k_all = torch.cat([kp[group], kt, kf], dim=2)
+        v_all = torch.cat([vp[group], vt, vf], dim=2)
+        pm = args[-4]
+        T_max = kt.shape[2]
+        tail_ok = (torch.arange(T_max, device="cuda") < BEAM_TLEN)[None].expand(B, T_max)
+        amask = torch.cat([pm[group], tail_ok, torch.ones(B, 1, dtype=torch.bool, device="cuda")], 1)[:, None, None]
+        qt = q.transpose(1, 2)
+        prompt_keys = sum(BEAM_PROMPT - p for p in BEAM_PADS)  # read once per group
+        beam_keys = BEAM_NB * prompt_keys + B * BEAM_TLEN  # attended over all beams
+        nbytes = (prompt_keys + B * BEAM_TLEN) * N * row_bytes * 2 + 4 * q.numel() * 2 + pm.numel() + 8
+        rows[name] = dict(
+            source=source, replaces=replaces, max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            kernel=lambda kernel=kernel, args=args: kernel(*args), plain=lambda plain=plain, args=args: plain(*args),
+            library=lambda qt=qt, k_all=k_all, v_all=v_all, amask=amask: F.scaled_dot_product_attention(
+                qt, k_all, v_all, attn_mask=amask),
+            bound=bound(nbytes, 4 * D * N * (beam_keys + B)),
+        )
+        emit({"phase": "beam_bound", "kernel": name, "bytes": nbytes, "prompt_bytes": prompt_keys * N * row_bytes * 2,
+              "prompt_bytes_read_per_beam": BEAM_NB * prompt_keys * N * row_bytes * 2})
     return rows
 
 
@@ -1473,7 +1578,263 @@ def serving_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: parity
+# phase 7: beam search and scoring
+# ---------------------------------------------------------------------------
+
+
+def beam_state_bytes(cfg, kv: str, rows: int, slots: int, layers: int) -> int:
+    """Bytes of the K and V planes (int8: codes and f32 scales) of ``layers``
+    layers at ``rows`` rows and ``slots`` slots: what a beam shuffle rewrites."""
+    per_slot = cfg.head_dim * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+    return 2 * layers * rows * cfg.num_kv_heads * slots * per_slot
+
+
+# (name, KV, grouped, processors, timed, tiering (hbm_percentage, policies) or None)
+BEAM = [
+    ("beam-nb4", "none", True, False, True, None),
+    ("beam-nb4-int8kv", "int8", True, False, True, None),
+    ("beam-nb4-expanded", "none", False, False, False, None),
+    ("beam-nb4-proc", "none", True, True, False, None),
+    ("tier-h50-p3-beam", "none", True, False, False, (50, (3, 3))),
+    ("tier-h50-p0-beam", "none", False, False, False, (50, (0, 0))),
+]
+
+
+def beam_expected(cfg, kv: str, grouped: bool, n_res: int, names) -> dict:
+    """Kernel launches of one generate_beam, from the engine's code: the prompt
+    runs flash prefill once per layer (at B0 rows grouped, B0·nb expanded);
+    every decode step runs the beam kernel per layer (grouped, resident or
+    streamed), or, expanded, the fresh-merge kernel per resident layer (of
+    ``n_res``) and decode_attention per streamed layer on the card (policy 0)."""
+    L, steps = cfg.num_layers, NEW_TOKENS - 1
+    out = {name: 0 for name in names}
+    out["flash_attention_prefill"] = L
+    if grouped:
+        out["decode_beam_attention_int8" if kv == "int8" else "decode_beam_attention"] = L * steps
+        return out
+    out["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] = n_res * steps
+    out["decode_attention"] = (L - n_res) * steps
+    return out
+
+
+def beam_path(ca, cm, name: str, cfg, engine, prompts, kv: str, grouped: bool, proc: bool, timed: bool, tiering):
+    """One beam configuration through ``InferenceEngine.generate_beam``: counters
+    zeroed just before one run and read just after it, checked exactly; the
+    sequences' shape and vocabulary; with ``timed``, a warm-up and BEAM_RUNS
+    runs (median and all) of prefill ms and decode row-tokens/s (B0·nb rows ×
+    31 steps over the decode seconds, comparable with the b16 greedy cells).
+    Returns (launches, median wall seconds of a run)."""
+    from lia_tpu_torch.config import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, num_beams=BEAM_NB, eos_token_id=None,
+                           **(dict(repetition_penalty=1.2, no_repeat_ngram_size=3) if proc else {}))
+    rows = len(prompts) * BEAM_NB
+    if timed:
+        engine.generate_beam(prompts, gen, grouped=grouped)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate_beam(prompts, gen, grouped=grouped)
+    wall = [time.perf_counter() - t0]
+    launches = launch_counts(ca, cm)
+    peak = torch.cuda.max_memory_allocated()
+    n_res = cfg.num_layers if engine.scheduler is None else engine.scheduler.wm.n_resident
+    expected = beam_expected(cfg, kv, grouped, n_res, launches)
+    check(launches == expected, f"{name}: launches {launches} != expected {expected}")
+    seqs = res.sequences
+    check(seqs.shape == (len(prompts), NEW_TOKENS), f"{name}: sequences shape {seqs.shape}")
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{name}: token outside the vocabulary")
+    runs = [res.summary(rows)]
+    if timed:
+        for _ in range(BEAM_RUNS - 1):
+            t0 = time.perf_counter()
+            runs.append(engine.generate_beam(prompts, gen, grouped=grouped).summary(rows))
+            wall.append(time.perf_counter() - t0)
+    if grouped:  # the tails of every layer: [L, rows, N_kv, T_max, D]
+        t_max = -(-NEW_TOKENS // (128 if kv == "int8" else 32)) * (128 if kv == "int8" else 32)
+        reorder = beam_state_bytes(cfg, kv, rows, t_max, cfg.num_layers)
+    else:  # the whole cache, both segments (a host cache under policy 0)
+        bucket = 128 if kv == "int8" else 64
+        reorder = beam_state_bytes(cfg, kv, rows, -(-(max(map(len, prompts)) + NEW_TOKENS) // bucket) * bucket,
+                                   cfg.num_layers)
+    med = {}
+    for key, out_key, scale in (("first_token_latency_s", "prefill_ms", 1e3),
+                                ("decode_tokens_per_s", "decode_row_tokens_per_s", 1.0)):
+        vals = [r[key] * scale for r in runs]
+        med[out_key], med[out_key + "_runs"] = statistics.median(vals), vals
+    emit({"phase": "beam", "config": name, "model": cfg.name, "layers": cfg.num_layers, "kv": kv,
+          "grouped": grouped, "processors": proc, "tiering": tiering, "groups": len(prompts), "num_beams": BEAM_NB,
+          "prompts": [len(p) for p in prompts], "new_tokens": NEW_TOKENS, **med,
+          "wall_s": statistics.median(wall), "reorder_bytes_per_step": reorder, "peak_mem_gb": peak / 1e9,
+          "launches": launches})
+    return launches, statistics.median(wall)
+
+
+def score_path(ca, cm, name: str, cfg, engine, contexts, continuations):
+    """``loglikelihood`` of the records (a counted call, then a timed one):
+    finite, non-positive sums, one flash prefill per layer. Returns the sums."""
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    ll = engine.loglikelihood(contexts, continuations)
+    launches = launch_counts(ca, cm)
+    expected = {n: 0 for n in launches}
+    expected["flash_attention_prefill"] = cfg.num_layers
+    check(launches == expected, f"{name}: launches {launches} != expected {expected}")
+    check(ll.shape == (len(contexts),) and bool(np.isfinite(ll).all() and (ll <= 0).all()), f"{name}: sums {ll}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.loglikelihood(contexts, continuations)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "score", "config": name, "records": len(contexts), "context": len(contexts[0]),
+          "continuation": len(continuations[0]), "ms_per_call": ms, "loglikelihood": ll.tolist(),
+          "launches": launches})
+    return ll
+
+
+def beam_phase(ca, cm, cfg, prompts, tree):
+    """Every BEAM configuration at OPT-6.7B full width and depth (one fused bf16
+    tree on the card for the resident ones, the pageable host tree for the
+    tiered ones), then scoring, resident and tier-h50-p3. Returns (launches by
+    configuration, the median wall of beam-nb4, its prompts)."""
+    from lia_tpu_torch.config import QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    bprompts = [p[:n] for p, n in zip(prompts, BEAM_PROMPT_LENS)]
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=0))
+    launches, walls = {}, {}
+    for name, kv, grouped, proc, timed, tiering in BEAM:
+        if tiering is None:
+            engine = InferenceEngine(cfg, params, RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+        else:
+            engine = InferenceEngine(cfg, tree, tiered_runtime(kv, tiering[0], tiering[1], 1))
+            check((engine.scheduler.grouped_beam_ok) == grouped, f"{name}: grouped_beam_ok is not {grouped}")
+        launches[name], walls[name] = beam_path(ca, cm, name, cfg, engine, bprompts, kv, grouped, proc, timed, tiering)
+        del engine
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(7)
+    contexts = [p[:PROMPT] for p in prompts]
+    conts = rng.integers(2, cfg.vocab_size, (len(prompts), SCORE_CONT)).tolist()
+    resident = InferenceEngine(cfg, params, RuntimeConfig())
+    ll = score_path(ca, cm, "score", cfg, resident, contexts, conts)
+    del resident, params
+    torch.cuda.empty_cache()
+    tiered = InferenceEngine(cfg, tree, tiered_runtime("none", 50, (3, 3), 1))
+    ll_t = score_path(ca, cm, "score-tier-h50-p3", cfg, tiered, contexts, conts)
+    del tiered
+    torch.cuda.empty_cache()
+    diff = float(np.abs(ll - ll_t).max())
+    emit({"phase": "score_vs_tiered", "max_abs_diff": diff, "max_abs_ll": float(np.abs(ll).max())})
+    check(diff <= 1e-3 * float(np.abs(ll).max()), f"score: resident and tiered sums differ by {diff}")
+    return launches, walls["beam-nb4"], bprompts
+
+
+def beam_parity() -> None:
+    """OPT-6.7B width at 2 layers, one tree on both sides: a grouped beam cache
+    of 2 prompts × 4 beams, the prompt and 4 beam_decode_step calls on the card
+    (bf16, kernels) against the CPU (fp32, plain versions), every step's
+    tokens and tail shuffle (flat_src) the CPU run's, over bf16 and int8 KV;
+    then score_logprobs at the prompt's valid positions. Within PARITY_TOL."""
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine import beam as beam_mod
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg32 = cfg.replace(dtype="float32")
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    params32 = to_device(params, "cpu", torch.float32)
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), bool)
+    mask[1, :14] = False
+    tokens[1, :14] = 1
+    nb, n_steps = 4, 4
+    gen = GenerationConfig(num_beams=nb)
+
+    def run(device, c, p, dtype, kv, forced=None):
+        """Logits of the prompt and of each step, score_logprobs, and the steps'
+        (fed tokens, flat_src); ``forced`` replaces this run's own."""
+        with torch.inference_mode():
+            t = lambda x: torch.from_numpy(np.asarray(x)).to(device)  # noqa: E731
+            cache = kvc.init_cache(c, 2, 128, dtype, quantized=kv == "int8", device=device)
+            logits, cache = T.prefill(c, p, t(tokens), t(mask), cache)
+            cache = kvc.beam_cache_from_prefill(cache, nb, 8)
+            out = [logits.float().cpu()]
+            scores, finished = beam_mod.init_beam_state(2, nb, device)
+            tok, scores, finished, _ = beam_mod.beam_select(gen, c.vocab_size, logits.repeat_interleave(nb, 0),
+                                                            scores, finished)
+            pos = t(np.repeat(mask.sum(1), nb).astype(np.int32))[:, None]
+            feeds, srcs = [], []
+            for i in range(n_steps):
+                if forced is not None:
+                    tok = t(forced[0][i])
+                feeds.append(tok.cpu().numpy())
+                logits, cache = T.beam_decode_step(c, p, tok[:, None], pos + i, cache)
+                out.append(logits.float().cpu())
+                tok, scores, finished, src = beam_mod.beam_select(gen, c.vocab_size, logits, scores, finished)
+                if forced is not None:
+                    src = t(forced[1][i])
+                srcs.append(src.cpu().numpy())
+                cache = kvc.beam_tail_reorder(cache, src)
+            lp = T.score_logprobs(c, p, t(tokens), t(mask), kvc.init_cache(c, 2, 64, dtype, device=device))
+            return torch.cat(out), lp.float().cpu(), (feeds, srcs)
+
+    for kv in ("none", "int8"):
+        cpu, lp_cpu, picks = run("cpu", cfg32, params32, torch.float32, kv)
+        gpu, lp_gpu, _ = run("cuda", cfg, params, torch.bfloat16, kv, forced=picks)
+        err = (gpu - cpu).abs().max().item()
+        valid = torch.from_numpy(mask)[:, :, None]
+        lp_err = ((lp_gpu - lp_cpu).abs() * valid).max().item()
+        emit({"phase": "beam_parity", "kv": kv, "layers": 2, "groups": 2, "num_beams": nb, "prompt": 64,
+              "decode_steps": n_steps, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
+              "score_logprobs_max_abs_err": lp_err, "tol": PARITY_TOL,
+              "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
+        check(bool(torch.isfinite(gpu).all()), f"beam_parity {kv}: non-finite logits on the card")
+        check(err <= PARITY_TOL, f"beam_parity {kv}: max abs logit err {err} > {PARITY_TOL}")
+        check(lp_err <= PARITY_TOL, f"beam_parity {kv}: score_logprobs max abs err {lp_err} > {PARITY_TOL}")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+def beam_breakdown(ca, cfg, prompts, wall_s: float) -> None:
+    """Device time by kernel over one more beam-nb4 run under the profiler (the
+    weights made anew), and the idle share against the median wall time of
+    the unprofiled runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    engine = InferenceEngine(cfg, device_dummy_params(cfg, seed=0))
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, num_beams=BEAM_NB)
+    engine.generate_beam(prompts, gen)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.generate_beam(prompts, gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    emit({"phase": "device_breakdown", "config": "beam-nb4", "kv": "none", "device_busy_s": busy_s,
+          "wall_s": wall_s, "idle_share": 1 - busy_s / wall_s,
+          "top_kernels": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3}
+                          for e in top]})
+    del engine
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: parity
 # ---------------------------------------------------------------------------
 
 
@@ -1601,6 +1962,11 @@ def main() -> int:
     serving_parity()
     phase_time("serving")
 
+    beam_launches, beam_wall, beam_prompts = beam_phase(ca, cm, cfg, prompts, tree)
+    launches.update(beam_launches)
+    beam_parity()
+    phase_time("beam and score")
+
     # every profiler session comes after the timed runs
     for label, make, kv, _ in timed:
         device_breakdown(label, cfg, make, prompts, kv, walls[label])
@@ -1612,6 +1978,7 @@ def main() -> int:
             tiered_breakdown(name, engine, prompts)
             del engine
     del tree
+    beam_breakdown(ca, cfg, beam_prompts, beam_wall)
     phase_time("device breakdowns")
     kernel_times(rows)
     matmul_kernel_times(cm, quantize_act, mm_rows)
@@ -1624,7 +1991,8 @@ def main() -> int:
                 "w4a8_matmul": "w4a8+int8kv", "woq_matmul": "woq-int4-g128",
                 "woq4z_matmul": "gptq woq_int4z", "decode_attention": "tier-h50-p3",
                 "decode_attention_stacked": "tier-h50-p3",  # no reference path runs the stacked entry
-                "paged_decode_attention": "serve-paged", "flash_attention_cached": "serve-paged-chunk256"}
+                "paged_decode_attention": "serve-paged", "flash_attention_cached": "serve-paged-chunk256",
+                "decode_beam_attention": "beam-nb4", "decode_beam_attention_int8": "beam-nb4-int8kv"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[from_run[name]][name], "max_abs_err": r["max_abs_err"],

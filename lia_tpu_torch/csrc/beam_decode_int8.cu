@@ -1,0 +1,42 @@
+// Grouped-beam decode attention over one layer of an INT8 beam cache
+// (per-token f32 scales): the group's shared prompt plane, then this beam's
+// generated tail, then this step's fresh token, in one online softmax.
+//
+// Replaces lia_tpu/ops/pallas_attention.py:decode_beam_attention_int8
+// (_decode_beam_int8_kernel). The body is decode_int8_attn.cuh's kernel with
+// the beam key source and the fresh token already dequantized: the K scale
+// folds into the scores, s * (ks * scale*log2(e)); p * vs rounds to q's type
+// before P.V; the fresh token merges in fp32. plen, tlen and the prompt mask
+// are read on the device.
+//
+// What bounds it on an H100: bytes, the group prompt's int8 rows read once per
+// group plus each beam's tail rows, ~10 MB a launch at OPT-6.7B width with 4
+// groups of 4 beams over a 256-slot prompt (~3 us at 3.35 TB/s); blocks run
+// beams innermost so the L2 serves a group's repeated prompt reads. See
+// decode_int8_attn.cuh for the design.
+#include "decode_int8_attn.cuh"
+
+// kpq/kps/vpq/vps point at layer layer_idx of the stacked prompt cache [L, B0,
+// Nkv, S_p(, D)] and ktq/kts/vtq/vts at that layer of the tail [L, B, Nkv,
+// T_max(, D)] (the wrapper offsets them); kf/vf are the dequantized fresh K/V
+// [B, Nkv, 1, D] in q's type; prompt_mask is bool [B0, S_p]; prompt_len and
+// tail_len are int32 scalars on the device. B = B0 * nb. Returns a cudaError_t
+// value: 0 on a successful launch. D must be 64 or 128 and G = N / Nkv one of
+// 1, 2, 4, 8.
+extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* vf,
+                                    const void* kpq, const void* kps, const void* vpq,
+                                    const void* vps, const void* ktq, const void* kts,
+                                    const void* vtq, const void* vts, const void* prompt_mask,
+                                    const void* prompt_len, const void* tail_len, void* out,
+                                    int B, int nb, int N, int Nkv, int S_p, int T_max, int D,
+                                    float sscale, int is_bf16, void* stream) {
+  if (nb <= 0 || B % nb != 0 || S_p <= 0 || T_max <= 0) return (int)cudaErrorInvalidValue;
+  const lia_dec8::Keys keys{static_cast<const int8_t*>(kpq), static_cast<const float*>(kps),
+                            static_cast<const int8_t*>(vpq), static_cast<const float*>(vps),
+                            static_cast<const uint8_t*>(prompt_mask), S_p,
+                            static_cast<const int8_t*>(ktq), static_cast<const float*>(kts),
+                            static_cast<const int8_t*>(vtq), static_cast<const float*>(vts),
+                            T_max, nb, static_cast<const int*>(tail_len)};
+  return lia_dec8::dispatch<false, true>(q, kf, vf, keys, prompt_len, 0, out, B, N, Nkv, D, sscale,
+                                         is_bf16, stream);
+}

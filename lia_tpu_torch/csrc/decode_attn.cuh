@@ -1,8 +1,10 @@
 // Decode attention of one layer, bf16 (or fp32): the kernel body shared by
 // decode_fresh.cu (a contiguous cache plane, the fresh token merged last, the
 // cache read-only), decode.cu (the plane already holds the token, validity
-// includes it) and paged_decode.cu (a paged pool walked through a block table,
-// a fresh chunk of C tokens merged last with the causal triangle).
+// includes it), paged_decode.cu (a paged pool walked through a block table,
+// a fresh chunk of C tokens merged last with the causal triangle) and
+// beam_decode.cu (a beam's group prompt plane, then its own generated tail,
+// then the fresh token).
 //
 // Math, all in fp32: q is scaled by scale*log2(e), the valid keys go through
 // an online softmax in exp2 units, and, with FRESH, chunk row c merges the
@@ -10,14 +12,27 @@
 // so a row with no valid key and no fresh token comes out 0. Lengths are read
 // from device memory, so the caller never syncs with the host.
 //
-// Where the keys live is a template parameter, and only the key address
-// differs between the two:
-// - a plane [B, Nkv, S_max, D]: key t of (b, h) at ((b * Nkv + h) * S_max + t),
-//   validity [start, length), start = length - popcount(slot_mask[b]) counted
-//   on the device;
-// - a paged pool layer [nb, Nkv, bs, D]: key t of (b, h) at page
+// Where the keys live is a template parameter (SRC), and only the key address
+// differs between the three:
+// - kPlane, a plane [B, Nkv, S_max, D]: key t of (b, h) at ((b * Nkv + h) *
+//   S_max + t), validity [start, length), start = length - popcount(slot_mask[b])
+//   counted on the device;
+// - kPaged, a paged pool layer [nb, Nkv, bs, D]: key t of (b, h) at page
 //   table[b, t / bs], slot t % bs; validity [0, length). Pages past the
-//   frontier (the null page 0 in unused table entries) are never read.
+//   frontier (the null page 0 in unused table entries) are never read;
+// - kBeam, the grouped beam cache: one virtual key range [pstart_g, plen +
+//   tlen) over two planes. Key t < plen sits in the prompt plane [B0, Nkv, S_p,
+//   D] of the beam's group g = b / nb at ((g * Nkv + h) * S_p + t); key t >=
+//   plen in the beam's own tail [B0 * nb, Nkv, T_max, D] at ((b * Nkv + h) *
+//   T_max + t - plen). plen (the length pointer), tlen and the prompt mask are
+//   read on the device, pstart_g = plen - popcount(prompt_mask[g]). Blocks are
+//   launched beams innermost (blockIdx.x = b), so the nb beams of a group read
+//   the same prompt rows at about the same time and the L2 serves nb - 1 of
+//   every nb of those reads. A warp walks the prompt part of its chunk of the
+//   virtual range, then the tail part, each as a plane walk from its own base
+//   pointer, so a key's address is one offset as over a plane (choosing the
+//   plane per key held both planes' addresses live: 160 registers a thread
+//   against 96 in nvcc's sm_90a build, bf16, D = 128, G = 1).
 //
 // What bounds it on an H100: bytes. Each (batch row, kv head) streams its
 // valid K and V rows once and does 4 FLOP per byte. Design: one block per
@@ -38,48 +53,53 @@ namespace lia_dec {
 constexpr int NW = 4;  // warps per block
 constexpr int KT = 8;  // keys per warp step
 
-// The keys of one layer: a plane (slot_mask, S_max) or a paged pool layer
-// (table [B, P], page size bs).
+enum : int { kPlane = 0, kPaged = 1, kBeam = 2 };  // where the keys live (SRC)
+
+// The keys of one layer: a plane (slot_mask [B, S_max]), a paged pool layer
+// (table [B, P], page size bs) or the grouped beam cache (slot_mask: the
+// prompt mask [B0, S_p] with S_max = S_p; the tail planes kt/vt [B, Nkv,
+// T_max, D], nb beams a group, the tail length on the device).
 struct Keys {
   const uint8_t* slot_mask;
   int S_max;
   const int* table;
   int P, bs;
+  const void* kt;
+  const void* vt;
+  int T_max, nb;
+  const int* tail_len;
 };
 
-template <typename T, int D, int G, bool FRESH, bool PAGED>
+template <typename T, int D, int G, bool FRESH, int SRC>
 __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
               const T* __restrict__ kf,      // [B, Nkv, C, D] fresh keys (FRESH only)
               const T* __restrict__ vf,      // [B, Nkv, C, D] fresh values (FRESH only)
-              const T* __restrict__ kc,      // one layer's plane or pool layer
+              const T* __restrict__ kc,      // one layer's plane, pool layer or group prompt plane
               const T* __restrict__ vc,
               Keys keys,
               const int* __restrict__ lengths, int length_stride,  // [B] or scalar
               T* __restrict__ out,           // [B, C, N, D]
               int Nkv, int C, float sscale) {
   constexpr int DL = D / 32;  // dims per lane
-  const int h = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+  const int h = SRC == kBeam ? blockIdx.y : blockIdx.x;
+  const int b = SRC == kBeam ? blockIdx.x : blockIdx.y;
+  const int c = blockIdx.z;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int N = Nkv * G;
-  int start, length;
-  if constexpr (PAGED) {
+  int start, length, plen = 0;
+  if constexpr (SRC == kPaged) {
     length = min(max(lengths[b * length_stride], 0), keys.P * keys.bs);
     start = 0;
+  } else if constexpr (SRC == kBeam) {
+    const int g = b / keys.nb;
+    plen = min(max(lengths[0], 0), keys.S_max);
+    length = plen + min(max(*keys.tail_len, 0), keys.T_max);
+    start = max(plen - lia::block_count_true(keys.slot_mask + (size_t)g * keys.S_max, keys.S_max), 0);
   } else {
     length = min(max(lengths[b * length_stride], 0), keys.S_max);
     start = max(length - lia::block_count_true(keys.slot_mask + (size_t)b * keys.S_max, keys.S_max), 0);
   }
-  // element offset of key t's row
-  auto key_row = [&](int t) -> size_t {
-    if constexpr (PAGED) {
-      const int page = keys.table[(size_t)b * keys.P + t / keys.bs];
-      return (((size_t)page * Nkv + h) * keys.bs + t % keys.bs) * D;
-    } else {
-      return (((size_t)b * Nkv + h) * keys.S_max + t) * D;
-    }
-  };
-
   float qr[G][DL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -97,57 +117,79 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
     for (int e = 0; e < DL; ++e) acc[g][e] = 0.f;
   }
 
-  const int chunk = (length - start + NW - 1) / NW;
-  const int k0 = start + w * chunk, k1 = min(k0 + chunk, length);
-
-  for (int t0 = k0; t0 < k1; t0 += KT) {
-    float kx[KT][DL], vx[KT][DL];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      if (t0 + kk < k1) {
-        const size_t row = key_row(t0 + kk) + lane * DL;
-        lia::load_vec<DL>(kc + row, kx[kk]);
-        lia::load_vec<DL>(vc + row, vx[kk]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < DL; ++e) kx[kk][e] = vx[kk][e] = 0.f;
-      }
-    }
-    float s[G][KT];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
+  // the online softmax over keys [lo, hi), key t's K and V rows at kb/vb +
+  // row(t) (an element offset)
+  auto walk = [&](const T* __restrict__ kb, const T* __restrict__ vb, int lo, int hi, auto row) {
+    for (int t0 = lo; t0 < hi; t0 += KT) {
+      float kx[KT][DL], vx[KT][DL];
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        float part = 0.f;
+        if (t0 + kk < hi) {
+          const size_t r = row(t0 + kk) + lane * DL;
+          lia::load_vec<DL>(kb + r, kx[kk]);
+          lia::load_vec<DL>(vb + r, vx[kk]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < DL; ++e) part = fmaf(qr[g][e], kx[kk][e], part);
-        s[g][kk] = lia::warp_sum(part);
-      }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mt = LIA_NEG_INF;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        if (t0 + kk < k1) mt = fmaxf(mt, s[g][kk]);
-      const float m_new = fmaxf(m[g], mt);
-      const float alpha = exp2f(m[g] - m_new);
-      float psum = 0.f, pv[DL];
-#pragma unroll
-      for (int e = 0; e < DL; ++e) pv[e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        if (t0 + kk < k1) {
-          const float p = exp2f(s[g][kk] - m_new);
-          psum += p;
-#pragma unroll
-          for (int e = 0; e < DL; ++e) pv[e] = fmaf(p, vx[kk][e], pv[e]);
+          for (int e = 0; e < DL; ++e) kx[kk][e] = vx[kk][e] = 0.f;
         }
       }
-      l[g] = l[g] * alpha + psum;
+      float s[G][KT];
 #pragma unroll
-      for (int e = 0; e < DL; ++e) acc[g][e] = acc[g][e] * alpha + pv[e];
-      m[g] = m_new;
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < DL; ++e) part = fmaf(qr[g][e], kx[kk][e], part);
+          s[g][kk] = lia::warp_sum(part);
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mt = LIA_NEG_INF;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+          if (t0 + kk < hi) mt = fmaxf(mt, s[g][kk]);
+        const float m_new = fmaxf(m[g], mt);
+        const float alpha = exp2f(m[g] - m_new);
+        float psum = 0.f, pv[DL];
+#pragma unroll
+        for (int e = 0; e < DL; ++e) pv[e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          if (t0 + kk < hi) {
+            const float p = exp2f(s[g][kk] - m_new);
+            psum += p;
+#pragma unroll
+            for (int e = 0; e < DL; ++e) pv[e] = fmaf(p, vx[kk][e], pv[e]);
+          }
+        }
+        l[g] = l[g] * alpha + psum;
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc[g][e] = acc[g][e] * alpha + pv[e];
+        m[g] = m_new;
+      }
     }
+  };
+
+  const int chunk = (length - start + NW - 1) / NW;
+  const int k0 = start + w * chunk, k1 = min(k0 + chunk, length);
+  const auto plane_row = [](int t) -> size_t { return (size_t)t * D; };
+  if constexpr (SRC == kPaged) {
+    walk(kc, vc, k0, k1, [&](int t) -> size_t {
+      const int page = keys.table[(size_t)b * keys.P + t / keys.bs];
+      return (((size_t)page * Nkv + h) * keys.bs + t % keys.bs) * D;
+    });
+  } else if constexpr (SRC == kBeam) {
+    // this warp's prompt keys [k0, plen) of the group's plane, then its tail
+    // keys, tail slot t - plen of the beam's own plane
+    const size_t pb = ((size_t)(b / keys.nb) * Nkv + h) * keys.S_max * D;
+    const size_t tb = ((size_t)b * Nkv + h) * keys.T_max * D;
+    walk(kc + pb, vc + pb, k0, min(k1, plen), plane_row);
+    walk(static_cast<const T*>(keys.kt) + tb, static_cast<const T*>(keys.vt) + tb, max(k0, plen) - plen,
+         k1 - plen, plane_row);
+  } else {
+    const size_t pb = ((size_t)b * Nkv + h) * keys.S_max * D;
+    walk(kc + pb, vc + pb, k0, k1, plane_row);
   }
 
   __shared__ float sm_m[NW][G], sm_l[NW][G];
@@ -210,27 +252,27 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
   }
 }
 
-template <typename T, int D, int G, bool FRESH, bool PAGED>
+template <typename T, int D, int G, bool FRESH, int SRC>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
            Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv, int C,
            float sscale, cudaStream_t stream) {
-  dim3 grid(Nkv, B, C);
-  decode_kernel<T, D, G, FRESH, PAGED><<<grid, NW * 32, 0, stream>>>(
+  const dim3 grid = SRC == kBeam ? dim3(B, Nkv, C) : dim3(Nkv, B, C);
+  decode_kernel<T, D, G, FRESH, SRC><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
       static_cast<const T*>(kc), static_cast<const T*>(vc), keys,
       static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, C, sscale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool FRESH, bool PAGED>
+template <typename T, int D, bool FRESH, int SRC>
 int launch_g(int G, const void* q, const void* kf, const void* vf, const void* kc,
              const void* vc, Keys keys, const void* lengths, int length_stride, void* out, int B,
              int Nkv, int C, float sscale, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<T, D, 1, FRESH, PAGED>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 2: return launch<T, D, 2, FRESH, PAGED>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 4: return launch<T, D, 4, FRESH, PAGED>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 8: return launch<T, D, 8, FRESH, PAGED>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    case 1: return launch<T, D, 1, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    case 2: return launch<T, D, 2, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    case 4: return launch<T, D, 4, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    case 8: return launch<T, D, 8, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -238,19 +280,19 @@ int launch_g(int G, const void* q, const void* kf, const void* vf, const void* k
 // Type, head-dim and group dispatch. D must be 64 or 128, G = N / Nkv one of
 // 1, 2, 4, 8, and C >= 1 (1 over a plane); returns a cudaError_t value, 0 on
 // a successful launch.
-template <bool FRESH, bool PAGED>
+template <bool FRESH, int SRC>
 int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
              Keys keys, const void* lengths, int length_stride, void* out, int B, int C, int N,
              int Nkv, int D, float sscale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nkv <= 0 || N % Nkv != 0 || C < 1 || (!PAGED && C != 1)) return (int)cudaErrorInvalidValue;
+  if (Nkv <= 0 || N % Nkv != 0 || C < 1 || (SRC != kPaged && C != 1)) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv;
   if (is_bf16) {
-    if (D == 128) return launch_g<__nv_bfloat16, 128, FRESH, PAGED>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    if (D == 64) return launch_g<__nv_bfloat16, 64, FRESH, PAGED>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 128) return launch_g<__nv_bfloat16, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 64) return launch_g<__nv_bfloat16, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
   } else {
-    if (D == 128) return launch_g<float, 128, FRESH, PAGED>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    if (D == 64) return launch_g<float, 64, FRESH, PAGED>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 128) return launch_g<float, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 64) return launch_g<float, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -28,8 +28,8 @@ extern "C" int lia_paged_decode(const void* q, const void* kf, const void* vf, c
   if (P <= 0 || bs <= 0) return (int)cudaErrorInvalidValue;
   const lia_dec::Keys keys{nullptr, 0, static_cast<const int*>(table), P, bs};
   if (has_fresh)
-    return lia_dec::dispatch<true, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B,
+    return lia_dec::dispatch<true, lia_dec::kPaged>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B,
                                          C, N, Nkv, D, sscale, is_bf16, stream);
-  return lia_dec::dispatch<false, true>(q, nullptr, nullptr, kc, vc, keys, lengths, length_stride,
+  return lia_dec::dispatch<false, lia_dec::kPaged>(q, nullptr, nullptr, kc, vc, keys, lengths, length_stride,
                                         out, B, C, N, Nkv, D, sscale, is_bf16, stream);
 }

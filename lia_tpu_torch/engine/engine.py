@@ -16,14 +16,24 @@ Quantized weights come as an already-quantized tree (``quantize_params``,
 ``init_dummy_params(quant=...)``, a GPTQ checkpoint), as in the reference;
 the engine fuses and places it.
 
+The logits processors (repetition penalty, min-new-tokens, no-repeat-ngram)
+run in both decode loops, as the reference's: stepwise records each token in
+the processor state before the EOS pad replaces it, fused after.
+
+:meth:`InferenceEngine.generate_beam` is beam search (:mod:`.beam`): grouped
+by default (the prompt prefilled once per input into a shared cache, a
+per-beam tail, only the tail reordered) or expanded (``grouped=False``: nb
+rows a prompt, the whole cache reordered). :meth:`InferenceEngine.loglikelihood`
+and :meth:`InferenceEngine.score` are lm-eval's scoring.
+
 A tiering :class:`RuntimeConfig` (``hbm_percentage < 100``, ``stream_weights``
 or a policy other than 3) hands the tree to the tiered scheduler
 (:class:`lia_tpu_torch.runtime.scheduler.StreamingScheduler`): the first
 ``hbm_percentage``% of layers go to the device, the rest stay in pinned host
 memory and stream in layer by layer, and ``generate`` runs the scheduler's
 stepwise loop (``fused`` is ignored there, as in the reference; ``on_token``
-raises). Meshes, beam search, speculative decoding and the logits processors
-are not ported yet; asking for any of them raises.
+raises); beam search and scoring run the scheduler's passes too. Meshes and
+speculative decoding are not ported yet; asking for either raises.
 """
 
 from __future__ import annotations
@@ -42,16 +52,6 @@ from lia_tpu_torch.ops import sampling
 from lia_tpu_torch.ops.fuse import fuse_projections
 from lia_tpu_torch.utils.checkpoint import to_device
 from lia_tpu_torch.utils.metrics import LatencyStats
-
-
-def _needs_processors(gen: GenerationConfig) -> bool:
-    """True when per-step logits processors (repetition penalty /
-    min-new-tokens / no-repeat-ngram) must run."""
-    return (
-        gen.repetition_penalty != 1.0
-        or (gen.min_new_tokens > 0 and gen.eos_token_id is not None)
-        or gen.no_repeat_ngram_size > 0
-    )
 
 
 def bucket_length(n: int, minimum: int = 16) -> int:
@@ -165,12 +165,7 @@ class InferenceEngine:
         if on_token is not None and (fused or self.scheduler is not None):
             raise ValueError("on_token streaming needs the stepwise resident loop (fused=False, no tiered scheduler)")
         if gen.num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
-        if _needs_processors(gen):
-            raise NotImplementedError(
-                "logits processors (repetition penalty, min_new_tokens, no_repeat_ngram) "
-                "are not ported yet"
-            )
+            raise ValueError("use generate_beam() for num_beams > 1")
         cfg, dev = self.cfg, self.device
         tokens_np, mask_np = pack_prompts(prompts, gen.pad_token_id)
         B, S = tokens_np.shape
@@ -187,10 +182,19 @@ class InferenceEngine:
             cfg, B, max_len, torch_dtype(cfg.dtype),
             quantized=self.runtime.quant.kv_cache_dtype == "int8", device=dev,
         )
+        proc = sampling.processor_state(tokens, mask, gen, cfg.vocab_size)
+
+        def record(tok, cur_len):  # the processors' state takes the token (in place)
+            if proc is not None:
+                sampling.update_seen(proc[0], tok)
+                proc[1][:, cur_len] = tok
 
         t0 = time.perf_counter()
         logits, cache = T.prefill(cfg, self.params, tokens, mask, cache)
+        if proc is not None:
+            logits = sampling.process_logits(logits, gen, proc[0], 0, history=proc[1], cur_len=S)
         first = sampling.sample(logits, gen, generator)
+        record(first, S)
         first_host = first.cpu().numpy()
         lat.record(time.perf_counter() - t0)
         if on_token is not None:
@@ -201,12 +205,18 @@ class InferenceEngine:
         finished = first == eos if eos is not None else torch.zeros(B, dtype=torch.bool, device=dev)
         n_steps = gen.max_new_tokens - 1
 
-        def step(tok, pos, cache, finished):
-            logits, cache = T.decode_step(cfg, self.params, tok[:, None], pos[:, None], cache)
+        def step(tok, i, cache, finished):
+            logits, cache = T.decode_step(cfg, self.params, tok[:, None], (positions + i)[:, None], cache)
+            if proc is not None:
+                logits = sampling.process_logits(logits, gen, proc[0], i + 1, history=proc[1], cur_len=S + i + 1)
             nxt = sampling.sample(logits, gen, generator)
+            if not fused:  # the reference's stepwise loop records the token before the EOS pad
+                record(nxt, S + i + 1)
             if eos is not None:
                 nxt = torch.where(finished, torch.full_like(nxt, gen.pad_token_id), nxt)
                 finished = finished | (nxt == eos)
+            if fused:  # its fused loop, after
+                record(nxt, S + i + 1)
             return nxt, cache, finished
 
         if fused:
@@ -214,7 +224,7 @@ class InferenceEngine:
             tok = first
             t0 = time.perf_counter()
             for i in range(n_steps):
-                tok, cache, finished = step(tok, positions + i, cache, finished)
+                tok, cache, finished = step(tok, i, cache, finished)
                 toks[:, i] = tok
             rest = toks.cpu().numpy()  # the loop's one host sync
             dt = time.perf_counter() - t0
@@ -226,7 +236,7 @@ class InferenceEngine:
         tok = first
         for i in range(n_steps):
             t0 = time.perf_counter()
-            tok, cache, finished = step(tok, positions + i, cache, finished)
+            tok, cache, finished = step(tok, i, cache, finished)
             out.append(tok.cpu().numpy())
             lat.record(time.perf_counter() - t0)
             if on_token is not None:
@@ -234,3 +244,217 @@ class InferenceEngine:
             if eos is not None and bool(finished.all()):
                 break
         return GenerationResult(np.stack(out, axis=1), lat)
+
+    # -- beam search -----------------------------------------------------------
+
+    def _beam_proc(self, tokens: np.ndarray, mask: np.ndarray, gen: GenerationConfig):
+        """Per-beam processor state for beam_select, (seen, history, cur_len,
+        n_generated) over [B*nb, S] prompts, or None."""
+        state = sampling.processor_state(torch.from_numpy(tokens).to(self.device),
+                                         torch.from_numpy(mask).to(self.device), gen, self.cfg.vocab_size)
+        return None if state is None else (*state, tokens.shape[1], 0)
+
+    def _sync(self) -> None:
+        """Wait for the card (a stepwise loop's per-token latency)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate_beam(
+        self,
+        prompts: Sequence[Sequence[int]],
+        gen: GenerationConfig,
+        seed: int = 0,
+        grouped: Optional[bool] = None,
+    ) -> GenerationResult:
+        """Beam-search generation (the reference's _beam_search with its beam_idx
+        KV reorder). Returns the best beam per prompt.
+
+        ``grouped`` (the default) prefills each prompt ONCE, at B0 rows into
+        ``ceil(S/128)*128`` slots, into the shared prompt of a
+        :class:`~lia_tpu_torch.ops.kv_cache.BeamKVCache`; the beams' generated
+        tokens go into per-beam tails, and the per-step shuffle gathers only
+        the tails. ``grouped=False`` is the expanded path (nb rows a prompt,
+        the whole cache gathered each step), token for token the same. Under
+        the tiered scheduler the grouped path needs plans that keep KV on the
+        card; host-KV plans take the expanded path, as in the reference. The
+        resident decode runs on the device and syncs with the host once;
+        ``gen.do_sample`` draws the Gumbel noise from a generator seeded with
+        ``seed``."""
+        from lia_tpu_torch.engine import beam as beam_mod
+
+        nb = gen.num_beams
+        if nb < 1:
+            raise ValueError(f"num_beams must be >= 1, got {nb}")
+        cfg, dev = self.cfg, self.device
+        grouped = True if grouped is None else grouped
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        lat = LatencyStats()
+        if self.scheduler is not None:
+            return self._generate_beam_scheduled(prompts, gen, lat, generator,
+                                                 grouped and self.scheduler.grouped_beam_ok)
+        tokens_np, mask_np, etokens, emask, max_len = self._beam_prompts(prompts, gen, grouped)
+        B = len(prompts)
+        cache = kvc.init_cache(cfg, tokens_np.shape[0], max_len, torch_dtype(cfg.dtype),
+                               quantized=self.runtime.quant.kv_cache_dtype == "int8", device=dev)
+        proc = self._beam_proc(etokens, emask, gen)
+
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, self.params, torch.from_numpy(tokens_np).to(dev),
+                                  torch.from_numpy(mask_np).to(dev), cache)
+        if grouped:
+            cache = kvc.beam_cache_from_prefill(cache, nb, gen.max_new_tokens)
+            logits = logits.repeat_interleave(nb, dim=0)  # [B*nb, V] identical beam rows
+        # the first expansion, from the prompt's last token; as the reference's
+        # resident path, it does not divide by the temperature
+        scores, finished = beam_mod.init_beam_state(B, nb, dev)
+        first, scores, finished, src = beam_mod.beam_select(
+            gen.replace(temperature=1.0), cfg.vocab_size, logits, scores, finished, generator, proc)
+        if not grouped:
+            # grouped: the tail is still empty and the prompt is shared per
+            # group, so the first expansion needs no cache shuffle
+            kvc.beam_reorder(cache, src)
+        proc = beam_mod.reorder_proc(proc, src, first)
+        self._sync()
+        lat.record(time.perf_counter() - t0)
+
+        decoder = beam_mod.make_beam_decoder(cfg, gen, gen.max_new_tokens - 1)
+        positions = torch.from_numpy(emask.sum(1).astype(np.int32)).to(dev)  # [B*nb]
+        t0 = time.perf_counter()
+        history, scores = decoder(self.params, first, positions, cache, scores, finished, generator, proc)
+        history = history.cpu().numpy().reshape(B, nb, -1)  # the loop's one host sync
+        dt = time.perf_counter() - t0
+        for _ in range(gen.max_new_tokens - 1):
+            lat.record(dt / max(gen.max_new_tokens - 1, 1))
+        return GenerationResult(beam_mod.select_best(history, scores.cpu().numpy(), gen), lat)
+
+    def _beam_prompts(self, prompts, gen: GenerationConfig, grouped: bool):
+        """Packed prompts for beam search: grouped, one row a prompt and
+        ``ceil(S/128)*128`` prompt slots; expanded, nb rows a prompt and the
+        slot bucket over prompt + new tokens. Returns (tokens, mask, the
+        [B*nb, S] tokens and mask of the beam rows, cache slots)."""
+        nb = gen.num_beams
+        if grouped:
+            tokens, mask = pack_prompts(prompts, gen.pad_token_id)
+            S = tokens.shape[1]
+            return tokens, mask, np.repeat(tokens, nb, axis=0), np.repeat(mask, nb, axis=0), -(-S // 128) * 128
+        tokens, mask = pack_prompts([p for p in prompts for _ in range(nb)], gen.pad_token_id)
+        bucket = self._slot_bucket()
+        return tokens, mask, tokens, mask, -(-(tokens.shape[1] + gen.max_new_tokens) // bucket) * bucket
+
+    def _generate_beam_scheduled(self, prompts, gen: GenerationConfig, lat: LatencyStats,
+                                 generator: torch.Generator, grouped: bool) -> GenerationResult:
+        """Stepwise beam search over the scheduler's passes. Grouped: prefill at
+        B0 rows, both segment caches become beam caches, and each step's
+        shuffle gathers only their tails (``decode_pass_beam``,
+        ``reorder_state_beam``); expanded: prefill at B0*nb rows and the whole
+        of both caches gathered each step (``decode_pass``, ``reorder_state``),
+        the host cache included. The token history stays on the device."""
+        from lia_tpu_torch.engine import beam as beam_mod
+
+        cfg, dev, sched = self.cfg, self.device, self.scheduler
+        nb = gen.num_beams
+        tokens, mask, etokens, emask, max_len = self._beam_prompts(prompts, gen, grouped)
+        B = len(prompts)
+        proc = self._beam_proc(etokens, emask, gen)
+
+        def select(logits, scores, finished, proc):
+            return beam_mod.beam_select(gen, cfg.vocab_size, logits, scores, finished, generator, proc)
+
+        t0 = time.perf_counter()
+        logits, state = sched.prefill_pass(tokens, mask, max_len)
+        if grouped:
+            state = sched.beam_state_from_prefill(state, nb, gen.max_new_tokens)
+            logits = logits.repeat_interleave(nb, dim=0)
+        scores, finished = beam_mod.init_beam_state(B, nb, dev)
+        tok, scores, finished, src = select(logits, scores, finished, proc)
+        if not grouped:
+            state = sched.reorder_state(state, src)
+        proc = beam_mod.reorder_proc(proc, src, tok)
+        history = torch.full((B * nb, gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32, device=dev)
+        history[:, 0] = tok
+        self._sync()
+        lat.record(time.perf_counter() - t0)
+
+        decode = sched.decode_pass_beam if grouped else sched.decode_pass
+        reorder = sched.reorder_state_beam if grouped else sched.reorder_state
+        pos = torch.from_numpy(emask.sum(1).astype(np.int32)).to(dev)
+        for i in range(gen.max_new_tokens - 1):
+            t0 = time.perf_counter()
+            logits, state = decode(tok, pos, state)
+            tok, scores, finished, src = select(logits, scores, finished, proc)
+            state = reorder(state, src)
+            proc = beam_mod.reorder_proc(proc, src, tok)
+            history = history.index_select(0, src)
+            history[:, i + 1] = tok
+            self._sync()
+            lat.record(time.perf_counter() - t0)
+            pos = pos + 1
+        seqs = beam_mod.select_best(history.cpu().numpy().reshape(B, nb, -1), scores.cpu().numpy(), gen)
+        return GenerationResult(seqs, lat)
+
+    # -- scoring (the accuracy harness) ------------------------------------------
+
+    def _logprob_matrix(self, tokens: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """Per-position next-token log-probs [B, S, V] fp32 on the engine's
+        device: the resident pass over a bf16 cache of S slots, or the
+        scheduler's streamed scoring pass."""
+        B, S = tokens.shape
+        if self.scheduler is not None:
+            return self.scheduler.score_logprobs(tokens, mask, S)
+        cache = kvc.init_cache(self.cfg, B, S, torch_dtype(self.cfg.dtype), device=self.device)
+        return T.score_logprobs(self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
+                                torch.from_numpy(mask).to(self.device), cache)
+
+    def loglikelihood(
+        self,
+        contexts: Sequence[Sequence[int]],
+        continuations: Sequence[Sequence[int]],
+        pad_id: Optional[int] = None,
+    ) -> np.ndarray:
+        """Summed log-prob of each continuation given its context (lm-eval
+        ``loglikelihood``). Returns [B] float64; raises on a record with nothing
+        to score. Works under every placement policy."""
+        for b, (c, t) in enumerate(zip(contexts, continuations)):
+            if len(t) == 0:
+                raise ValueError(f"record {b}: empty continuation")
+            if len(c) == 0 and len(t) == 1:
+                # one unconditioned token has no previous position to score from
+                raise ValueError(f"record {b}: empty context with single-token continuation cannot be scored "
+                                 "(no conditioning position)")
+        return self.score(contexts, continuations, pad_id=pad_id)[0]
+
+    @torch.inference_mode()
+    def score(
+        self,
+        contexts: Sequence[Sequence[int]],
+        continuations: Sequence[Sequence[int]],
+        pad_id: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """lm-eval ``loglikelihood`` semantics: (summed log-prob, is_greedy) per
+        record; ``is_greedy`` is True when every continuation token is the
+        argmax next-token prediction. The log-probs of the continuation tokens
+        and the argmax at their positions are picked on the device, so only
+        those cross to the host (not [B, S, V] fp32); the sums then run in
+        float64 in the reference's order."""
+        pad_id = self.cfg.pad_token_id if pad_id is None else pad_id
+        full = [list(c) + list(t) for c, t in zip(contexts, continuations)]
+        tokens, mask = pack_prompts(full, pad_id)
+        B, S = tokens.shape
+        # (record, scoring position, token) of every scorable continuation token;
+        # continuations are right-aligned, token j of t at slot S - len(t) + j
+        picks = [(b, S - len(t) + j - 1, tok) for b, t in enumerate(continuations) for j, tok in enumerate(t)
+                 if S - len(t) + j >= 1]  # an empty context's first token has no position to score from
+        ll, greedy = np.zeros(B, np.float64), np.ones(B, bool)
+        if not picks:
+            return ll, greedy
+        lp = self._logprob_matrix(tokens, mask)
+        rows, cols, toks = (torch.tensor(x, device=lp.device) for x in zip(*picks))
+        at = lp[rows, cols]  # [n, V]
+        picked = at.gather(1, toks[:, None])[:, 0].cpu().numpy()
+        top = at.argmax(dim=-1).cpu().numpy()
+        for (b, _, tok), v, t in zip(picks, picked, top):
+            ll[b] += v
+            greedy[b] &= int(t) == int(tok)
+        return ll, greedy

@@ -1,7 +1,8 @@
 """Functional transformer decoder (port of ``lia_tpu/models/transformer.py``,
 the OPT main path: prefill, the fused-merge decode step, the per-layer
-write-then-attend decode layer that the tiered scheduler runs, and continuous
-batching's chunked prefill and ragged decode step).
+write-then-attend decode layer that the tiered scheduler runs, continuous
+batching's chunked prefill and ragged decode step, the grouped-beam decode
+step and the scoring pass).
 
 The model is a pure function over a parameter tree whose decoder layers are
 stacked ``[L, ...]``, as in the reference. Where the reference scans over the
@@ -35,7 +36,8 @@ from lia_tpu_torch.config import Activation, ModelConfig, Norm, torch_dtype
 from lia_tpu_torch.ops import attention as att
 from lia_tpu_torch.ops import kv_cache as kvc
 from lia_tpu_torch.ops.norms import layernorm, rmsnorm
-from lia_tpu_torch.ops.quant import is_quantized, matmul_f32, quantized_matmul
+from lia_tpu_torch.ops.quant import (QuantizedKV, dequantize_kv, is_quantized, is_quantized_kv, matmul_f32,
+                                     quantize_kv, quantized_matmul)
 
 Params = Dict[str, Any]
 
@@ -286,6 +288,13 @@ def prefill(cfg, params, tokens, input_mask, cache: kvc.KVCache) -> Tuple[torch.
     return lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
+def score_logprobs(cfg, params, tokens, input_mask, cache: kvc.KVCache) -> torch.Tensor:
+    """Per-position next-token log-probs for scoring (lm-eval loglikelihood):
+    [B, S, V] fp32, entry [b, t] scoring token[b, t + 1]."""
+    x, _ = run_prefill_layers(cfg, params, tokens, input_mask, cache)
+    return torch.log_softmax(lm_head(cfg, params, x).float(), dim=-1)
+
+
 def prefill_chunk(cfg, params, tokens, chunk_mask, cache: kvc.KVCache) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Run ONE chunk of a longer prompt against the existing cache: tokens and
     chunk_mask [B, C] (False only as a left-pad prefix of a first chunk, so
@@ -361,4 +370,53 @@ def decode_step_ragged(cfg, params, tokens, logical_pos, cache: kvc.KVCache, act
         cfg, params["layers"], x, cache.k, cache.v, cache.length, ctx, positions, cfg.num_layers
     )
     cache = kvc.advance_ragged(cache._replace(k=k_new, v=v_new), active)
+    return lm_head(cfg, params, x)[:, 0, :], cache
+
+
+def _stack_kv(parts):
+    """Per-layer fresh K or V [B, N_kv, 1, D] (tensors or QuantizedKV) → [L, ...]."""
+    if is_quantized_kv(parts[0]):
+        return QuantizedKV(torch.stack([p.q for p in parts]), torch.stack([p.s for p in parts]))
+    return torch.stack(parts)
+
+
+def beam_fresh_kv(k: torch.Tensor, v: torch.Tensor, quantized: bool, dtype):
+    """A beam layer's fresh K/V as the tail stores them and as attention sees
+    them: over an INT8 cache quantized first and dequantized to ``dtype``, so
+    attention sees exactly what later steps read back from the tail. Returns
+    (k stored, v stored, k attended, v attended)."""
+    if not quantized:
+        return k, v, k, v
+    kq, vq = quantize_kv(k), quantize_kv(v)
+    return kq, vq, dequantize_kv(kq, dtype), dequantize_kv(vq, dtype)
+
+
+def beam_decode_layers_scan(cfg, layers: Params, x, cache: kvc.BeamKVCache, positions, n_layers: int):
+    """All decode layers for one token over the grouped beam cache
+    (:class:`lia_tpu_torch.ops.kv_cache.BeamKVCache`), read-only inside the
+    loop: each layer attends over its group's prompt, its own tail and the
+    fresh token (:func:`lia_tpu_torch.ops.attention.attend_decode_beam`), and
+    one commit per step writes every layer's fresh K/V into the tail and
+    advances ``tail_len`` (:func:`lia_tpu_torch.ops.kv_cache.beam_commit_token`).
+    Returns (hidden, cache)."""
+    quantized = is_quantized_kv(cache.tail_k)
+    k_new, v_new = [], []
+    for idx in range(n_layers):
+        lp = layer_params(layers, idx)
+        residual = x
+        q, k, v = attn_in(cfg, lp, x, positions)
+        ks, vs, kf, vf = beam_fresh_kv(k, v, quantized, x.dtype)
+        attn_out = att.attend_decode_beam(q, kf, vf, cache, idx)
+        x = attn_post_mlp(cfg, lp, residual, attn_out)
+        k_new.append(ks)
+        v_new.append(vs)
+    return x, kvc.beam_commit_token(cache, _stack_kv(k_new), _stack_kv(v_new))
+
+
+def beam_decode_step(cfg, params, tokens, positions, cache: kvc.BeamKVCache) -> Tuple[torch.Tensor, kvc.BeamKVCache]:
+    """One beam decode step over the grouped cache: tokens/positions [B0*nb, 1]
+    → (logits [B0*nb, V] fp32, cache)."""
+    check_supported(cfg)
+    x = embed(cfg, params, tokens, positions)
+    x, cache = beam_decode_layers_scan(cfg, params["layers"], x, cache, positions, cfg.num_layers)
     return lm_head(cfg, params, x)[:, 0, :], cache

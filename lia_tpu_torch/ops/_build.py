@@ -49,6 +49,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_decode": {
         "lia_paged_decode": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, I, I, P],
     },
+    "beam_decode": {
+        "lia_beam_decode": [P] * 11 + [I] * 7 + [F, I, P],
+    },
+    "beam_decode_int8": {
+        "lia_beam_decode_int8": [P] * 15 + [I] * 7 + [F, I, P],
+    },
     "w4a8_matmul": {
         "lia_w4a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     },

@@ -6,10 +6,13 @@ replicated.
 
 :func:`attend` is the general masked golden model. The front doors
 :func:`attend_prefill`, :func:`attend_prefill_cached`,
-:func:`attend_decode_fresh` and :func:`attend_decode` go through the kernel
-wrappers of :mod:`lia_tpu_torch.ops.cuda_attention`: the CUDA kernel for a
-CUDA tensor, its plain version for a CPU tensor. ALiBi biases are not ported
-yet; the front doors raise when a context carries one.
+:func:`attend_decode_fresh`, :func:`attend_decode` and
+:func:`attend_decode_beam` go through the kernel wrappers of
+:mod:`lia_tpu_torch.ops.cuda_attention`: the CUDA kernel for a CUDA tensor,
+its plain version for a CPU tensor. ALiBi biases are not ported yet (ROADMAP
+A3); the front doors raise when given one. :func:`attend_decode_beam_golden`
+keeps the reference's fallback for the beam cache (the per-beam concatenated
+view through :func:`attend`) as the tests' golden side.
 
 :func:`attend_prefill_host` and :func:`attend_decode_host` are the tiered
 scheduler's host tier (policies 1, 2 and 4 place attention on the CPU): the
@@ -112,7 +115,7 @@ def decode_attn_ctx(slot_mask, length, window=None, bias=None) -> DecodeAttn:
 
 def _no_bias(bias) -> None:
     if bias is not None:
-        raise NotImplementedError("ALiBi attention biases are not ported yet")
+        raise NotImplementedError("ALiBi attention biases are not ported yet (ROADMAP A3)")
 
 
 def attend_prefill(q, k, v, ctx: PrefillAttn) -> torch.Tensor:
@@ -178,6 +181,54 @@ def attend_decode(q: torch.Tensor, k_cache, v_cache, ctx: DecodeAttn) -> torch.T
     if is_quantized_kv(k_cache):
         k_cache, v_cache = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
     return ca.decode_attention(q, k_cache, v_cache, ctx.slot_mask, ctx.length)
+
+
+def attend_decode_beam(
+    q: torch.Tensor,  # [B0*nb, 1, N, D]
+    k_fresh: torch.Tensor,  # [B0*nb, N_kv, 1, D] (head-major); over an INT8 cache, dequantized
+    v_fresh: torch.Tensor,
+    cache,  # lia_tpu_torch.ops.kv_cache.BeamKVCache
+    layer_idx: int,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Grouped-beam decode attention: the group's shared prompt plane ∪ this
+    beam's generated tail ∪ the fresh token, one online softmax, through the
+    ``decode_beam_attention`` kernel (``decode_beam_attention_int8`` over an
+    INT8 cache, whose fresh K/V the caller passes already dequantized, as the
+    reference does); their plain versions on the CPU. Per-group prompt starts
+    (``prompt_len - popcount(prompt_mask[g])``) are counted on the device."""
+    _no_bias(bias)
+    kp, vp, kt, vt = cache.prompt_k, cache.prompt_v, cache.tail_k, cache.tail_v
+    kf, vf = k_fresh.to(q.dtype), v_fresh.to(q.dtype)
+    lens = (cache.prompt_mask, cache.prompt_len, cache.tail_len, cache.nb)
+    if is_quantized_kv(kp):
+        return ca.decode_beam_attention_int8(q, kf, vf, kp.q, kp.s, vp.q, vp.s, kt.q, kt.s, vt.q, vt.s,
+                                             layer_idx, *lens)
+    return ca.decode_beam_attention(q, kf, vf, kp, vp, kt, vt, layer_idx, *lens)
+
+
+def attend_decode_beam_golden(q, k_fresh, v_fresh, cache, layer_idx: int) -> torch.Tensor:
+    """The reference's golden fallback for the beam cache: expand the prompt
+    per beam, concatenate [group prompt | own tail | fresh] and run
+    :func:`attend` over the prompt mask, the valid tail slots and the fresh
+    token (an INT8 cache dequantized to q's type first)."""
+    B = q.shape[0]
+    nb = cache.nb
+
+    def layer(plane):
+        if is_quantized_kv(plane):
+            return dequantize_kv(type(plane)(plane.q[layer_idx], plane.s[layer_idx]), q.dtype)
+        return plane[layer_idx]
+
+    group = torch.arange(B, device=q.device) // nb
+    kt = layer(cache.tail_k)
+    k_all = torch.cat([layer(cache.prompt_k)[group], kt, k_fresh.to(q.dtype)], dim=2)
+    v_all = torch.cat([layer(cache.prompt_v)[group], layer(cache.tail_v), v_fresh.to(q.dtype)], dim=2)
+    T_max = kt.shape[2]
+    tail_valid = (torch.arange(T_max, device=q.device) < cache.tail_len)[None, :].expand(B, T_max)
+    mask = torch.cat([cache.prompt_mask[group], tail_valid, torch.ones((B, 1), dtype=torch.bool, device=q.device)],
+                     dim=1)[:, None, :]
+    return attend(q, k_all, v_all, mask)
 
 
 def attend_prefill_host(q, k, v, ctx: PrefillAttn) -> torch.Tensor:

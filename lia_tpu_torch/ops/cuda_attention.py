@@ -13,7 +13,9 @@ Validity is a contiguous range per sequence, as in the TPU kernels: ``[start, S)
 for a left-padded prompt, ``[start, base + t]`` for chunk row t over a cache
 plane and ``[start, length)`` for decode over one, with ``start`` the end of the
 range minus ``popcount(mask)``; ``[0, length)`` over a paged pool, whose pages
-the kernel finds through the block table. The kernels count it on the device and
+the kernel finds through the block table; over the grouped beam cache, the
+group's prompt slots ``[pstart_g, plen)`` and then the beam's tail slots ``[0,
+tlen)``, with ``pstart_g = plen - popcount(prompt_mask[g])``. The kernels count it on the device and
 read ``length``, ``base`` and the block table from device memory, so a decode
 step or an admission never syncs with the host.
 """
@@ -121,20 +123,16 @@ def decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, le
     return decode_attention_plain(q, k_cache[layer_idx], v_cache[layer_idx], slot_mask, length, scale)
 
 
-def decode_attention_fresh_plain(
-    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
-):
-    """One query per sequence over cache[layer_idx][start, length) ∪ {fresh token},
-    all in fp32. q [B, 1, N, D]; fresh k/v [B, N_kv, 1, D];
-    cache [L, B, N_kv, S_max, D]; slot_mask [B, S_max]; length int, 0-dim or [B]."""
+def _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale):
+    """One query per sequence over the keys of k/v [B, N_kv, S, D] that
+    ``allow`` [B, S] marks, then the fresh token [B, N_kv, 1, D], all in fp32."""
     B, _, N, D = q.shape
-    _, _, Nkv, S_max, _ = k_cache.shape
+    Nkv = k.shape[1]
     G = N // Nkv
     qs = q.float().reshape(B, Nkv, G, D) * _sscale(scale, D)
-    kc = torch.cat([k_cache[layer_idx].float(), k_fresh.float()], dim=2)  # [B, Nkv, S+1, D]
-    vc = torch.cat([v_cache[layer_idx].float(), v_fresh.float()], dim=2)
+    kc = torch.cat([k.float(), k_fresh.float()], dim=2)  # [B, Nkv, S+1, D]
+    vc = torch.cat([v.float(), v_fresh.float()], dim=2)
     s = torch.einsum("bhgd,bhkd->bhgk", qs, kc)
-    allow = _cache_allow(slot_mask, length, S_max, q.device)
     allow = torch.cat([allow, torch.ones_like(allow[:, :1])], dim=1)
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -144,36 +142,107 @@ def decode_attention_fresh_plain(
     return out.reshape(B, 1, N, D).to(q.dtype)
 
 
-def decode_attention_fresh_int8_plain(
-    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None
-):
-    """:func:`decode_attention_fresh_plain` over an INT8 cache with per-token
-    scales: scores are dots of q's values with the codes, times ``ks * scale``;
-    probabilities times ``vs`` round to q's type before they meet the value
-    codes. The fresh k/v arrive unquantized and take their int8 round trip
-    (quantize, dequantize to q's type) first, so attention sees what later
-    steps read back from the cache; they merge in fp32."""
-    k_fresh = dequantize_kv(quantize_kv(k_fresh), q.dtype)
-    v_fresh = dequantize_kv(quantize_kv(v_fresh), q.dtype)
+def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
+    """One query per sequence over the int8 keys (codes [B, N_kv, S, D], scales
+    [B, N_kv, S]) that ``allow`` [B, S] marks, then the fresh token (values in
+    q's type): scores are dots of q's values with the codes, times ``ks *
+    scale``; probabilities times ``vs`` round to q's type before they meet the
+    value codes; the fresh token merges in fp32."""
     B, _, N, D = q.shape
-    _, _, Nkv, S_max, _ = kq.shape
+    Nkv = kq.shape[1]
     G = N // Nkv
     sscale = _sscale(scale, D)
     qt = q.float().reshape(B, Nkv, G, D)
-    s = torch.einsum("bhgd,bhkd->bhgk", qt, kq[layer_idx].float())
-    s = s * (ks[layer_idx] * sscale)[:, :, None, :]
-    allow = _cache_allow(slot_mask, length, S_max, q.device)
+    s = torch.einsum("bhgd,bhkd->bhgk", qt, kq.float())
+    s = s * (ks * sscale)[:, :, None, :]
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     sf = torch.einsum("bhgd,bhd->bhg", qt * sscale, k_fresh.float()[:, :, 0])[..., None]
     m = torch.maximum(s.amax(dim=-1, keepdim=True), sf)
     p = torch.exp2(s - m)
     pf = torch.exp2(sf - m)
     l = p.sum(dim=-1, keepdim=True) + pf
-    pw = (p * vs[layer_idx][:, :, None, :]).to(q.dtype).float()
-    acc = torch.einsum("bhgk,bhkd->bhgd", pw, vq[layer_idx].float())
+    pw = (p * vs[:, :, None, :]).to(q.dtype).float()
+    acc = torch.einsum("bhgk,bhkd->bhgd", pw, vq.float())
     acc = acc + pf * v_fresh.float()[:, :, 0][:, :, None, :]
     out = acc / l.clamp(min=1e-30)
     return out.reshape(B, 1, N, D).to(q.dtype)
+
+
+def decode_attention_fresh_plain(
+    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
+):
+    """One query per sequence over cache[layer_idx][start, length) ∪ {fresh token},
+    all in fp32. q [B, 1, N, D]; fresh k/v [B, N_kv, 1, D];
+    cache [L, B, N_kv, S_max, D]; slot_mask [B, S_max]; length int, 0-dim or [B]."""
+    allow = _cache_allow(slot_mask, length, k_cache.shape[3], q.device)
+    return _fresh_merge_plain(q, k_fresh, v_fresh, k_cache[layer_idx], v_cache[layer_idx], allow, scale)
+
+
+def decode_attention_fresh_int8_plain(
+    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None
+):
+    """:func:`decode_attention_fresh_plain` over an INT8 cache with per-token
+    scales (the arithmetic of :func:`_int8_merge_plain`). The fresh k/v arrive
+    unquantized and take their int8 round trip (quantize, dequantize to q's
+    type) first, so attention sees what later steps read back from the cache."""
+    k_fresh = dequantize_kv(quantize_kv(k_fresh), q.dtype)
+    v_fresh = dequantize_kv(quantize_kv(v_fresh), q.dtype)
+    allow = _cache_allow(slot_mask, length, kq.shape[3], q.device)
+    return _int8_merge_plain(q, k_fresh, v_fresh, kq[layer_idx], ks[layer_idx], vq[layer_idx], vs[layer_idx],
+                             allow, scale)
+
+
+def _check_beams(B: int, B0: int, nb: int) -> None:
+    if nb < 1 or B != B0 * nb:
+        raise ValueError(f"{B} beam rows are not {B0} groups of nb = {nb} beams (nb must divide the batch)")
+
+
+def _beam_allow(prompt_mask, prompt_len, tail_len, nb: int, T_max: int, device):
+    """Validity [B0 * nb, S_p + T_max] of a beam's keys: its group's prompt
+    slots [pstart_g, plen), pstart_g = plen - popcount(prompt_mask[g]), then
+    its tail slots [0, tlen)."""
+    B0, S_p = prompt_mask.shape
+    plen = _lengths(prompt_len, device).clamp(0, S_p)
+    tlen = _lengths(tail_len, device).clamp(0, T_max)
+    pstart = (plen - prompt_mask.to(torch.int32).sum(dim=1)).clamp(min=0)
+    pos = torch.arange(S_p, device=device)[None, :]
+    allow_p = ((pos >= pstart[:, None]) & (pos < plen)).repeat_interleave(nb, dim=0)
+    allow_t = (torch.arange(T_max, device=device) < tlen)[None, :].expand(B0 * nb, T_max)
+    return torch.cat([allow_p, allow_t], dim=1)
+
+
+def decode_beam_attention_plain(
+    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None
+):
+    """Grouped-beam decode attention, all in fp32: beam b's query [B, 1, N, D]
+    over layer ``layer_idx`` of its group's prompt plane (kp/vp [L, B0, N_kv,
+    S_p, D], group b // nb, slots [pstart_g, plen)), then its own tail
+    (kt/vt [L, B, N_kv, T_max, D], slots [0, tlen)), then the fresh token
+    [B, N_kv, 1, D]. prompt_mask [B0, S_p] bool; prompt_len and tail_len
+    scalars. B = B0 * nb."""
+    _check_beams(q.shape[0], kp.shape[1], nb)
+    allow = _beam_allow(prompt_mask, prompt_len, tail_len, nb, kt.shape[3], q.device)
+    k = torch.cat([kp[layer_idx].repeat_interleave(nb, dim=0), kt[layer_idx]], dim=2)
+    v = torch.cat([vp[layer_idx].repeat_interleave(nb, dim=0), vt[layer_idx]], dim=2)
+    return _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale)
+
+
+def decode_beam_attention_int8_plain(
+    q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len, tail_len,
+    nb, scale=None,
+):
+    """:func:`decode_beam_attention_plain` over INT8 prompt and tail planes
+    (codes [L, ·, N_kv, S, D], per-token scales [L, ·, N_kv, S]) with the
+    arithmetic of :func:`_int8_merge_plain`; the fresh k/v arrive already
+    dequantized to q's type."""
+    _check_beams(q.shape[0], kpq.shape[1], nb)
+    allow = _beam_allow(prompt_mask, prompt_len, tail_len, nb, ktq.shape[3], q.device)
+
+    def keys(prompt, tail):
+        return torch.cat([prompt[layer_idx].repeat_interleave(nb, dim=0), tail[layer_idx]], dim=2)
+
+    return _int8_merge_plain(q, k_fresh, v_fresh, keys(kpq, ktq), keys(kps, kts), keys(vpq, vtq),
+                             keys(vps, vts), allow, scale)
 
 
 def paged_decode_attention_plain(
@@ -465,6 +534,97 @@ def decode_attention_fresh_int8(
     return out
 
 
+def _beam_checks(q, k_fresh, v_fresh, prompt_shape, tail_shape, prompt_mask, lens, nb):
+    """q [B, 1, N, D] and the fresh k/v against a stacked prompt cache [L, B0,
+    N_kv, S_p, D] and tail [L, B, N_kv, T_max, D]."""
+    B, one, N, D = q.shape
+    L, B0, Nkv, S_p, Dp = prompt_shape
+    _check_beams(B, B0, nb)
+    if one != 1 or Dp != D or len(tail_shape) != 5 or tuple(tail_shape) != (L, B, Nkv, tail_shape[3], D):
+        raise ValueError(f"q {tuple(q.shape)}, prompt {tuple(prompt_shape)} and tail {tuple(tail_shape)} do not match")
+    if prompt_mask.shape != (B0, S_p) or prompt_mask.dtype is not torch.bool:
+        raise ValueError("prompt_mask must be [B0, S_p] bool")
+    if k_fresh.shape != (B, Nkv, 1, D) or v_fresh.shape != k_fresh.shape:
+        raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
+    if any(t.ndim for t in lens):
+        raise ValueError("prompt_len and tail_len must be scalars")
+    if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
+        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+
+
+def decode_beam_attention(
+    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None
+):
+    """Grouped-beam decode attention (B = B0 * nb beams): beam b's query over
+    layer ``layer_idx`` of its group's prompt plane, its own tail and the fresh
+    token. The stacked caches are read in place at the layer's offset;
+    ``prompt_len``, ``tail_len`` and the prompt mask are read on the device."""
+    if q.device.type == "cpu":
+        return decode_beam_attention_plain(
+            q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale
+        )
+    from lia_tpu_torch.ops import _build
+
+    B, _, N, D = q.shape
+    q, k_fresh, v_fresh = q.contiguous(), k_fresh.contiguous(), v_fresh.contiguous()
+    plen, tlen = _lengths(prompt_len, q.device), _lengths(tail_len, q.device)
+    stream = _stream(q, k_fresh, v_fresh, kp, vp, kt, vt, prompt_mask, plen, tlen)
+    is_bf16 = _float_kind(q, k_fresh, v_fresh, kp, vp, kt, vt)
+    if kp.dim() != 5 or vp.shape != kp.shape or vt.shape != kt.shape:
+        raise ValueError(f"prompt and tail caches must be [L, ·, N_kv, S, D] pairs, got {tuple(kp.shape)}, "
+                         f"{tuple(vp.shape)}, {tuple(kt.shape)}, {tuple(vt.shape)}")
+    _beam_checks(q, k_fresh, v_fresh, kp.shape, kt.shape, prompt_mask, (plen, tlen), nb)
+    Nkv, S_p, T_max = kp.shape[2], kp.shape[3], kt.shape[3]
+    out = torch.empty_like(q)
+    rc = _build.library("beam_decode").lia_beam_decode(
+        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
+        _layer_ptr(kp, layer_idx), _layer_ptr(vp, layer_idx), _layer_ptr(kt, layer_idx), _layer_ptr(vt, layer_idx),
+        prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
+        B, nb, N, Nkv, S_p, T_max, D, _sscale(scale, D), is_bf16, stream,
+    )
+    _raise_on(rc, "decode_beam_attention")
+    decode_beam_attention.launches += 1
+    return out
+
+
+def decode_beam_attention_int8(
+    q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len, tail_len,
+    nb, scale=None,
+):
+    """Grouped-beam decode attention over INT8 prompt and tail caches (codes
+    int8 [L, ·, N_kv, S, D], scales f32 [L, ·, N_kv, S]). The fresh k/v come
+    already dequantized, in q's type."""
+    if q.device.type == "cpu":
+        return decode_beam_attention_int8_plain(
+            q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len,
+            tail_len, nb, scale,
+        )
+    from lia_tpu_torch.ops import _build
+
+    B, _, N, D = q.shape
+    q, k_fresh, v_fresh = q.contiguous(), k_fresh.contiguous(), v_fresh.contiguous()
+    plen, tlen = _lengths(prompt_len, q.device), _lengths(tail_len, q.device)
+    stream = _stream(q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, prompt_mask, plen, tlen)
+    is_bf16 = _float_kind(q, k_fresh, v_fresh)
+    for codes, sc in ((kpq, kps), (vpq, vps), (ktq, kts), (vtq, vts)):
+        if codes.dtype is not torch.int8 or sc.dtype is not torch.float32 or sc.shape != codes.shape[:-1]:
+            raise ValueError("codes must be int8 [L, ·, N_kv, S, D] and scales float32 [L, ·, N_kv, S]")
+    if kpq.dim() != 5 or vpq.shape != kpq.shape or vtq.shape != ktq.shape:
+        raise ValueError("prompt and tail caches must be [L, ·, N_kv, S, D] pairs")
+    _beam_checks(q, k_fresh, v_fresh, kpq.shape, ktq.shape, prompt_mask, (plen, tlen), nb)
+    Nkv, S_p, T_max = kpq.shape[2], kpq.shape[3], ktq.shape[3]
+    out = torch.empty_like(q)
+    rc = _build.library("beam_decode_int8").lia_beam_decode_int8(
+        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
+        *(_layer_ptr(t, layer_idx) for t in (kpq, kps, vpq, vps, ktq, kts, vtq, vts)),
+        prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
+        B, nb, N, Nkv, S_p, T_max, D, _sscale(scale, D), is_bf16, stream,
+    )
+    _raise_on(rc, "decode_beam_attention_int8")
+    decode_beam_attention_int8.launches += 1
+    return out
+
+
 def paged_decode_attention(
     q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None
 ):
@@ -514,6 +674,7 @@ def paged_decode_attention(
 KERNELS = (
     flash_attention_prefill, decode_attention_fresh, decode_attention_fresh_int8,
     decode_attention, decode_attention_stacked, flash_attention_cached, paged_decode_attention,
+    decode_beam_attention, decode_beam_attention_int8,
 )
 for _fn in KERNELS:
     _fn.launches = 0

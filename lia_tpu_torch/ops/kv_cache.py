@@ -1,4 +1,5 @@
-"""Preallocated KV cache (port of ``lia_tpu/ops/kv_cache.py``, the slab cache).
+"""Preallocated KV cache (port of ``lia_tpu/ops/kv_cache.py``: the slab cache
+and the grouped beam cache).
 
 Layout as in the reference: a stacked ``[L, B, N_kv, S_max, D]`` cache, head-major
 so that each head's ``[S_max, D]`` plane is contiguous, plus a ``[B, S_max]`` slot
@@ -6,9 +7,11 @@ validity mask and a scalar length.
 
 Unlike the reference, whose arrays are immutable (XLA aliases the buffer under
 donation), every write here is **in place**: :func:`update_layer`,
-:func:`write_token_all`, :func:`advance`, :func:`advance_ragged` and
-:func:`insert_slot` modify the cache tensors they are given, and return them (or
-the cache) only for symmetry with the reference. ``length`` is an int32 tensor
+:func:`write_token_all`, :func:`write_token`, :func:`advance`,
+:func:`advance_ragged`, :func:`insert_slot` and the beam reorders modify the
+cache tensors they are given, and return them (or the cache) only for symmetry
+with the reference. A reorder gathers into a temporary and copies it back, so
+every buffer keeps its address (and a pinned host cache stays pinned). ``length`` is an int32 tensor
 on the cache's device, 0-dim for an aligned batch or [B] for continuous
 batching (each row its own length), and write offsets are computed from it on
 the device, so a decode step never syncs with the host.
@@ -140,6 +143,14 @@ def update_layer(
     return _write(k_layer, new_k, start, 2), _write(v_layer, new_v, start, 2)
 
 
+def write_token(plane_full: Any, new: Any, layer_idx: int, start: Offset) -> Any:
+    """Write one layer's fresh K or V [B, N_kv, S_new, D] into layer
+    ``layer_idx`` of the stacked cache [L, B, N_kv, S_max, D] at ``start``
+    (uniform or [B]), in place: only the S_new slots move."""
+    _write(index_layer_kv(plane_full, layer_idx), new, start, 2)
+    return plane_full
+
+
 def write_token_all(plane_full: Any, new_stack: Any, start: Offset) -> Any:
     """Write ONE decode step's fresh K or V for ALL layers at once, in place.
 
@@ -177,3 +188,93 @@ def insert_slot(cache: KVCache, seg: KVCache, slot: int) -> KVCache:
     cache.mask[slot].copy_(seg.mask[0])
     cache.length[slot].copy_(seg.length)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+
+def _gather_(plane: Any, idx: torch.Tensor, dim: int) -> None:
+    """Rows ``idx`` of ``plane`` (a tensor or each part of a QuantizedKV) along
+    ``dim``, in place: gathered into a temporary, then copied back, so the
+    buffer keeps its address, and a pinned host tensor stays pinned (an
+    index_select of one is pageable)."""
+    for t in (plane if is_quantized_kv(plane) else (plane,)):
+        t.copy_(t.index_select(dim, idx.to(t.device)))
+
+
+def beam_reorder(cache: KVCache, beam_idx: torch.Tensor) -> KVCache:
+    """Reorder the batch axis by ``beam_idx`` [B] (the beam-search hypothesis
+    shuffle), in place: the whole cache (planes and mask), O(cache) traffic a
+    step. The expanded beam path and the scheduler's host-KV plans use it; the
+    grouped path gathers only the generated tail (:func:`beam_tail_reorder`)."""
+    _gather_(cache.k, beam_idx, 1)
+    _gather_(cache.v, beam_idx, 1)
+    _gather_(cache.mask, beam_idx, 0)
+    return cache
+
+
+class BeamKVCache(NamedTuple):
+    """Grouped beam-search cache: the prompt's KV is stored ONCE per input group
+    and shared (read-only) by its ``nb`` beams; only the generated tail is
+    per-beam, so the per-step shuffle gathers the tail alone.
+
+    ``prompt_k``/``prompt_v``: [L, B0, N_kv, S_p, D] (tensor or QuantizedKV),
+    the prefilled slab itself; ``prompt_len``: 0-dim int32 (the bucketed
+    prompt length); ``prompt_mask``: [B0, S_p] validity (left-padded prompts);
+    ``tail_k``/``tail_v``: [L, B0 * nb, N_kv, T_max, D]; ``tail_len``: 0-dim
+    int32, generated tokens committed so far (tail slots [0, tail_len) are
+    valid for every beam); ``nb``: the beam width, a plain field.
+    """
+
+    prompt_k: Any
+    prompt_v: Any
+    prompt_len: torch.Tensor
+    prompt_mask: torch.Tensor
+    tail_k: Any
+    tail_v: Any
+    tail_len: torch.Tensor
+    nb: int
+
+
+def beam_cache_from_prefill(cache: KVCache, nb: int, max_new_tokens: int) -> BeamKVCache:
+    """A grouped beam cache from a group-level prefill cache (batch B0): the
+    prefilled slab becomes the shared prompt as it is (no copy), and a zeroed
+    tail of B0 * nb rows is allocated beside it. Tails round to 32 slots (bf16)
+    or 128 (int8), the reference's buckets, so caches convert one-to-one."""
+    quantized = is_quantized_kv(cache.k)
+    bucket = 128 if quantized else 32
+    t_max = -(-max_new_tokens // bucket) * bucket
+    L, B0, Nkv, _, D = cache.k.shape
+    shape = (L, B0 * nb, Nkv, t_max, D)
+    dev = cache.mask.device
+
+    def tail():
+        if quantized:
+            return QuantizedKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                               torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+        return torch.zeros(shape, dtype=cache.k.dtype, device=dev)
+
+    return BeamKVCache(
+        prompt_k=cache.k, prompt_v=cache.v, prompt_len=cache.length, prompt_mask=cache.mask,
+        tail_k=tail(), tail_v=tail(), tail_len=torch.zeros((), dtype=torch.int32, device=dev), nb=nb,
+    )
+
+
+def beam_tail_reorder(cache: BeamKVCache, flat_src: torch.Tensor) -> BeamKVCache:
+    """The beam shuffle over the grouped cache: gather ONLY the generated tail
+    by ``flat_src`` [B0 * nb], in place. ``flat_src`` stays within each group
+    (``flat_src[b] // nb == b // nb``), so the shared prompt needs no touch."""
+    _gather_(cache.tail_k, flat_src, 1)
+    _gather_(cache.tail_v, flat_src, 1)
+    return cache
+
+
+def beam_commit_token(cache: BeamKVCache, k_stack: Any, v_stack: Any) -> BeamKVCache:
+    """Commit one decode step's fresh K/V for all layers ([L, B, N_kv, 1, D],
+    tensors or QuantizedKV) into the tail at ``tail_len`` (in place), and
+    advance ``tail_len``: the beam analog of :func:`write_token_all`."""
+    write_token_all(cache.tail_k, k_stack, cache.tail_len)
+    write_token_all(cache.tail_v, v_stack, cache.tail_len)
+    return cache._replace(tail_len=cache.tail_len + 1)

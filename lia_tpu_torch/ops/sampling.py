@@ -1,10 +1,13 @@
-"""Token selection: greedy, temperature, top-k, top-p, for a batch and per row
-(port of the per-step functions of ``lia_tpu/ops/sampling.py``).
+"""Token selection: greedy, temperature, top-k, top-p, for a batch and per row,
+and the logits processors (port of the per-step functions of
+``lia_tpu/ops/sampling.py``).
 
 Random draws take an explicit ``torch.Generator``. It gives other numbers than
 ``jax.random`` from the same seed, so the tests compare warped probabilities,
-not draws. The logits processors (repetition penalty, min-new-tokens,
-no-repeat-ngram) are not ported yet.
+not draws. The processors (repetition penalty, min-new-tokens, no-repeat-ngram:
+HF's LogitsProcessorList) run on the device with no host sync; their state is
+a [B, V] token-presence mask and a [B, L] token history. Serving's per-row
+processors are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,6 +70,100 @@ def sample_per_row(
     probs = torch.softmax(warp_logits_rows(logits, temperature, top_k, top_p), dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
     return torch.where(greedy_row, greedy(logits), sampled)
+
+
+def seen_from_prompt(tokens: torch.Tensor, mask: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, S] prompt (+ [B, S] validity) → [B, V] bool token-presence mask (the
+    state RepetitionPenaltyLogitsProcessor derives from input_ids). Pads and ids
+    outside the vocabulary land in a trash column, as the reference's scatter
+    into a V+1-wide buffer."""
+    B = tokens.shape[0]
+    ids = tokens.long()
+    safe = torch.where(mask & (ids >= 0) & (ids < vocab), ids, vocab)
+    seen = torch.zeros((B, vocab + 1), dtype=torch.bool, device=tokens.device)
+    seen.scatter_(1, safe, True)
+    return seen[:, :vocab].contiguous()
+
+
+def update_seen(seen: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Mark [B] freshly generated tokens as seen, in place."""
+    seen[torch.arange(seen.shape[0], device=seen.device), tok.long()] = True
+    return seen
+
+
+def ban_repeated_ngrams(logits: torch.Tensor, history: torch.Tensor, cur_len: int, n: int) -> torch.Tensor:
+    """HF NoRepeatNGramLogitsProcessor: ban (set to NEG_INF) every token that
+    would complete an n-gram already present in ``history[:, :cur_len]``
+    ([B, L] ids, prompt pads included as HF scans the raw ids). ``cur_len`` is
+    a host int, so the step keeps no host sync. ``n == 1`` bans every token
+    seen so far (HF's edge case)."""
+    B, L = history.shape
+    if L < n:
+        return logits
+    dev = history.device
+    if n == 1:
+        match = (torch.arange(L, device=dev) < cur_len)[None, :].expand(B, L)
+        banned = history
+    else:
+        W = L - n + 1
+        windows = torch.stack([history[:, i : W + i] for i in range(n - 1)], dim=-1)  # [B, W, n-1]
+        st = min(max(cur_len - (n - 1), 0), L - (n - 1))  # clamped, as dynamic_slice
+        tail = history[:, st : st + n - 1]  # the last n-1 tokens
+        starts = torch.arange(W, device=dev)
+        valid = starts + n - 1 < cur_len  # the window's completing token must exist
+        match = (windows == tail[:, None, :]).all(dim=-1) & valid[None, :]
+        banned = history[:, n - 1 :]  # history[:, starts + n - 1]
+    V = logits.shape[-1]
+    ids = banned.long()
+    ids = torch.where((ids >= 0) & (ids < V), ids, V)  # out-of-range ids drop into a trash column
+    fill = torch.where(match, NEG_INF, float("inf")).to(torch.float32)
+    mask = torch.full((B, V + 1), float("inf"), dtype=torch.float32, device=dev)
+    mask.scatter_reduce_(1, ids, fill, reduce="amin")
+    return torch.where(mask[:, :V] <= NEG_INF, torch.full_like(logits, NEG_INF), logits)
+
+
+def needs_processors(gen: GenerationConfig) -> bool:
+    """True when per-step logits processors (repetition penalty /
+    min-new-tokens / no-repeat-ngram) must run."""
+    return (
+        gen.repetition_penalty != 1.0
+        or (gen.min_new_tokens > 0 and gen.eos_token_id is not None)
+        or gen.no_repeat_ngram_size > 0
+    )
+
+
+def processor_state(tokens: torch.Tensor, mask: torch.Tensor, gen: GenerationConfig, vocab: int):
+    """The processors' state for [B, S] prompts: the seen-token mask and the
+    token history (the prompt, then room for every new token), or None when
+    no processor is on."""
+    if not needs_processors(gen):
+        return None
+    pad = torch.full((tokens.shape[0], gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32,
+                     device=tokens.device)
+    return seen_from_prompt(tokens, mask, vocab), torch.cat([tokens.to(torch.int32), pad], dim=1)
+
+
+def process_logits(
+    logits: torch.Tensor,  # [B, V]
+    gen: GenerationConfig,
+    seen: Optional[torch.Tensor] = None,  # [B, V] bool token presence
+    n_generated: Optional[int] = None,  # tokens already emitted this generation
+    history: Optional[torch.Tensor] = None,  # [B, L] ids (no-repeat-ngram state)
+    cur_len: Optional[int] = None,  # valid columns in history
+) -> torch.Tensor:
+    """Pre-warp logits processors (HF generate parity): repetition penalty,
+    min-new-tokens EOS suppression and no-repeat-ngram, in that order."""
+    if gen.repetition_penalty != 1.0 and seen is not None:
+        x = logits.float()
+        pen = torch.where(x > 0, x / gen.repetition_penalty, x * gen.repetition_penalty)
+        logits = torch.where(seen, pen, x).to(logits.dtype)
+    if gen.min_new_tokens > 0 and gen.eos_token_id is not None and n_generated is not None:
+        if n_generated < gen.min_new_tokens:
+            eos_col = torch.arange(logits.shape[-1], device=logits.device) == gen.eos_token_id
+            logits = torch.where(eos_col, torch.full_like(logits, NEG_INF), logits)
+    if gen.no_repeat_ngram_size > 0 and history is not None and cur_len is not None:
+        logits = ban_repeated_ngrams(logits, history, cur_len, gen.no_repeat_ngram_size)
+    return logits
 
 
 def warp_logits(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:

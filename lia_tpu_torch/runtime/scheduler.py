@@ -27,7 +27,14 @@ reached only through policies 1, 2 and 4. With a host KV cache, K/V leave
 the card by asynchronous copies into pinned memory; the host writes them
 into its cache at the end of the pass, after waiting on each copy's event.
 
-Beam search, ragged and paged serving, the verify pass and scoring under the
+Beam search runs over the same segments: grouped (both segment caches become
+beam caches, a shared prompt per group and per-beam tails; the streamed
+layers attend through the beam kernel and write their tail slot per layer,
+and a step's shuffle gathers only the tails) where both plans keep KV on the
+card, and expanded (the whole of both caches gathered each step, the host
+cache included) under host-KV plans (policies 0, 1, 2, 4), as in the
+reference. The scoring pass is the prefill over both segments with the head
+on every position. Ragged and paged serving and the verify pass under the
 scheduler are not ported yet and raise.
 """
 
@@ -231,11 +238,11 @@ class StreamingScheduler:
 
     # -- step-level passes -----------------------------------------------------
 
-    def prefill_pass(self, tokens: np.ndarray, mask: np.ndarray, max_len: int):
-        """Run the prompt through both segments. Returns (last-token logits
-        [B, V] fp32, state), ``state`` being the {res, str} cache pair."""
+    def _prefill_hidden(self, tokens: np.ndarray, mask: np.ndarray, max_len: int):
+        """The prompt through both segments' layers, each writing its cache:
+        returns (hidden [B, S, H], resident cache, streamed cache), the caches'
+        lengths not yet advanced."""
         cfg, dev = self.cfg, self.device
-        S = tokens.shape[1]
         res, st = self._init_caches(tokens.shape[0], max_len)
         tok, m = torch.from_numpy(tokens).to(dev), torch.from_numpy(mask).to(dev)
         positions = T.prefill_positions(m)
@@ -243,12 +250,27 @@ class StreamingScheduler:
         ctx = att.prefill_attn_ctx(m, cfg.sliding_window)
         if res is not None:
             x = T.prefill_layers(cfg, self.wm.resident, x, res, ctx, positions, self.wm.n_resident)
-            res = kvc.advance(res, m, S)
         if st is not None:
             x, st = self._run_streamed("prefill", self.prefill_plan, x, st, ctx, positions)
-            st = kvc.advance(st, torch.from_numpy(mask), S)
-        logits = T.lm_head(cfg, self.top, x[:, -1:, :])[:, 0, :]
+        return x, res, st
+
+    def prefill_pass(self, tokens: np.ndarray, mask: np.ndarray, max_len: int):
+        """Run the prompt through both segments. Returns (last-token logits
+        [B, V] fp32, state), ``state`` being the {res, str} cache pair."""
+        S = tokens.shape[1]
+        x, res, st = self._prefill_hidden(tokens, mask, max_len)
+        m = torch.from_numpy(mask)
+        res = None if res is None else kvc.advance(res, m, S)
+        st = None if st is None else kvc.advance(st, m, S)
+        logits = T.lm_head(self.cfg, self.top, x[:, -1:, :])[:, 0, :]
         return logits, {"res": res, "str": st}
+
+    def score_logprobs(self, tokens: np.ndarray, mask: np.ndarray, max_len: int) -> torch.Tensor:
+        """Per-position next-token log-probs [B, S, V] fp32 with tiered weights
+        (lm-eval scoring under streaming): the prompt pass over both segments,
+        the head on every position."""
+        x, _, _ = self._prefill_hidden(tokens, mask, max_len)
+        return torch.log_softmax(T.lm_head(self.cfg, self.top, x).float(), dim=-1)
 
     def decode_pass(self, tok: torch.Tensor, pos: torch.Tensor, state):
         """One decode step over both segments: ``tok``/``pos`` [B] on the card.
@@ -278,23 +300,39 @@ class StreamingScheduler:
     def generate(self, tokens: np.ndarray, mask: np.ndarray, gen: GenerationConfig, max_len: int,
                  lat: LatencyStats, generator: Optional[torch.Generator] = None):
         """Greedy or sampled generation, stepwise (each token read back to the
-        host, as the reference's scheduler loop does)."""
+        host, as the reference's scheduler loop does), with the logits
+        processors where ``gen`` asks for them (each token recorded in their
+        state before the EOS pad, as the reference's loop does)."""
         from lia_tpu_torch.engine.engine import GenerationResult
 
-        B = tokens.shape[0]
+        B, S = tokens.shape
+        dev = self.device
+        proc = sampling.processor_state(torch.from_numpy(tokens).to(dev), torch.from_numpy(mask).to(dev), gen,
+                                        self.cfg.vocab_size)
+
+        def pick(logits, i):
+            """Step i's token (i = 0: from the prompt), recorded in the processors' state."""
+            if proc is not None:
+                logits = sampling.process_logits(logits, gen, proc[0], i, history=proc[1], cur_len=S + i)
+            tok = sampling.sample(logits, gen, generator)
+            if proc is not None:
+                sampling.update_seen(proc[0], tok)
+                proc[1][:, S + i] = tok
+            return tok
+
         t0 = time.perf_counter()
         logits, state = self.prefill_pass(tokens, mask, max_len)
-        tok = sampling.sample(logits, gen, generator)
+        tok = pick(logits, 0)
         out = [tok.cpu().numpy()]
         lat.record(time.perf_counter() - t0)
 
         eos = gen.eos_token_id
-        pos = torch.from_numpy(mask.sum(1).astype(np.int32)).to(self.device)
-        finished = tok == eos if eos is not None else torch.zeros(B, dtype=torch.bool, device=self.device)
-        for _ in range(gen.max_new_tokens - 1):
+        pos = torch.from_numpy(mask.sum(1).astype(np.int32)).to(dev)
+        finished = tok == eos if eos is not None else torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(gen.max_new_tokens - 1):
             t0 = time.perf_counter()
             logits, state = self.decode_pass(tok, pos, state)
-            tok = sampling.sample(logits, gen, generator)
+            tok = pick(logits, i + 1)
             if eos is not None:
                 tok = torch.where(finished, torch.full_like(tok, gen.pad_token_id), tok)
                 finished = finished | (tok == eos)
@@ -304,6 +342,75 @@ class StreamingScheduler:
             if eos is not None and bool(finished.all()):
                 break
         return GenerationResult(np.stack(out, axis=1), lat)
+
+    # -- beam search -----------------------------------------------------------
+
+    def reorder_state(self, state, beam_idx: torch.Tensor):
+        """Gather both caches' batch rows by ``beam_idx`` (the beam shuffle of
+        the expanded path), in place: O(cache) traffic a step, the host cache
+        included (gathered on the host and copied back into its pinned
+        planes). Host-KV plans take this path; plans with KV on the card take
+        the grouped one (:meth:`beam_state_from_prefill`,
+        :meth:`decode_pass_beam`, :meth:`reorder_state_beam`)."""
+        return {k: None if c is None else kvc.beam_reorder(c, beam_idx) for k, c in state.items()}
+
+    @property
+    def tpu_kv_plans(self) -> bool:
+        """Both phase plans keep KV on the card and attend there (policy 3
+        streaming): the plans the grouped beam layout supports."""
+        return not (
+            self.kv_host
+            or self.prefill_plan.all_host or self.prefill_plan.hybrid
+            or self.decode_plan.all_host or self.decode_plan.hybrid
+        )
+
+    grouped_beam_ok = tpu_kv_plans
+
+    def beam_state_from_prefill(self, state, nb: int, max_new_tokens: int):
+        """Both prefilled segment caches (batch B0) as grouped beam caches: the
+        prompt shared per group, fresh per-beam tails at B0 * nb rows."""
+        if not self.grouped_beam_ok:
+            raise NotImplementedError("grouped beam search needs plans that keep KV on the card; host-KV "
+                                      "policies use the whole-cache path (reorder_state)")
+        return {k: None if c is None else kvc.beam_cache_from_prefill(c, nb, max_new_tokens)
+                for k, c in state.items()}
+
+    def decode_pass_beam(self, tok: torch.Tensor, pos: torch.Tensor, state):
+        """One grouped beam decode pass: ``tok``/``pos`` [B0*nb] on the card.
+        The resident prefix runs over its beam cache as the resident engine
+        does (one tail commit for all its layers); the streamed layers stream
+        through the weight ring as in :meth:`decode_pass`, each attending over
+        [group prompt | own tail | fresh] and writing its fresh K/V into its
+        tail plane at ``tail_len``, which advances once, after the last layer.
+        Returns (logits [B0*nb, V] fp32, state)."""
+        cfg, wm = self.cfg, self.wm
+        n_res, L = wm.n_resident, cfg.num_layers
+        res, st = state["res"], state["str"]
+        positions = pos[:, None]
+        x = T.embed(cfg, self.top, tok[:, None], positions)
+        if res is not None:
+            x, res = T.beam_decode_layers_scan(cfg, wm.resident, x, res, positions, n_res)
+        if st is not None:
+            quantized = is_quantized_kv(st.tail_k)
+            wm.prefetch(n_res)
+            for idx in range(n_res, L):
+                wm.prefetch_after(idx)
+                lp = wm.get_layer(idx)
+                li = idx - n_res
+                q, k, v = T.attn_in(cfg, lp, x, positions)
+                ks, vs, kf, vf = T.beam_fresh_kv(k, v, quantized, x.dtype)
+                attn_out = att.attend_decode_beam(q, kf, vf, st, li)
+                x = T.attn_post_mlp(cfg, lp, x, attn_out)
+                kvc.write_token(st.tail_k, ks, li, st.tail_len)
+                kvc.write_token(st.tail_v, vs, li, st.tail_len)
+                self._sync()
+            st = st._replace(tail_len=st.tail_len + 1)  # every layer wrote at tail_len
+        return T.lm_head(cfg, self.top, x)[:, 0, :], {"res": res, "str": st}
+
+    def reorder_state_beam(self, state, flat_src: torch.Tensor):
+        """The beam shuffle under tiering: gather ONLY the generated tails of
+        both segments, in place (O(tail) traffic, not O(cache))."""
+        return {k: None if c is None else kvc.beam_tail_reorder(c, flat_src) for k, c in state.items()}
 
     # -- passes not ported yet -------------------------------------------------
 
@@ -319,18 +426,6 @@ class StreamingScheduler:
     def decode_pass_paged(self, *args, **kwargs):
         _unported("paged serving", "the scheduler's serving passes, ROADMAP A10")
 
-    def reorder_state(self, *args, **kwargs):
-        _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
-
-    def beam_state_from_prefill(self, *args, **kwargs):
-        _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
-
-    def decode_pass_beam(self, *args, **kwargs):
-        _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
-
-    def reorder_state_beam(self, *args, **kwargs):
-        _unported("beam search", "B9 decode_beam_attention and B10 decode_beam_attention_int8")
-
     def ragged_state(self, *args, **kwargs):
         _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
 
@@ -339,6 +434,3 @@ class StreamingScheduler:
 
     def accept_state(self, *args, **kwargs):
         _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
-
-    def score_logprobs(self, *args, **kwargs):
-        _unported("scoring", "the engine's scoring, ROADMAP A7")

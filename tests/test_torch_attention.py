@@ -260,10 +260,12 @@ def test_plain_path_counts_no_launch(rng):
     ca.flash_attention_cached(q, k, k, 0, torch.ones(2, 16, dtype=torch.bool))
     ca.paged_decode_attention(t["q"], t["k"], t["v"], 0, torch.zeros(2, 4, dtype=torch.int32),
                               torch.tensor([3, 5], dtype=torch.int32))
+    lens = (torch.ones(1, 32, dtype=torch.bool), torch.tensor(21), torch.tensor(0), 2)
+    ca.decode_beam_attention(t["q"], t["kf"], t["vf"], t["k"][:, :1], t["v"][:, :1], t["k"], t["v"], 0, *lens)
     assert ca.launch_counts() == {
         "flash_attention_prefill": 0, "decode_attention_fresh": 0, "decode_attention_fresh_int8": 0,
         "decode_attention": 0, "decode_attention_stacked": 0, "flash_attention_cached": 0,
-        "paged_decode_attention": 0,
+        "paged_decode_attention": 0, "decode_beam_attention": 0, "decode_beam_attention_int8": 0,
     }
 
 

@@ -462,3 +462,132 @@ def test_batcher_on_the_card_matches_the_cpu(cuda, mode):
         assert counts["paged_decode_attention"] == 2 * steps and counts["decode_attention_fresh"] == 0
         assert counts["flash_attention_cached"] > 0  # the shared prefix hit, or the chunks
         assert (cb.page_rc == 0).all() and len(cb.free_blocks) + len(cb.cached_pages) == cb.num_blocks - 1
+
+
+# ---------------------------------------------------------------------------
+# grouped-beam decode (B9 decode_beam_attention, B10 decode_beam_attention_int8)
+# ---------------------------------------------------------------------------
+
+
+def _beam_case(gen, dtype, int8, G, D, tlen, nb=3, B0=3, Nkv=2, S_p=64, T_max=32, L=2, plen=50):
+    """Beam-kernel inputs over layer 1 of a 2-layer grouped cache: group
+    prompts starting at 0, 13 and plen - 1, and ``tlen`` tail slots."""
+    B, N = B0 * nb, Nkv * G
+    q = _randn(gen, B, 1, N, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
+    pm = torch.zeros(B0, S_p, dtype=torch.bool, device="cuda")
+    for g, p in enumerate((0, 13, plen - 1)):
+        pm[g, p:plen] = True
+    lens = (pm, torch.tensor(plen, dtype=torch.int32, device="cuda"),
+            torch.tensor(tlen, dtype=torch.int32, device="cuda"), nb)
+
+    def planes(rows, S):
+        if int8:
+            return [part for _ in range(2) for part in quantize_kv(_randn(gen, L, rows, Nkv, S, D, dtype=torch.float32))]
+        return [_randn(gen, L, rows, Nkv, S, D, dtype=dtype) for _ in range(2)]
+
+    prompt, tail = planes(B0, S_p), planes(B, T_max)
+    if int8:
+        return (q, kf, vf, *prompt, *tail, 1, *lens)
+    return (q, kf, vf, prompt[0], prompt[1], tail[0], tail[1], 1, *lens)
+
+
+@pytest.mark.parametrize("tlen", [0, 3, 32])
+@pytest.mark.parametrize("G,D", [(1, 128), (2, 64), (4, 128), (4, 64), (8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_beam_decode_kernels_match_plain(cuda, int8, dtype, G, D, tlen):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    args = _beam_case(gen, dtype, int8, G, D, tlen)
+    kernel, plain = ((ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain) if int8
+                     else (ca.decode_beam_attention, ca.decode_beam_attention_plain))
+    before = kernel.launches
+    out = kernel(*args)
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_beam_wrappers_raise_on_the_card(cuda):
+    """nb must divide the batch, and a CUDA tensor never takes the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = list(_beam_case(gen, torch.bfloat16, False, 1, 128, 3))
+    with pytest.raises(ValueError, match="nb"):
+        ca.decode_beam_attention(*args[:-1], 2)
+    args[0] = args[0][..., :16]  # D = 16: no kernel
+    with pytest.raises(ValueError):
+        ca.decode_beam_attention(*args)
+
+
+@pytest.mark.parametrize("kv", ["none", "int8"])
+def test_grouped_beam_on_the_card_matches_the_cpu(cuda, kv):
+    """opt-125m widths at 2 layers: prefill into a grouped beam cache and 4 beam
+    decode steps with a fixed shuffle, the card (bf16, kernels) against the CPU
+    (fp32, plain versions); then one grouped generate_beam on the card, whose
+    prompt runs the prefill kernel once per layer and every step the beam kernel."""
+    from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    cfg = get_config("opt-125m").replace(num_layers=2)
+    params = init_dummy_params(cfg, seed=0, scale=0.02)
+    cfg32, nb = cfg.replace(dtype="float32"), 2
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32))
+    mask = torch.ones(2, 32, dtype=torch.bool)
+    mask[1, :10] = False
+    steps = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, 2 * nb, 1)).astype(np.int32))
+    src = torch.tensor([1, 0, 2, 2])  # within each group
+
+    def run(device, c, dtype):
+        p = to_device(params, device, dtype)
+        cache = kvc.init_cache(c, 2, 128, dtype, quantized=kv == "int8", device=device)
+        logits, cache = T.prefill(c, p, tokens.to(device), mask.to(device), cache)
+        cache = kvc.beam_cache_from_prefill(cache, nb, 8)
+        out = [logits.cpu()]
+        pos = mask.to(device).to(torch.int32).sum(1, keepdim=True).repeat_interleave(nb, 0)
+        for i, t in enumerate(steps):
+            logits, cache = T.beam_decode_step(c, p, t.to(device), pos + i, cache)
+            cache = kvc.beam_tail_reorder(cache, src.to(device))
+            out.append(logits.cpu())
+        return torch.cat(out)
+
+    ca.reset_launch_counts()
+    gpu, cpu = run(cuda, cfg, torch.bfloat16), run("cpu", cfg32, torch.float32)
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=5e-2)
+    beam_kernel = "decode_beam_attention_int8" if kv == "int8" else "decode_beam_attention"
+    assert ca.launch_counts()[beam_kernel] == 2 * len(steps)
+    eng = InferenceEngine(cfg, params, RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+    ca.reset_launch_counts()
+    res = eng.generate_beam([[5, 9, 23, 41], [100, 7, 3]], GenerationConfig(max_new_tokens=6, num_beams=4))
+    counts = ca.launch_counts()
+    assert res.sequences.shape == (2, 6) and ((res.sequences >= 0) & (res.sequences < cfg.vocab_size)).all()
+    assert counts["flash_attention_prefill"] == 2 and counts[beam_kernel] == 2 * 5
+    assert counts["decode_attention_fresh"] == counts["decode_attention_fresh_int8"] == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_host_cache_beam_reorder_stays_pinned(cuda, quantized):
+    """The expanded path's whole-cache gather over a pinned host cache (policy
+    0's streamed segment) copies back into the same pinned planes, so later
+    asynchronous copies stay asynchronous."""
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import kv_cache as kvc
+
+    cache = kvc.init_cache(get_config("opt-tiny"), 4, 16, torch.bfloat16, quantized=quantized, device="cpu",
+                           pin_memory=True)
+    gen = torch.Generator().manual_seed(9)
+    parts = [p for plane in (cache.k, cache.v) for p in (plane if quantized else (plane,))]
+    for p in parts:
+        p.copy_(torch.randn(p.shape, generator=gen).to(p.dtype))
+    cache.mask.copy_(torch.rand(cache.mask.shape, generator=gen) < 0.5)
+    before = [p.clone() for p in parts] + [cache.mask.clone()]
+    ptrs = [p.data_ptr() for p in parts]
+    idx = torch.tensor([3, 3, 0, 1], device=cuda)
+    kvc.beam_reorder(cache, idx)
+    after = parts + [cache.mask]
+    assert all(p.is_pinned() for p in after) and [p.data_ptr() for p in parts] == ptrs
+    for b, a in zip(before, after):
+        torch.testing.assert_close(a, b.index_select(0 if a.dim() == 2 else 1, idx.cpu()), rtol=0, atol=0)

@@ -147,9 +147,7 @@ def test_generate_sampling_is_seeded(model):
 def test_unported_features_raise(model):
     _, _, tcfg, tp = model
     eng = InferenceEngine(tcfg, tp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, repetition_penalty=1.2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generate_beam"):  # beams go through generate_beam
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, num_beams=2))
     for rt in (RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):

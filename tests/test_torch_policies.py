@@ -147,19 +147,19 @@ def test_host_tier_reaches_no_kernel_wrapper(model, monkeypatch, policy):
 
 
 def test_unported_passes_raise(model):
-    """Beam search, scoring, ragged and paged serving, the verify pass and
-    meshes under the scheduler raise, naming what they wait for."""
+    """Ragged and paged serving, the verify pass and meshes under the
+    scheduler raise, naming what they wait for; beams go through
+    generate_beam."""
     _, _, tcfg, tp = model
     rt = RuntimeConfig(hbm_percentage=50, stream_weights=True)
     eng = InferenceEngine(tcfg, tp, rt, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generate_beam"):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, num_beams=2))
     with pytest.raises(ValueError):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3), on_token=print)
     sched = eng.scheduler
     for name in ("init_serving_state", "insert_slot_state", "decode_pass_ragged", "decode_pass_paged",
-                 "reorder_state", "beam_state_from_prefill", "decode_pass_beam", "reorder_state_beam",
-                 "ragged_state", "verify_pass", "accept_state", "score_logprobs"):
+                 "ragged_state", "verify_pass", "accept_state"):
         with pytest.raises(NotImplementedError, match="waits for"):
             getattr(sched, name)(None)
     with pytest.raises(NotImplementedError):
