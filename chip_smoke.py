@@ -16,19 +16,36 @@ Phases, each printing one JSON line per item:
    attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots), as a
    left-padded first chunk (B=2, C=128) and with a window; grouped-beam decode,
    bf16 and int8, over 4 groups of 4 beams with a 256-slot prompt (group pads
-   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0). Quantized matmuls at M = 16 (decode rows) and 4096
+   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0); flash
+   prefill and bf16 / int8 decode at Llama-3-8B's heads (32 over 8 KV heads,
+   D 128), without and with a sliding window of 64 that binds. Quantized
+   matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
+   the stacked w4a8 entry over a 3-layer stack at wqkv and fc2, every layer
+   bit for bit against w4a8_matmul on its view. The fused MLP at OPT-6.7B's
+   relu, gelu and gelu_new arms (LayerNorm, biases) and Llama-3-8B's SwiGLU
+   (RMSNorm), at 1, 16 and 256 rows, twice (its atomics sum in a varying
+   order), its workspace left zero;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
    and depth with random weights, 16 prompts x 256 tokens, 32 new tokens:
    bf16 weights with bf16 and with int8 KV; bench.py's two candidates
    (int8dyn+int8kv, w4a8+int8kv); weight-only int8, int4 g128 and NF4 g128
    with bf16 KV; and a GPTQ checkpoint (OPT-6.7B width at 2 layers,
    synthesized in AutoGPTQ's packing) as woq_int4z and retagged as
-   woq_int4z_dyn. The launch counters, zeroed just before one run and read
-   just after it, must show each path's kernels; for the bf16 paths and the
-   two candidates prefill ms and decode tokens/s are the median of 5 runs.
-   Each configuration's weights are freed before the next is made;
+   woq_int4z_dyn. Two gate A/Bs, each on its gate-off run's engine, the two
+   sides in turns: bf16 with the fused-MLP gate on (992 fused MLPs: every
+   decode step's layers), w4a8+int8kv with the stacked-W4A8 gate on (3968
+   stacked launches, 160 w4a8_matmul: the prefill and the heads). Then
+   llama-3-8b at full width and
+   depth (dummy bf16 weights made once on the card), the same prompts' shape:
+   the default engine with bf16 and with int8 KV, and with projections
+   unfused, the fused-MLP gate off and on in turns (32 flash prefills, 992 decode
+   attention launches, 992 fused MLPs with the gate on). The launch
+   counters, zeroed just before one run and read just after it, must show
+   each path's kernels exactly; for the bf16 paths, the two candidates, the
+   gate A/Bs and the Llama runs prefill ms and decode tokens/s are the median
+   of 3 runs. Each configuration's engine is freed before the next is made;
 5. tiered: LIA's offload path, InferenceEngine.generate over a tiering
    RuntimeConfig at OPT-6.7B full width and depth, same prompts, from one
    host tree (bf16) made once on the card from the seed and copied out: h2d
@@ -74,24 +91,33 @@ Phases, each printing one JSON line per item:
    CPU, bf16 and int8 KV;
 8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
-   bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv and
-   weight-only int4 g128; and the tiered scheduler at 4 layers (half
+   bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
+   off, then with the stacked W4A8 route: 32 stacked launches) and
+   weight-only int4 g128; Llama-3-8B width at 2 layers, projections unfused,
+   both gates on (the fused MLP at every layer), bf16 and int8 KV; and the tiered scheduler at 4 layers (half
    resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
    policy 3 over int8dyn weights and int8 KV;
-9. device breakdown: one more main-path run per timed configuration under the
+9. device breakdown: one more main-path run per timed OPT configuration and
+   of llama-3-8b with bf16 KV under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
    attention per step; one more beam-nb4 run;
 10. kernel times: each kernel's, its plain version's and a PyTorch library
-   call's device time (profiler trace, mean of 30 calls, L2 flushed before
+   call's device time (profiler trace, mean of 20 calls, L2 flushed before
    each; the kernel's also from CUDA events, as a cross-check) and the
    wrapper's host time, beside the least time the card could take for the
-   same bytes or operations; torch._int_mm over a row- and a column-major
-   int8 weight. Profiling comes last because a
+   same bytes or operations; the library call's time both from the trace
+   (with the kernels it held per call) and from events, the events' where
+   the trace reads under the bound (the stacked w4a8 entry's library call is
+   torch._int_mm, as w4a8_matmul's; the fused MLP's, where no single PyTorch
+   call computes the block, the unfused chain of torch calls); torch._int_mm
+   over a row- and a column-major int8 weight. Profiling comes last because a
    profiler session slows the process's later launches.
 
-Then the kernels line (for the quantized matmuls, the decode wqkv call: M=16,
-K=4096, N=12288; decode_attention's and the stacked entry's launches from
+Then the kernels line, fourteen wrappers (for the quantized matmuls, the
+decode wqkv call: M=16, K=4096, N=12288; the stacked w4a8 entry's launches
+from w4a8+int8kv with its gate on; the fused MLP's at Llama-3-8B's SwiGLU and
+16 rows, its launches from the Llama run with the gate on; decode_attention's and the stacked entry's launches from
 tier-h50-p3, where the stacked entry, on no path of the reference, launches
 0 times; paged_decode_attention's from serve-paged, flash_attention_cached's
 from serve-paged-chunk256, the beam kernels' from beam-nb4 and
@@ -105,6 +131,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -117,8 +144,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
-REPS = 30
-TIMED_RUNS = 5  # generate calls of each timed main path
+REPS = 20  # calls a kernel time averages over
+TIMED_RUNS = 3  # generate calls of each timed main path
 NEW_TOKENS = 32
 
 B, N, D = 16, 32, 128  # OPT-6.7B heads at batch 16
@@ -240,10 +267,11 @@ def _flush() -> None:
     _flush_buf.argmax()
 
 
-def device_ms(fn) -> float:
+def device_trace(fn):
     """Device time of one call of ``fn`` (every kernel it launches), L2 cold: the
     profiler's trace of REPS (flush, fn) pairs without the flush kernels, over
-    REPS. Host time between launches is not in it (see host_us)."""
+    REPS; with the kernels the trace holds per call, by name. Host time
+    between launches is not in it (see host_us)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -254,11 +282,14 @@ def device_ms(fn) -> float:
             _flush()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and "ArgMax" not in e.key
-    )
-    return total_us / REPS / 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "ArgMax" not in e.key]
+    total_us = sum(e.self_device_time_total for e in events)
+    return total_us / REPS / 1e3, {e.key[:80]: e.count / REPS for e in events}
+
+
+def device_ms(fn) -> float:
+    return device_trace(fn)[0]
 
 
 def event_ms(fn) -> float:
@@ -441,10 +472,128 @@ def kernel_checks(ca, quantize_kv):
     )
     rows.update(serving_kernel_checks(ca, randn, dpads))
     rows.update(beam_kernel_checks(ca, quantize_kv, randn))
+    llama_attention_checks(ca, quantize_kv, randn)
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
+    from lia_tpu_torch.ops import cuda_mlp
+
+    rows.update(fused_mlp_checks(cuda_mlp))  # checked against its own tolerance inside
     return rows
+
+
+LLAMA_N, LLAMA_NKV = 32, 8  # Llama-3-8B's heads: G = 4 at D = 128
+WINDOW = 64  # a sliding window that binds at the checks' prompt and past lengths
+
+
+def llama_attention_checks(ca, quantize_kv, randn) -> None:
+    """B1, B2 and B3 at Llama-3-8B's heads (32 over 8 KV heads, D 128) on the
+    main path's prompt and past lengths, without a window and with one of
+    WINDOW tokens that binds (mistral's sliding window: B1's ``window``; the
+    decode kernels' contiguous range from the windowed slot mask)."""
+    from lia_tpu_torch.ops.attention import decode_attn_ctx
+
+    q, k, v = randn(B, PROMPT, LLAMA_N, D), randn(B, LLAMA_NKV, PROMPT, D), randn(B, LLAMA_NKV, PROMPT, D)
+    mask = torch.ones(B, PROMPT, dtype=torch.bool, device="cuda")
+    for b, p in enumerate(PADS):
+        mask[b, :p] = False
+    valid = mask[:, :, None, None]
+    qd, kf, vf = randn(B, 1, LLAMA_N, D), randn(B, LLAMA_NKV, 1, D), randn(B, LLAMA_NKV, 1, D)
+    kc, vc = randn(2, B, LLAMA_NKV, 320, D), randn(2, B, LLAMA_NKV, 320, D)
+    kq = quantize_kv(randn(2, B, LLAMA_NKV, 384, D, dtype=torch.float32))
+    vq = quantize_kv(randn(2, B, LLAMA_NKV, 384, D, dtype=torch.float32))
+    ln = torch.tensor(PAST, dtype=torch.int32, device="cuda")
+    for window in (None, WINDOW):
+        variant = "G=4 D=128" + ("" if window is None else f" window {window}")
+        out = ca.flash_attention_prefill(q, k, v, mask, window=window)
+        ref = ca.flash_attention_prefill_plain(q, k, v, mask, window=window)
+        errs = {"flash_attention_prefill": ((out.float() - ref.float()) * valid).abs().max().item()}
+        for kernel, S_max, args in (("decode_attention_fresh", 320, (qd, kf, vf, kc, vc, 1)),
+                                    ("decode_attention_fresh_int8", 384, (qd, kf, vf, kq.q, kq.s, vq.q, vq.s, 1))):
+            sm = torch.zeros(B, S_max, dtype=torch.bool, device="cuda")
+            for b, p in enumerate([0, 3, 7, 15] * 4):
+                sm[b, p:PAST] = True
+            ctx = decode_attn_ctx(sm, ln, window)
+            out = getattr(ca, kernel)(*args, ctx.slot_mask, ln)
+            ref = getattr(ca, kernel + "_plain")(*args, ctx.slot_mask, ln)
+            errs[kernel] = (out.float() - ref.float()).abs().max().item()
+        torch.cuda.synchronize()
+        for kernel, err in errs.items():
+            emit({"phase": "kernel_check", "kernel": kernel, "variant": variant, "max_abs_err": err, "tol": KERNEL_TOL})
+            check(err <= KERNEL_TOL, f"{kernel} {variant}: max abs err {err} > {KERNEL_TOL}")
+
+
+# (label, H, F, activation, RMSNorm, biases): OPT-6.7B's three arms and Llama-3-8B's SwiGLU
+FUSED_MLP_CASES = [
+    ("opt-6.7b relu", 4096, 16384, "relu", False, True),
+    ("opt-6.7b gelu", 4096, 16384, "gelu", False, True),
+    ("opt-6.7b gelu_new", 4096, 16384, "gelu_new", False, True),
+    ("llama-3-8b swiglu", 4096, 14336, "silu", True, False),
+]
+FUSED_MLP_ROWS = (1, 16, 256)  # one sequence, the b16 decode step, the kernel's most
+FUSED_MLP_TOL = 2e-2  # |kernel - plain| <= tol * (1 + |plain|): bf16 outputs of O(1)
+# round once at the end (one step is 2^-7 relative); the fp32 sums run in
+# another order (the kernel's atomics in one that varies run to run), which can
+# also move a rounding of the normed input or of the activation by one step
+
+
+def fused_mlp_checks(cuda_mlp) -> dict:
+    """B14 against its plain version at each case and row count (twice, the
+    atomics' order varying; the workspace left zero); returns the kernels
+    line's row: Llama-3-8B's SwiGLU at 16 rows, timed against the plain
+    version and the unfused torch chain (norm, matmuls, activation, add), the
+    yardstick where no single PyTorch call computes the block."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    row = None
+    for label, H, Fd, act, rms, biases in FUSED_MLP_CASES:
+        def r(*shape, sc=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * sc).to(torch.bfloat16)
+
+        w = dict(ln_scale=(1 + r(H, sc=0.1).float()).to(torch.bfloat16), ln_bias=r(H, sc=0.1) if biases else None,
+                 w1=r(H, Fd, sc=0.02), b1=r(Fd, sc=0.1) if biases else None,
+                 wg=r(H, Fd, sc=0.02) if act == "silu" else None, w2=r(Fd, H, sc=0.02),
+                 b2=r(H, sc=0.1) if biases else None)
+        for rows in FUSED_MLP_ROWS:
+            x = r(rows, H)
+            out = cuda_mlp.fused_mlp(x, **w, activation=act, rms=rms)
+            again = cuda_mlp.fused_mlp(x, **w, activation=act, rms=rms)
+            ref = cuda_mlp.fused_mlp_plain(x, **w, activation=act, rms=rms)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            excess = (d - FUSED_MLP_TOL * (1 + ref.float().abs())).max().item()
+            ws, tickets = cuda_mlp._workspace(torch.cuda.current_device(), H)
+            line = {"phase": "kernel_check", "kernel": "fused_mlp", "variant": label, "rows": rows,
+                    "max_abs_err": d.max().item(),
+                    "max_abs_err_rerun": (again.float() - out.float()).abs().max().item(),
+                    "max_abs_plain": ref.float().abs().max().item(), "tol": f"{FUSED_MLP_TOL} * (1 + |plain|)",
+                    "workspace_zero": not bool(ws.any() or tickets.any())}
+            emit(line)
+            check(bool(torch.isfinite(out.float()).all()), f"fused_mlp {label} rows={rows}: non-finite output")
+            check(excess <= 0 and line["workspace_zero"], f"fused_mlp {label} rows={rows}: {line}")
+            if label.startswith("llama") and rows == B:
+                swiglu = act == "silu"
+
+                def chain(x=x, w=w, rms=rms, act=act, swiglu=swiglu):
+                    h = (F.rms_norm(x, (H,), w["ln_scale"], 1e-5) if rms
+                         else F.layer_norm(x, (H,), w["ln_scale"], w["ln_bias"], 1e-5))
+                    if swiglu:
+                        a = F.silu(h @ w["wg"]) * (h @ w["w1"])
+                    else:
+                        a = {"relu": F.relu, "gelu": F.gelu}[act](torch.addmm(w["b1"], h, w["w1"]))
+                    return x + (a @ w["w2"] if w["b2"] is None else torch.addmm(w["b2"], a, w["w2"]))
+
+                weight_bytes = 2 * H * Fd * (3 if swiglu else 2)
+                nbytes = 2 * 2 * rows * H + weight_bytes + 2 * (2 * H + Fd)
+                row = dict(source="lia_tpu_torch/csrc/fused_mlp.cu", replaces="lia_tpu/ops/pallas_mlp.py:98",
+                           max_abs_err=line["max_abs_err"],
+                           kernel=lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp(x, **w, activation=a, rms=n),
+                           plain=lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp_plain(x, **w, activation=a, rms=n),
+                           library=chain, library_kind="chain of torch calls: norm, matmuls, activation, add",
+                           bound=bound(nbytes, 2 * rows * H * Fd * (3 if swiglu else 2)))
+    return {"fused_mlp": row}
 
 
 def paged_case(randn, lengths, C: int, Nkv: int, G: int, Dh: int, P: int = SERVE_MAX_LEN // SERVE_BLOCK,
@@ -718,8 +867,51 @@ def matmul_cases(cm, quantize_act):
                 yield case
 
 
+STACK_LAYERS = 3  # B13's checks: a stack of this many layers, each layer read in turn
+
+
+def stacked_cases(cm, quantize_act):
+    """B13 (the stacked W4A8 entry) over a 3-layer stack at OPT-6.7B's wqkv and
+    fc2, M = 16 and 4096, with and without zero-points; the layer index lives
+    in device memory. Each case checks every layer bit for bit against B4 on
+    the layer's view (``b4_equal``) and times layer 1 against the plain
+    version and the library yardstick (``torch._int_mm`` over the layer's
+    unpacked codes, as B4's row)."""
+    from lia_tpu_torch.ops.quant import unpack_nibbles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    L, li = STACK_LAYERS, 1
+    layers = torch.arange(L, dtype=torch.int32, device="cuda")
+    for shape in ("wqkv", "fc2"):
+        K, N = OPT_KN[shape]
+        ng = K // GROUP
+        q = torch.randint(0, 256, (L, K // 2, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+        s = torch.rand(L, ng, N, generator=gen, device="cuda") * 1e-3 + 1e-3
+        z = torch.randint(0, 16, (L, ng, N), generator=gen, device="cuda", dtype=torch.int32).float()
+        codes8 = (unpack_nibbles(q[li]) - 8).to(torch.int8).t().contiguous().t()
+        for M in MATMUL_M:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+            xq, sx = quantize_act(x)
+            xq_pad = torch.cat([xq, xq.new_zeros(max(0, 32 - M), K)])
+            for zz, variant in ((None, "g128"), (z, "g128 zero-points")):
+                def b4_equal(zz=zz, xq=xq, sx=sx):
+                    return all(torch.equal(cm.w4a8_matmul_stacked(xq, sx, q, s, zz, layers[i]),
+                                           cm.w4a8_matmul(xq, sx, q[i], s[i], None if zz is None else zz[i]))
+                               for i in range(L))
+
+                nbytes = M * K + 4 * M + K * N // 2 + 4 * ng * N * (1 if zz is None else 2) + 4 * M * N + 4
+                yield dict(name="w4a8_matmul_stacked", variant=variant, M=M, K=K, N=N, shape=shape,
+                           kernel=lambda zz=zz, xq=xq, sx=sx: cm.w4a8_matmul_stacked(xq, sx, q, s, zz, layers[li]),
+                           plain=lambda zz=zz, xq=xq, sx=sx: cm.w4a8_matmul_stacked_plain(xq, sx, q, s, zz, li),
+                           library=lambda xq_pad=xq_pad: torch._int_mm(xq_pad, codes8),
+                           bound=bound(nbytes, 2 * M * K * N, PEAK_INT8_OP_PER_S), b4_equal=b4_equal,
+                           representative=(M == 16 and shape == "wqkv" and zz is None))
+
+
 MATMUL_ROWS = {
     "w4a8_matmul": ("lia_tpu_torch/csrc/w4a8_matmul.cu", "lia_tpu/ops/pallas_matmul.py:409"),
+    "w4a8_matmul_stacked": ("lia_tpu_torch/csrc/w4a8_matmul.cu", "lia_tpu/ops/pallas_matmul.py:491"),
     "woq4z_matmul": ("lia_tpu_torch/csrc/woq_matmul.cu", "lia_tpu/ops/pallas_matmul.py:601"),
     "woq_matmul": ("lia_tpu_torch/csrc/woq_matmul.cu", "lia_tpu/ops/pallas_matmul.py:658"),
 }
@@ -729,14 +921,19 @@ def matmul_kernel_checks(cm, quantize_act):
     """Each quantized-matmul case against its plain version; returns the kernels
     line's rows (their representative case: decode wqkv)."""
     rows = {}
-    for c in matmul_cases(cm, quantize_act):
+    for c in itertools.chain(matmul_cases(cm, quantize_act), stacked_cases(cm, quantize_act)):
         out, ref = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"{c['name']} {c['variant']}: non-finite output")
         abs_err = (out - ref).abs().max().item()
         rel = abs_err / max(ref.abs().max().item(), 1e-30)
-        emit({"phase": "kernel_check", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
-              "K": c["K"], "N": c["N"], "max_abs_err": abs_err, "rel_err": rel, "tol": MATMUL_TOL})
+        line = {"phase": "kernel_check", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
+                "K": c["K"], "N": c["N"], "max_abs_err": abs_err, "rel_err": rel, "tol": MATMUL_TOL}
+        if "b4_equal" in c:  # every layer of the stack bit for bit against B4 on its view
+            line["bit_equal_to_w4a8_matmul_at_every_layer"] = c["b4_equal"]()
+            check(line["bit_equal_to_w4a8_matmul_at_every_layer"], f"{c['name']} {c['variant']} M={c['M']} "
+                                                                   f"K={c['K']}: differs from w4a8_matmul")
+        emit(line)
         check(rel <= MATMUL_TOL, f"{c['name']} {c['variant']} M={c['M']} K={c['K']} N={c['N']}: "
                                  f"relative error {rel} > {MATMUL_TOL}")
         if c["representative"]:
@@ -748,8 +945,11 @@ def matmul_kernel_checks(cm, quantize_act):
 
 def matmul_kernel_times(cm, quantize_act, rows) -> None:
     """Device times of every quantized-matmul case (kernel, plain version, library
-    call) beside its bound; the representative cases fill the kernels line."""
-    for c in matmul_cases(cm, quantize_act):
+    call) beside its bound, and of the stacked entry at the wqkv shape (its
+    other cases run B4's body at the same shapes); the representative cases
+    fill the kernels line."""
+    stacked = (c for c in stacked_cases(cm, quantize_act) if c["shape"] == "wqkv" and c["variant"] == "g128")
+    for c in itertools.chain(matmul_cases(cm, quantize_act), stacked):
         t = dict(ms=device_ms(c["kernel"]), event_ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
                  plain_ms=device_ms(c["plain"]), library_ms=device_ms(c["library"]),
                  bound_ms=c["bound"][0], bound_by=c["bound"][1])
@@ -785,12 +985,21 @@ def kernel_times(rows) -> None:
         r["event_ms"] = event_ms(r["kernel"])
         r["host_us"] = host_us(r["kernel"])
         r["plain_ms"] = device_ms(r["plain"])
-        r["library_ms"], lib_by = (device_ms(r["library"]), "profiler") if r["library"] else (None, None)
-        if r["library_ms"] == 0.0:  # the trace holds none of its kernels (a library may launch a CUDA graph)
-            r["library_ms"], lib_by = event_ms(r["library"]), "events"
+        lib = dict(library_ms=None, library_timed_by=None)
+        if r["library"]:
+            # both readings, with the kernels the trace held per call: a trace
+            # that misses kernels (none at all where a library launches a CUDA
+            # graph; the fused MLP's torch chain once read 0.039 ms against its
+            # 0.105 ms bound) reads under the bound, and the events measure it
+            prof_ms, traced = device_trace(r["library"])
+            ev_ms = event_ms(r["library"])
+            below = prof_ms < r["bound"][0]
+            lib = dict(library_ms=ev_ms if below else prof_ms, library_timed_by="events" if below else "profiler",
+                       library_profiler_ms=prof_ms, library_event_ms=ev_ms, library_kernels_traced=traced)
+        r["library_ms"] = lib["library_ms"]
         emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "event_ms": r["event_ms"], "host_us": r["host_us"],
-              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"], "library_timed_by": lib_by,
-              "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+              "plain_ms": r["plain_ms"], **lib,
+              "library_kind": r.get("library_kind", "one call"), "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
 
 
 # ---------------------------------------------------------------------------
@@ -799,48 +1008,88 @@ def kernel_times(rows) -> None:
 
 
 def launch_counts(ca, cm) -> dict:
-    return {**ca.launch_counts(), **cm.launch_counts()}
+    from lia_tpu_torch.ops import cuda_mlp
+
+    return {**ca.launch_counts(), **cm.launch_counts(), **cuda_mlp.launch_counts()}
 
 
-def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forward: dict, timed: bool):
+def reset_counts(ca, cm) -> None:
+    from lia_tpu_torch.ops import cuda_mlp
+
+    for mod in (ca, cm, cuda_mlp):
+        mod.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def gates(stacked_w4a8: bool = False, fused_mlp: bool = False):
+    """The port's two gated routes on for the duration (off by default)."""
+    from lia_tpu_torch.ops import dispatch
+
+    dispatch.set_stacked_w4a8(stacked_w4a8)
+    dispatch.set_fused_mlp(fused_mlp)
+    try:
+        yield
+    finally:
+        dispatch.set_stacked_w4a8(False)
+        dispatch.set_fused_mlp(False)
+
+
+def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forward: dict, timed: bool,
+              runtime=None, ab=None) -> dict:
     """One configuration through ``generate(fused=True)``. The counters are zeroed
     just before one run and read just after: prefill attention once per layer,
-    decode attention per layer per step, and each matmul kernel of
+    decode attention per layer per step and each matmul kernel of
     ``per_forward`` that many times per forward pass (prefill and 31 steps).
-    ``timed``: a warm-up first and TIMED_RUNS runs (median and all) of prefill
-    ms and decode tokens/s; else the counted run's own numbers. The weights
-    live only as long as this call."""
+    ``runtime``: the engine's RuntimeConfig arguments besides the KV type.
+    ``ab``: (gate, exact) for a gate A/B on the same engine: the gated route
+    on (:func:`gates`) in the second side, whose run launches each kernel of
+    ``exact`` exactly that many times (the rest as the first side), the two
+    sides run in turns (off, on, then off, on, on, off), since only runs of
+    one call in turns compare. ``timed``: a warm-up first and TIMED_RUNS runs a
+    side (median and all) of prefill ms and decode tokens/s; else the counted
+    run's own numbers. Returns {label: (launches, median wall s)} per side.
+    The engine lives only as long as this call."""
     from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.ops import kv_cache as kvc
 
-    engine = InferenceEngine(cfg, make_params(), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+    engine = InferenceEngine(cfg, make_params(), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv), **(runtime or {})))
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
-    if timed:
-        engine.generate(prompts, gen, fused=True)  # warm-up (cuBLAS handles, kernel loads)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
-    cm.reset_launch_counts()
-    res = engine.generate(prompts, gen, fused=True)
-    launches = launch_counts(ca, cm)
     L, steps = cfg.num_layers, gen.max_new_tokens - 1
-    expected = {name: 0 for name in launches}
+    expected = {name: 0 for name in launch_counts(ca, cm)}
     expected["flash_attention_prefill"] = L
     expected["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] = L * steps
     for name, n in per_forward.items():
         expected[name] = n * (1 + steps)
-    check(launches == expected, f"{label}: launches {launches} != expected {expected}")
-    seqs = res.sequences
-    check(seqs.shape == (len(prompts), gen.max_new_tokens), f"{label}: sequences shape {seqs.shape}")
-    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{label}: token outside the vocabulary")
-    peak = torch.cuda.max_memory_allocated()
+    sides = [(label, {}, expected)]
+    if ab:
+        gate, exact = ab
+        sides.append((f"{label}, {gate}", {gate: True}, {**expected, **exact}))
+    runs, launches, peak = {}, {}, {}
+    for name, gate, _ in sides:
+        with gates(**gate):
+            if timed:
+                engine.generate(prompts, gen, fused=True)  # warm-up (cuBLAS handles, kernel loads)
+    for name, gate, want in sides:
+        with gates(**gate):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(ca, cm)
+            res = engine.generate(prompts, gen, fused=True)
+            launches[name] = launch_counts(ca, cm)
+            check(launches[name] == want, f"{name}: launches {launches[name]} != expected {want}")
+            peak[name] = torch.cuda.max_memory_allocated()
+            seqs = res.sequences
+            check(seqs.shape == (len(prompts), gen.max_new_tokens), f"{name}: sequences shape {seqs.shape}")
+            check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{name}: token outside the vocabulary")
+            runs[name] = [res.summary()]
     # the eager loop is bound by host time, and the host's cores are shared:
-    # report the median of TIMED_RUNS runs (the counted one first) and all of them
-    runs = [res.summary()]
-    if timed:
-        runs += [engine.generate(prompts, gen, fused=True).summary() for _ in range(TIMED_RUNS - 1)]
+    # report the median of TIMED_RUNS runs a side (the counted one first) and all of them
+    order = [sides[(i + 1) // 2 % len(sides)] for i in range(2 * (TIMED_RUNS - 1))] if ab else sides * (TIMED_RUNS - 1)
+    for name, gate, _ in order if timed else ():
+        with gates(**gate):
+            runs[name].append(engine.generate(prompts, gen, fused=True).summary())
 
     # logits of the same path are finite (outside the counted run)
     with torch.inference_mode():
@@ -855,22 +1104,61 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
         check(logits.shape == (len(prompts), cfg.vocab_size), f"{label}: logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all() and torch.isfinite(logits2).all()), f"{label}: non-finite logits")
 
-    def med(key, scale=1.0):
-        return statistics.median(r[key] * scale for r in runs), [r[key] * scale for r in runs]
-
-    record = {
-        "phase": "main_path", "config": label, "model": cfg.name, "layers": L, "kv": kv,
-        "batch": len(prompts), "prompt": len(prompts[0]), "new_tokens": gen.max_new_tokens,
-        "launches": launches, "peak_mem_gb": peak / 1e9,
-    }
-    for key, name, scale in (("first_token_latency_s", "prefill_ms", 1e3),
-                             ("decode_tokens_per_s", "decode_tokens_per_s", 1.0),
-                             ("total_latency_s", "total_s", 1.0)):
-        record[name], record[name + "_runs"] = med(key, scale)
-    emit(record)
+    out = {}
+    for name, gate, _ in sides:
+        record = {
+            "phase": "main_path", "config": name, "model": cfg.name, "layers": L, "kv": kv,
+            "runtime": runtime or {}, "gates": gate,
+            "batch": len(prompts), "prompt": len(prompts[0]), "new_tokens": gen.max_new_tokens,
+            "launches": launches[name], "peak_mem_gb": peak[name] / 1e9,
+        }
+        for key, field, scale in (("first_token_latency_s", "prefill_ms", 1e3),
+                                  ("decode_tokens_per_s", "decode_tokens_per_s", 1.0),
+                                  ("total_latency_s", "total_s", 1.0)):
+            vals = [r[key] * scale for r in runs[name]]
+            record[field], record[field + "_runs"] = statistics.median(vals), vals
+        emit(record)
+        out[name] = (launches[name], record["total_s"])
     del engine, cache, logits, logits2
     torch.cuda.empty_cache()
-    return launches, record["total_s"]
+    return out
+
+
+LLAMA_CELL = "llama-3-8b, bf16 KV"
+LLAMA_WALL = {}  # median wall seconds of each Llama configuration (the device breakdown's denominator)
+
+
+def llama_prompts(cfg):
+    return np.random.default_rng(0).integers(2, cfg.vocab_size, (16, PROMPT)).tolist()
+
+
+def llama_phase(ca, cm) -> dict:
+    """Llama-3-8B at full width and depth (H 4096, F 14336, 32 heads over 8 KV
+    heads, vocab 128 256; dummy bf16 weights made once on the card), 16
+    prompts x 256 tokens, 32 new tokens through generate(fused=True): the
+    default engine (fused projections) with bf16 and with int8 KV, then
+    projections unfused with the fused-MLP gate off and on in turns. Exact
+    launches: 32 flash prefills, 992 decode-attention launches, and 992 fused
+    MLPs with the gate on (the prefill's 4096 rows stay unfused)."""
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    cfg = get_config("llama-3-8b")
+    tree = device_dummy_params(cfg, seed=0)
+    emit({"phase": "llama_weights", "model": cfg.name, "gb": tree_bytes(tree) / 1e9})
+    prompts = llama_prompts(cfg)
+    out = {}
+    for label, kv, runtime, ab in (
+        (LLAMA_CELL, "none", None, None),
+        ("llama-3-8b, int8 KV", "int8", None, None),
+        ("llama-3-8b, unfused projections, bf16 KV", "none", {"fuse_projections": False},
+         ("fused_mlp", {"fused_mlp": cfg.num_layers * (NEW_TOKENS - 1)})),
+    ):
+        out.update(main_path(ca, cm, label, cfg, lambda: tree, prompts, kv, {}, timed=True, runtime=runtime, ab=ab))
+    del tree
+    torch.cuda.empty_cache()
+    LLAMA_WALL.update({name: wall for name, (_, wall) in out.items()})
+    return {name: counts for name, (counts, _) in out.items()}
 
 
 def gptq_params(cfg, seed: int):
@@ -1022,7 +1310,7 @@ def tiered_expected(cfg, n_res: int, kv: str, policies, nm: int, batch: int) -> 
     n_str = L - n_res
     card = {0: True, 1: False, 2: False, 3: True, 4: False}
     chunks = nm if nm > 1 and batch % nm == 0 else 1
-    out = {name: 0 for name in {**ca.launch_counts(), **cm.launch_counts()}}
+    out = {name: 0 for name in launch_counts(ca, cm)}
     out["flash_attention_prefill"] = n_res + (n_str * chunks if card[policies[0]] else 0)
     out["decode_attention_fresh_int8" if kv == "int8" else "decode_attention_fresh"] = n_res * steps
     out["decode_attention"] = n_str * steps if card[policies[1]] else 0
@@ -1060,8 +1348,7 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
                                 f"{owned / 1e9:.3f} GB expected: streamed layers stayed on the card")
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
     B = len(prompts)
-    ca.reset_launch_counts()
-    cm.reset_launch_counts()
+    reset_counts(ca, cm)
     wm.copy_stats()
     with host_attention_clock() as host_attn:
         res = engine.generate(prompts, gen)
@@ -1365,8 +1652,7 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
     held = torch.cuda.memory_allocated()  # the weights, and the kernel checks' inputs
     cb = ContinuousBatcher(cfg, params, max_batch=SERVE_MAX_BATCH, max_len=SERVE_MAX_LEN,
                            gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, **opts)
-    ca.reset_launch_counts()
-    cm.reset_launch_counts()
+    reset_counts(ca, cm)
     t0 = time.perf_counter()
     ids = [cb.submit(p, max_new_tokens=n) for p, n in zip(prompts, new_tokens)]
     done = {r.req_id: r.output for r in cb.run()}
@@ -1633,8 +1919,7 @@ def beam_path(ca, cm, name: str, cfg, engine, prompts, kv: str, grouped: bool, p
         engine.generate_beam(prompts, gen, grouped=grouped)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
-    cm.reset_launch_counts()
+    reset_counts(ca, cm)
     t0 = time.perf_counter()
     res = engine.generate_beam(prompts, gen, grouped=grouped)
     wall = [time.perf_counter() - t0]
@@ -1675,8 +1960,7 @@ def beam_path(ca, cm, name: str, cfg, engine, prompts, kv: str, grouped: bool, p
 def score_path(ca, cm, name: str, cfg, engine, contexts, continuations):
     """``loglikelihood`` of the records (a counted call, then a timed one):
     finite, non-positive sums, one flash prefill per layer. Returns the sums."""
-    ca.reset_launch_counts()
-    cm.reset_launch_counts()
+    reset_counts(ca, cm)
     ll = engine.loglikelihood(contexts, continuations)
     launches = launch_counts(ca, cm)
     expected = {n: 0 for n in launches}
@@ -1838,20 +2122,29 @@ def beam_breakdown(ca, cfg, prompts, wall_s: float) -> None:
 # ---------------------------------------------------------------------------
 
 
-def parity(label: str, kv: str, quant=None):
-    """OPT-6.7B width at 2 layers, one tree on both sides: the card (bf16 model,
-    kernels) against the CPU (fp32 model, plain versions; quantized records
-    move as they are)."""
+def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool = True, gate=None,
+           stacked_per_layer: int = 0):
+    """``model``'s width (OPT-6.7B by default) at 2 layers, one tree on both
+    sides: the card (bf16 model, kernels) against the CPU (fp32 model, plain
+    versions; quantized records move as they are), projections fused unless
+    ``fuse`` is off, the routes of ``gate`` on for both runs (with the fused
+    MLP on, the card runs it at every layer of the prefill's 2 x 64 rows and
+    of each step; with the stacked W4A8 route on, ``stacked_per_layer`` linears
+    of each layer run the stacked entry at each decode step)."""
     from lia_tpu_torch.config import QuantConfig
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import cuda_matmul as cm
+    from lia_tpu_torch.ops import cuda_mlp
     from lia_tpu_torch.ops import kv_cache as kvc
     from lia_tpu_torch.ops.fuse import fuse_projections
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=2)
     qc = None if quant is None else QuantConfig(**quant)
-    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1, quant=qc))
+    params = device_dummy_params(cfg, seed=1, quant=qc)
+    if fuse:
+        params = fuse_projections(cfg, params)
     cfg32 = cfg.replace(dtype="float32")
     params32 = to_device(params, "cpu", torch.float32)
     rng = np.random.default_rng(1)
@@ -1876,11 +2169,18 @@ def parity(label: str, kv: str, quant=None):
                 out.append(logits.float().cpu())
             return torch.stack(out)
 
-    gpu = run("cuda", cfg, params, torch.bfloat16)
-    cpu = run("cpu", cfg32, params32, torch.float32)
+    with gates(**(gate or {})):
+        fused, stacked = cuda_mlp.fused_mlp.launches, cm.w4a8_matmul_stacked.launches
+        gpu = run("cuda", cfg, params, torch.bfloat16)
+        fused, stacked = cuda_mlp.fused_mlp.launches - fused, cm.w4a8_matmul_stacked.launches - stacked
+        cpu = run("cpu", cfg32, params32, torch.float32)
+    check(fused == (cfg.num_layers * (1 + len(steps)) if (gate or {}).get("fused_mlp") else 0),
+          f"parity {label}: {fused} fused-MLP launches")
+    check(stacked == stacked_per_layer * cfg.num_layers * len(steps), f"parity {label}: {stacked} stacked launches")
     err = (gpu - cpu).abs().max().item()
     tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
-    emit({"phase": "parity", "config": label, "kv": kv, "layers": 2, "batch": 2, "prompt": 64,
+    emit({"phase": "parity", "config": label, "model": model, "kv": kv, "layers": 2, "batch": 2, "prompt": 64,
+          "gates": gate or {}, "fused_mlp_launches": fused, "w4a8_matmul_stacked_launches": stacked,
           "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
           "tol": tol, "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
     check(bool(torch.isfinite(gpu).all()), f"parity {label}: non-finite logits on the card")
@@ -1930,27 +2230,41 @@ def main() -> int:
         qc = QuantConfig(**qkw)
         timed.append((label, lambda qc=qc: device_dummy_params(cfg, seed=0, quant=qc), qc.kv_cache_dtype,
                       {name: n * per_fwd for name, n in kernels.items()}))
-    launches, walls = {}, {}
-    for label, make, kv, calls in timed:
-        launches[label], walls[label] = main_path(ca, cm, label, cfg, make, prompts, kv, calls, timed=True)
+    # the two gate A/Bs: bf16 with the fused MLP at every decode step (prefill's
+    # 4096 rows stay unfused), w4a8 with the decode steps' linears through the
+    # stacked entry (prefill and the head stay on w4a8_matmul)
+    steps = NEW_TOKENS - 1
+    gate_ab = {"bf16 weights, none KV": ("fused_mlp", {"fused_mlp": L * steps}),
+               "w4a8+int8kv": ("stacked_w4a8", {"w4a8_matmul": per_fwd + steps, "w4a8_matmul_stacked": 4 * L * steps})}
+    runs = {}
+    for label, make, kv, calls in timed:  # with its gated route on, in turn, where it has one
+        runs.update(main_path(ca, cm, label, cfg, make, prompts, kv, calls, timed=True, ab=gate_ab.get(label)))
     for label, qkw in WEIGHT_ONLY.items():
-        launches[label], _ = main_path(
+        runs.update(main_path(
             ca, cm, label, cfg, lambda qc=QuantConfig(**qkw): device_dummy_params(cfg, seed=0, quant=qc),
-            prompts, "none", {"woq_matmul": per_fwd}, timed=False)
+            prompts, "none", {"woq_matmul": per_fwd}, timed=False))
     cfg2 = cfg.replace(num_layers=2)  # GPTQ: no head record (OPT ties it), 4 linears per layer
     gptq = gptq_params(cfg2, seed=0)
-    launches["gptq woq_int4z"], _ = main_path(ca, cm, "gptq woq_int4z", cfg2, lambda: gptq, prompts, "none",
-                                              {"woq4z_matmul": 4 * cfg2.num_layers}, timed=False)
-    launches["gptq woq_int4z_dyn"], _ = main_path(
-        ca, cm, "gptq woq_int4z_dyn", cfg2, lambda: retag_dynamic_act(gptq), prompts, "none",
-        {"w4a8_matmul": 4 * cfg2.num_layers}, timed=False)
+    runs.update(main_path(ca, cm, "gptq woq_int4z", cfg2, lambda: gptq, prompts, "none",
+                          {"woq4z_matmul": 4 * cfg2.num_layers}, timed=False))
+    runs.update(main_path(ca, cm, "gptq woq_int4z_dyn", cfg2, lambda: retag_dynamic_act(gptq), prompts, "none",
+                          {"w4a8_matmul": 4 * cfg2.num_layers}, timed=False))
     del gptq
+    launches = {name: counts for name, (counts, _) in runs.items()}
+    walls = {name: wall for name, (_, wall) in runs.items()}
+    launches.update(llama_phase(ca, cm))
 
     parity("bf16 weights, none KV", "none")
     parity("bf16 weights, int8 KV", "int8")
     for label, (qkw, _) in CANDIDATES.items():
         parity(label, qkw["kv_cache_dtype"], qkw)
+    w4a8 = CANDIDATES["w4a8+int8kv"][0]  # the stacked route: wqkv, wo, fc1, fc2 of each layer per step
+    parity("w4a8+int8kv, stacked gate", w4a8["kv_cache_dtype"], w4a8, gate=dict(stacked_w4a8=True),
+           stacked_per_layer=4)
     parity("woq-int4-g128", "none", WEIGHT_ONLY["woq-int4-g128"])
+    for kv in ("none", "int8"):  # both gated routes on, projections unfused
+        parity(f"llama-3-8b, {kv} KV, both gates", kv, model="llama-3-8b", fuse=False,
+               gate=dict(stacked_w4a8=True, fused_mlp=True))
     phase_time("main path and parity")
 
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
@@ -1970,6 +2284,9 @@ def main() -> int:
     # every profiler session comes after the timed runs
     for label, make, kv, _ in timed:
         device_breakdown(label, cfg, make, prompts, kv, walls[label])
+    llama = get_config("llama-3-8b")
+    device_breakdown(LLAMA_CELL, llama, lambda: device_dummy_params(llama, seed=0), llama_prompts(llama), "none",
+                     LLAMA_WALL[LLAMA_CELL])
     from lia_tpu_torch.engine.engine import InferenceEngine
 
     for name, kv, hbm, policies, nm, inflight, _ in TIERED:
@@ -1989,6 +2306,8 @@ def main() -> int:
                 "decode_attention_fresh": "bf16 weights, none KV",
                 "decode_attention_fresh_int8": "bf16 weights, int8 KV",
                 "w4a8_matmul": "w4a8+int8kv", "woq_matmul": "woq-int4-g128",
+                "w4a8_matmul_stacked": "w4a8+int8kv, stacked_w4a8",
+                "fused_mlp": "llama-3-8b, unfused projections, bf16 KV, fused_mlp",
                 "woq4z_matmul": "gptq woq_int4z", "decode_attention": "tier-h50-p3",
                 "decode_attention_stacked": "tier-h50-p3",  # no reference path runs the stacked entry
                 "paged_decode_attention": "serve-paged", "flash_attention_cached": "serve-paged-chunk256",

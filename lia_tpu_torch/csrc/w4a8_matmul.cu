@@ -25,6 +25,15 @@
 // flight while the tensor cores work. At decode K is split over gridDim.z so
 // every SM has blocks in flight; fp32 partials (whole groups each) are summed
 // by a second launch. TMA, deeper pipelines and wgmma are later work.
+//
+// The stacked entry (lia_w4a8_matmul_stacked) replaces
+// lia_tpu/ops/pallas_matmul.py:w4a8_matmul_stacked (_w4a8_kernel_stacked and
+// _w4a8z_kernel_stacked): the same body against layer `layer` of an
+// [L, K/2, N] stack with [L, ng, N] scales and zero-points. Where the TPU
+// kernel takes the layer as a prefetched scalar, each block here reads it once
+// from device memory and offsets its weight pointers by the per-layer strides,
+// so a captured decode step can replay its layer loop without a host-side
+// index. An index outside [0, L) reads nothing and writes NaN.
 #include "qmatmul.cuh"
 
 namespace {
@@ -63,14 +72,23 @@ struct W4a8Tile {
   static_assert(UNITS % NTH == 0, "stage must split evenly over the threads");
 };
 
-template <bool ZP, int MT, int NT, int WM, int WN>
+// Where the weight's pointers come from: one [K/2, N] weight (B4), or layer
+// *layer of a stack whose layers lie q_stride bytes and s_stride scales apart.
+struct Stack {
+  const int* layer;  // device int32, or null for one weight
+  int L;
+  long long q_stride, s_stride;
+};
+
+template <bool ZP, bool STACKED, int MT, int NT, int WM, int WN>
 __global__ void __launch_bounds__(W4a8Tile<MT, NT, WM, WN>::NTH)
-w4a8_kernel(const int8_t* __restrict__ xq,   // [M, K]
-            const float* __restrict__ sx,    // [M] per-token scales
-            const uint8_t* __restrict__ q,   // [K/2, N] half-split nibbles
-            const float* __restrict__ s,     // [ng, N]
-            const float* __restrict__ z,     // [ng, N] raw-code zero-points (ZP) or null
-            float* __restrict__ dst,         // [M, N], or [splits, M, N] partials
+w4a8_kernel(const int8_t* __restrict__ xq,    // [M, K]
+            const float* __restrict__ sx,     // [M] per-token scales
+            const uint8_t* __restrict__ q0,   // [K/2, N] half-split nibbles ([L, K/2, N] if STACKED)
+            const float* __restrict__ s0,     // [ng, N] ([L, ng, N])
+            const float* __restrict__ z0,     // [ng, N] raw-code zero-points (ZP) or null
+            Stack stack,
+            float* __restrict__ dst,          // [M, N], or [splits, M, N] partials
             int M, int N, int K, int ng, int split_rows, int vec) {
   using T = W4a8Tile<MT, NT, WM, WN>;
   constexpr int BN = T::BN, UPT = T::UPT;
@@ -86,7 +104,23 @@ w4a8_kernel(const int8_t* __restrict__ xq,   // [M, K]
   const int nw = wn * 8 * NT;
   const int Kh = K / 2, g = K / ng;
   const int kb = blockIdx.z * split_rows;
-  const int ke = min(kb + split_rows, Kh);
+  int ke = min(kb + split_rows, Kh);
+
+  const uint8_t* __restrict__ q = q0;
+  const float* __restrict__ s = s0;
+  const float* __restrict__ z = z0;
+  bool bad = false;
+  if (STACKED) {  // one read of the layer index per block, then plain pointers
+    const int l = __ldg(stack.layer);
+    bad = l < 0 || l >= stack.L;
+    if (bad) {
+      ke = kb;  // no stage is read
+    } else {
+      q += (size_t)l * stack.q_stride;
+      s += (size_t)l * stack.s_stride;
+      if (ZP) z += (size_t)l * stack.s_stride;
+    }
+  }
 
   float acc[MT][NT][4];
   int part[2][MT][NT][4], rsum[2][MT][2];
@@ -223,14 +257,22 @@ w4a8_kernel(const int8_t* __restrict__ xq,   // [M, K]
       }
     }
   }
+  if (STACKED && bad) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = __int_as_float(0x7fc00000);  // NaN
+  }
   lia::store_tile<MT, NT>(dst + (size_t)blockIdx.z * M * N, acc, m0 + wrow, n0 + nw, M, N, lane, sx);
 }
 
-template <bool ZP, int MT, int NT, int WM, int WN>
-int launch(const void* xq, const void* sx, const void* q, const void* s, const void* z, void* out,
-           void* ws, int M, int N, int K, int ng, int splits, cudaStream_t stream) {
+template <bool ZP, bool STACKED, int MT, int NT, int WM, int WN>
+int launch(const void* xq, const void* sx, const void* q, const void* s, const void* z, Stack stack,
+           void* out, void* ws, int M, int N, int K, int ng, int splits, cudaStream_t stream) {
   using T = W4a8Tile<MT, NT, WM, WN>;
-  auto kern = w4a8_kernel<ZP, MT, NT, WM, WN>;
+  auto kern = w4a8_kernel<ZP, STACKED, MT, NT, WM, WN>;
   static const cudaError_t attr =  // once per instantiation: the launch sits on the decode path
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -240,7 +282,7 @@ int launch(const void* xq, const void* sx, const void* q, const void* s, const v
   dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
   kern<<<grid, T::NTH, T::SMEM, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const uint8_t*>(q), static_cast<const float*>(s), static_cast<const float*>(z),
+      static_cast<const uint8_t*>(q), static_cast<const float*>(s), static_cast<const float*>(z), stack,
       static_cast<float*>(splits > 1 ? ws : out), M, N, K, ng, split_rows, vec);
   int rc = (int)cudaGetLastError();
   if (rc == 0 && splits > 1)
@@ -253,11 +295,15 @@ int launch(const void* xq, const void* sx, const void* q, const void* s, const v
 // larger M: 64 x 64 tiles (four warps of 32 x 32). 128 x 64 tiles of eight
 // warps unpack each weight tile half as often but ran slower on the H100 at
 // OPT-6.7B's prefill shapes: one such block fits an SM where three of these do.
-template <bool ZP>
-int launch_m(const void* xq, const void* sx, const void* q, const void* s, const void* z,
+template <bool ZP, bool STACKED>
+int launch_m(const void* xq, const void* sx, const void* q, const void* s, const void* z, Stack stack,
              void* out, void* ws, int M, int N, int K, int ng, int splits, cudaStream_t st) {
-  if (M <= 16) return launch<ZP, 1, 1, 1, 4>(xq, sx, q, s, z, out, ws, M, N, K, ng, splits, st);
-  return launch<ZP, 2, 4, 2, 2>(xq, sx, q, s, z, out, ws, M, N, K, ng, splits, st);
+  if (M <= 16) return launch<ZP, STACKED, 1, 1, 1, 4>(xq, sx, q, s, z, stack, out, ws, M, N, K, ng, splits, st);
+  return launch<ZP, STACKED, 2, 4, 2, 2>(xq, sx, q, s, z, stack, out, ws, M, N, K, ng, splits, st);
+}
+
+bool bad_args(int K, int ng, int splits) {
+  return ng < 1 || K % ng != 0 || splits < 1 || (ng > 1 && ng % 2 != 0);
 }
 
 }  // namespace
@@ -271,8 +317,22 @@ extern "C" int lia_w4a8_matmul(const void* xq, const void* sx, const void* q, co
                                const void* z, void* out, void* ws, int M, int N, int K, int ng,
                                int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ng < 1 || K % ng != 0 || splits < 1 || (ng > 1 && ng % 2 != 0))
-    return (int)cudaErrorInvalidValue;
-  if (z) return launch_m<true>(xq, sx, q, s, z, out, ws, M, N, K, ng, splits, st);
-  return launch_m<false>(xq, sx, q, s, z, out, ws, M, N, K, ng, splits, st);
+  if (bad_args(K, ng, splits)) return (int)cudaErrorInvalidValue;
+  const Stack one{nullptr, 1, 0, 0};
+  if (z) return launch_m<true, false>(xq, sx, q, s, z, one, out, ws, M, N, K, ng, splits, st);
+  return launch_m<false, false>(xq, sx, q, s, z, one, out, ws, M, N, K, ng, splits, st);
+}
+
+// The same against layer *layer (device int32) of a stack of L weights:
+// q [L, K/2, N] with layers q_stride bytes apart, s and z [L, ng, N] with
+// layers s_stride floats apart.
+extern "C" int lia_w4a8_matmul_stacked(const void* xq, const void* sx, const void* q, const void* s,
+                                       const void* z, const void* layer, int L, long long q_stride,
+                                       long long s_stride, void* out, void* ws, int M, int N, int K,
+                                       int ng, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_args(K, ng, splits) || L < 1 || !layer) return (int)cudaErrorInvalidValue;
+  const Stack stack{static_cast<const int*>(layer), L, q_stride, s_stride};
+  if (z) return launch_m<true, true>(xq, sx, q, s, z, stack, out, ws, M, N, K, ng, splits, st);
+  return launch_m<false, true>(xq, sx, q, s, z, stack, out, ws, M, N, K, ng, splits, st);
 }

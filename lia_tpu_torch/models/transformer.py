@@ -14,8 +14,17 @@ The projections, MLP and lm_head are plain matmuls (cuBLAS through torch),
 as they are plain XLA dots in the reference, or, for a quantized weight
 record, :func:`lia_tpu_torch.ops.quant.quantized_matmul` (the quantized-matmul
 kernels); attention goes through the front doors of
-:mod:`lia_tpu_torch.ops.attention`. RoPE, ALiBi and mixture of experts are not
-ported yet and raise.
+:mod:`lia_tpu_torch.ops.attention`. RoPE (:mod:`lia_tpu_torch.ops.rope`)
+rotates Q and K before the head-major transpose for the families the port
+holds against the reference (:func:`check_supported`); ALiBi and mixture of
+experts are not ported yet and raise.
+
+Two gated routes, off by default (:mod:`lia_tpu_torch.ops.dispatch`), as in
+the reference: with the stacked-W4A8 gate, :func:`decode_layers_scan` hands
+each layer its ``woq_int4_dyn`` / ``woq_int4z_dyn`` weights as references
+into the stack (:class:`lia_tpu_torch.ops.quant.QuantizedWeightRef`); with
+the fused-MLP gate, :func:`attn_post_mlp` runs a pre-norm layer's MLP block
+that fits the kernel in one launch (:func:`_fused_mlp_viable`).
 
 The layer functions take ``host=True`` for the tiered scheduler's host tier
 (policies 1, 2 and 4 run layers or attention on the CPU): attention is then
@@ -27,6 +36,7 @@ linears take the plain matmuls (:func:`lia_tpu_torch.ops.quant.quantized_matmul`
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -34,38 +44,58 @@ import torch.nn.functional as F
 
 from lia_tpu_torch.config import Activation, ModelConfig, Norm, torch_dtype
 from lia_tpu_torch.ops import attention as att
+from lia_tpu_torch.ops import dispatch
 from lia_tpu_torch.ops import kv_cache as kvc
 from lia_tpu_torch.ops.norms import layernorm, rmsnorm
 from lia_tpu_torch.ops.quant import (QuantizedKV, dequantize_kv, is_quantized, is_quantized_kv, matmul_f32,
-                                     quantize_kv, quantized_matmul)
+                                     quantize_kv, quantized_matmul, stackable_ref, stacked_ref)
+from lia_tpu_torch.ops.rope import rope_angles, rotate
 
 Params = Dict[str, Any]
+
+# families whose RoPE layouts the port's tests hold against the reference
+ROPE_FAMILIES = ("llama", "gptj", "gpt_neox")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configuration features the port does not run yet."""
+    # stablelm is the llama layout with LayerNorm: not held against the reference yet
+    stablelm = cfg.family == "llama" and cfg.norm == Norm.LAYERNORM
+    rope_missing = cfg.rope and (cfg.family not in ROPE_FAMILIES or stablelm)
     missing = [
         name for name, on in (
-            ("RoPE", cfg.rope), ("ALiBi", cfg.alibi), ("mixture of experts", cfg.num_experts),
-            ("encoder-decoder", cfg.encoder_decoder), ("vision tower", cfg.vision_hidden),
+            (f"RoPE in the {cfg.family} layout", rope_missing), ("ALiBi", cfg.alibi),
+            ("mixture of experts", cfg.num_experts), ("encoder-decoder", cfg.encoder_decoder),
+            ("vision tower", cfg.vision_hidden),
         ) if on
     ]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
 
 
-def _layer(v: Any, idx: int) -> Any:
+def _layer(v: Any, idx: int, stack_index: Optional[torch.Tensor]) -> Any:
     if isinstance(v, dict):
-        return layer_params(v, idx)
+        return layer_params(v, idx, stack_index)
+    if stack_index is not None and stackable_ref(v):
+        return stacked_ref(v, idx, stack_index)
     if is_quantized(v):
         return v.map(lambda t: t[idx])
     return v[idx]
 
 
-def layer_params(layers: Params, idx: int) -> Params:
+def layer_params(layers: Params, idx: int, stack_index: Optional[torch.Tensor] = None) -> Params:
     """Layer ``idx`` of the stacked layer tree, as views (a quantized record's
-    codes, scales and zero-points each indexed)."""
-    return {k: _layer(v, idx) for k, v in layers.items()}
+    codes, scales and zero-points each indexed). Given ``stack_index`` (a
+    device ``arange(L)``, :func:`layer_index`), a record the stacked W4A8
+    kernel takes stays whole, as a :class:`~lia_tpu_torch.ops.quant.QuantizedWeightRef`."""
+    return {k: _layer(v, idx, stack_index) for k, v in layers.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def layer_index(n: int, device: str) -> torch.Tensor:
+    """A device ``arange(n)`` (int32), made once per device: the layer indices
+    the stacked W4A8 kernel reads, so no decode step copies one from the host."""
+    return torch.arange(n, dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -115,9 +145,8 @@ def activation_fn(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_project(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
-    """Project hidden [B, S, H] → q [B, S, N, D] and head-major k/v [B, N_kv, S, D]."""
-    if cfg.rope:
-        raise NotImplementedError("RoPE is not ported yet")
+    """Project hidden [B, S, H] → q [B, S, N, D] and head-major k/v [B, N_kv, S, D],
+    q and k rotated (RoPE) at ``positions`` [B, S] before the transpose."""
     B, S, _ = x.shape
     N, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a = lp["attn"]
@@ -131,6 +160,9 @@ def qkv_project(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.
         q = linear(x, a["wq"], a.get("bq")).reshape(B, S, N, D)
         k = linear(x, a["wk"], a.get("bk")).reshape(B, S, Nkv, D)
         v = linear(x, a["wv"], a.get("bv")).reshape(B, S, Nkv, D)
+    if cfg.rope:  # one set of angles for q and k
+        cos, sin = rope_angles(positions, cfg.rope_theta, cfg.rotary_dim or D)
+        q, k = rotate(q, cos, sin, cfg.rope_interleaved), rotate(k, cos, sin, cfg.rope_interleaved)
     return q, k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -182,12 +214,45 @@ def attn_post_mlp(cfg: ModelConfig, lp: Params, residual: torch.Tensor, attn_out
     x = residual + h
     if not cfg.pre_norm:
         x = norm(cfg, lp["ln1"], x)
+    if cfg.pre_norm and _fused_mlp_viable(cfg, lp, x):
+        return _fused_mlp_call(cfg, lp, x)
     residual = x
     h = norm(cfg, lp["ln2"], x) if cfg.pre_norm else x
     x = residual + mlp(cfg, lp, h)
     if not cfg.pre_norm:
         x = norm(cfg, lp["ln2"], x)
     return x
+
+
+def _fused_mlp_viable(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> bool:
+    """The fused-MLP route (the reference's rules, :func:`lia_tpu_torch.ops.cuda_mlp.fused_mlp`):
+    the gate on, separate unquantized ``w1`` (and ``wg``) and ``w2`` (not the
+    fused ``wg1``), at most 256 rows, H % 128 == 0 and F % 512 == 0. The
+    type is not a rule: on the card the kernel takes bf16 and raises for
+    another type."""
+    if not dispatch.fused_mlp_enabled():
+        return False
+    m = lp["mlp"]
+    if "w1" not in m or "wg1" in m:
+        return False
+    if any(is_quantized(m.get(k)) for k in ("w1", "wg", "w2") if m.get(k) is not None):
+        return False
+    B, S, H = x.shape
+    return B * S <= 256 and H % 128 == 0 and m["w1"].shape[-1] % 512 == 0
+
+
+def _fused_mlp_call(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    from lia_tpu_torch.ops.cuda_mlp import fused_mlp
+
+    B, S, H = x.shape
+    m, ln = lp["mlp"], lp["ln2"]
+    swiglu = cfg.activation == Activation.SILU
+    y = fused_mlp(
+        x.reshape(B * S, H), ln["scale"], ln.get("bias"), m["w1"], m.get("b1"),
+        m["wg"] if swiglu else None, m["w2"], m.get("b2"),
+        activation=cfg.activation.value, rms=cfg.norm == Norm.RMSNORM, eps=cfg.norm_eps,
+    )
+    return y.reshape(B, S, H)
 
 
 def decoder_layer_prefill(cfg, lp, x, k_layer, v_layer, start, attn_ctx, positions, host: bool = False):
@@ -326,10 +391,14 @@ def decode_layers_scan(cfg, layers: Params, x, ck, cv, start, ctx: att.DecodeAtt
     each layer's attention merges the fresh token in the kernel, and one write
     per step commits every layer's fresh K/V (:func:`kvc.write_token_all`, which
     quantizes them for an INT8 cache; the int8 kernel gives attention the same
-    round trip). ``ctx``/``start`` describe the cache BEFORE this token."""
+    round trip). ``ctx``/``start`` describe the cache BEFORE this token. With
+    the stacked-W4A8 gate on, each ``woq_int4_dyn`` / ``woq_int4z_dyn`` record
+    reaches layer ``idx`` as a reference into its stack, the layer index read
+    from device memory (the reference's ``_split_stacked_quant``)."""
+    stack_index = layer_index(n_layers, str(x.device)) if dispatch.stacked_w4a8_enabled() else None
     k_new, v_new = [], []
     for idx in range(n_layers):
-        lp = layer_params(layers, idx)
+        lp = layer_params(layers, idx, stack_index)
         residual = x
         q, k, v = attn_in(cfg, lp, x, positions)
         attn_out = att.attend_decode_fresh(q, k, v, ck, cv, idx, ctx)

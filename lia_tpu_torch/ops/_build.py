@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C entry point and argument types of each library. Every pointer, and the
 # stream, is a c_void_p: ctypes would pass a bare Python int as a 32-bit int.
@@ -57,9 +57,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "w4a8_matmul": {
         "lia_w4a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "lia_w4a8_matmul_stacked": [P, P, P, P, P, P, I, LL, LL, P, P, I, I, I, I, I, P],
     },
     "woq_matmul": {
         "lia_woq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    },
+    "fused_mlp": {
+        "lia_fused_mlp": [P] * 11 + [I] * 5 + [F, P],
     },
 }
 

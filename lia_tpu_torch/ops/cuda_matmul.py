@@ -3,6 +3,8 @@ counters (the counterpart of ``lia_tpu/ops/pallas_matmul.py``).
 
 - :func:`w4a8_matmul`: int8 activations × half-split int4 weights, exact
   int32 sums per group (``csrc/w4a8_matmul.cu``);
+- :func:`w4a8_matmul_stacked`: the same kernel against one layer of an
+  ``[L, K/2, N]`` stack, the layer index read from device memory;
 - :func:`woq_matmul`: bf16 activations × int8, int4 or NF4 weights, fp32
   sums per group (``csrc/woq_matmul.cu``);
 - :func:`woq4z_matmul`: the same kernel over raw int4 codes with per-group
@@ -70,6 +72,13 @@ def w4a8_matmul_plain(xq, sx, q, s, z=None) -> torch.Tensor:
             part = part - rowsum * (z[gi] - 8.0)
         acc = acc + part * s[gi]
     return acc * sx
+
+
+def w4a8_matmul_stacked_plain(xq, sx, q, s, z=None, layer=0) -> torch.Tensor:
+    """:func:`w4a8_matmul_plain` on layer ``layer`` (an int or a 0-d tensor) of
+    a stacked ``[L, K/2, N]`` weight with ``[L, ng, N]`` scales (and zero-points)."""
+    li = int(layer)
+    return w4a8_matmul_plain(xq, sx, q[li], s[li], None if z is None else z[li])
 
 
 def _decode_codes(q: torch.Tensor, kind: str, dtype) -> torch.Tensor:
@@ -166,31 +175,62 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
 
 
+def _w4a8_launch(name: str, xq, sx, q, s, z, entry: str, *stack) -> torch.Tensor:
+    """Checks, outputs and launch shared by the W4A8 entries: ``q``, ``s`` and
+    ``z`` are one layer's weight (layer 0's views for the stacked entry, whose
+    base pointers they share), ``stack`` the stacked entry's extra arguments."""
+    from lia_tpu_torch.ops import _build
+
+    M, K = xq.shape
+    if xq.dtype is not torch.int8 or sx.dtype is not torch.float32 or sx.shape != (M, 1):
+        raise TypeError(f"{name}: xq must be int8 [M, K] and sx float32 [M, 1], got "
+                        f"{xq.dtype} {tuple(xq.shape)}, {sx.dtype} {tuple(sx.shape)}")
+    if xq.data_ptr() % 16:
+        raise ValueError(f"{name}: xq must be 16-byte aligned (the kernel copies 16 bytes at once)")
+    N, ng, unit = _check_weight(K, q, s, z, True, name)
+    stream = _stream(xq, sx, q, s, *([] if z is None else [z]))
+    splits = _splits(M, N, K // 2, unit)
+    out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
+    ws = torch.empty(splits, M, N, dtype=torch.float32, device=xq.device) if splits > 1 else out
+    rc = getattr(_build.library("w4a8_matmul"), entry)(
+        xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if z is None else z.data_ptr(), *stack,
+        out.data_ptr(), ws.data_ptr(), M, N, K, ng, splits, stream,
+    )
+    _raise_on(rc, name)
+    return out
+
+
 def w4a8_matmul(xq, sx, q, s, z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int8 activations ``xq [M, K]`` with scales ``sx [M, 1]`` × half-split int4
     weights → f32 ``[M, N]``; ``z`` None for biased codes ``c − 8``, else raw
     codes with per-group zero-points."""
     if xq.device.type == "cpu":
         return w4a8_matmul_plain(xq, sx, q, s, z)
-    from lia_tpu_torch.ops import _build
-
-    M, K = xq.shape
-    if xq.dtype is not torch.int8 or sx.dtype is not torch.float32 or sx.shape != (M, 1):
-        raise TypeError(f"w4a8_matmul: xq must be int8 [M, K] and sx float32 [M, 1], got "
-                        f"{xq.dtype} {tuple(xq.shape)}, {sx.dtype} {tuple(sx.shape)}")
-    if xq.data_ptr() % 16:
-        raise ValueError("w4a8_matmul: xq must be 16-byte aligned (the kernel copies 16 bytes at once)")
-    N, ng, unit = _check_weight(K, q, s, z, True, "w4a8_matmul")
-    stream = _stream(xq, sx, q, s, *([] if z is None else [z]))
-    splits = _splits(M, N, K // 2, unit)
-    out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
-    ws = torch.empty(splits, M, N, dtype=torch.float32, device=xq.device) if splits > 1 else out
-    rc = _build.library("w4a8_matmul").lia_w4a8_matmul(
-        xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if z is None else z.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), M, N, K, ng, splits, stream,
-    )
-    _raise_on(rc, "w4a8_matmul")
+    out = _w4a8_launch("w4a8_matmul", xq, sx, q, s, z, "lia_w4a8_matmul")
     w4a8_matmul.launches += 1
+    return out
+
+
+def w4a8_matmul_stacked(xq, sx, q, s, z: Optional[torch.Tensor], layer) -> torch.Tensor:
+    """:func:`w4a8_matmul` against layer ``layer`` of a stacked weight: ``q``
+    uint8 ``[L, K/2, N]``, ``s`` (and ``z``) f32 ``[L, ng, N]``. ``layer`` is a
+    0-d int32 tensor on the card, read by the kernel (each block offsets its
+    weight pointers by it), so no call copies an index from the host; the
+    kernel writes NaN where it lies outside ``[0, L)``. On the CPU ``layer``
+    may be an int."""
+    if xq.device.type == "cpu":
+        return w4a8_matmul_stacked_plain(xq, sx, q, s, z, layer)
+    name = "w4a8_matmul_stacked"
+    if q.dim() != 3 or s.dim() != 3 or s.shape[0] != q.shape[0] or (
+            z is not None and (z.shape != s.shape or z.stride() != s.stride())):
+        raise ValueError(f"{name}: q must be [L, K/2, N] with s and z [L, ng, N] (z laid out as s), got "
+                         f"{tuple(q.shape)}, {tuple(s.shape)}, {None if z is None else tuple(z.shape)}")
+    if not isinstance(layer, torch.Tensor) or layer.dim() != 0 or layer.dtype is not torch.int32:
+        raise TypeError(f"{name}: layer must be a 0-d int32 tensor, got {layer!r}")
+    _stream(layer)
+    out = _w4a8_launch(name, xq, sx, q[0], s[0], None if z is None else z[0], "lia_w4a8_matmul_stacked",
+                       layer.data_ptr(), q.shape[0], q.stride(0), s.stride(0))
+    w4a8_matmul_stacked.launches += 1
     return out
 
 
@@ -239,7 +279,7 @@ def woq4z_matmul(x, q, s, z) -> torch.Tensor:
     return out
 
 
-KERNELS = (w4a8_matmul, woq_matmul, woq4z_matmul)
+KERNELS = (w4a8_matmul, w4a8_matmul_stacked, woq_matmul, woq4z_matmul)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -23,7 +23,9 @@ from lia_tpu_torch.ops.quant import QuantizedWeight, is_quantized
 
 
 def _cat_weights(ws: List[Any]) -> Optional[Any]:
-    """N-axis concat of raw or quantized weights; None when they cannot fuse."""
+    """N-axis concat of raw or quantized weights; None when they cannot fuse.
+    Fusion runs on the stacked tree, before the decode loop makes any
+    :class:`~lia_tpu_torch.ops.quant.QuantizedWeightRef`."""
     if not any(is_quantized(w) for w in ws):
         return torch.cat(ws, dim=-1)
     if not all(is_quantized(w) for w in ws):

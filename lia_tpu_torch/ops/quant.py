@@ -15,7 +15,9 @@ scales are bit-equal for equal inputs.
   exact int32 sums, rescaled in fp32 (plain XLA dots in the reference; on the
   card ``torch._int_mm``, see :func:`_int8_dot`);
 - ``woq_int4_dyn`` / ``woq_int4z_dyn``: the W4A8 kernel
-  (:func:`lia_tpu_torch.ops.cuda_matmul.w4a8_matmul`);
+  (:func:`lia_tpu_torch.ops.cuda_matmul.w4a8_matmul`), or its stacked entry
+  (:func:`~lia_tpu_torch.ops.cuda_matmul.w4a8_matmul_stacked`) for a
+  :class:`QuantizedWeightRef`, one layer of a stack;
 - ``woq_int8`` / ``woq_int4`` / ``woq_nf4``: the weight-only kernel
   (:func:`~lia_tpu_torch.ops.cuda_matmul.woq_matmul`), ``woq_int4z``
   its zero-point form (:func:`~lia_tpu_torch.ops.cuda_matmul.woq4z_matmul`);
@@ -24,8 +26,7 @@ scales are bit-equal for equal inputs.
 
 The reference's Mosaic tiling rules (``_w4a8_blocks``, ``_pallas_woq_viable``)
 are not carried over: a kernel runs for every shape its math allows (see
-:func:`_kernel_takes`). The stacked-layer references and the tensor-parallel
-matmul are not ported yet.
+:func:`_kernel_takes`). The tensor-parallel matmul is not ported yet.
 
 **KV cache.** One symmetric scale per token per head: codes int8
 ``[..., S, D]``, scales f32 ``[..., S]``, bit-equal to the reference's.
@@ -76,8 +77,47 @@ class QuantizedWeight(NamedTuple):
         return QuantizedWeight(fn(self.q), fn(self.s), self.fmt, None if self.z is None else fn(self.z))
 
 
+class QuantizedWeightRef(NamedTuple):
+    """Layer ``idx`` of a STACKED quantized record (``q`` ``[L, ...]``), kept
+    whole so the stacked W4A8 kernel reads the layer's codes, scales and
+    zero-points in place at the index ``layer`` holds in device memory (a 0-d
+    int32 tensor on the stack's device, equal to ``idx``). A captured decode
+    step can then replay its layer loop without a host-side index."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+    fmt: str
+    z: Optional[torch.Tensor]
+    idx: int
+    layer: torch.Tensor
+
+    def sliced(self) -> QuantizedWeight:
+        """The layer's record as views into the stack (the per-layer path)."""
+        return QuantizedWeight(self.q[self.idx], self.s[self.idx], self.fmt,
+                               None if self.z is None else self.z[self.idx])
+
+
 def is_quantized(w: Any) -> bool:
-    return isinstance(w, QuantizedWeight)
+    return isinstance(w, (QuantizedWeight, QuantizedWeightRef))
+
+
+_STACKED_KERNEL_FMTS = ("woq_int4_dyn", "woq_int4z_dyn")
+
+
+def stackable_ref(rec: Any) -> bool:
+    """Whether the decode loop, with the stacked-W4A8 gate on, addresses this
+    stacked record through a :class:`QuantizedWeightRef`: a ``[L, K/2, N]``
+    ``woq_int4_dyn`` or ``woq_int4z_dyn`` record."""
+    return isinstance(rec, QuantizedWeight) and rec.fmt in _STACKED_KERNEL_FMTS and rec.q.ndim == 3
+
+
+def stacked_ref(rec: QuantizedWeight, idx: int, layers: torch.Tensor) -> QuantizedWeightRef:
+    """Layer ``idx`` of ``rec`` as a reference; ``layers`` is a device
+    ``arange(L)`` (int32) whose entry ``idx`` the kernel reads."""
+    L = rec.q.shape[0]
+    if not 0 <= idx < L:
+        raise IndexError(f"layer {idx} outside a stack of {L}")
+    return QuantizedWeightRef(rec.q, rec.s, rec.fmt, rec.z, idx, layers[idx])
 
 
 def _np(w) -> np.ndarray:
@@ -331,8 +371,9 @@ def _kernel_takes(K: int, ng: int, packed: bool) -> bool:
     return rows % 16 == 0 and (ng == 1 or g % 16 == 0)
 
 
-def quantized_matmul(x: torch.Tensor, rec: QuantizedWeight) -> torch.Tensor:
-    """x [..., K] @ dequant(rec) with fp32 accumulation; returns fp32 [..., N]."""
+def quantized_matmul(x: torch.Tensor, rec) -> torch.Tensor:
+    """x [..., K] @ dequant(rec) with fp32 accumulation; returns fp32 [..., N].
+    ``rec`` is a :class:`QuantizedWeight` or a :class:`QuantizedWeightRef`."""
     from lia_tpu_torch.ops import cuda_matmul as cm
 
     fmt = rec.fmt
@@ -352,10 +393,17 @@ def quantized_matmul(x: torch.Tensor, rec: QuantizedWeight) -> torch.Tensor:
         return y.reshape(*lead, N)
     ng = rec.s.shape[-2]
     packed = fmt.startswith("woq_int4") or fmt == "woq_nf4"
-    takes = rec.q.ndim == 2 and _kernel_takes(K, ng, packed)
+    ref = isinstance(rec, QuantizedWeightRef)  # one layer of a stack, its index on the device
+    takes = (ref or rec.q.ndim == 2) and _kernel_takes(K, ng, packed)
     if takes and (fmt == "woq_int4_dyn" or (fmt == "woq_int4z_dyn" and rec.z is not None)):
         xq, s_x = quantize_act(x2)
-        y = cm.w4a8_matmul(xq, s_x, rec.q, rec.s, rec.z if fmt == "woq_int4z_dyn" else None)
+        z = rec.z if fmt == "woq_int4z_dyn" else None
+        if ref:
+            y = cm.w4a8_matmul_stacked(xq, s_x, rec.q, rec.s, z, rec.layer)
+        else:
+            y = cm.w4a8_matmul(xq, s_x, rec.q, rec.s, z)
+    elif ref:  # no stacked kernel for this shape: the layer's views
+        return quantized_matmul(x, rec.sliced())
     elif takes and fmt.startswith("woq_int4z") and rec.z is not None:
         y = cm.woq4z_matmul(x2, rec.q, rec.s, rec.z)
     elif takes and fmt in ("woq_int8", "woq_int4", "woq_nf4"):

@@ -19,7 +19,8 @@ quantized weight is a :class:`~lia_tpu_torch.ops.quant.QuantizedWeight` record.
   quantized records included) to torch tensors, keeping the stacked layout.
   bf16 leaves convert through their 16-bit pattern, so ``ml_dtypes`` is never
   imported.
-- :func:`params_from_hf_state_dict`: a Hugging Face OPT state dict to the tree.
+- :func:`params_from_hf_state_dict`: a Hugging Face OPT, llama-layout, GPT-J
+  or GPT-NeoX state dict to the tree.
 - :func:`to_device` places a tree on the accelerator; :func:`to_host` keeps it
   in host memory in the layout ``to_device`` gives it there, for the tiered
   scheduler's streamed layers.
@@ -320,12 +321,12 @@ def to_host(tree: Any, device) -> Any:
 
 
 def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
-    """Map a Hugging Face OPT state dict (numpy arrays or tensors) into the
-    stacked tree. HF linears store ``weight`` as [out, in]; the tree stores
-    [in, out]. Values go through fp32 and are cast once to ``cfg.dtype``, as
-    the reference's mapping does. Other families are not ported yet."""
-    if cfg.family != "opt":
-        raise NotImplementedError(f"{cfg.family}: only the OPT state-dict mapping is ported")
+    """Map a Hugging Face state dict (numpy arrays or tensors) into the stacked
+    tree, for OPT, the llama layout (llama, mistral, qwen2 with its qkv
+    biases; not mixture of experts), GPT-J and GPT-NeoX. HF linears store
+    ``weight`` as [out, in]; the tree stores [in, out]. Values go through fp32
+    and are cast once to ``cfg.dtype``, as the reference's mapping does. Other
+    families are not ported yet."""
     dt = torch_dtype(cfg.dtype)
     L = cfg.num_layers
 
@@ -333,15 +334,28 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         a = sd[key]
         return a.detach().float().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
 
+    def cast(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt)
+
     def raw(key):
-        return torch.from_numpy(np.ascontiguousarray(get(key))).to(dt)
+        return cast(get(key))
 
     def wT(key):
-        return torch.from_numpy(np.ascontiguousarray(get(key).T)).to(dt)
+        return cast(get(key).T)
 
     def stack(fmt, transpose=False):
         f = wT if transpose else raw
         return torch.stack([f(fmt.format(i)) for i in range(L)])
+
+    if cfg.family == "llama" and not cfg.num_experts:
+        return _params_llama(cfg, raw, wT, stack)
+    if cfg.family == "gptj":
+        return _params_gptj(raw, wT, stack)
+    if cfg.family == "gpt_neox":
+        return _params_gpt_neox(cfg, get, cast, raw, wT, stack)
+    if cfg.family != "opt":
+        raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J and GPT-NeoX state-dict "
+                                  "mappings are ported")
 
     pre = "model.decoder."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -376,3 +390,106 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         },
     }
     return params
+
+
+def _params_llama(cfg: ModelConfig, raw, wT, stack) -> Params:
+    """The llama layout (HF modeling_llama; mistral and qwen2 share it, qwen2
+    with q/k/v biases and no o_proj bias; a LayerNorm config also maps its
+    norms' biases)."""
+    ln_bias = cfg.norm == Norm.LAYERNORM
+    pre = "model."
+    params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
+                      "final_norm": {"scale": raw(pre + "norm.weight")}}
+    if ln_bias:
+        params["final_norm"]["bias"] = raw(pre + "norm.bias")
+    if not cfg.tie_embeddings:
+        params["lm_head"] = wT("lm_head.weight")
+    lp = pre + "layers.{}."
+    attn = {
+        "wq": stack(lp + "self_attn.q_proj.weight", True),
+        "wk": stack(lp + "self_attn.k_proj.weight", True),
+        "wv": stack(lp + "self_attn.v_proj.weight", True),
+        "wo": stack(lp + "self_attn.o_proj.weight", True),
+    }
+    if cfg.attn_bias:
+        for n in ("q", "k", "v"):
+            attn[f"b{n}"] = stack(lp + f"self_attn.{n}_proj.bias")
+    if cfg.o_bias if cfg.o_bias is not None else cfg.attn_bias:
+        attn["bo"] = stack(lp + "self_attn.o_proj.bias")
+    ln1 = {"scale": stack(lp + "input_layernorm.weight")}
+    ln2 = {"scale": stack(lp + "post_attention_layernorm.weight")}
+    if ln_bias:
+        ln1["bias"] = stack(lp + "input_layernorm.bias")
+        ln2["bias"] = stack(lp + "post_attention_layernorm.bias")
+    mlp = {
+        "wg": stack(lp + "mlp.gate_proj.weight", True),
+        "w1": stack(lp + "mlp.up_proj.weight", True),
+        "w2": stack(lp + "mlp.down_proj.weight", True),
+    }
+    params["layers"] = {"ln1": ln1, "attn": attn, "ln2": ln2, "mlp": mlp}
+    return params
+
+
+def _params_gptj(raw, wT, stack) -> Params:
+    """GPT-J (HF modeling_gptj): one shared ln_1, separate q/k/v projections
+    without biases, a biased fc_in/fc_out MLP, an untied lm_head with a bias."""
+    lp = "transformer.h.{}."
+    return {
+        "embed_tokens": raw("transformer.wte.weight"),
+        "final_norm": {"scale": raw("transformer.ln_f.weight"), "bias": raw("transformer.ln_f.bias")},
+        "lm_head": wT("lm_head.weight"),
+        "lm_head_bias": raw("lm_head.bias"),
+        "layers": {
+            "ln1": {"scale": stack(lp + "ln_1.weight"), "bias": stack(lp + "ln_1.bias")},
+            "attn": {
+                "wq": stack(lp + "attn.q_proj.weight", True),
+                "wk": stack(lp + "attn.k_proj.weight", True),
+                "wv": stack(lp + "attn.v_proj.weight", True),
+                "wo": stack(lp + "attn.out_proj.weight", True),
+            },
+            "mlp": {
+                "w1": stack(lp + "mlp.fc_in.weight", True),
+                "b1": stack(lp + "mlp.fc_in.bias"),
+                "w2": stack(lp + "mlp.fc_out.weight", True),
+                "b2": stack(lp + "mlp.fc_out.bias"),
+            },
+        },
+    }
+
+
+def _params_gpt_neox(cfg: ModelConfig, get, cast, raw, wT, stack) -> Params:
+    """GPT-NeoX / Pythia (HF modeling_gpt_neox): a fused query_key_value whose
+    out-dim runs head by head as [q | k | v], de-interleaved into wq/wk/wv;
+    a separate post-attention LayerNorm; untied ``embed_out``."""
+    N, D, L = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    lp = "gpt_neox.layers.{}."
+    qkv = {n: ([], []) for n in "qkv"}
+    for i in range(L):
+        w = get(lp.format(i) + "attention.query_key_value.weight").reshape(N, 3 * D, -1)
+        b = get(lp.format(i) + "attention.query_key_value.bias").reshape(N, 3 * D)
+        for j, n in enumerate("qkv"):
+            qkv[n][0].append(cast(w[:, j * D:(j + 1) * D, :].reshape(N * D, -1).T))
+            qkv[n][1].append(cast(b[:, j * D:(j + 1) * D].reshape(N * D)))
+    attn = {}
+    for n, (ws, bs) in qkv.items():
+        attn[f"w{n}"], attn[f"b{n}"] = torch.stack(ws), torch.stack(bs)
+    attn["wo"] = stack(lp + "attention.dense.weight", True)
+    attn["bo"] = stack(lp + "attention.dense.bias")
+    return {
+        "embed_tokens": raw("gpt_neox.embed_in.weight"),
+        "final_norm": {"scale": raw("gpt_neox.final_layer_norm.weight"),
+                       "bias": raw("gpt_neox.final_layer_norm.bias")},
+        "lm_head": wT("embed_out.weight"),
+        "layers": {
+            "ln1": {"scale": stack(lp + "input_layernorm.weight"), "bias": stack(lp + "input_layernorm.bias")},
+            "attn": attn,
+            "ln2": {"scale": stack(lp + "post_attention_layernorm.weight"),
+                    "bias": stack(lp + "post_attention_layernorm.bias")},
+            "mlp": {
+                "w1": stack(lp + "mlp.dense_h_to_4h.weight", True),
+                "b1": stack(lp + "mlp.dense_h_to_4h.bias"),
+                "w2": stack(lp + "mlp.dense_4h_to_h.weight", True),
+                "b2": stack(lp + "mlp.dense_4h_to_h.bias"),
+            },
+        },
+    }

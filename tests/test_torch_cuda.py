@@ -239,7 +239,7 @@ def test_quantized_model_on_the_card_matches_the_cpu(cuda, fmt):
     # int8 activations: bf16 and fp32 activations can round to neighbouring
     # codes, which moves the logits more than bf16 rounding alone
     torch.testing.assert_close(gpu, cpu, rtol=0, atol=0.15 if "8kv" in fmt else 5e-2)
-    expected = {"w4a8_matmul": 0, "woq_matmul": 0, "woq4z_matmul": 0}
+    expected = {"w4a8_matmul": 0, "w4a8_matmul_stacked": 0, "woq_matmul": 0, "woq4z_matmul": 0}
     if fmt != "int8dyn+int8kv":  # int8 activations x int8 weights go to torch._int_mm
         # unfused q/k/v: six linears per layer, two layers, the head; 5 forwards
         expected["w4a8_matmul" if fmt == "w4a8+int8kv" else "woq_matmul"] = (6 * 2 + 1) * 5
@@ -591,3 +591,224 @@ def test_host_cache_beam_reorder_stays_pinned(cuda, quantized):
     assert all(p.is_pinned() for p in after) and [p.data_ptr() for p in parts] == ptrs
     for b, a in zip(before, after):
         torch.testing.assert_close(a, b.index_select(0 if a.dim() == 2 else 1, idx.cpu()), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# B13 (stacked W4A8) and B14 (fused MLP)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("zp", [False, True])
+@pytest.mark.parametrize("K,N", [(4096, 12288), (16384, 4096)])  # OPT-6.7B's wqkv and fc2
+@pytest.mark.parametrize("M", [16, 4096])
+def test_w4a8_stacked_is_b4_on_the_view(cuda, M, K, N, zp):
+    """At every layer of a 3-layer stack the stacked entry gives B4's output
+    on that layer's view bit for bit (the same int32 group sums, the same
+    scaling), reading the layer from device memory; an index outside the
+    stack reads nothing and writes NaN."""
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    L, ng = 3, K // 128
+    _, xq, sx, _, _, _, _ = _mm_inputs(gen, M, K, 8, 128)
+    q = torch.randint(0, 256, (L, K // 2, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    s = torch.rand(L, ng, N, generator=gen, device="cuda") * 0.01 + 0.001
+    z = torch.randint(0, 16, (L, ng, N), generator=gen, device="cuda").float() if zp else None
+    layers = torch.arange(L + 1, dtype=torch.int32, device=cuda)
+    for li in range(L):
+        before = cm.w4a8_matmul_stacked.launches
+        out = cm.w4a8_matmul_stacked(xq, sx, q, s, z, layers[li])
+        assert cm.w4a8_matmul_stacked.launches == before + 1
+        ref = cm.w4a8_matmul(xq, sx, q[li], s[li], None if z is None else z[li])
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), f"layer {li}: max |diff| {(out - ref).abs().max().item()}"
+    assert torch.isnan(cm.w4a8_matmul_stacked(xq, sx, q, s, z, layers[L])).all()
+
+
+FUSED_MLP_CASES = [  # (label, H, F, activation, rms, biases): OPT-6.7B's arms and Llama-3-8B's
+    ("opt-relu", 4096, 16384, "relu", False, True),
+    ("opt-gelu", 4096, 16384, "gelu", False, True),
+    ("opt-gelu_new", 4096, 16384, "gelu_new", False, True),
+    ("llama3-swiglu", 4096, 14336, "silu", True, False),
+]
+
+
+def fused_mlp_inputs(gen, rows, H, F, act, biases, device="cuda"):
+    """bf16 inputs of one MLP block at the main path's widths: weights of
+    std 0.02 keep the up-projection and the sum over F of O(1)."""
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * sc).to(torch.bfloat16)
+
+    return dict(x=r(rows, H), ln_scale=(1 + r(H, sc=0.1).float()).to(torch.bfloat16),
+                ln_bias=r(H, sc=0.1) if biases else None, w1=r(H, F, sc=0.02), b1=r(F, sc=0.1) if biases else None,
+                wg=r(H, F, sc=0.02) if act == "silu" else None, w2=r(F, H, sc=0.02),
+                b2=r(H, sc=0.1) if biases else None)
+
+
+FUSED_MLP_TOL = 2e-2  # bf16 outputs of O(1): one or two bf16 steps; the kernel's
+# fp32 sums run in another order (its atomics in one that varies run to run),
+# which can move a rounding of the normed input or the activation by one step
+
+
+@pytest.mark.parametrize("rows", [1, 16, 256])
+@pytest.mark.parametrize("case", FUSED_MLP_CASES, ids=[c[0] for c in FUSED_MLP_CASES])
+def test_fused_mlp_kernel_matches_plain(cuda, case, rows):
+    from lia_tpu_torch.ops import cuda_mlp
+
+    _, H, F, act, rms, biases = case
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    a = fused_mlp_inputs(gen, rows, H, F, act, biases)
+    before = cuda_mlp.fused_mlp.launches
+    out = cuda_mlp.fused_mlp(**a, activation=act, rms=rms)
+    again = cuda_mlp.fused_mlp(**a, activation=act, rms=rms)
+    ref = cuda_mlp.fused_mlp_plain(**a, activation=act, rms=rms)
+    torch.cuda.synchronize()
+    assert cuda_mlp.fused_mlp.launches == before + 2
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=FUSED_MLP_TOL, atol=FUSED_MLP_TOL)
+    torch.testing.assert_close(again.float(), out.float(), rtol=FUSED_MLP_TOL, atol=FUSED_MLP_TOL)
+    ws, tickets = cuda_mlp._workspace(torch.cuda.current_device(), H)
+    assert not ws.any() and not tickets.any()  # left zero for the next launch
+
+
+def test_fused_mlp_wrapper_raises_on_the_card(cuda):
+    from lia_tpu_torch.ops import cuda_mlp
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = fused_mlp_inputs(gen, 4, 256, 512, "relu", True)
+    with pytest.raises(TypeError):
+        cuda_mlp.fused_mlp(**{**a, "x": a["x"].float()}, activation="relu")
+    with pytest.raises(ValueError):  # more rows than the kernel takes
+        cuda_mlp.fused_mlp(**{**a, "x": torch.zeros(257, 256, dtype=torch.bfloat16, device=cuda)})
+    with pytest.raises(ValueError):  # H % 128
+        b = fused_mlp_inputs(gen, 4, 192, 512, "relu", True)
+        cuda_mlp.fused_mlp(**b, activation="relu")
+
+
+# ---------------------------------------------------------------------------
+# B1-B3 at Llama-3-8B's heads (32 over 8 KV heads, D 128) and with a window
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_attention_kernels_at_llama3_heads(cuda, window):
+    """Prefill (B1) and decode over bf16 (B2) and int8 (B3) caches at G = 4,
+    D = 128, without a window and with one of 64 that binds (prompts of up to
+    256 tokens, decode past 272)."""
+    from lia_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, N, Nkv, D, S, past = 4, 32, 8, 128, 256, 272
+    bf = torch.bfloat16
+    q = _randn(gen, B, S, N, D, dtype=bf)
+    k, v = _randn(gen, B, Nkv, S, D, dtype=bf), _randn(gen, B, Nkv, S, D, dtype=bf)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    for b, p in enumerate((0, 7, 100, 200)):
+        mask[b, :p] = False
+    out = ca.flash_attention_prefill(q, k, v, mask, window=window)
+    ref = ca.flash_attention_prefill_plain(q, k, v, mask, window=window)
+    valid = mask[:, :, None, None]
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=2e-2, atol=2e-2)
+    L, S_max = 2, 320
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    for b, p in enumerate((0, 3, 100, 250)):
+        sm[b, p:past] = True
+    length = torch.tensor(past, dtype=torch.int32, device=cuda)
+    ctx = att.decode_attn_ctx(sm, length, window)
+    qd = _randn(gen, B, 1, N, D, dtype=bf)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=bf), _randn(gen, B, Nkv, 1, D, dtype=bf)
+    kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=bf), _randn(gen, L, B, Nkv, S_max, D, dtype=bf)
+    args = (qd, kf, vf, kc, vc, 1, ctx.slot_mask, length)
+    torch.testing.assert_close(ca.decode_attention_fresh(*args).float(), ca.decode_attention_fresh_plain(*args).float(),
+                               rtol=2e-2, atol=2e-2)
+    kq = quantize_kv(_randn(gen, L, B, Nkv, S_max, D, dtype=torch.float32))
+    vq = quantize_kv(_randn(gen, L, B, Nkv, S_max, D, dtype=torch.float32))
+    args = (qd, kf, vf, kq.q, kq.s, vq.q, vq.s, 1, ctx.slot_mask, length)
+    torch.testing.assert_close(ca.decode_attention_fresh_int8(*args).float(),
+                               ca.decode_attention_fresh_int8_plain(*args).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("weights", ["bf16", "w4a8"])
+@pytest.mark.parametrize("kv", ["none", "int8"])
+def test_llama_on_the_card_matches_the_cpu_with_both_gates(cuda, kv, weights):
+    """A llama at H 512, F 1536 (G = 4, D = 128), 2 layers, unfused
+    projections, both gates on: the card (bf16, kernels) against the CPU
+    (fp32, plain versions), prefill and 4 decode steps. With bf16 weights the
+    fused MLP runs at every decode step and the prefill of 2 x 32 rows; with
+    W4A8 weights (int4 g128, int8 activations) each decode step's seven
+    linears per layer run the stacked entry, its layer index read from the
+    device."""
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import cuda_matmul as cm
+    from lia_tpu_torch.ops import cuda_mlp, dispatch
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.ops.quant import quantize_params
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    cfg = get_config("llama-3-8b").replace(num_layers=2, hidden_size=512, ffn_size=1536, num_heads=4,
+                                           num_kv_heads=1, vocab_size=1000, head_dim=128)
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_dummy_params(cfg32, seed=0, scale=0.02)
+    if weights == "w4a8":
+        params = quantize_params(cfg32, params, QuantConfig(weight_dtype="int4", group_size=128, act_quant="dynamic"))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32))
+    mask = torch.ones(2, 32, dtype=torch.bool)
+    mask[1, :10] = False
+    steps = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, 2, 1)).astype(np.int32))
+
+    def run(device, c, dtype):
+        p = to_device(params, device, dtype)
+        cache = kvc.init_cache(c, 2, 64, dtype, quantized=kv == "int8", device=device)
+        logits, cache = T.prefill(c, p, tokens.to(device), mask.to(device), cache)
+        out = [logits.cpu()]
+        pos = mask.to(device).to(torch.int32).sum(1, keepdim=True)
+        for i, t in enumerate(steps):
+            logits, cache = T.decode_step(c, p, t.to(device), pos + i, cache)
+            out.append(logits.cpu())
+        return torch.stack(out)
+
+    dispatch.set_fused_mlp(True)
+    dispatch.set_stacked_w4a8(True)
+    try:
+        fused, stacked = cuda_mlp.fused_mlp.launches, cm.w4a8_matmul_stacked.launches
+        gpu = run(cuda, cfg, torch.bfloat16)
+        fused, stacked = cuda_mlp.fused_mlp.launches - fused, cm.w4a8_matmul_stacked.launches - stacked
+        cpu = run("cpu", cfg32, torch.float32)
+    finally:
+        dispatch.set_fused_mlp(False)
+        dispatch.set_stacked_w4a8(False)
+    assert fused == (2 * 5 if weights == "bf16" else 0)
+    assert stacked == (0 if weights == "bf16" else 7 * 2 * 4)
+    # int8 activations: bf16 and fp32 activations can round to neighbouring
+    # codes (see test_quantized_model_on_the_card_matches_the_cpu)
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=5e-2 if weights == "bf16" else 0.15)
+
+
+def test_fused_mlp_route_on_an_fp32_card_model_raises(cuda):
+    """The route's rules have no type term: with the gate on, an fp32 layer on
+    the card reaches the kernel, which takes bf16 and raises (a CUDA tensor
+    never takes the plain version)."""
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import cuda_mlp, dispatch
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params, to_device
+
+    cfg = get_config("llama-3-8b").replace(num_layers=1, hidden_size=512, ffn_size=1536, num_heads=4,
+                                           num_kv_heads=1, vocab_size=1000, head_dim=128, dtype="float32")
+    lp = T.layer_params(to_device(init_dummy_params(cfg, seed=0, scale=0.02), cuda, torch.float32)["layers"], 0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn(2, 1, 512, generator=gen, device=cuda)
+    attn_out = torch.randn(2, 1, 4, 128, generator=gen, device=cuda)
+    dispatch.set_fused_mlp(True)
+    try:
+        assert T._fused_mlp_viable(cfg, lp, x)
+        before = cuda_mlp.fused_mlp.launches
+        with pytest.raises(TypeError, match="bfloat16"):
+            T.attn_post_mlp(cfg, lp, x, attn_out)
+        assert cuda_mlp.fused_mlp.launches == before
+    finally:
+        dispatch.set_fused_mlp(False)

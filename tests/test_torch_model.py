@@ -152,8 +152,8 @@ def test_unported_features_raise(model):
     for rt in (RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tcfg, tp, rt, device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(get_config("llama-tiny"), tp, device="cpu")  # RoPE
+    with pytest.raises(NotImplementedError, match="ALiBi"):
+        InferenceEngine(get_config("bloom-tiny"), tp, device="cpu")
 
 
 def test_engine_defaults_to_cuda():

@@ -469,4 +469,4 @@ def test_wrappers_count_no_launch_on_the_cpu(rng):
     cm.reset_launch_counts()
     t, _ = _records(rng, 64, 32, "int4", 16, "dynamic")
     quant.quantized_matmul(torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32)), t)
-    assert cm.launch_counts() == {"w4a8_matmul": 0, "woq_matmul": 0, "woq4z_matmul": 0}
+    assert cm.launch_counts() == {"w4a8_matmul": 0, "w4a8_matmul_stacked": 0, "woq_matmul": 0, "woq4z_matmul": 0}

@@ -306,8 +306,8 @@ def test_unported_options_raise(model):
                 ContinuousBatcher(tcfg, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="int8"):
         ContinuousBatcher(tcfg, tp, paged=True, kv_quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="RoPE"):
-        ContinuousBatcher(get_config("llama-tiny"), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="ALiBi"):
+        ContinuousBatcher(get_config("bloom-tiny"), tp, device="cpu")
     cb = ContinuousBatcher(tcfg, tp, device="cpu")
     with pytest.raises(ValueError, match="A3"):
         cb.submit([1, 2], repetition_penalty=1.3)
