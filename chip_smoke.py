@@ -6,6 +6,8 @@ Phases, each printing one JSON line per item:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
+   the two flash libraries' kernels as ptxas built them (registers, spills:
+   none allowed) and the body's dynamic shared memory a block;
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
@@ -13,8 +15,10 @@ Phases, each printing one JSON line per item:
    273 tokens, also at G = 4 and through the stacked entry at a layer offset;
    paged decode over a shuffled 2-layer pool, bs 16, 16 rows of 1-1000 tokens
    with the fresh merge, also at C = 4, G = 4 and D = 64; chunk-over-cache
-   attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots), as a
-   left-padded first chunk (B=2, C=128) and with a window; grouped-beam decode,
+   attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots, also
+   at G = 4), as a left-padded first chunk (B=2, C=128), with a window, and as
+   a short suffix that the host splits (C=48 at base 960, also at G = 4 with a
+   window); grouped-beam decode,
    bf16 and int8, over 4 groups of 4 beams with a 256-slot prompt (group pads
    0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0); flash
    prefill and bf16 / int8 decode at Llama-3-8B's heads (32 over 8 KV heads,
@@ -70,7 +74,7 @@ Phases, each printing one JSON line per item:
    serve-paged-fused8 (fused_steps 8). Each line: stats() (tokens/s, TTFT
    and TPOT percentiles, steps, dispatches, prefix hits), wall time, peak
    memory and the launch counts, checked exactly against the batcher's own
-   counters; every request's length and vocabulary, and every page back at
+   counters, and how many flash launches split their walks (parts > 1); every request's length and vocabulary, and every page back at
    the end. serve_http: the HTTP front end over serve-paged's batcher, 8
    concurrent /generate requests, /stats and /health. serving_parity:
    OPT-6.7B width at 2 layers, the batcher's functions in its order (prefill,
@@ -111,8 +115,11 @@ Phases, each printing one JSON line per item:
    the trace reads under the bound (the stacked w4a8 entry's library call is
    torch._int_mm, as w4a8_matmul's; the fused MLP's, where no single PyTorch
    call computes the block, the unfused chain of torch calls); torch._int_mm
-   over a row- and a column-major int8 weight. Profiling comes last because a
-   profiler session slows the process's later launches.
+   over a row- and a column-major int8 weight; the flash body also at B1's
+   Llama-3-8B heads (G = 4), a short prefix-cache suffix (C=48 at base 960) and
+   a chunk256 first chunk, each with its number of parts and SDPA's time.
+   Profiling comes last because a profiler session slows the process's later
+   launches.
 
 Then the kernels line, fourteen wrappers (for the quantized matmuls, the
 decode wqkv call: M=16, K=4096, N=12288; the stacked w4a8 entry's launches
@@ -145,6 +152,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 REPS = 20  # calls a kernel time averages over
+TIME_VARIANTS = []  # kernel times at other shapes than the kernels line's, filled by the checks
 TIMED_RUNS = 3  # generate calls of each timed main path
 NEW_TOKENS = 32
 
@@ -327,6 +335,32 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_build_report(_build, paths) -> None:
+    """Each flash library's kernels as ptxas built them (registers, spill stores
+    and loads) and the body's dynamic shared memory a block at D 64 and 128,
+    with one and two consumer warpgroups; a spill fails the run."""
+    import re
+
+    for lib in ("flash_prefill", "flash_cached"):
+        kernels, cur = [], None
+        for line in open(f"{paths[lib]}.log").read().splitlines():
+            m = re.search(r"Function properties for \S*?(flash_kernel|merge_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+            if m:  # flash_kernel<D, warpgroups>, merge_kernel<D>
+                cur = {"kernel": f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")}
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        smem = {f"D={dh}, {nw} warpgroups": _build.library(lib).lia_flash_smem_bytes(dh, nw)
+                for dh in (64, 128) for nw in (1, 2)}
+        emit({"phase": "flash_build", "library": lib, "kernels": kernels, "dynamic_smem_bytes": smem})
+        check(len(kernels) == 6 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+              f"{lib}: ptxas reports spills (or no report): {kernels}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel checks
 # ---------------------------------------------------------------------------
@@ -356,7 +390,8 @@ def kernel_checks(ca, quantize_kv):
     err = ((out.float() - ref.float()) * valid).abs().max().item()
     n_valid = [PROMPT - p for p in PADS]
     flops = 4 * D * N * sum(n * (n + 1) / 2 for n in n_valid)
-    nbytes = 4 * q.numel() * 2 + mask.numel()
+    # the function reads q and K/V at valid positions only and writes all of out
+    nbytes = 3 * sum(n_valid) * N * D * 2 + q.numel() * 2 + mask.numel()
     causal = torch.tril(torch.ones(PROMPT, PROMPT, dtype=torch.bool, device="cuda"))
     sdpa_mask = (causal[None] & mask[:, None, :])[:, None]
     qt = q.transpose(1, 2)
@@ -491,6 +526,8 @@ def llama_attention_checks(ca, quantize_kv, randn) -> None:
     main path's prompt and past lengths, without a window and with one of
     WINDOW tokens that binds (mistral's sliding window: B1's ``window``; the
     decode kernels' contiguous range from the windowed slot mask)."""
+    import torch.nn.functional as F
+
     from lia_tpu_torch.ops.attention import decode_attn_ctx
 
     q, k, v = randn(B, PROMPT, LLAMA_N, D), randn(B, LLAMA_NKV, PROMPT, D), randn(B, LLAMA_NKV, PROMPT, D)
@@ -498,6 +535,21 @@ def llama_attention_checks(ca, quantize_kv, randn) -> None:
     for b, p in enumerate(PADS):
         mask[b, :p] = False
     valid = mask[:, :, None, None]
+    # B1's time at G = 4 beside SDPA over K/V repeated to the 32 query heads
+    # (the repeat is not timed)
+    causal = torch.tril(torch.ones(PROMPT, PROMPT, dtype=torch.bool, device="cuda"))
+    sdpa_mask = (causal[None] & mask[:, None, :])[:, None]
+    G4 = LLAMA_N // LLAMA_NKV
+    qt, kr, vr = q.transpose(1, 2), k.repeat_interleave(G4, 1), v.repeat_interleave(G4, 1)
+    n_valid = [PROMPT - p for p in PADS]
+    TIME_VARIANTS.append(dict(
+        kernel_name="flash_attention_prefill", variant="llama-3-8b heads G=4 (B 16, S 256, N 32, N_kv 8)",
+        parts=ca.flash_split_parts(B, PROMPT, LLAMA_N, LLAMA_NKV, PROMPT,
+                                   torch.cuda.get_device_properties(0).multi_processor_count),
+        kernel=lambda: ca.flash_attention_prefill(q, k, v, mask),
+        library=lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=sdpa_mask),
+        bound=bound(sum(n_valid) * (LLAMA_N + 2 * LLAMA_NKV) * D * 2 + q.numel() * 2 + mask.numel(),
+                    4 * D * LLAMA_N * sum(n * (n + 1) / 2 for n in n_valid))))
     qd, kf, vf = randn(B, 1, LLAMA_N, D), randn(B, LLAMA_NKV, 1, D), randn(B, LLAMA_NKV, 1, D)
     kc, vc = randn(2, B, LLAMA_NKV, 320, D), randn(2, B, LLAMA_NKV, 320, D)
     kq = quantize_kv(randn(2, B, LLAMA_NKV, 384, D, dtype=torch.float32))
@@ -618,16 +670,30 @@ def paged_case(randn, lengths, C: int, Nkv: int, G: int, Dh: int, P: int = SERVE
     return q, kp, vp, table.cuda(), lens, kf, vf
 
 
-def cached_case(randn, Bq: int, C: int, base: int, pads, S_max: int = SERVE_MAX_LEN):
+def cached_case(randn, Bq: int, C: int, base: int, pads, S_max: int = SERVE_MAX_LEN, Nkv: int = N):
     """A chunk of C rows over an S_max-slot plane that holds it at [base, base +
     C), each row's validity starting at its pad (a first chunk's pad rows, or
-    0 over a cached prefix)."""
+    0 over a cached prefix); N query heads over Nkv kv heads."""
     q = randn(Bq, C, N, D)
-    kc, vc = randn(Bq, N, S_max, D), randn(Bq, N, S_max, D)
+    kc, vc = randn(Bq, Nkv, S_max, D), randn(Bq, Nkv, S_max, D)
     sm = torch.zeros(Bq, S_max, dtype=torch.bool, device="cuda")
     for b, p in enumerate(pads):
         sm[b, p : base + C] = True
     return q, kc, vc, torch.tensor(base, dtype=torch.int32, device="cuda"), sm
+
+
+def split_forced(ca, parts, fn):
+    """``fn`` with the flash kernels' split forced to ``parts`` (None: the
+    host's own choice)."""
+    def call():
+        real = ca.flash_split_parts
+        if parts is not None:
+            ca.flash_split_parts = lambda *a: parts
+        try:
+            return fn()
+        finally:
+            ca.flash_split_parts = real
+    return call
 
 
 def serving_kernel_checks(ca, randn, dpads):
@@ -687,19 +753,53 @@ def serving_kernel_checks(ca, randn, dpads):
     )
 
     # B6: a prefix-cache suffix (B=1, C=256, base=768 of 1024 slots), a first
-    # chunk with left pads (B=2, C=128, base=0), and a sliding window
-    for variant, Bq, C, base, pads, window in (("APC suffix", 1, 256, 768, [0], None),
-                                               ("first chunk, left pads", 2, 128, 0, [5, 77], None),
-                                               ("window 300", 1, 256, 768, [0], 300)):
-        q6, kc6, vc6, b6, sm6 = cached_case(randn, Bq, C, base, pads)
+    # chunk with left pads (B=2, C=128, base=0), a sliding window, the same
+    # suffix at Llama-3-8B's G = 4, and a short suffix (C=48 at base 960, which
+    # the host splits), also at G = 4 with a window
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for variant, Bq, C, base, pads, window, Nkv in (("APC suffix", 1, 256, 768, [0], None, N),
+                                                    ("first chunk, left pads", 2, 128, 0, [5, 77], None, N),
+                                                    ("window 300", 1, 256, 768, [0], 300, N),
+                                                    ("APC suffix G=4", 1, 256, 768, [0], None, LLAMA_NKV),
+                                                    ("short suffix C=48", 1, 48, 960, [0], None, N),
+                                                    ("short suffix C=48 G=4 window 100", 1, 48, 960, [0], 100,
+                                                     LLAMA_NKV)):
+        q6, kc6, vc6, b6, sm6 = cached_case(randn, Bq, C, base, pads, Nkv=Nkv)
         valid = torch.zeros(Bq, C, 1, 1, dtype=torch.bool, device="cuda")
         for b, p in enumerate(pads):
             valid[b, max(p - base, 0):] = True
-        err6 = compare("flash_attention_cached", variant,
+        parts = ca.flash_split_parts(Bq, C, N, Nkv, SERVE_MAX_LEN, sms)
+        err6 = compare("flash_attention_cached", f"{variant}, {parts} parts",
                        ca.flash_attention_cached(q6, kc6, vc6, b6, sm6, window=window),
                        ca.flash_attention_cached_plain(q6, kc6, vc6, b6, sm6, window=window), valid)
         if variant == "APC suffix":
             timed6 = (q6, kc6, vc6, b6, sm6, err6)
+    # timing variants beside the kernels line's row, with the host's parts: the
+    # short suffix, a serve-paged prefix-cache hit (a 100-row suffix over the
+    # 256-token shared prefix) and a chunk256 first chunk (a 456-token prompt:
+    # 56 left pads at base 0); and the split's other choices, forced (1: no
+    # split, two warpgroups a block)
+    for variant, C, base, pad, forced in (("short suffix C=48 base 960", 48, 960, 0, (None, 1, 2, 8)),
+                                          ("serve-paged suffix C=100 base 256", 100, 256, 0, (None, 1)),
+                                          ("chunk256 first chunk, 56 pads", 256, 0, 56, (None,)),
+                                          ("APC suffix C=256 base 768", 256, 768, 0, (2,))):
+        q7, kc7, vc7, b7, sm7 = cached_case(randn, 1, C, base, [pad])
+        qpos = base + torch.arange(C, device="cuda")
+        slots = torch.arange(SERVE_MAX_LEN, device="cuda")[None, :]
+        cmask7 = ((slots <= qpos[:, None]) & sm7[0][None, :])[None, None]
+        keys7 = sum(max(base + t + 1 - pad, 0) for t in range(C))
+        rows7 = C - max(pad - base, 0)  # chunk rows at valid slots: the q the function reads
+        q7t = q7.transpose(1, 2)
+        for parts in forced:
+            TIME_VARIANTS.append(dict(
+                kernel_name="flash_attention_cached",
+                variant=variant + ("" if parts is None else f", {parts} parts forced"),
+                parts=parts or ca.flash_split_parts(1, C, N, N, SERVE_MAX_LEN, sms),
+                kernel=split_forced(ca, parts, lambda a=(q7, kc7, vc7, b7, sm7): ca.flash_attention_cached(*a)),
+                library=None if parts else (
+                    lambda a=(q7t, kc7, vc7, cmask7): F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])),
+                bound=bound(2 * N * (base + C - pad) * D * 2 + rows7 * N * D * 2 + q7.numel() * 2 + sm7.numel() + 4,
+                            4 * D * N * keys7)))
     q6, kc6, vc6, b6, sm6, err6 = timed6
     C6, base6 = q6.shape[1], int(b6)
     qpos = base6 + torch.arange(C6, device="cuda")
@@ -713,6 +813,7 @@ def serving_kernel_checks(ca, randn, dpads):
         kernel=lambda: ca.flash_attention_cached(q6, kc6, vc6, b6, sm6),
         plain=lambda: ca.flash_attention_cached_plain(q6, kc6, vc6, b6, sm6),
         library=lambda: F.scaled_dot_product_attention(q6t, kc6, vc6, attn_mask=cmask),
+        # every slot of the plane and every chunk row is valid here
         bound=bound(2 * kc6.numel() * 2 + 2 * q6.numel() * 2 + sm6.numel() + 4, 4 * D * N * keys6),
     )
     return rows
@@ -1000,6 +1101,11 @@ def kernel_times(rows) -> None:
         emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "event_ms": r["event_ms"], "host_us": r["host_us"],
               "plain_ms": r["plain_ms"], **lib,
               "library_kind": r.get("library_kind", "one call"), "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+    for v in TIME_VARIANTS:  # the flash body at its other shapes: kernel (both launches of a split) and SDPA
+        lib = {"library_ms": device_ms(v["library"]), "library_event_ms": event_ms(v["library"])} if v["library"] else {}
+        emit({"phase": "kernel_time", "kernel": v["kernel_name"], "variant": v["variant"], "parts": v["parts"],
+              "ms": device_ms(v["kernel"]), "event_ms": event_ms(v["kernel"]), **lib, "bound_ms": v["bound"][0],
+              "bound_by": v["bound"][1]})
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1185,7 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
             res = engine.generate(prompts, gen, fused=True)
             launches[name] = launch_counts(ca, cm)
             check(launches[name] == want, f"{name}: launches {launches[name]} != expected {want}")
+            check(ca.split_counts()["flash_attention_prefill"] == 0, f"{name}: B1 split its walks at b16 s256")
             peak[name] = torch.cuda.max_memory_allocated()
             seqs = res.sequences
             check(seqs.shape == (len(prompts), gen.max_new_tokens), f"{name}: sequences shape {seqs.shape}")
@@ -1659,6 +1766,7 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(ca, cm)
+    splits = ca.split_counts()
     peak = torch.cuda.max_memory_allocated()
     stats = cb.stats()
     check(sorted(done) == sorted(ids), f"{name}: {len(done)} of {len(ids)} requests finished")
@@ -1680,7 +1788,8 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
           "requests": len(prompts), "max_batch": SERVE_MAX_BATCH,
         "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts),
         "new_tokens": sum(new_tokens), **{k: stats[k] for k in keys if k in stats}, "wall_s": wall,
-        "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches})
+        "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches,
+        "flash_split_launches": splits})
     return launches, cb
 
 
@@ -2211,6 +2320,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": sorted(paths)})
+    flash_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)

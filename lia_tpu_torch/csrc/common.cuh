@@ -47,12 +47,25 @@ __device__ __forceinline__ void load_vec(const T* p, float* out) {
 }
 
 // Number of nonzero bytes in mask[0, n), returned to every thread of the block.
-// Every thread must call it (it synchronises the block).
+// Every thread must call it (it synchronises the block). Each thread counts 16
+// bytes a round with one 16-byte load where the bytes are aligned, so a mask of
+// up to 16 * blockDim.x bytes costs one memory round trip, and the block adds
+// the counts (at most 16, five bits) bit by bit with __syncthreads_count.
 __device__ __forceinline__ int block_count_true(const uint8_t* mask, int n) {
   int count = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    count += __syncthreads_count(i < n && mask[i] != 0);
+  for (int i0 = 0; i0 < n; i0 += 16 * blockDim.x) {
+    const int i = i0 + 16 * threadIdx.x;
+    int c = 0;
+    if (i + 16 <= n && (reinterpret_cast<uintptr_t>(mask + i) & 15) == 0) {
+      const uint4 w = *reinterpret_cast<const uint4*>(mask + i);
+      c = (__popc(__vcmpne4(w.x, 0)) + __popc(__vcmpne4(w.y, 0)) + __popc(__vcmpne4(w.z, 0)) +
+           __popc(__vcmpne4(w.w, 0))) >> 3;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) c += i + e < n && mask[i + e] != 0;
+    }
+#pragma unroll
+    for (int bit = 0; bit < 5; ++bit) count += __syncthreads_count((c >> bit) & 1) << bit;
   }
   return count;
 }

@@ -1,7 +1,7 @@
 // Causal GQA flash attention of C query rows over a key/value plane, bf16 in
-// and out: the kernel body shared by flash_prefill.cu (a left-padded prompt
-// attending to itself) and flash_cached.cu (a prompt chunk attending to the
-// cache plane that already holds it).
+// and out, written for Hopper (sm_90a): the kernel body of flash_prefill.cu (a
+// left-padded prompt attending to itself) and flash_cached.cu (a prompt chunk
+// attending to the cache plane that already holds it).
 //
 // Query row t of sequence b sits at key slot base_b + t (base_b = 0 for a
 // prompt) and attends keys [start_b, base_b + t], with a sliding window only
@@ -14,49 +14,148 @@
 // Fully masked rows (a left-padded chunk's pad rows) come out finite and
 // meaningless.
 //
-// Design: one block of four warps per (q tile, kv head, batch row), the tile's
-// 64 query rows being the G query heads of that kv head at 64/G positions (no
-// K/V replication); each warp owns 16 rows. Both products run on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate): Q's fragments stay
-// in registers, each 64-key K/V tile is staged in shared memory (rows padded
-// by 16 bytes so fragment loads hit distinct banks), V's fragments come from
-// ldmatrix.trans, and the score fragments are rounded to bf16 in registers to
-// become P's A fragments. kv tiles before start_b // 64 (or before the window)
-// and past the tile's causal frontier are skipped. The tiles are loaded
-// synchronously: a later PR overlaps the next tile's load (cp.async or TMA)
-// and moves to wgmma.
+// What bounds it on an H100: bytes, at both entry points' timed shapes (the
+// notes in flash_prefill.cu and flash_cached.cu give the figures). The design
+// keeps the tensor cores and the copy engine busy at once and the card full:
+//  - A block owns a tile of 64 query rows, the G query heads of one kv head at
+//    64/G positions, so K/V are never replicated across heads. It is one
+//    producer warp and one consumer warpgroup, or, where the grid is at most
+//    one block an SM, two consumer warpgroups that take alternate K/V tiles
+//    of the walk and merge their (o, m, l) through shared memory at the end.
+//  - The producer warp streams the tile's 64-key K/V tiles by TMA into a ring
+//    of shared-memory stages (full/empty mbarriers), from a 3-D tensor map over
+//    [B * N_kv, S_kv, D] that fills rows past S_kv with zeros. Tiles land
+//    128-byte swizzled, one 64-column box per 64 head dims.
+//  - Both products are wgmma: S = Q.K^T with Q (loaded once, written in the
+//    same swizzle) and K from shared memory; O += P.V with P from registers
+//    (the fp32 S accumulator rounded to bf16 becomes the next A fragment) and
+//    V from shared memory as the MN-major B operand.
+//  - Two one-warpgroup blocks fit an SM (~80 KB of shared memory and <= 168
+//    registers a thread each), so one block's softmax runs under the other's
+//    products; two warpgroups do the same inside one block.
+//  - The prologue costs one memory round trip: Q's loads are in flight while
+//    the block counts the mask 16 bytes a thread, and the producer prefetches
+//    its tensor maps.
+//  - The per-element mask runs only on the tiles that straddle start_b, the
+//    row tile's causal frontier, the window edge or S_kv; interior tiles skip it.
+//  - When the (row tile, kv head, batch row) tiles fill at most half the SMs,
+//    the host splits each tile's walk [j_lo, j_hi) into `parts` (up to one
+//    block an SM). The wrapper makes both grid choices, `parts` and the
+//    warpgroups a block (flash_split_parts and flash_warpgroups in
+//    lia_tpu_torch/ops/cuda_attention.py), and the tile sizes come from there
+//    too, as -D flags of the build. Each part writes fp32 partials (unnormalised o, m, l) to a
+//    workspace and merge_kernel combines them: out = sum 2^(m_i - m) o_i /
+//    max(sum 2^(m_i - m) l_i, 1e-30). A part with no tiles leaves m = -inf,
+//    l = 0. The split is deterministic and needs no memset.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
+#include <math.h>
 
 #include "common.cuh"
 
 namespace lia_flash {
 
-constexpr int WARPS = 4;
-constexpr int ROWS = 16 * WARPS;  // query rows per block (positions x G heads)
-constexpr int BK = 64;            // keys per tile
-constexpr int THREADS = 32 * WARPS;
+#if !defined(LIA_FLASH_ROWS) || !defined(LIA_FLASH_BK)
+#error "the build passes the tile sizes: FLASH_ROWS and FLASH_BK of lia_tpu_torch/ops/cuda_attention.py"
+#endif
+constexpr int ROWS = LIA_FLASH_ROWS;  // query rows per block
+constexpr int BK = LIA_FLASH_BK;      // keys per tile
+static_assert(ROWS == 64 && BK == 64, "the body is written for one wgmma m64 row tile and 64-key boxes");
+constexpr int WG = 128;              // threads of a consumer warpgroup
+constexpr int BOX_COLS = 64;         // bf16 columns of one 128-byte swizzled box
+constexpr int BOX_BYTES = 64 * 128;  // a box of 64 rows
+constexpr int MERGE_WARPS = 4;
 
-template <int D>
-struct Smem {
-  static constexpr int STRIDE = D + 8;  // bf16 elements per row: 16 bytes of padding
-  static constexpr size_t tile = sizeof(__nv_bfloat16) * 64 * STRIDE;
-  static constexpr size_t bytes = 3 * tile;  // Q, K, V
+// A block of NW consumer warpgroups, which split the tile's key walk (tile i
+// to warpgroup i % NW), and one producer warp. Its shared memory: the Q tile,
+// the K and V tiles of each stage, the full and empty barriers, and with two
+// warpgroups the second's (o, m, l) for the merge.
+template <int D, int NW>
+struct Layout {
+  static constexpr int THREADS = NW * WG + 32;
+  static constexpr int BOXES = D / BOX_COLS;
+  static constexpr int TILE = BOXES * BOX_BYTES;  // 64 rows of Q, K or V
+  // one warpgroup: ~80 / ~72 KB, two blocks an SM; two: one block an SM
+  static constexpr int STAGES = NW == 2 ? 4 : D == 128 ? 2 : 4;
+  static constexpr int K_OFF = TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  static constexpr int MERGE_OFF = BAR_OFF + 2 * STAGES * 8;
+  static constexpr int MERGE_FLOATS = NW == 2 ? (D / 2 + 4) * WG : 0;
+  static constexpr int BYTES = MERGE_OFF + 4 * MERGE_FLOATS + 1024;  // + slack for 1024-byte alignment
 };
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---------------------------------------------------------------------------
+// PTX wrappers: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Two 8x8 bf16 matrices, transposed on the way: lanes 0-7 give the rows of the
-// first, lanes 8-15 those of the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's current phase parity differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving reads of an accumulator above wgmma_wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Named barriers of the consumer warpgroups (id 1), and of the first alone
+// (id 2); 0 is __syncthreads.
+template <int NW>
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(NW * WG) : "memory"); }
+__device__ __forceinline__ void wg0_sync() { asm volatile("bar.sync 2, %0;\n" ::"n"(WG) : "memory"); }
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = 128B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of element (row, col) of a 64-row tile stored as 128-byte-swizzled
+// boxes of 64 columns (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B).
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return (col / BOX_COLS) * BOX_BYTES + row * 128 + ((((col % BOX_COLS) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -64,61 +163,257 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D (64 x 64, fp32) {=, +=} A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 registers) * B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// O (64 x D) += P (registers) * V (shared, MN-major), one 16-key step.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const __nv_bfloat16* __restrict__ q,  // [B, C, N, D]
-             const __nv_bfloat16* __restrict__ k,  // [B, Nkv, S_kv, D]
-             const __nv_bfloat16* __restrict__ v,  // [B, Nkv, S_kv, D]
-             const uint8_t* __restrict__ kv_mask,  // [B, S_kv]
-             const int* __restrict__ bases, int base_stride,  // [B] or scalar; null: 0
-             __nv_bfloat16* __restrict__ out,      // [B, C, N, D]
-             int C, int S_kv, int N, int Nkv, int G, float sscale, int window) {
-  constexpr int ST = Smem<D>::STRIDE;
-  constexpr int KS = D / 16;  // k-steps of Q.K^T over D
-  constexpr int NT = BK / 8;  // 8-key score tiles per kv tile
-  constexpr int DT = D / 8;   // 8-wide output tiles
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + 64 * ST;
-  __nv_bfloat16* Vs = Ks + 64 * ST;
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int bqp = ROWS / G;  // query positions per block
-  const int nrows = bqp * G;
-  const int pos0 = blockIdx.x * bqp;
-  const int base = bases ? bases[b * base_stride] : 0;
-  const int start = base + C - lia::block_count_true(kv_mask + (size_t)b * S_kv, S_kv);
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
 
-  // Q tile: row r is chunk row pos0 + r / G, head h * G + r % G
-  for (int idx = tid; idx < ROWS * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int pos = pos0 + r / G;
-    uint4 val = zero;
-    if (r < nrows && pos < C)
-      val = *reinterpret_cast<const uint4*>(q + (((size_t)b * C + pos) * N + h * G + r % G) * D + c * 8);
-    *reinterpret_cast<uint4*>(Qs + r * ST + c * 8) = val;
-  }
-  __syncthreads();
-
-  // this warp's rows: r0 = warp*16 + g and r0 + 8; Q's A fragments stay in registers
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KS][4];
+// S = Q K^T over one K tile, issued and committed (not waited): sc[4n + e]
+// holds row r0 (e < 2) or r0 + 8 of the warp, key 8n + 2t + (e & 1).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_base, uint32_t k_base) {
+  wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* qb = Qs + ks * 16 + 2 * t;
-    qa[ks][0] = ld32(qb + r0 * ST);
-    qa[ks][1] = ld32(qb + (r0 + 8) * ST);
-    qa[ks][2] = ld32(qb + r0 * ST + 8);
-    qa[ks][3] = ld32(qb + (r0 + 8) * ST + 8);
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t off = (ks / 4) * BOX_BYTES + (ks % 4) * 32;
+    wgmma_ss_n64(sc, desc_sw128(q_base + off, 16, 1024), desc_sw128(k_base + off, 16, 1024), ks);
   }
+  wgmma_commit();
+}
+
+// O += P V over one V tile, issued and committed: the probabilities of keys
+// 16kk.. rounded to bf16 are the A fragment of the kk-th step; V's 16 key rows
+// sit 2048 bytes apart.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const float (&p)[32], uint32_t v_base) {
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(p[8 * kk + 2 * x], p[8 * kk + 2 * x + 1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, pa[kk], desc_sw128(v_base + kk * 2048, BOX_BYTES, 1024));
+  wgmma_commit();
+}
+
+// Masks (off the interior), scales and exponentiates one tile's scores in
+// place, folding them into the running max m and sum l (a row's 64 keys are
+// spread over the 4 lanes of a quad) and rescaling o.
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&o)[D / 2],
+                                             bool interior, int k0, int t, const int (&qpos)[2],
+                                             const bool (&rvalid)[2], int start, int S_kv, int window,
+                                             float sscale) {
+  float mt[2] = {LIA_NEG_INF, LIA_NEG_INF};
+  if (interior) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] *= sscale;
+      mt[(e >> 1) & 1] = fmaxf(mt[(e >> 1) & 1], sc[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int kp = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      const bool masked = !rvalid[i] || kp > qpos[i] || kp < start || kp >= S_kv ||
+                          (window > 0 && kp <= qpos[i] - window);
+      sc[e] = masked ? LIA_NEG_INF : sc[e] * sscale;
+      mt[i] = fmaxf(mt[i], sc[e]);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    const float m_new = fmaxf(m[i], mt[i]);
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1;
+    sc[e] = exp2f(sc[e] - m[i]);
+    l[i] += sc[e];
+  }
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+}
+
+// Grid: (row tiles * parts, N_kv, B), the longest walks (the last row tiles)
+// first. With parts == 1 the block writes `out`; otherwise its partials. NW:
+// consumer warpgroups splitting the walk (2 where the grid is one block an SM).
+template <int D, int NW>
+__global__ void __launch_bounds__(Layout<D, NW>::THREADS, NW == 1 ? 2 : 1)
+flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
+             const __grid_constant__ CUtensorMap tmv,  // v [B * Nkv, S_kv, D]
+             const __nv_bfloat16* __restrict__ q,      // [B, C, N, D]
+             const uint8_t* __restrict__ kv_mask,      // [B, S_kv]
+             const int* __restrict__ bases, int base_stride,  // [B] or scalar; null: 0
+             __nv_bfloat16* __restrict__ out,          // [B, C, N, D]
+             float* __restrict__ ws,                   // parts > 1: o [parts, R, D], m, l [parts, R]
+             int parts, int C, int S_kv, int N, int Nkv, int G, float sscale, int window) {
+  using L = Layout<D, NW>;
+  constexpr int CONSUMERS = NW * WG;
+  constexpr int CH = D / 8;                     // 16-byte chunks per row
+  constexpr int QV = ROWS * CH / CONSUMERS;     // of Q per consumer thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sb = (raw + 1023) & ~1023u;  // swizzled boxes want 1024-byte alignment
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t full0 = sb + L::BAR_OFF, empty0 = full0 + 8 * L::STAGES;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_rt = gridDim.x / parts;
+  const int rt = n_rt - 1 - (int)blockIdx.x / parts, part = blockIdx.x % parts;
+  const int bqp = ROWS / G;  // query positions per tile
+  const int nrows = bqp * G;
+  const int pos0 = rt * bqp;
+
+  if (tid == CONSUMERS) {  // the producer's tensor maps, fetched under the count
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmk)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmv)) : "memory");
+  }
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG);  // one warpgroup consumes a tile
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the Q tile's loads go out before the count: row r is chunk row pos0 + r / G,
+  // head h * G + r % G
+  uint4 qv[QV];
+#pragma unroll
+  for (int x = 0; x < QV; ++x) {
+    const int idx = tid + x * CONSUMERS, r = idx / CH, c = idx % CH;
+    const int pos = pos0 + r / G;
+    qv[x] = make_uint4(0, 0, 0, 0);
+    if (tid < CONSUMERS && r < nrows && pos < C)
+      qv[x] = *reinterpret_cast<const uint4*>(q + (((size_t)b * C + pos) * N + h * G + r % G) * D + c * 8);
+  }
+  const int base = bases ? bases[b * base_stride] : 0;
+  __syncthreads();  // the barriers are initialised
+  const int start = base + C - lia::block_count_true(kv_mask + (size_t)b * S_kv, S_kv);
+
+  // kv tiles before start (or the window) or past this row tile's last row are
+  // fully masked; this part walks its share [lo, hi) of the rest
+  const int last_row = min(pos0 + bqp, C) - 1;
+  int j_lo = max(start, 0) / BK;
+  if (window > 0) j_lo = max(j_lo, max(0, base + pos0 - window + 1) / BK);
+  const int j_hi = min((base + last_row) / BK + 1, (S_kv + BK - 1) / BK);
+  const int n_tiles = max(j_hi - j_lo, 0);
+  const int lo = j_lo + n_tiles * part / parts, hi = j_lo + n_tiles * (part + 1) / parts;
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane issues every copy
+    if (tid == CONSUMERS) {
+      const int plane = b * Nkv + h;
+      for (int j = lo, i = 0; j < hi; ++j, ++i) {
+        const int s = i % L::STAGES;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((i / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::TILE);
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x) {
+          tma_load(sb + L::K_OFF + s * L::TILE + x * BOX_BYTES, &tmk, full, x * BOX_COLS, j * BK, plane);
+          tma_load(sb + L::V_OFF + s * L::TILE + x * BOX_BYTES, &tmv, full, x * BOX_COLS, j * BK, plane);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  const int wg = tid / WG, wtid = tid % WG;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row group / column pair
+  if (hi > lo) {
+#pragma unroll
+    for (int x = 0; x < QV; ++x) {
+      const int idx = tid + x * CONSUMERS;
+      *reinterpret_cast<uint4*>(smem + swz(idx / CH, (idx % CH) * 8)) = qv[x];
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    consumers_sync<NW>();
+  }
+
+  // this thread's rows: r0 = 16 * warp + g and r0 + 8
+  const int r0 = 16 * warp + g;
   int qrow[2], qpos[2];  // chunk row, and the key slot it sits at
   bool rvalid[2];
 #pragma unroll
@@ -127,153 +422,232 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,  // [B, C, N, D]
     qpos[i] = base + qrow[i];
     rvalid[i] = r0 + 8 * i < nrows;
   }
+  // keys every row of the tile may see without a mask: [start, base + pos0],
+  // inside S_kv and the window of the tile's last row
+  const int free_lo = max(start, window > 0 ? base + last_row - window + 1 : 0);
+  const int free_hi = min(base + pos0, S_kv - 1);
+
   float m[2] = {LIA_NEG_INF, LIA_NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns
-  float o[DT][4];
+  float o[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  // kv tiles before start (or the window) or past this q tile's last row are
-  // fully masked
-  const int last_row = min(pos0 + bqp, C) - 1;
-  int j_lo = max(start, 0) / BK;
-  if (window > 0) j_lo = max(j_lo, max(0, base + pos0 - window + 1) / BK);
-  const int j_hi = min((base + last_row) / BK + 1, (S_kv + BK - 1) / BK);
-  const size_t kv_base = ((size_t)b * Nkv + h) * S_kv;
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * CH; idx += THREADS) {
-      const int c = idx / CH, ch = idx % CH;
-      const int kp = j * BK + c;
-      uint4 kv = zero, vv = zero;
-      if (kp < S_kv) {
-        kv = *reinterpret_cast<const uint4*>(k + (kv_base + kp) * D + ch * 8);
-        vv = *reinterpret_cast<const uint4*>(v + (kv_base + kp) * D + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(Ks + c * ST + ch * 8) = kv;
-      *reinterpret_cast<uint4*>(Vs + c * ST + ch * 8) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T: s[n] holds rows g / g+8, keys n*8 + 2t, +1
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * ST + ks * 16 + 2 * t;
-        mma_bf16(s[n], qa[ks], ld32(kb), ld32(kb + 8));
-      }
-
-    // scale, mask, online softmax (rows are shared by the 4 lanes of a quad)
-    float mt[2] = {LIA_NEG_INF, LIA_NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int kp = j * BK + n * 8 + 2 * t + (e & 1);
-        const bool masked = !rvalid[i] || kp > qpos[i] || kp < start || kp >= S_kv ||
-                            (window > 0 && kp <= qpos[i] - window);
-        s[n][e] = masked ? LIA_NEG_INF : s[n][e] * sscale;
-        mt[i] = fmaxf(mt[i], s[n][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m[i], mt[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V: P's A fragments are the score fragments of two 8-key tiles,
-    // rounded to bf16; V's B fragments come from ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vrow = Vs + (kk * 16 + (lane & 15)) * ST;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + dt * 8);
-        mma_bf16(o[dt], pa, b0, b1);
-      }
-    }
+  const uint32_t k_base = sb + L::K_OFF, v_base = sb + L::V_OFF;
+  for (int it = wg, j = lo + wg; j < hi; it += NW, j += NW) {
+    const int s = it % L::STAGES;
+    mbar_wait(full0 + 8 * s, (it / L::STAGES) & 1);
+    float sc[32];
+    issue_qk<D>(sc, sb, k_base + s * L::TILE);
+    wgmma_wait();
+    fence_regs(sc);
+    const int k0 = j * BK;
+    softmax_tile<D>(sc, m, l, o, k0 >= free_lo && k0 + BK - 1 <= free_hi, k0, t, qpos, rvalid, start, S_kv,
+                    window, sscale);
+    issue_pv<D>(o, sc, v_base + s * L::TILE);
+    wgmma_wait();
+    fence_regs(o);
+    mbar_arrive(empty0 + 8 * s);
   }
 
+  if constexpr (NW == 2) {
+    // the second warpgroup hands its (o, m, l) to the first, thread to thread
+    // (the same fragment layout), which folds it into its own
+    float* mb = reinterpret_cast<float*>(smem + L::MERGE_OFF);
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) mb[e * WG + wtid] = o[e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mb[(D / 2 + i) * WG + wtid] = m[i];
+        mb[(D / 2 + 2 + i) * WG + wtid] = l[i];
+      }
+    }
+    consumers_sync<NW>();
+    if (wg == 1) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = mb[(D / 2 + i) * WG + wtid], mx = fmaxf(m[i], m1);
+      const float a0 = exp2f(m[i] - mx), a1 = exp2f(m1 - mx);
+      m[i] = mx;
+      l[i] = a0 * l[i] + a1 * mb[(D / 2 + 2 + i) * WG + wtid];
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e)
+        if (((e >> 1) & 1) == i) o[e] = a0 * o[e] + a1 * mb[e * WG + wtid];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (parts == 1) {
+    // normalise into the Q tile's swizzled layout, then 16-byte stores
+    wg0_sync();  // every warp's last product has read Q
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      const int r = r0 + 8 * i;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(smem + swz(r, 8 * n + 2 * t)) =
+            pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+    }
+    wg0_sync();
+    for (int idx = tid; idx < ROWS * CH; idx += WG) {
+      const int r = idx / CH, c = idx % CH;
+      const int pos = pos0 + r / G;
+      if (r < nrows && pos < C)
+        *reinterpret_cast<uint4*>(out + (((size_t)b * C + pos) * N + h * G + r % G) * D + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + swz(r, c * 8));
+    }
+    return;
+  }
+  // partials: o unnormalised, m and l per row; a part with no tiles leaves m = -inf, l = 0
+  const size_t R = (size_t)gridDim.z * C * N;
+  float* ws_m = ws + (size_t)parts * R * D;
+  float* ws_l = ws_m + (size_t)parts * R;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (!rvalid[i] || qrow[i] >= C) continue;
-    const float den = fmaxf(li, 1e-30f);
-    __nv_bfloat16* dst = out + (((size_t)b * C + qrow[i]) * N + h * G + r % G) * D + 2 * t;
+    const size_t row = (size_t)part * R + ((size_t)b * C + qrow[i]) * N + h * G + r % G;
+    if (t == 0) {
+      ws_m[row] = hi > lo ? m[i] : -INFINITY;
+      ws_l[row] = l[i];
+    }
+    if (hi > lo) {
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) = pack_bf16(o[dt][2 * i] / den, o[dt][2 * i + 1] / den);
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ws + row * D + 8 * n + 2 * t) = make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+    }
   }
 }
 
+// out[row] = sum_i 2^(m_i - m) o_i / max(sum_i 2^(m_i - m) l_i, 1e-30), m the
+// largest m_i; parts with m_i = -inf (no tiles) are skipped. One warp a row.
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases,
-           int base_stride, void* out, int B, int C, int S_kv, int N, int Nkv, float sscale,
-           int window, cudaStream_t stream) {
+__global__ void __launch_bounds__(32 * MERGE_WARPS)
+merge_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int parts, int rows) {
+  constexpr int E = D / 32;  // columns per lane
+  const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* ws_m = ws + (size_t)parts * rows * D;
+  const float* ws_l = ws_m + (size_t)parts * rows;
+  float mx = -INFINITY;
+  for (int p = 0; p < parts; ++p) mx = fmaxf(mx, ws_m[(size_t)p * rows + row]);
+  float acc[E] = {}, den = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    const size_t pr = (size_t)p * rows + row;
+    const float mi = ws_m[pr];
+    if (mi == -INFINITY) continue;
+    const float w = exp2f(mi - mx);
+    den += w * ws_l[pr];
+    float v[E];
+    if constexpr (E == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(ws + pr * D + lane * E);
+      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(ws + pr * D + lane * E);
+      v[0] = x.x, v[1] = x.y;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += w * v[e];
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  __nv_bfloat16* dst = out + (size_t)row * D + lane * E;
+#pragma unroll
+  for (int e = 0; e < E; e += 2) *reinterpret_cast<uint32_t*>(dst + e) = pack_bf16(acc[e] * inv, acc[e + 1] * inv);
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so the
+// library needs no -lcuda; null if the driver has none.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A plane [B * Nkv, S_kv, D] of bf16 as 64 x 64 boxes, 128-byte swizzled;
+// rows past S_kv read as zeros.
+inline bool plane_map(CUtensorMap* map, const void* ptr, int planes, int S_kv, int D) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S_kv, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S_kv * D * 2};
+  const cuuint32_t box[3] = {BOX_COLS, BK, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int NW>
+int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases, int base_stride,
+           void* out, void* ws, int parts, int B, int C, int S_kv, int N, int Nkv, float sscale, int window,
+           cudaStream_t stream) {
   const int G = N / Nkv;
-  const size_t smem = Smem<D>::bytes;
-  auto kern = flash_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tmk, tmv;
+  if (!plane_map(&tmk, k, B * Nkv, S_kv, D) || !plane_map(&tmv, v, B * Nkv, S_kv, D))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Layout<D, NW>::BYTES;
+  auto kern = flash_kernel<D, NW>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int bqp = ROWS / G;
-  dim3 grid((C + bqp - 1) / bqp, Nkv, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const int*>(bases), base_stride, static_cast<__nv_bfloat16*>(out), C, S_kv,
-      N, Nkv, G, sscale, window);
+  dim3 grid(((C + bqp - 1) / bqp) * parts, Nkv, B);
+  kern<<<grid, Layout<D, NW>::THREADS, smem, stream>>>(tmk, tmv, static_cast<const __nv_bfloat16*>(q),
+                                        static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(bases),
+                                        base_stride, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+                                        parts, C, S_kv, N, Nkv, G, sscale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return (int)err;
+  const int rows = B * C * N;
+  merge_kernel<D><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), parts, rows);
   return (int)cudaGetLastError();
 }
 
-// Head-dim dispatch; returns a cudaError_t value, 0 on a successful launch. D
-// must be 64 or 128 and G = N / Nkv at most 64.
-inline int dispatch(const void* q, const void* k, const void* v, const void* kv_mask,
-                    const void* bases, int base_stride, void* out, int B, int C, int S_kv, int N,
-                    int Nkv, int D, float sscale, int window, void* stream) {
+// Head-dim and warpgroup dispatch; returns a cudaError_t value, 0 on a
+// successful launch. The wrapper chooses `parts` and `nw` (consumer
+// warpgroups a block, 1 or 2) from the grid; D must be 64 or 128, G = N / Nkv
+// at most 64, and parts > 1 needs a workspace of parts * B * C * N * (D + 2)
+// floats.
+inline int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases,
+                    int base_stride, void* out, void* ws, int parts, int nw, int B, int C, int S_kv, int N, int Nkv,
+                    int D, float sscale, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nkv <= 0 || N % Nkv != 0 || N / Nkv > ROWS || C <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return launch<128>(q, k, v, kv_mask, bases, base_stride, out, B, C, S_kv, N, Nkv, sscale,
-                       window, st);
-  if (D == 64)
-    return launch<64>(q, k, v, kv_mask, bases, base_stride, out, B, C, S_kv, N, Nkv, sscale,
-                      window, st);
-  return (int)cudaErrorInvalidValue;
+  if (Nkv <= 0 || N % Nkv != 0 || N / Nkv > ROWS || C <= 0 || parts < 1 || (parts > 1 && !ws) ||
+      (nw != 1 && nw != 2) || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kern) {
+    return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, sscale, window, st);
+  };
+  if (D == 128) return nw == 2 ? run(&launch<128, 2>) : run(&launch<128, 1>);
+  return nw == 2 ? run(&launch<64, 2>) : run(&launch<64, 1>);
 }
 
 }  // namespace lia_flash
+
+// Dynamic shared memory of one block of the D-wide kernel, in bytes (for the
+// build report beside ptxas's registers and spills).
+extern "C" int lia_flash_smem_bytes(int D, int NW) {
+  using namespace lia_flash;
+  return D == 128 ? (NW == 2 ? Layout<128, 2>::BYTES : Layout<128, 1>::BYTES)
+                  : (NW == 2 ? Layout<64, 2>::BYTES : Layout<64, 1>::BYTES);
+}

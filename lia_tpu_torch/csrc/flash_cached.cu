@@ -13,21 +13,23 @@
 // past each row tile's frontier base_b + t are skipped, and S_max is any
 // length.
 //
-// What bounds it on an H100: bytes at serving's shapes. At OPT-6.7B (32 heads,
-// D = 128), a 256-row chunk at base 768 of a 1024-slot plane does ~3.8 GFLOP
-// against ~21 MB of q, K, V and out (~6 us of memory traffic, ~4 us of bf16
-// tensor-core work); the grid splits the chunk's rows over
-// blocks as flash_prefill.cu splits a prompt, so a batch of one still fills
-// the card (4 row tiles x 32 kv heads).
+// What bounds it on an H100: bytes. At OPT-6.7B (32 heads, D = 128), a
+// 256-row chunk at base 768 of a 1024-slot plane moves ~21 MB of q, K, V and
+// out (~0.0063 ms at 3.35 TB/s) for ~3.8 GFLOP (~0.004 ms of bf16 tensor-core
+// work). K/V tiles stream by TMA under the wgmma products; that shape's 4 row
+// tiles x 32 kv heads give one block to nearly every SM. A prefix-cache suffix
+// of <= 64 rows has 32 such tiles, so the host splits each tile's walk into
+// parts up to one block an SM, and a second launch merges their fp32 partials.
 #include "flash_attn.cuh"
 
 // bases: int32, [B] (base_stride 1) or one value (base_stride 0). Returns a
-// cudaError_t value: 0 on a successful launch. D must be 64 or 128 and G = N /
-// Nkv at most 64.
+// cudaError_t value: 0 on a successful launch. The wrapper chooses `parts` and
+// `nw` (consumer warpgroups a block, 1 or 2); D must be 64 or 128, G = N / Nkv
+// at most 64, and parts > 1 needs a workspace of parts * B * C * N * (D + 2)
+// floats.
 extern "C" int lia_flash_cached(const void* q, const void* k, const void* v, const void* slot_mask,
-                                const void* bases, int base_stride, void* out, int B, int C,
-                                int S_max, int N, int Nkv, int D, float sscale, int window,
-                                void* stream) {
-  return lia_flash::dispatch(q, k, v, slot_mask, bases, base_stride, out, B, C, S_max, N, Nkv, D,
+                                const void* bases, int base_stride, void* out, void* ws, int parts, int nw, int B,
+                                int C, int S_max, int N, int Nkv, int D, float sscale, int window, void* stream) {
+  return lia_flash::dispatch(q, k, v, slot_mask, bases, base_stride, out, ws, parts, nw, B, C, S_max, N, Nkv, D,
                              sscale, window, stream);
 }

@@ -21,10 +21,14 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from lia_tpu_torch.ops.cuda_attention import FLASH_BK, FLASH_ROWS
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+              # the flash body's tile sizes: the wrappers size its grid from the same constants
+              f"-DLIA_FLASH_ROWS={FLASH_ROWS}", f"-DLIA_FLASH_BK={FLASH_BK}"]
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -32,10 +36,12 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # stream, is a c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_prefill": {
-        "lia_flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        "lia_flash_prefill": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        "lia_flash_smem_bytes": [I, I],
     },
     "flash_cached": {
-        "lia_flash_cached": [P, P, P, P, P, I, P, I, I, I, I, I, I, F, I, P],
+        "lia_flash_cached": [P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        "lia_flash_smem_bytes": [I, I],
     },
     "decode": {
         "lia_decode": [P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],

@@ -32,6 +32,9 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 KERNEL_DIMS = (64, 128)  # head dims the kernels are instantiated for
 KERNEL_GROUPS = (1, 2, 4, 8)  # GQA group sizes the decode kernels are instantiated for
+FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads
+FLASH_BK = 64  # keys of one flash K/V tile
+FLASH_MAX_PARTS = 16
 
 
 def _sscale(scale: Optional[float], D: int) -> float:
@@ -89,6 +92,61 @@ def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None):
     with base 0 over the prompt's own plane (the kernel's precision).
     q [B, S, N, D]; k/v [B, N_kv, S, D]; input_mask [B, S] bool → [B, S, N, D]."""
     return flash_attention_cached_plain(q, k, v, 0, input_mask, scale, window)
+
+
+def flash_partials_plain(q, k_cache, v_cache, base, slot_mask, parts, scale=None, window=None):
+    """The flash kernels' split walk in plain torch: each 64-row tile of chunk
+    rows (64 / G positions) walks the 64-key tiles [j_lo, j_hi) that are not
+    fully masked for it, and part p of ``parts`` takes tiles [j_lo + n p /
+    parts, j_lo + n (p + 1) / parts), n = j_hi - j_lo. Inside a part's tiles a
+    masked key scores -1e30, as in the kernel. Arguments as
+    :func:`flash_attention_cached_plain`; returns the fp32 partials (o
+    unnormalised [parts, B, C, N, D], m and l [parts, B, C, N]) the kernel
+    writes to its workspace; a part with no tiles has m = -inf, l = 0, o = 0."""
+    B, C, N, D = q.shape
+    _, Nkv, S_max, _ = k_cache.shape
+    G = N // Nkv
+    dev = q.device
+    bases = _lengths(base, dev).expand(B).long()
+    starts = bases + C - slot_mask.to(torch.int64).sum(dim=1)
+    t = torch.arange(C, device=dev)
+    pos0 = t // (FLASH_ROWS // G) * (FLASH_ROWS // G)  # each row's tile's first position
+    last = torch.clamp(pos0 + FLASH_ROWS // G, max=C) - 1
+    j_lo = (starts.clamp(min=0) // FLASH_BK)[:, None].expand(B, C)
+    if window is not None:
+        j_lo = torch.maximum(j_lo, (bases[:, None] + pos0 - window + 1).clamp(min=0) // FLASH_BK)
+    j_hi = torch.clamp((bases[:, None] + last) // FLASH_BK + 1, max=-(-S_max // FLASH_BK))
+    n = (j_hi - j_lo).clamp(min=0)
+    qf = q.float().reshape(B, C, Nkv, G, D)
+    s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k_cache.float()) * _sscale(scale, D)
+    qpos = (bases[:, None] + t)[:, :, None]  # [B, C, 1]
+    kpos = torch.arange(S_max, device=dev)[None, None, :]
+    masked = (kpos > qpos) | (kpos < starts[:, None, None])
+    if window is not None:
+        masked = masked | (kpos <= qpos - window)
+    s = torch.where(masked[:, None, None], torch.full_like(s, NEG_INF), s)
+    jk = kpos // FLASH_BK
+    o, m, l = [], [], []
+    for p in range(parts):
+        lo, hi = j_lo + n * p // parts, j_lo + n * (p + 1) // parts  # [B, C]
+        inside = ((jk >= lo[:, :, None]) & (jk < hi[:, :, None]))[:, None, None]  # [B, 1, 1, C, S]
+        mp = torch.where(inside, s, torch.full_like(s, -float("inf"))).amax(dim=-1, keepdim=True)
+        pr = torch.where(inside, torch.exp2(s - mp), torch.zeros_like(s))
+        acc = torch.einsum("bhgqk,bhkd->bhgqd", pr.to(v_cache.dtype).float(), v_cache.float())
+        o.append(acc.permute(0, 3, 1, 2, 4).reshape(B, C, N, D))
+        m.append(mp[..., 0].permute(0, 3, 1, 2).reshape(B, C, N))
+        l.append(pr.sum(dim=-1).permute(0, 3, 1, 2).reshape(B, C, N))
+    return torch.stack(o), torch.stack(m), torch.stack(l)
+
+
+def flash_merge_plain(o, m, l):
+    """The merge of the flash kernels' split, in plain torch: out = sum_i 2^(m_i
+    - m) o_i / max(sum_i 2^(m_i - m) l_i, 1e-30), m the largest m_i, parts with
+    m_i = -inf left out. o [parts, ..., D]; m, l [parts, ...] → [..., D]."""
+    empty = m == -float("inf")
+    w = torch.where(empty, torch.zeros_like(m), torch.exp2(m - m.amax(dim=0)))
+    acc = (w[..., None] * torch.where(empty[..., None], torch.zeros_like(o), o)).sum(dim=0)
+    return acc / (w * l).sum(dim=0).clamp(min=1e-30)[..., None]
 
 
 def _cache_allow(slot_mask, length, S_max, device):
@@ -342,6 +400,44 @@ def _flash_checks(q, k, v, kv_mask, bases):
         raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
 
 
+def _flash_tiles(B: int, C: int, N: int, Nkv: int) -> int:
+    """(row tile, kv head, batch row) tiles of a flash launch: each row tile
+    holds 64 / G chunk positions of the G query heads of one kv head."""
+    return -(-C // (FLASH_ROWS // (N // Nkv))) * Nkv * B
+
+
+def flash_split_parts(B: int, C: int, N: int, Nkv: int, S_kv: int, sms: int) -> int:
+    """Parts into which the flash kernels split each tile's key walk: as many as
+    keep the (row tile, kv head, batch row) tiles times the parts within the
+    card's ``sms`` SMs, one block to an SM, so 1 from half the SMs up; each
+    part keeps at least two of the plane's ``S_kv / 64`` K/V tiles, at most 16.
+    (Measured on the H100: a split pays for its merge only there.)"""
+    return max(1, min(sms // _flash_tiles(B, C, N, Nkv), -(-S_kv // FLASH_BK) // 2, FLASH_MAX_PARTS))
+
+
+def flash_warpgroups(B: int, C: int, N: int, Nkv: int, parts: int, sms: int) -> int:
+    """Consumer warpgroups of a flash block: 2, splitting each block's walk
+    between them, where the grid (tiles times parts) is at most one block an
+    SM; else 1, and two blocks share an SM."""
+    return 2 if _flash_tiles(B, C, N, Nkv) * parts <= sms else 1
+
+
+_SMS = {}
+
+
+def _flash_grid(q, Nkv: int, S_kv: int):
+    """(parts, warpgroups, workspace) of a flash launch over ``q`` [B, C, N, D]:
+    the workspace holds the fp32 partials (o [parts, B*C*N, D], m and l
+    [parts, B*C*N]) when parts > 1."""
+    B, C, N, D = q.shape
+    dev = q.get_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = flash_split_parts(B, C, N, Nkv, S_kv, _SMS[dev])
+    ws = torch.empty(parts * B * C * N * (D + 2), dtype=torch.float32, device=q.device) if parts > 1 else None
+    return parts, flash_warpgroups(B, C, N, Nkv, parts, _SMS[dev]), ws
+
+
 def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     """Causal GQA flash attention over a left-padded prompt → [B, S, N, D]."""
     if q.device.type == "cpu":
@@ -356,12 +452,15 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
         raise ValueError(f"k/v must hold the prompt's {S} positions, got {tuple(k.shape)}")
     _flash_checks(q, k, v, input_mask, None)
     out = torch.empty_like(q)
+    parts, nw, ws = _flash_grid(q, Nkv, S)
     rc = _build.library("flash_prefill").lia_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), input_mask.data_ptr(), out.data_ptr(),
-        B, S, N, Nkv, D, _sscale(scale, D), int(window or 0), stream,
+        ws.data_ptr() if ws is not None else None, parts, nw, B, S, N, Nkv, D, _sscale(scale, D),
+        int(window or 0), stream,
     )
     _raise_on(rc, "flash_attention_prefill")
     flash_attention_prefill.launches += 1
+    flash_attention_prefill.split_launches += int(parts > 1)
     return out
 
 
@@ -381,13 +480,15 @@ def flash_attention_cached(q, k_cache, v_cache, base, slot_mask, scale=None, win
     stream = _stream(q, k_cache, v_cache, slot_mask, bases)
     _flash_checks(q, k_cache, v_cache, slot_mask, bases)
     out = torch.empty_like(q)
+    parts, nw, ws = _flash_grid(q, Nkv, S_max)
     rc = _build.library("flash_cached").lia_flash_cached(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), slot_mask.data_ptr(), bases.data_ptr(),
-        1 if bases.ndim else 0, out.data_ptr(), B, C, S_max, N, Nkv, D, _sscale(scale, D), int(window or 0),
-        stream,
+        1 if bases.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, parts, nw, B, C, S_max,
+        N, Nkv, D, _sscale(scale, D), int(window or 0), stream,
     )
     _raise_on(rc, "flash_attention_cached")
     flash_attention_cached.launches += 1
+    flash_attention_cached.split_launches += int(parts > 1)
     return out
 
 
@@ -676,8 +777,19 @@ KERNELS = (
     decode_attention, decode_attention_stacked, flash_attention_cached, paged_decode_attention,
     decode_beam_attention, decode_beam_attention_int8,
 )
-for _fn in KERNELS:
-    _fn.launches = 0
+FLASH_KERNELS = (flash_attention_prefill, flash_attention_cached)
+
+
+def reset_launch_counts() -> None:
+    """Zeroes every wrapper's ``launches`` and the flash wrappers'
+    ``split_launches`` (the launches that split their walks, parts > 1)."""
+    for fn in KERNELS:
+        fn.launches = 0
+    for fn in FLASH_KERNELS:
+        fn.split_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
@@ -685,6 +797,6 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+def split_counts() -> dict:
+    """The flash wrappers' launches so far that split their walks (parts > 1)."""
+    return {fn.__name__: fn.split_launches for fn in FLASH_KERNELS}

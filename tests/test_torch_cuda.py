@@ -33,14 +33,19 @@ def _randn(gen, *shape, dtype):
 
 
 @pytest.mark.parametrize("window", [None, 24])
-@pytest.mark.parametrize("N,Nkv,D", [(8, 8, 64), (8, 2, 128), (12, 4, 64), (16, 2, 128), (6, 6, 128)])
+@pytest.mark.parametrize("N,Nkv,D", [(8, 8, 64), (8, 2, 128), (12, 4, 64), (16, 2, 128), (6, 6, 128),
+                                     (16, 4, 64), (16, 2, 64), (64, 1, 64), (64, 1, 128)])
 def test_flash_prefill_kernel_matches_plain(cuda, N, Nkv, D, window):
+    """G = 1, 3, 4, 8 and 64 at D 64 and 128, S = 80 (not a multiple of the
+    64-key tile), a window whose edge falls inside a tile, left pads and a row
+    of pads only (its output finite)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    B, S, dtype = 3, 80, torch.bfloat16
+    B, S, dtype = 4, 80, torch.bfloat16
     q, k, v = _randn(gen, B, S, N, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype)
     mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
     mask[1, :7] = False
     mask[2, :70] = False
+    mask[3] = False
     before = ca.flash_attention_prefill.launches
     out = ca.flash_attention_prefill(q, k, v, mask, window=window)
     assert ca.flash_attention_prefill.launches == before + 1
@@ -352,17 +357,20 @@ def test_tiered_engine_on_the_card_matches_the_cpu(cuda, policies):
 
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("per_row_base", [False, True])
-@pytest.mark.parametrize("N,Nkv,D", [(8, 8, 64), (8, 2, 128), (16, 2, 128), (32, 4, 64)])
+@pytest.mark.parametrize("N,Nkv,D", [(8, 8, 64), (8, 2, 128), (16, 2, 128), (32, 4, 64), (4, 4, 128), (16, 4, 64),
+                                     (64, 1, 64), (64, 1, 128)])
 def test_flash_cached_kernel_matches_plain(cuda, N, Nkv, D, per_row_base, window):
-    """A chunk of C rows over a 200-slot plane that holds it: left pads (a first
-    chunk), a cached prefix with base > 0, and per-row bases."""
+    """A chunk of C rows over a 200-slot plane that holds it (neither a multiple
+    of the 64-key tile): left pads (a first chunk), a cached prefix with base >
+    0, per-row bases, a window whose edge falls inside a tile, and a row of
+    pads only (its output finite); G = 1, 4, 8 and 64 at D 64 and 128."""
     gen = torch.Generator(device=cuda).manual_seed(6)
-    B, C, S_max, dtype = 3, 72, 200, torch.bfloat16
-    bases = [0, 96, 128] if per_row_base else [96] * B
+    B, C, S_max, dtype = 4, 72, 200, torch.bfloat16
+    bases = [0, 96, 128, 64] if per_row_base else [96] * B
     q = _randn(gen, B, C, N, D, dtype=dtype)
     kc, vc = _randn(gen, B, Nkv, S_max, D, dtype=dtype), _randn(gen, B, Nkv, S_max, D, dtype=dtype)
     sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
-    starts = [5, 0, 30]  # row 0 under per-row bases: 5 pad rows of a first chunk
+    starts = [5, 0, 30, 200]  # row 0 under per-row bases: 5 pad rows of a first chunk; row 3: all pads
     for b, (s, base) in enumerate(zip(starts, bases)):
         sm[b, s : base + C] = True
     base = torch.tensor(bases, dtype=torch.int32, device=cuda) if per_row_base else torch.tensor(
@@ -376,6 +384,79 @@ def test_flash_cached_kernel_matches_plain(cuda, N, Nkv, D, per_row_base, window
         valid[b, max(s - bb, 0):] = True
     torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
     assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("Nkv", [32, 8])
+@pytest.mark.parametrize("C,base,parts", [(256, 768, None), (256, 768, 2), (48, 960, None), (48, 960, 2),
+                                          (48, 960, 16)])
+def test_flash_cached_split_matches_plain(cuda, monkeypatch, C, base, parts, Nkv, window):
+    """The split path at serving's shapes (32 heads, D 128, 1024 slots): a
+    256-row suffix at base 768 and a 48-row one at base 960, with the parts
+    the host chooses (None) and forced ones, at G = 1 and 4, with a window.
+    The kernel's output equals the plain version and, on every row, the plain
+    split merged as the kernel merges it; a split launch is counted."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    N, D, S_max, dtype = 32, 128, 1024, torch.bfloat16
+    q = _randn(gen, 1, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, 1, Nkv, S_max, D, dtype=dtype), _randn(gen, 1, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(1, S_max, dtype=torch.bool, device=cuda)
+    sm[0, 3 : base + C] = True
+    b = torch.tensor(base, dtype=torch.int32, device=cuda)
+    if parts is not None:
+        monkeypatch.setattr(ca, "flash_split_parts", lambda *a: parts)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    used = parts or ca.flash_split_parts(1, C, N, Nkv, S_max, sms)
+    splits = ca.flash_attention_cached.split_launches
+    out = ca.flash_attention_cached(q, kc, vc, b, sm, window=window)
+    assert ca.flash_attention_cached.split_launches == splits + (used > 1)
+    ref = ca.flash_attention_cached_plain(q, kc, vc, b, sm, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    merged = ca.flash_merge_plain(*ca.flash_partials_plain(q, kc, vc, b, sm, used, window=window))
+    torch.testing.assert_close(out.float(), merged, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("B,S,Nkv", [(16, 256, 32), (16, 256, 8), (1, 256, 32), (1, 200, 8)])
+def test_flash_prefill_main_path_widths(cuda, B, S, Nkv, window):
+    """B1 at the main path's widths (32 heads, D 128), G = 1 and 4, with left
+    pads: 16 rows of 256 give more tiles than SMs (one consumer warpgroup a
+    block, two blocks an SM), one row fewer (two warpgroups split each walk)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    N, D, dtype = 32, 128, torch.bfloat16
+    q, k, v = _randn(gen, B, S, N, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    for b in range(B):
+        mask[b, : (37 * b) % 201] = False
+    out = ca.flash_attention_prefill(q, k, v, mask, window=window)
+    ref = ca.flash_attention_prefill_plain(q, k, v, mask, window=window)
+    valid = mask[:, :, None, None]
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.isfinite(out.float()).all()
+
+
+def test_flash_cached_chunk_batch(cuda):
+    """B6 over a batch of four 256-row chunks at bases 0-768 of 1024 slots
+    (more tiles than SMs: one consumer warpgroup a block)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, C, N, D, S_max, dtype = 4, 256, 32, 128, 1024, torch.bfloat16
+    q = _randn(gen, B, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, B, N, S_max, D, dtype=dtype), _randn(gen, B, N, S_max, D, dtype=dtype)
+    bases = torch.tensor([0, 256, 512, 768], dtype=torch.int32, device=cuda)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    for b in range(B):
+        sm[b, 11 * b : 256 * b + C] = True
+    out = ca.flash_attention_cached(q, kc, vc, bases, sm)  # every chunk row sits past its start
+    ref = ca.flash_attention_cached_plain(q, kc, vc, bases, sm)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_flash_split_parts_on_card(cuda):
+    """On this card the short prefix-cache suffix is split and B1's main-path
+    shape (OPT-6.7B b16 s256) is not."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ca.flash_split_parts(1, 48, 32, 32, 1024, sms) > 1
+    assert ca.flash_split_parts(16, 256, 32, 32, 256, sms) == 1
 
 
 def _paged_case(gen, dtype, B, C, G, D, L=2, Nkv=2, bs=16, P=8, lengths=(0, 37, 128)):
