@@ -361,6 +361,50 @@ def flash_build_report(_build, paths) -> None:
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
+def qmatmul_build_report(_build, paths) -> None:
+    """Each quantized-matmul library's kernels as ptxas built them (the body's
+    instantiations by kind, zero-points, regime (decode, prefill, prefill
+    stepwise) and stacked entry, and the row sums' first launch: registers,
+    spill stores and loads) and a block's
+    dynamic shared memory at OPT-6.7B's wqkv in g128 and per-channel; a spill
+    fails the run."""
+    import re
+
+    kinds = {0: "int8", 1: "int4", 2: "nf4", 3: "int4z", 4: "w4a8"}
+    for lib in ("w4a8_matmul", "woq_matmul"):
+        kernels, cur = [], None
+        for line in open(f"{paths[lib]}.log").read().splitlines():
+            m = re.search(r"Function properties for \S*?(qmm_kernel|rowsum_kernel)I"
+                          r"(?:Li(\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E|Lb(\d)E)", line)
+            if m:
+                if m.group(1) == "qmm_kernel":
+                    regime = "decode" if m.group(4) == "1" else "prefill" if m.group(6) == "1" else "prefill stepwise"
+                    name = f"qmm_kernel<{kinds[int(m.group(2))]}, zp={m.group(3)}, {regime}, stacked={m.group(5)}>"
+                else:
+                    name = f"rowsum_kernel<s8={m.group(7)}>"
+                cur = {"kernel": name}
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        K = OPT_KN["wqkv"][0]
+        if lib == "w4a8_matmul":
+            smem = {f"{r}, {grp}{', zero-points' if zp else ''}":
+                    _build.library(lib).lia_w4a8_smem_bytes(int(r == "decode"), K, K // GROUP if grp == "g128" else 1, zp)
+                    for r in ("decode", "prefill") for grp in ("g128", "per-channel") for zp in (0, 1)}
+        else:
+            smem = {f"{kind}, {r}": _build.library(lib).lia_woq_smem_bytes(code, int(r == "decode"), K,
+                                                                           1 if kind == "int8" else K // GROUP)
+                    for kind, code in (("int8", 0), ("int4", 1), ("nf4", 2), ("int4z", 3)) for r in ("decode", "prefill")}
+        emit({"phase": "qmatmul_build", "library": lib, "kernels": kernels, "dynamic_smem_bytes": smem})
+        # 12 instantiations of the body and the row sums
+        check(len(kernels) == 13 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+              f"{lib}: ptxas reports spills (or no report): {kernels}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel checks
 # ---------------------------------------------------------------------------
@@ -496,13 +540,23 @@ def kernel_checks(ca, quantize_kv):
     ref = ca.decode_attention_fresh_int8_plain(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "decode_attention_fresh_int8: non-finite output")
+    # yardstick, as the beam int8 row's: SDPA over layer li's plane dequantized
+    # to bf16 before the timing, the fresh token written (another function: no
+    # PyTorch call attends over an int8 cache with per-token scales)
+    from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
+
+    kd, vd = (dequantize_kv(QuantizedKV(c.q[li], c.s[li])) for c in (kq, vq))
+    kd[:, :, PAST], vd[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+    sm8_inc = sm8.clone()
+    sm8_inc[:, PAST] = True
     rows["decode_attention_fresh_int8"] = dict(
         source="lia_tpu_torch/csrc/decode_fresh_int8.cu",
         replaces="lia_tpu/ops/pallas_attention.py:1170",
         max_abs_err=(out.float() - ref.float()).abs().max().item(),
         kernel=lambda: ca.decode_attention_fresh_int8(*args),
         plain=lambda: ca.decode_attention_fresh_int8_plain(*args),
-        library=None,  # no PyTorch call attends over an int8 cache with per-token scales
+        library=lambda: F.scaled_dot_product_attention(qdt, kd, vd, attn_mask=sm8_inc[:, None, None, :]),
+        library_kind="one call over K/V dequantized to bf16 (another function)",
         bound=bound(past_keys * N * (D + 4) * 2 + io_bytes + sm8.numel(), 4 * D * N * (past_keys + B)),
     )
     rows.update(serving_kernel_checks(ca, randn, dpads))
@@ -901,14 +955,53 @@ def beam_kernel_checks(ca, quantize_kv, randn):
     return rows
 
 
+def int4pack_call(codes, s, z=None):
+    """``torch._weight_int4pack_mm`` over the same 4-bit codes (``[K, N]``,
+    0..15) and g128 scales, its weight packed here, before any timing: the
+    function of ``woq_matmul`` int4 (and, with zero-points ``z``, of
+    ``woq4z_matmul``) up to its bf16 scales, zeros and output, as tinygemm
+    dequantizes ``(c - 8) * s + zero``; None where this PyTorch has no such
+    call."""
+    try:
+        wt = codes.t().contiguous().to(torch.int32)
+        wp = torch._convert_weight_to_int4pack((wt[:, ::2] << 4 | wt[:, 1::2]).to(torch.uint8), 8)
+        zero = torch.zeros_like(s) if z is None else (8.0 - z) * s
+        sz = torch.stack([s, zero], dim=-1).to(torch.bfloat16).contiguous()
+    except (AttributeError, RuntimeError):
+        return None
+    return lambda x: torch._weight_int4pack_mm(x, wp, GROUP, sz)
+
+
+def int8pack_call(codes, s):
+    """``torch._weight_int8pack_mm`` over the same int8 codes (``[K, N]``) and
+    per-channel scales (``[1, N]``), its weight laid out ``[N, K]`` here,
+    before any timing: the function of ``woq_matmul`` int8 per-channel (the
+    integer codes summed exactly, the scale after the sum) up to its bf16
+    scales and output; None where this PyTorch has no such call on the card."""
+    try:
+        w = codes.t().contiguous()
+        sc = s[0].to(torch.bfloat16).contiguous()
+        torch._weight_int8pack_mm(torch.zeros(1, w.shape[1], dtype=torch.bfloat16, device=w.device), w, sc)
+    except (AttributeError, RuntimeError):
+        return None
+    return lambda x: torch._weight_int8pack_mm(x, w, sc)
+
+
 def matmul_cases(cm, quantize_act):
     """The quantized-matmul kernel cases, one shape at a time (each yields its
     inputs, made from a seeded generator, so the timing phase makes the same
-    ones anew): kernel, plain version, library yardstick and bound. The
-    library calls read more bytes than the kernels: ``torch._int_mm`` reads
-    the unpacked int8 codes (twice the packed bytes, column-major; its 16
-    decode rows are padded to 32, the least it takes), ``torch.mm`` the
-    dequantized bf16 weight (2x int8, 4x int4); neither is on the port's path."""
+    ones anew): kernel, plain version, yardsticks and bound. ``library`` is a
+    PyTorch call of the same function: ``torch._weight_int4pack_mm`` for the
+    int4 weight-only kinds and ``torch._weight_int8pack_mm`` for per-channel
+    int8 (bf16 scales); no single call computes W4A8 or NF4 here. ``split``
+    (fc2 at 16 rows, where the plan splits the weight rows 11 ways) is the
+    split's plain version, :func:`cuda_matmul.split_plain`, at the plan's
+    slices. ``other`` is a call of another function that
+    reads more bytes: ``torch._int_mm`` over the unpacked int8 codes (no group
+    scales; twice the packed bytes, column-major; its 16 decode rows padded to
+    32, the least it takes) for W4A8, ``torch.mm`` over the weight
+    dequantized to bf16 (2x int8, 4x int4) for the weight-only kinds. None
+    of them is on the port's path."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
@@ -923,36 +1016,50 @@ def matmul_cases(cm, quantize_act):
     for shape, (K, N) in OPT_KN.items():
         ng = K // GROUP
         packed = randint(0, 256, K // 2, N, dtype=torch.uint8)
-        # the library yardstick's operand, column-major: _int_mm's fast layout
-        codes8 = (unpack_nibbles(packed) - 8).to(torch.int8).t().contiguous().t()
+        codes = unpack_nibbles(packed)
+        # the other-function yardstick's operand, column-major: _int_mm's fast layout
+        codes8 = (codes - 8).to(torch.int8).t().contiguous().t()
         i8 = randint(-127, 128, K, N, dtype=torch.int8)
         s, s1 = scales(ng, N), scales(1, N)
         z = randint(0, 16, ng, N, dtype=torch.float32)
         deq = {kind: dequantize(QuantizedWeight(q, sc, fmt, zz), torch.bfloat16) for kind, (q, sc, fmt, zz) in {
             "int8": (i8, s1, "woq_int8", None), "int4": (packed, s, "woq_int4", None),
             "nf4": (packed, s, "woq_nf4", None), "int4z": (packed, s, "woq_int4z", z)}.items()}
+        same = {"int4": int4pack_call(codes, s), "int4z": int4pack_call(codes, s, z),
+                "int8": int8pack_call(i8, s1)}
         for M in MATMUL_M:
             x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
             xq, sx = quantize_act(x)
             xq_pad = torch.cat([xq, xq.new_zeros(max(0, 32 - M), K)])
             io = 4 * M * N  # f32 output
 
+            def split(fn, a, q, sc, zz, fmt):
+                if (shape, M) != ("fc2", 16):
+                    return None
+                rows = cm.plan(M, N, K, sc.shape[0], fmt, zz is not None).split_rows
+                return lambda: cm.split_plain(fn, a, q, sc, zz, split_rows=rows, packed=fmt != "int8")
+
             def w4a8(zz):
                 nbytes = M * K + 4 * M + K * N // 2 + 4 * ng * N * (1 if zz is None else 2) + io
                 return dict(kernel=lambda: cm.w4a8_matmul(xq, sx, packed, s, zz),
                             plain=lambda: cm.w4a8_matmul_plain(xq, sx, packed, s, zz),
-                            library=lambda: torch._int_mm(xq_pad, codes8),
+                            split=split(lambda a, qq, ss, zs: cm.w4a8_matmul_plain(a, sx, qq, ss, zs), xq, packed, s,
+                                        zz, "w4a8"),
+                            library=None, other=lambda: torch._int_mm(xq_pad, codes8),
                             bound=bound(nbytes, 2 * M * K * N, PEAK_INT8_OP_PER_S))
 
             def woq(kind, q, sc, zz=None):
                 nbytes = 2 * M * K + q.numel() + 4 * sc.numel() * (1 if zz is None else 2) + io
                 if zz is None:
                     k, p = (lambda: cm.woq_matmul(x, q, sc, kind)), (lambda: cm.woq_matmul_plain(x, q, sc, kind))
+                    fn = lambda a, qq, ss, zs: cm.woq_matmul_plain(a, qq, ss, kind)  # noqa: E731
                 else:
                     k, p = (lambda: cm.woq4z_matmul(x, q, sc, zz)), (lambda: cm.woq4z_matmul_plain(x, q, sc, zz))
-                w = deq[kind]
-                return dict(kernel=k, plain=p, library=lambda: torch.mm(x, w, out_dtype=torch.float32),
-                            bound=bound(nbytes, 2 * M * K * N))
+                    fn = cm.woq4z_matmul_plain
+                w, lib = deq[kind], same.get(kind)
+                return dict(kernel=k, plain=p, split=split(fn, x, q, sc, zz, kind),
+                            library=None if lib is None else (lambda: lib(x)),
+                            other=lambda: torch.mm(x, w, out_dtype=torch.float32), bound=bound(nbytes, 2 * M * K * N))
 
             for name, variant, case in (
                 ("w4a8_matmul", "g128", w4a8(None)),
@@ -968,23 +1075,71 @@ def matmul_cases(cm, quantize_act):
                 yield case
 
 
+# The Hopper body's tile edges: (M, K, N, group size or -1 for per-channel).
+# Decode takes M <= 16 and prefill 128-row blocks; blocks take 128 weight
+# columns, whose rows TMA reads where N is a multiple of 16 (40, 200 and 4100
+# are copied by the kernel's warps); K 16384 splits at decode in whole groups
+# (and per-channel in walk units); 50304 is OPT's head.
+MATMUL_EDGES = [(1, 4096, 40, 128), (16, 4096, 200, 128), (17, 1024, 4100, 128), (64, 16384, 4096, 128),
+                (65, 4096, 200, -1), (128, 4096, 50304, 128), (4096, 1024, 4100, 64), (16, 16384, 4096, -1)]
+
+
+def matmul_edge_checks(cm, quantize_act) -> None:
+    """Every quantized-matmul kind (W4A8 with and without zero-points, int8
+    per-channel, int4, NF4, int4 with zero-points) against its plain version
+    at the tile edges of MATMUL_EDGES."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for M, K, N, gs in MATMUL_EDGES:
+        ng = 1 if gs < 0 else K // gs
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        xq, sx = quantize_act(x)
+        packed = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+        i8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+        s = torch.rand(ng, N, generator=gen, device="cuda") * 1e-3 + 1e-3
+        s1 = s[:1].contiguous()
+        z = torch.randint(0, 16, (ng, N), generator=gen, device="cuda").float()
+        for name, variant, kernel, plain in (
+            ("w4a8_matmul", "", lambda: cm.w4a8_matmul(xq, sx, packed, s), lambda: cm.w4a8_matmul_plain(xq, sx, packed, s)),
+            ("w4a8_matmul", "zero-points", lambda: cm.w4a8_matmul(xq, sx, packed, s, z),
+             lambda: cm.w4a8_matmul_plain(xq, sx, packed, s, z)),
+            ("woq_matmul", "int8 per-channel", lambda: cm.woq_matmul(x, i8, s1, "int8"),
+             lambda: cm.woq_matmul_plain(x, i8, s1, "int8")),
+            ("woq_matmul", "int4", lambda: cm.woq_matmul(x, packed, s, "int4"),
+             lambda: cm.woq_matmul_plain(x, packed, s, "int4")),
+            ("woq_matmul", "nf4", lambda: cm.woq_matmul(x, packed, s, "nf4"),
+             lambda: cm.woq_matmul_plain(x, packed, s, "nf4")),
+            ("woq4z_matmul", "", lambda: cm.woq4z_matmul(x, packed, s, z), lambda: cm.woq4z_matmul_plain(x, packed, s, z)),
+        ):
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"{name} {variant} M={M} K={K} N={N}: non-finite output")
+            abs_err = (out - ref).abs().max().item()
+            rel = abs_err / max(ref.abs().max().item(), 1e-30)
+            variant = f"{variant} {'per-channel' if gs < 0 else f'g{gs}'} edge".strip()
+            emit({"phase": "kernel_check", "kernel": name, "variant": variant, "M": M, "K": K, "N": N,
+                  "max_abs_err": abs_err, "rel_err": rel, "tol": MATMUL_TOL})
+            check(rel <= MATMUL_TOL, f"{name} {variant} M={M} K={K} N={N}: relative error {rel} > {MATMUL_TOL}")
+            del out, ref
+
+
 STACK_LAYERS = 3  # B13's checks: a stack of this many layers, each layer read in turn
 
 
 def stacked_cases(cm, quantize_act):
-    """B13 (the stacked W4A8 entry) over a 3-layer stack at OPT-6.7B's wqkv and
-    fc2, M = 16 and 4096, with and without zero-points; the layer index lives
+    """B13 (the stacked W4A8 entry) over a 3-layer stack at OPT-6.7B's wqkv,
+    fc2 and head, M = 16 and 4096, with and without zero-points; the layer index lives
     in device memory. Each case checks every layer bit for bit against B4 on
     the layer's view (``b4_equal``) and times layer 1 against the plain
-    version and the library yardstick (``torch._int_mm`` over the layer's
-    unpacked codes, as B4's row)."""
+    version and the other-function yardstick (``torch._int_mm`` over the
+    layer's unpacked codes, as B4's row)."""
     from lia_tpu_torch.ops.quant import unpack_nibbles
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     L, li = STACK_LAYERS, 1
     layers = torch.arange(L, dtype=torch.int32, device="cuda")
-    for shape in ("wqkv", "fc2"):
+    for shape in ("wqkv", "fc2", "head"):
         K, N = OPT_KN[shape]
         ng = K // GROUP
         q = torch.randint(0, 256, (L, K // 2, N), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
@@ -1005,7 +1160,7 @@ def stacked_cases(cm, quantize_act):
                 yield dict(name="w4a8_matmul_stacked", variant=variant, M=M, K=K, N=N, shape=shape,
                            kernel=lambda zz=zz, xq=xq, sx=sx: cm.w4a8_matmul_stacked(xq, sx, q, s, zz, layers[li]),
                            plain=lambda zz=zz, xq=xq, sx=sx: cm.w4a8_matmul_stacked_plain(xq, sx, q, s, zz, li),
-                           library=lambda xq_pad=xq_pad: torch._int_mm(xq_pad, codes8),
+                           library=None, other=lambda xq_pad=xq_pad: torch._int_mm(xq_pad, codes8),
                            bound=bound(nbytes, 2 * M * K * N, PEAK_INT8_OP_PER_S), b4_equal=b4_equal,
                            representative=(M == 16 and shape == "wqkv" and zz is None))
 
@@ -1030,6 +1185,12 @@ def matmul_kernel_checks(cm, quantize_act):
         rel = abs_err / max(ref.abs().max().item(), 1e-30)
         line = {"phase": "kernel_check", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
                 "K": c["K"], "N": c["N"], "max_abs_err": abs_err, "rel_err": rel, "tol": MATMUL_TOL}
+        if c.get("split"):  # the split call against the split's plain version at the plan's slices
+            sref = c["split"]()
+            line["split_rel_err"] = (out - sref).abs().max().item() / max(sref.abs().max().item(), 1e-30)
+            check(line["split_rel_err"] <= MATMUL_TOL, f"{c['name']} {c['variant']} M={c['M']} K={c['K']}: split "
+                                                       f"relative error {line['split_rel_err']} > {MATMUL_TOL}")
+            del sref
         if "b4_equal" in c:  # every layer of the stack bit for bit against B4 on its view
             line["bit_equal_to_w4a8_matmul_at_every_layer"] = c["b4_equal"]()
             check(line["bit_equal_to_w4a8_matmul_at_every_layer"], f"{c['name']} {c['variant']} M={c['M']} "
@@ -1045,15 +1206,16 @@ def matmul_kernel_checks(cm, quantize_act):
 
 
 def matmul_kernel_times(cm, quantize_act, rows) -> None:
-    """Device times of every quantized-matmul case (kernel, plain version, library
-    call) beside its bound, and of the stacked entry at the wqkv shape (its
-    other cases run B4's body at the same shapes); the representative cases
-    fill the kernels line."""
+    """Device times of every quantized-matmul case (kernel, plain version, the
+    same-function library call where there is one, the other-function call)
+    beside its bound, and of the stacked entry at the wqkv shape (its other
+    cases run B4's body at the same shapes); the representative cases fill
+    the kernels line."""
     stacked = (c for c in stacked_cases(cm, quantize_act) if c["shape"] == "wqkv" and c["variant"] == "g128")
     for c in itertools.chain(matmul_cases(cm, quantize_act), stacked):
         t = dict(ms=device_ms(c["kernel"]), event_ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
-                 plain_ms=device_ms(c["plain"]), library_ms=device_ms(c["library"]),
-                 bound_ms=c["bound"][0], bound_by=c["bound"][1])
+                 plain_ms=device_ms(c["plain"]), library_ms=c["library"] and device_ms(c["library"]),
+                 other_function_ms=device_ms(c["other"]), bound_ms=c["bound"][0], bound_by=c["bound"][1])
         emit({"phase": "kernel_time", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
               "K": c["K"], "N": c["N"], **t})
         if c["representative"]:
@@ -2321,9 +2483,11 @@ def main() -> int:
     paths = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": sorted(paths)})
     flash_build_report(_build, paths)
+    qmatmul_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)
+    matmul_edge_checks(cm, quantize_act)
     phase_time("kernel checks")
 
     cfg = get_config("opt-6.7b")

@@ -70,6 +70,16 @@ __device__ __forceinline__ int block_count_true(const uint8_t* mask, int n) {
   return count;
 }
 
+// 16 bytes from global to shared memory, asynchronously; zero-filled where !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));  // 0 source bytes: the 16 bytes are zero-filled
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);

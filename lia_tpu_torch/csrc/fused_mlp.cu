@@ -40,7 +40,7 @@
 // The atomics add the F tiles' partials in an order that changes from run to
 // run, so the fp32 sum before the single rounding varies in its last bits.
 // Later work: wgmma and TMA, and a split of H among more blocks at decode.
-#include "qmatmul.cuh"
+#include "common.cuh"
 
 namespace {
 

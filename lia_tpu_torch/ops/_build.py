@@ -62,11 +62,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_beam_decode_int8": [P] * 15 + [I] * 7 + [F, I, P],
     },
     "w4a8_matmul": {
-        "lia_w4a8_matmul": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "lia_w4a8_matmul_stacked": [P, P, P, P, P, P, I, LL, LL, P, P, I, I, I, I, I, P],
+        "lia_w4a8_matmul": [P] * 9 + [I] * 8 + [P],
+        "lia_w4a8_matmul_stacked": [P] * 6 + [I, LL, LL] + [P] * 4 + [I] * 8 + [P],
+        "lia_w4a8_smem_bytes": [I] * 4,
     },
     "woq_matmul": {
-        "lia_woq_matmul": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "lia_woq_matmul": [P] * 8 + [I] * 9 + [P],
+        "lia_woq_smem_bytes": [I] * 4,
     },
     "fused_mlp": {
         "lia_fused_mlp": [P] * 11 + [I] * 5 + [F, P],

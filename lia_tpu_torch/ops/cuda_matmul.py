@@ -18,6 +18,14 @@ applies, exactly for W4A8 (integer products summed in float64, see
 :func:`exact_dot`) and in fp32 for the weight-only kernels. Each wrapper counts its
 launches in ``<wrapper>.launches``.
 
+:func:`plan` is the host's half of the kernels (``csrc/qmatmul.cuh``): the
+regime (decode for M <= 16, prefill above), the block tile, the split of the
+weight rows over blocks in whole groups, and whether the weight is read by
+TMA or, where its row stride is not a multiple of 16 bytes, copied by the
+kernel's warps. :func:`split_plain` is the plain version of a split
+call: every slice's partial computed as its own call, added in slice order
+(``chip_smoke.py`` and the card tests hold split calls against it).
+
 Layouts are the reference's: activations ``[M, K]``, weights ``[K, N]`` (int8)
 or ``[K/2, N]`` (byte ``r`` holds rows ``r`` and ``K/2 + r``), scales and
 zero-points ``[ng, N]`` f32, outputs f32 ``[M, N]``.
@@ -26,6 +34,7 @@ zero-points ``[ng, N]`` f32, outputs f32 ``[M, N]``.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -33,9 +42,13 @@ import torch
 from lia_tpu_torch.ops.quant import NF4_CODEBOOK, _kernel_takes, unpack_nibbles
 
 WOQ_KINDS = {"int8": 0, "int4": 1, "nf4": 2, "int4z": 3}  # the kernel's decode template
-SMALL_M, SMALL_N = 16, 32  # rows up to which the kernels take their decode tile, and its columns
-STAGE_ROWS = 64  # weight rows per shared-memory stage (csrc/qmatmul.cuh)
-SPLIT_BLOCKS_PER_SM = 4  # decode: split K until about this many blocks per SM
+SMALL_M = 16  # rows up to which the kernels run their decode regime
+# The block tile (csrc/qmatmul.cuh: BN, BM): the plan counts a call's output
+# tiles with it, against the blocks the card holds.
+TILE_N = 128  # weight columns a block
+TILE_M = {"decode": 16, "prefill": 128}  # activation rows a block
+BLOCKS_PER_SM = {"decode": 3, "prefill": 1}  # blocks an SM holds (shared memory, registers)
+MAX_SPLITS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -138,19 +151,102 @@ def _sm_count(dev: int) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _splits(M: int, N: int, rows: int, unit: int) -> int:
-    """Number of K slices for a decode-sized M: enough blocks to give every SM
-    about SPLIT_BLOCKS_PER_SM, each slice whole ``unit``s of weight rows: a
-    group, so that every group's sum stays in one block, or for per-channel
-    weights a stage, whose slices' sums are scaled apart (that changes only
-    the fp32 rounding). Larger M runs unsplit."""
-    if M > SMALL_M:
-        return 1
-    blocks = -(-N // SMALL_N)
-    want = -(-SPLIT_BLOCKS_PER_SM * _sm_count(torch.cuda.current_device()) // blocks)
+@dataclass(frozen=True)
+class Plan:
+    """One call's launch: ``regime`` "decode" (M <= 16: mma.sync over the
+    tokens, bound by the weight bytes) or "prefill" (wgmma over 128 rows of M
+    a block, bound by the tensor cores); ``splits`` slices of ``split_rows``
+    weight rows each (whole ``unit``s: a group, or a unit of the walk for
+    per-channel scales), over ``tiles`` output tiles; ``tma``: the weight read
+    by TMA (else copied by the kernel's warps); ``step16``: W4A8 groups that
+    take 16-row steps."""
+
+    regime: str
+    tiles: int
+    splits: int
+    split_rows: int
+    unit: int
+    tma: bool
+    step16: bool
+
+
+def plan(M: int, N: int, K: int, ng: int, fmt: str, zp: bool = False, aligned: bool = True,
+         sms: Optional[int] = None) -> Plan:
+    """The launch of one quantized matmul: ``fmt`` "w4a8" (int8 activations),
+    or a weight-only kind ("int8" codes ``[K, N]``, "int4", "nf4", "int4z"
+    half-split). Where the output tiles fill fewer than the card's blocks
+    (``BLOCKS_PER_SM`` an SM of ``sms``, the device's count by default), the
+    weight rows split into up to ``MAX_SPLITS`` slices of whole groups, so no
+    group's sum leaves a block; per-channel scales split in units of the
+    kernel's walk (128 rows for int8 activations, 64 for bf16), whose partial
+    sums are scaled apart (that changes only the fp32 rounding), except with
+    zero-points, whose row sums cover whole rows. TMA needs a row stride of a
+    multiple of 16 bytes, and a weight, scales and zero-points that start on 16
+    bytes (``aligned``)."""
+    s8 = fmt == "w4a8"
+    packed = fmt != "int8"
+    rows = K // 2 if packed else K
+    g = K // ng
+    regime = "decode" if M <= SMALL_M else "prefill"
+    tiles = -(-N // TILE_N) * -(-M // TILE_M[regime])
+    unit = (128 if s8 else 64) if ng == 1 else g
     units = -(-rows // unit)
-    per = -(-units // max(1, min(want, units, 16)))
-    return -(-units // per)
+    splits = 1
+    if not (zp and ng == 1):
+        if sms is None:
+            sms = _sm_count(torch.cuda.current_device())
+        splits = max(1, min(BLOCKS_PER_SM[regime] * sms // tiles, units, MAX_SPLITS))
+    per = -(-units // splits)
+    splits = -(-units // per)
+    return Plan(regime=regime, tiles=tiles, splits=splits, split_rows=per * unit, unit=unit,
+                tma=N % 16 == 0 and aligned, step16=s8 and ng > 1 and g % 32 != 0)
+
+
+def split_plain(fn, x, q, s, z=None, *, split_rows: int, packed: bool) -> torch.Tensor:
+    """The plain version of a split call: ``fn`` (a plain matmul taking
+    ``(x, q, s, z)``) over each slice of ``split_rows`` weight rows as a
+    call of its own, the slice's rows of both packed halves with their
+    columns of ``x`` and their groups' scales (all of ``s`` for per-channel
+    scales), the partials added in slice order as the kernel's last block
+    adds them."""
+    K = x.shape[1]
+    rows = q.shape[0]
+    ng = s.shape[0]
+    g = K // ng
+    out = None
+    for kb in range(0, rows, split_rows):
+        ke = min(kb + split_rows, rows)
+        halves = [(kb, ke), (K // 2 + kb, K // 2 + ke)] if packed else [(kb, ke)]
+        xs = torch.cat([x[:, a:b] for a, b in halves], dim=1)
+        if ng == 1:
+            ss, zs = s, z
+        else:
+            ss = torch.cat([s[a // g:b // g] for a, b in halves])
+            zs = None if z is None else torch.cat([z[a // g:b // g] for a, b in halves])
+        part = fn(xs, q[kb:ke], ss, zs)
+        out = part if out is None else out + part
+    return out
+
+
+_tickets_by_stream: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """A split call's per-tile counters. Every launch leaves them at zero (the
+    last block of a tile resets its counter), so an eager call takes its
+    stream's set, zeroed once, and needs no memset: the launches of one
+    stream run in turn and never count on a set at once. A call captured
+    into a CUDA graph takes a set of its own, which the graph holds (its zero
+    fill is a node of the graph), so a replay shares no counters with eager
+    calls or other graphs. A split call has at most ``BLOCKS_PER_SM["decode"]``
+    tiles an SM: the plan splits one wave of blocks."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(tiles, dtype=torch.int32, device=dev)
+    t = _tickets_by_stream.get((dev.index, stream))
+    if t is None:
+        n = BLOCKS_PER_SM["decode"] * _sm_count(dev.index)
+        t = _tickets_by_stream[dev.index, stream] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return t
 
 
 def _check_weight(K: int, q, s, z, packed: bool, name: str):
@@ -166,8 +262,12 @@ def _check_weight(K: int, q, s, z, packed: bool, name: str):
     ng = s.shape[0]
     if not _kernel_takes(K, ng, packed):
         raise ValueError(f"{name}: no kernel for K={K} in {ng} groups")
-    unit = STAGE_ROWS if ng == 1 else K // ng
-    return N, ng, unit
+    return N, ng
+
+
+def _aligned(*tensors) -> bool:
+    """Whether the weight's tensors start on 16 bytes, as TMA reads them."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -175,7 +275,20 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
 
 
-def _w4a8_launch(name: str, xq, sx, q, s, z, entry: str, *stack) -> torch.Tensor:
+def _scratch(x, pl: Plan, M: int, N: int, ng: int, zp: bool, stream: int):
+    """The call's output and scratch (``torch.empty``: nothing is zeroed):
+    the split's partials and counters, and the zero-point row sums (fp32
+    ``[ng, M]`` in rows of a multiple of 4, the kernel's TMA boxes)."""
+    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    ws = tickets = None
+    if pl.splits > 1:
+        ws = torch.empty(pl.splits, M, N, dtype=torch.float32, device=x.device)
+        tickets = _tickets(x.device, stream, pl.tiles)
+    rs = torch.empty(ng, -(-M // 4) * 4, dtype=torch.float32, device=x.device) if zp else None
+    return out, [0 if t is None else t.data_ptr() for t in (ws, rs, tickets)], (ws, rs, tickets)
+
+
+def _w4a8_launch(name: str, xq, sx, q, s, z, entry: str, *stack, aligned: bool) -> torch.Tensor:
     """Checks, outputs and launch shared by the W4A8 entries: ``q``, ``s`` and
     ``z`` are one layer's weight (layer 0's views for the stacked entry, whose
     base pointers they share), ``stack`` the stacked entry's extra arguments."""
@@ -186,15 +299,15 @@ def _w4a8_launch(name: str, xq, sx, q, s, z, entry: str, *stack) -> torch.Tensor
         raise TypeError(f"{name}: xq must be int8 [M, K] and sx float32 [M, 1], got "
                         f"{xq.dtype} {tuple(xq.shape)}, {sx.dtype} {tuple(sx.shape)}")
     if xq.data_ptr() % 16:
-        raise ValueError(f"{name}: xq must be 16-byte aligned (the kernel copies 16 bytes at once)")
-    N, ng, unit = _check_weight(K, q, s, z, True, name)
+        raise ValueError(f"{name}: xq must be 16-byte aligned (the kernel reads it by TMA)")
+    N, ng = _check_weight(K, q, s, z, True, name)
     stream = _stream(xq, sx, q, s, *([] if z is None else [z]))
-    splits = _splits(M, N, K // 2, unit)
-    out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
-    ws = torch.empty(splits, M, N, dtype=torch.float32, device=xq.device) if splits > 1 else out
+    pl = plan(M, N, K, ng, "w4a8", z is not None, aligned)
+    out, (ws, rs, tickets), _keep = _scratch(xq, pl, M, N, ng, z is not None, stream)
     rc = getattr(_build.library("w4a8_matmul"), entry)(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if z is None else z.data_ptr(), *stack,
-        out.data_ptr(), ws.data_ptr(), M, N, K, ng, splits, stream,
+        out.data_ptr(), ws, rs, tickets, M, N, K, ng, pl.splits, pl.split_rows, int(pl.regime == "decode"),
+        int(pl.tma), stream,
     )
     _raise_on(rc, name)
     return out
@@ -206,7 +319,7 @@ def w4a8_matmul(xq, sx, q, s, z: Optional[torch.Tensor] = None) -> torch.Tensor:
     codes with per-group zero-points."""
     if xq.device.type == "cpu":
         return w4a8_matmul_plain(xq, sx, q, s, z)
-    out = _w4a8_launch("w4a8_matmul", xq, sx, q, s, z, "lia_w4a8_matmul")
+    out = _w4a8_launch("w4a8_matmul", xq, sx, q, s, z, "lia_w4a8_matmul", aligned=_aligned(q, s, z))
     w4a8_matmul.launches += 1
     return out
 
@@ -229,7 +342,8 @@ def w4a8_matmul_stacked(xq, sx, q, s, z: Optional[torch.Tensor], layer) -> torch
         raise TypeError(f"{name}: layer must be a 0-d int32 tensor, got {layer!r}")
     _stream(layer)
     out = _w4a8_launch(name, xq, sx, q[0], s[0], None if z is None else z[0], "lia_w4a8_matmul_stacked",
-                       layer.data_ptr(), q.shape[0], q.stride(0), s.stride(0))
+                       layer.data_ptr(), q.shape[0], q.stride(0), s.stride(0),
+                       aligned=_aligned(q, s, z) and q.stride(0) % 16 == 0 and s.stride(0) % 4 == 0)
     w4a8_matmul_stacked.launches += 1
     return out
 
@@ -241,15 +355,14 @@ def _woq_launch(x, q, s, z, kind: str, name: str) -> torch.Tensor:
     if x.dtype is not torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bfloat16 activations, got {x.dtype}")
     if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned (the kernel copies 16 bytes at once)")
-    N, ng, unit = _check_weight(K, q, s, z, kind != "int8", name)
+        raise ValueError(f"{name}: x must be 16-byte aligned (the kernel reads it by TMA)")
+    N, ng = _check_weight(K, q, s, z, kind != "int8", name)
     stream = _stream(x, q, s, *([] if z is None else [z]))
-    splits = _splits(M, N, q.shape[0], unit)
-    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    ws = torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1 else out
+    pl = plan(M, N, K, ng, kind, z is not None, _aligned(q, s, z))
+    out, (ws, rs, tickets), _keep = _scratch(x, pl, M, N, ng, z is not None, stream)
     rc = _build.library("woq_matmul").lia_woq_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if z is None else z.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), M, N, K, ng, WOQ_KINDS[kind], splits, stream,
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), 0 if z is None else z.data_ptr(), out.data_ptr(), ws, rs, tickets,
+        M, N, K, ng, WOQ_KINDS[kind], pl.splits, pl.split_rows, int(pl.regime == "decode"), int(pl.tma), stream,
     )
     _raise_on(rc, name)
     return out

@@ -154,7 +154,11 @@ def _mm_inputs(gen, M, K, N, gs):
     return x, xq, sx, packed, i8, s, z
 
 
-MM_SHAPES = [(16, 256, 96, 32), (3, 128, 64, -1), (40, 512, 200, 64), (16, 1024, 4100, 128), (130, 256, 40, 16)]
+MM_SHAPES = [(16, 256, 96, 32), (3, 128, 64, -1), (40, 512, 200, 64), (16, 1024, 4100, 128), (130, 256, 40, 16),
+             # the tile edges of the Hopper body: decode up to 16 rows, 128-row blocks above; 128-column
+             # blocks; K split in whole groups at decode; per-channel scales; N of OPT-6.7B's head
+             (1, 512, 128, 64), (17, 1024, 256, 128), (64, 256, 96, 32), (65, 512, 4100, -1),
+             (128, 16384, 256, 128), (16, 16384, 512, -1), (4096, 1024, 200, 128), (16, 1024, 50304, 128)]
 
 
 @pytest.mark.parametrize("M,K,N,gs", MM_SHAPES)
@@ -183,6 +187,106 @@ def test_woq_kernels_match_plain(cuda, kind, M, K, N, gs):
         q = i8 if kind == "int8" else packed
         out, ref = cm.woq_matmul(x, q, s, kind), cm.woq_matmul_plain(x, q, s, kind)
     assert _rel_err(out, ref) <= MM_TOL
+
+
+@pytest.mark.parametrize("M", [16, 256])
+@pytest.mark.parametrize("entry", ["w4a8", "w4a8 zero-points", "w4a8_stacked", "woq int8", "woq int4", "woq nf4",
+                                   "woq4z"])
+def test_matmul_graph_replay_equals_eager(cuda, entry, M):
+    """Each entry point captured once in a CUDA graph (decode with a K split,
+    and prefill) and replayed on new inputs equals the eager call on them:
+    scratch comes from the allocator, the split's counters are left at zero,
+    and the stacked entry reads its layer from device memory at replay."""
+    from lia_tpu_torch.ops import cuda_matmul as cm
+    from lia_tpu_torch.ops.quant import quantize_act
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    K, N = 2048, 1024
+    x, xq, sx, packed, i8, s, z = _mm_inputs(gen, M, K, N, 128)
+    q3, s3, z3 = torch.stack([packed, packed.flip(0)]), torch.stack([s, s.flip(0)]), torch.stack([z, z.flip(1)])
+    layer = torch.tensor(0, dtype=torch.int32, device=cuda)
+    fn = {
+        "w4a8": lambda: cm.w4a8_matmul(xq, sx, packed, s),
+        "w4a8 zero-points": lambda: cm.w4a8_matmul(xq, sx, packed, s, z),
+        "w4a8_stacked": lambda: cm.w4a8_matmul_stacked(xq, sx, q3, s3, z3, layer),
+        "woq int8": lambda: cm.woq_matmul(x, i8, s[:1].contiguous(), "int8"),
+        "woq int4": lambda: cm.woq_matmul(x, packed, s, "int4"),
+        "woq nf4": lambda: cm.woq_matmul(x, packed, s, "nf4"),
+        "woq4z": lambda: cm.woq4z_matmul(x, packed, s, z),
+    }[entry]
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    x2 = torch.randn(M, K, generator=gen, device=cuda).to(torch.bfloat16)
+    xq2, sx2 = quantize_act(x2)
+    x.copy_(x2), xq.copy_(xq2), sx.copy_(sx2), layer.fill_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
+
+
+def _split_entries(cm, x, xq, sx, packed, i8, s, z):
+    """Each kind's kernel call, its plain matmul as ``split_plain`` takes it,
+    and its operands and plan format."""
+    s1 = s[:1].contiguous()
+    return {
+        "w4a8": (lambda: cm.w4a8_matmul(xq, sx, packed, s),
+                 lambda a, q, ss, zs: cm.w4a8_matmul_plain(a, sx, q, ss, zs), xq, packed, s, None, "w4a8"),
+        "w4a8 zero-points": (lambda: cm.w4a8_matmul(xq, sx, packed, s, z),
+                             lambda a, q, ss, zs: cm.w4a8_matmul_plain(a, sx, q, ss, zs), xq, packed, s, z, "w4a8"),
+        "woq int8": (lambda: cm.woq_matmul(x, i8, s1, "int8"),
+                     lambda a, q, ss, zs: cm.woq_matmul_plain(a, q, ss, "int8"), x, i8, s1, None, "int8"),
+        "woq int4": (lambda: cm.woq_matmul(x, packed, s, "int4"),
+                     lambda a, q, ss, zs: cm.woq_matmul_plain(a, q, ss, "int4"), x, packed, s, None, "int4"),
+        "woq nf4": (lambda: cm.woq_matmul(x, packed, s, "nf4"),
+                    lambda a, q, ss, zs: cm.woq_matmul_plain(a, q, ss, "nf4"), x, packed, s, None, "nf4"),
+        "woq4z": (lambda: cm.woq4z_matmul(x, packed, s, z), cm.woq4z_matmul_plain, x, packed, s, z, "int4z"),
+    }
+
+
+@pytest.mark.parametrize("entry", ["w4a8", "w4a8 zero-points", "woq int8", "woq int4", "woq nf4", "woq4z"])
+def test_matmul_split_matches_split_plain(cuda, entry):
+    """A decode call whose weight rows the plan splits (K 16384, 4 column
+    tiles) against the split's plain version at the plan's slices."""
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    M, K, N = 16, 16384, 512
+    args = _mm_inputs(gen, M, K, N, 128)
+    kernel, fn, a, q, s, z, fmt = _split_entries(cm, *args)[entry]
+    pl = cm.plan(M, N, K, s.shape[0], fmt, z is not None)
+    assert pl.splits > 1
+    ref = cm.split_plain(fn, a, q, s, z, split_rows=pl.split_rows, packed=fmt != "int8")
+    assert _rel_err(kernel(), ref) <= MM_TOL
+
+
+def test_matmul_split_calls_on_two_streams(cuda):
+    """Split calls on two streams at once keep their own tile counters: every
+    output equals the call made alone."""
+    from lia_tpu_torch.ops import cuda_matmul as cm
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    entries = _split_entries(cm, *_mm_inputs(gen, 16, 16384, 512, 128))
+    alone = {name: e[0]() for name, e in entries.items()}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(8):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs += [(name, e[0]()) for name, e in list(entries.items())[j::2]]
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for name, out in outs:
+        assert torch.equal(out, alone[name]), name
 
 
 def test_quantized_matmul_wrappers_raise_on_the_card(cuda):
