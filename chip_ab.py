@@ -2,18 +2,26 @@
 
 Runs this checkout's ``chip_smoke.py`` phases over the ``lia_tpu_torch`` of
 another checkout (``--root``), so two trees (a parent and a change) run the
-same measurement code: the device times of the quantized-matmul entry points
+same measurement code. ``--kernels`` picks the device times (profiler, L2
+cold) taken first: ``matmul``, the quantized-matmul entry points
 (``w4a8_matmul``, ``w4a8_matmul_stacked``, ``woq_matmul`` int4 g128,
-``woq4z_matmul``) at OPT-6.7B's wqkv, fc2 and head with 16 and 4096 rows, and
-of the flash body at its table shapes (B1: b16 s256; B6: a 256-row chunk at
-base 768); then OPT-6.7B at full width and depth, b16 x 256 prompt tokens and
-32 new tokens through ``generate(fused=True)`` (prefill ms and decode
-tokens/s, the median of 3 runs after a warm-up) with bf16 weights, with
-bench.py's w4a8+int8kv and with weight-only int4 g128; then the
-serving cells serve-paged-chunk256 and serve-paged (64 requests through a
+``woq4z_matmul``) at OPT-6.7B's wqkv, fc2 and head with 16 and 4096 rows;
+``flash``, B1 (b16 s256) and B6 (a 256-row chunk at base 768); ``decode``,
+B2 (``decode_attention_fresh``), B7/B8 (``decode_attention`` and its stacked
+entry) and B9 (``decode_beam_attention``) at chip_smoke's table shapes;
+``paged``, B5 (``paged_decode_attention``: b16 over lengths 272 - pad, also
+at Llama-3-8B's G = 4 and over rows of ~1000 tokens); ``mlp``, B14
+(``fused_mlp``: Llama-3-8B's SwiGLU and OPT-6.7B's relu at 16 rows, and at 1
+and 256). ``--paths`` picks the main paths through ``generate(fused=True)``
+at full width and depth, b16 x 256 prompt tokens and 32 new tokens (prefill
+ms and decode tokens/s, the median of 3 runs after a warm-up): ``quantized``,
+OPT-6.7B with bf16 weights, bench.py's w4a8+int8kv and weight-only int4
+g128; ``gates``, OPT-6.7B bf16 and Llama-3-8B with unfused projections, each
+with the fused-MLP gate off and on in turns on one engine. Then the serving
+cells serve-paged-chunk256 and serve-paged (64 requests through a
 ContinuousBatcher, as chip_smoke's serving phase, each ``--serving-repeats``
-times in turns; ``--serving-repeats 0`` skips them). Every line chip_smoke
-prints carries ``"tree": <label>``. Each tree builds its kernels into its own
+times in turns; ``--serving-repeats 0`` skips them). Every line chip_smoke prints carries
+``"tree": <label>``. Each tree builds its kernels into its own
 ``lia_tpu_torch/_build``. Run the trees in turns (A, B, B, A), one process
 each, so that both see the same card and host::
 
@@ -37,6 +45,8 @@ import statistics
 import sys
 from pathlib import Path
 
+KERNEL_GROUPS = ("matmul", "flash", "decode", "paged", "mlp")
+MAIN_PATHS = ("quantized", "gates")
 SERVING_CELLS = ("serve-paged-chunk256", "serve-paged")
 
 
@@ -55,34 +65,80 @@ def summarize(log: Path) -> None:
         elif rec.get("phase") == "ab_kernel":
             cells.setdefault((f"{rec['kernel']} {rec['shape']} M={rec['M']} ms", tree), []).append(rec["ms"])
         elif rec.get("phase") == "serving":
-            for key in ("tokens_per_s", "wall_s"):
+            for key in ("tokens_per_s", "wall_s", "p50_tpot_s", "p99_tpot_s"):
                 cells.setdefault((rec["config"] + " " + key, tree), []).append(rec[key])
-            splits = rec.get("flash_split_launches")
+            splits = rec.get("split_launches") or rec.get("flash_split_launches")
             if splits:
-                cells.setdefault((rec["config"] + " B6 split share", tree), []).append(
-                    splits["flash_attention_cached"] / max(rec["launches"]["flash_attention_cached"], 1))
+                for kernel, n in splits.items():
+                    cells.setdefault((f"{rec['config']} {kernel} split share", tree), []).append(
+                        n / max(rec["launches"][kernel], 1))
     for (cell, tree), vals in sorted(cells.items()):
         print(json.dumps({"cell": cell, "tree": tree, "median": statistics.median(vals), "runs": vals}))
 
 
-def kernel_times(cs, ca, cm) -> None:
-    """Device times (chip_smoke's profiler timing, L2 cold) of the four
-    quantized-matmul entry points at chip_smoke's table shapes, and of B1 and
-    B6 at theirs."""
+def kernel_times(cs, ca, cm, groups) -> None:
+    """Device times (chip_smoke's profiler timing, L2 cold) of the kernel
+    groups picked (see the module's docstring)."""
     import torch
 
-    from lia_tpu_torch.ops.quant import quantize_act
+    from lia_tpu_torch.ops.quant import quantize_act, quantize_kv
 
-    picked = {("w4a8_matmul", "g128"), ("woq_matmul", "int4 g128"), ("woq4z_matmul", "g128"),
-              ("w4a8_matmul_stacked", "g128")}
-    for c in itertools.chain(cs.matmul_cases(cm, quantize_act), cs.stacked_cases(cm, quantize_act)):
-        if (c["name"], c["variant"]) in picked:
-            cs.emit({"phase": "ab_kernel", "kernel": c["name"], "shape": c["shape"], "M": c["M"],
-                     "ms": cs.device_ms(c["kernel"])})
+    if "matmul" in groups:
+        picked = {("w4a8_matmul", "g128"), ("woq_matmul", "int4 g128"), ("woq4z_matmul", "g128"),
+                  ("w4a8_matmul_stacked", "g128")}
+        for c in itertools.chain(cs.matmul_cases(cm, quantize_act), cs.stacked_cases(cm, quantize_act)):
+            if (c["name"], c["variant"]) in picked:
+                cs.emit({"phase": "ab_kernel", "kernel": c["name"], "shape": c["shape"], "M": c["M"],
+                         "ms": cs.device_ms(c["kernel"])})
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def emit(kernel, shape, M, fn):
+        cs.emit({"phase": "ab_kernel", "kernel": kernel, "shape": shape, "M": M, "ms": cs.device_ms(fn)})
+
+    dpads = [0, 3, 7, 15] * 4  # chip_smoke's decode rows: lengths 272 - pad
+    if "decode" in groups:
+        L, li = 3, 1
+        qd, kf, vf = randn(cs.B, 1, cs.N, cs.D), randn(cs.B, cs.N, 1, cs.D), randn(cs.B, cs.N, 1, cs.D)
+        sm = torch.zeros(cs.B, 320, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(dpads):
+            sm[b, p:cs.PAST] = True
+        kc, vc = randn(L, cs.B, cs.N, 320, cs.D), randn(L, cs.B, cs.N, 320, cs.D)
+        ln = torch.tensor(cs.PAST, dtype=torch.int32, device="cuda")
+        emit("decode_attention_fresh", "b16 272-pad", cs.B, lambda: ca.decode_attention_fresh(qd, kf, vf, kc, vc, li, sm, ln))
+        sm_inc = sm.clone()
+        sm_inc[:, cs.PAST] = True
+        ln_inc = ln + 1
+        emit("decode_attention", "b16 273-pad", cs.B, lambda: ca.decode_attention(qd, kc[li], vc[li], sm_inc, ln_inc))
+        emit("decode_attention_stacked", "b16 273-pad", cs.B,
+             lambda: ca.decode_attention_stacked(qd, kc, vc, li, sm_inc, ln_inc))
+        kernel, _, args = cs.beam_case(ca, quantize_kv, randn, False)
+        emit("decode_beam_attention", "4 x 4 beams", cs.B, lambda: kernel(*args))
+    if "paged" in groups:
+        for shape, lengths, G in (("b16 272-pad", [cs.PAST - p for p in dpads], 1),
+                                  ("llama G4 b16 272-pad", [cs.PAST - p for p in dpads], 4),
+                                  ("b16 ~1000", [1000 - p for p in dpads], 1),
+                                  ("llama G4 b16 ~1000", [1000 - p for p in dpads], 4)):
+            P = -(-(max(lengths) + 1) // cs.SERVE_BLOCK)
+            pargs = cs.paged_case(randn, lengths, 1, cs.N // G, G, cs.D, P=P)
+            emit("paged_decode_attention", shape, cs.B, lambda a=pargs: ca.paged_decode_attention(a[0], a[1], a[2], 1, *a[3:]))
+    if "mlp" in groups:
+        from lia_tpu_torch.ops import cuda_mlp
+
+        for label, H, Fd, act, rms, biases in cs.FUSED_MLP_CASES:
+            if act not in ("silu", "relu"):
+                continue
+            for rows in (16, 1, 256):
+                w = dict(ln_scale=(1 + 0.1 * randn(H).float()).to(torch.bfloat16),
+                         ln_bias=0.1 * randn(H) if biases else None, w1=0.02 * randn(H, Fd),
+                         b1=0.1 * randn(Fd) if biases else None, wg=0.02 * randn(H, Fd) if act == "silu" else None,
+                         w2=0.02 * randn(Fd, H), b2=0.1 * randn(H) if biases else None)
+                x = randn(rows, H)
+                emit("fused_mlp", label, rows, lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp(x, **w, activation=a, rms=n))
+    if "flash" not in groups:
+        return
 
     q, k, v = randn(cs.B, cs.PROMPT, cs.N, cs.D), randn(cs.B, cs.N, cs.PROMPT, cs.D), randn(cs.B, cs.N, cs.PROMPT, cs.D)
     mask = torch.ones(cs.B, cs.PROMPT, dtype=torch.bool, device="cuda")
@@ -99,6 +155,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="checkout whose lia_tpu_torch is measured")
     ap.add_argument("--label", help="name of the tree in every line")
+    ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS, default=["decode", "paged", "mlp"],
+                    help="kernel groups to time (none with no value)")
+    ap.add_argument("--paths", nargs="*", choices=MAIN_PATHS, default=["gates"],
+                    help="main paths to run (none with no value)")
     ap.add_argument("--serving-repeats", type=int, default=2)
     ap.add_argument("--summarize", type=Path, help="print medians of a log of earlier runs and exit")
     args = ap.parse_args()
@@ -136,17 +196,28 @@ def main() -> int:
     cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi(), "package": str(Path(lia_tpu_torch.__file__).parent)})
     _build.build_all()
 
-    kernel_times(cs, ca, cm)
+    kernel_times(cs, ca, cm, args.kernels)
     cfg = get_config("opt-6.7b")
     prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (16, cs.PROMPT)).tolist()
-    cs.main_path(ca, cm, f"{label}: bf16 weights, none KV", cfg, lambda: device_dummy_params(cfg, seed=0), prompts,
-                 "none", {}, timed=True)
+    paths = args.paths
+    steps = cs.NEW_TOKENS - 1
+    if "quantized" in paths or "gates" in paths:
+        gate = ("fused_mlp", {"fused_mlp": cfg.num_layers * steps}) if "gates" in paths else None
+        cs.main_path(ca, cm, f"{label}: bf16 weights, none KV", cfg, lambda: device_dummy_params(cfg, seed=0),
+                     prompts, "none", {}, timed=True, ab=gate)
     per_fwd = 4 * cfg.num_layers + 1  # wqkv, wo, fc1, fc2 per layer, the head
     for name, qkw, kernel in (("w4a8+int8kv", cs.CANDIDATES["w4a8+int8kv"][0], "w4a8_matmul"),
                               ("woq-int4-g128", cs.WEIGHT_ONLY["woq-int4-g128"], "woq_matmul")):
+        if "quantized" not in paths:
+            break
         qc = QuantConfig(**qkw)
         cs.main_path(ca, cm, f"{label}: {name}", cfg, lambda qc=qc: device_dummy_params(cfg, seed=0, quant=qc),
                      prompts, qc.kv_cache_dtype, {kernel: per_fwd}, timed=True)
+    if "gates" in paths:
+        lcfg = get_config("llama-3-8b")
+        cs.main_path(ca, cm, f"{label}: llama-3-8b, unfused projections, bf16 KV", lcfg,
+                     lambda: device_dummy_params(lcfg, seed=0), cs.llama_prompts(lcfg), "none", {}, timed=True,
+                     runtime={"fuse_projections": False}, ab=("fused_mlp", {"fused_mlp": lcfg.num_layers * steps}))
 
     if args.serving_repeats < 1:
         return 0

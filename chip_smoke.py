@@ -6,15 +6,17 @@ Phases, each printing one JSON line per item:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
-   the two flash libraries' kernels as ptxas built them (registers, spills:
-   none allowed) and the body's dynamic shared memory a block;
+   the flash, quantized-matmul, paged-decode and fused-MLP libraries' kernels
+   as ptxas built them (registers, spills: none allowed) and their blocks'
+   dynamic shared memory;
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
    384-slot int8 cache; write-then-attend decode over a 320-slot plane holding
    273 tokens, also at G = 4 and through the stacked entry at a layer offset;
    paged decode over a shuffled 2-layer pool, bs 16, 16 rows of 1-1000 tokens
-   with the fresh merge, also at C = 4, G = 4 and D = 64; chunk-over-cache
+   with the fresh merge, also at C = 4, G = 4 (both) and D = 64, and at the
+   timing variants' shapes; chunk-over-cache
    attention as a prefix-cache suffix (C=256 at base 768 of 1024 slots, also
    at G = 4), as a left-padded first chunk (B=2, C=128), with a window, and as
    a short suffix that the host splits (C=48 at base 960, also at G = 4 with a
@@ -29,8 +31,8 @@ Phases, each printing one JSON line per item:
    the stacked w4a8 entry over a 3-layer stack at wqkv and fc2, every layer
    bit for bit against w4a8_matmul on its view. The fused MLP at OPT-6.7B's
    relu, gelu and gelu_new arms (LayerNorm, biases) and Llama-3-8B's SwiGLU
-   (RMSNorm), at 1, 16 and 256 rows, twice (its atomics sum in a varying
-   order), its workspace left zero;
+   (RMSNorm), at 1, 16, 17 and 256 rows, twice (the same bits: its sums run in
+   a fixed order), its grid barrier's counters left zero;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
    and depth with random weights, 16 prompts x 256 tokens, 32 new tokens:
    bf16 weights with bf16 and with int8 KV; bench.py's two candidates
@@ -74,7 +76,8 @@ Phases, each printing one JSON line per item:
    serve-paged-fused8 (fused_steps 8). Each line: stats() (tokens/s, TTFT
    and TPOT percentiles, steps, dispatches, prefix hits), wall time, peak
    memory and the launch counts, checked exactly against the batcher's own
-   counters, and how many flash launches split their walks (parts > 1); every request's length and vocabulary, and every page back at
+   counters, and how many flash and paged calls split their walks (parts >
+   1); every request's length and vocabulary, and every page back at
    the end. serve_http: the HTTP front end over serve-paged's batcher, 8
    concurrent /generate requests, /stats and /health. serving_parity:
    OPT-6.7B width at 2 layers, the batcher's functions in its order (prefill,
@@ -117,7 +120,10 @@ Phases, each printing one JSON line per item:
    call computes the block, the unfused chain of torch calls); torch._int_mm
    over a row- and a column-major int8 weight; the flash body also at B1's
    Llama-3-8B heads (G = 4), a short prefix-cache suffix (C=48 at base 960) and
-   a chunk256 first chunk, each with its number of parts and SDPA's time.
+   a chunk256 first chunk, each with its number of parts and SDPA's time; the
+   paged body at Llama-3-8B's heads (G = 4, 8 KV heads) and over rows of ~1000
+   tokens, with its parts and SDPA's time; the fused MLP at OPT-6.7B's relu
+   (16 rows, biases) beside its unfused chain.
    Profiling comes last because a profiler session slows the process's later
    launches.
 
@@ -405,6 +411,50 @@ def qmatmul_build_report(_build, paths) -> None:
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
+def paged_mlp_build_report(_build, paths) -> None:
+    """The paged-decode and fused-MLP libraries' kernels as ptxas built them
+    (registers, spill stores and loads; a spill fails the run), each block's
+    dynamic shared memory and the ring stages it holds: the paged body at bs
+    16 (bf16 and fp32, D 64 and 128, one or four queries a consumer warp), the
+    fused MLP at H 4096 (with the rows one phase-1 pass normalizes, and the
+    persistent grid's blocks at Llama-3-8B's F on this card)."""
+    import re
+
+    patterns = {"paged_decode": r"Function properties for \S*?(paged_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
+                                r"(?:Li(\d+)E)?",
+                "fused_mlp": r"Function properties for \S*?(fused_mlp_kernel)ILb(\d)ELb(\d)E"}
+    for lib, expect in (("paged_decode", 12), ("fused_mlp", 4)):
+        kernels, cur = [], None
+        for line in open(f"{paths[lib]}.log").read().splitlines():
+            m = re.search(patterns[lib], line)
+            if m:
+                if lib == "paged_decode":
+                    t = "bf16" if m.group(2) != "f" else "fp32"
+                    name = f"{m.group(1)}<{t}, D={m.group(3)}" + (f", qpw={m.group(4)}>" if m.group(4) else ">")
+                else:
+                    name = f"fused_mlp_kernel<rms={m.group(2)}, gated={m.group(3)}>"
+                cur = {"kernel": name}
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        L = _build.library(lib)
+        if lib == "paged_decode":
+            smem = {f"{t}, D={dh}, bs 16, qpw={qpw}": {"bytes": L.lia_paged_smem_bytes(es, dh, SERVE_BLOCK, qpw),
+                                                       "stages": L.lia_paged_stages(es, dh, SERVE_BLOCK, qpw)}
+                    for t, es in (("bf16", 2), ("fp32", 4)) for dh in (64, 128) for qpw in (1, 4)}
+        else:
+            smem = {f"H {H}": {"bytes": L.lia_fused_mlp_smem_bytes(H), "stages": L.lia_fused_mlp_stages(H),
+                               "rows_a_pass": L.lia_fused_mlp_row_chunk(H), f"blocks at F {Fd}": L.lia_fused_mlp_blocks(H, Fd)}
+                    for H, Fd in ((4096, 14336), (8192, 28672), (12288, 49152))}
+        emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
+        check(len(kernels) == expect and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0
+                                             for k in kernels), f"{lib}: ptxas reports spills (or no report): {kernels}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel checks
 # ---------------------------------------------------------------------------
@@ -636,33 +686,45 @@ FUSED_MLP_CASES = [
     ("opt-6.7b gelu_new", 4096, 16384, "gelu_new", False, True),
     ("llama-3-8b swiglu", 4096, 14336, "silu", True, False),
 ]
-FUSED_MLP_ROWS = (1, 16, 256)  # one sequence, the b16 decode step, the kernel's most
+FUSED_MLP_ROWS = (1, 16, 17, 256)  # one sequence, the b16 decode step, a second chunk of rows, the kernel's most
+# Llama-3-70B's and OPT-175B's widths: phase 1 takes their rows in chunks of 8 and 4
+FUSED_MLP_WIDE_CASES = [
+    ("llama-3-70b swiglu", 8192, 28672, "silu", True, False),
+    ("opt-175b relu", 12288, 49152, "relu", False, True),
+]
+FUSED_MLP_WIDE_ROWS = (1, 16, 256)
 FUSED_MLP_TOL = 2e-2  # |kernel - plain| <= tol * (1 + |plain|): bf16 outputs of O(1)
 # round once at the end (one step is 2^-7 relative); the fp32 sums run in
-# another order (the kernel's atomics in one that varies run to run), which can
-# also move a rounding of the normed input or of the activation by one step
+# another (fixed) order, which can also move a rounding of the normed input or
+# of the activation by one step
 
 
 def fused_mlp_checks(cuda_mlp) -> dict:
-    """B14 against its plain version at each case and row count (twice, the
-    atomics' order varying; the workspace left zero); returns the kernels
-    line's row: Llama-3-8B's SwiGLU at 16 rows, timed against the plain
-    version and the unfused torch chain (norm, matmuls, activation, add), the
-    yardstick where no single PyTorch call computes the block."""
+    """B14 against its plain version at each case and row count (the main
+    path's widths, and the wide cases), twice (the sums' order is fixed: the
+    two calls give the same bits), the grid barrier's counters left zero; returns the kernels line's row: Llama-3-8B's
+    SwiGLU at 16 rows, timed against the plain version and the unfused torch
+    chain (norm, matmuls, activation, add), the yardstick where no single
+    PyTorch call computes the block; and OPT-6.7B's relu at 16 rows (with
+    biases) as a timing variant beside it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     row = None
-    for label, H, Fd, act, rms, biases in FUSED_MLP_CASES:
+    cases = [(c, FUSED_MLP_ROWS) for c in FUSED_MLP_CASES] + [(c, FUSED_MLP_WIDE_ROWS) for c in FUSED_MLP_WIDE_CASES]
+    for (label, H, Fd, act, rms, biases), row_counts in cases:
         def r(*shape, sc=1.0):
             return (torch.randn(shape, generator=gen, device="cuda") * sc).to(torch.bfloat16)
 
+        # weights of std 0.02 at H 4096, F <= 16384, scaled down past them so
+        # that the up-projection and the sum over F stay O(1), as the tolerance assumes
+        up, down = 0.02 * min(1.0, (4096 / H) ** 0.5), 0.02 * min(1.0, (16384 / Fd) ** 0.5)
         w = dict(ln_scale=(1 + r(H, sc=0.1).float()).to(torch.bfloat16), ln_bias=r(H, sc=0.1) if biases else None,
-                 w1=r(H, Fd, sc=0.02), b1=r(Fd, sc=0.1) if biases else None,
-                 wg=r(H, Fd, sc=0.02) if act == "silu" else None, w2=r(Fd, H, sc=0.02),
+                 w1=r(H, Fd, sc=up), b1=r(Fd, sc=0.1) if biases else None,
+                 wg=r(H, Fd, sc=up) if act == "silu" else None, w2=r(Fd, H, sc=down),
                  b2=r(H, sc=0.1) if biases else None)
-        for rows in FUSED_MLP_ROWS:
+        for rows in row_counts:
             x = r(rows, H)
             out = cuda_mlp.fused_mlp(x, **w, activation=act, rms=rms)
             again = cuda_mlp.fused_mlp(x, **w, activation=act, rms=rms)
@@ -670,19 +732,21 @@ def fused_mlp_checks(cuda_mlp) -> dict:
             torch.cuda.synchronize()
             d = (out.float() - ref.float()).abs()
             excess = (d - FUSED_MLP_TOL * (1 + ref.float().abs())).max().item()
-            ws, tickets = cuda_mlp._workspace(torch.cuda.current_device(), H)
+            _, barrier = cuda_mlp._workspace(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream,
+                                             rows, Fd)
             line = {"phase": "kernel_check", "kernel": "fused_mlp", "variant": label, "rows": rows,
                     "max_abs_err": d.max().item(),
                     "max_abs_err_rerun": (again.float() - out.float()).abs().max().item(),
                     "max_abs_plain": ref.float().abs().max().item(), "tol": f"{FUSED_MLP_TOL} * (1 + |plain|)",
-                    "workspace_zero": not bool(ws.any() or tickets.any())}
+                    "barrier_zero": not bool(barrier.any())}
             emit(line)
             check(bool(torch.isfinite(out.float()).all()), f"fused_mlp {label} rows={rows}: non-finite output")
-            check(excess <= 0 and line["workspace_zero"], f"fused_mlp {label} rows={rows}: {line}")
-            if label.startswith("llama") and rows == B:
+            check(excess <= 0 and line["barrier_zero"] and torch.equal(again, out),
+                  f"fused_mlp {label} rows={rows}: {line}")
+            if rows == B and label in ("llama-3-8b swiglu", "opt-6.7b relu"):
                 swiglu = act == "silu"
 
-                def chain(x=x, w=w, rms=rms, act=act, swiglu=swiglu):
+                def chain(x=x, w=w, rms=rms, act=act, swiglu=swiglu, H=H):
                     h = (F.rms_norm(x, (H,), w["ln_scale"], 1e-5) if rms
                          else F.layer_norm(x, (H,), w["ln_scale"], w["ln_bias"], 1e-5))
                     if swiglu:
@@ -692,13 +756,20 @@ def fused_mlp_checks(cuda_mlp) -> dict:
                     return x + (a @ w["w2"] if w["b2"] is None else torch.addmm(w["b2"], a, w["w2"]))
 
                 weight_bytes = 2 * H * Fd * (3 if swiglu else 2)
-                nbytes = 2 * 2 * rows * H + weight_bytes + 2 * (2 * H + Fd)
-                row = dict(source="lia_tpu_torch/csrc/fused_mlp.cu", replaces="lia_tpu/ops/pallas_mlp.py:98",
-                           max_abs_err=line["max_abs_err"],
-                           kernel=lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp(x, **w, activation=a, rms=n),
-                           plain=lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp_plain(x, **w, activation=a, rms=n),
-                           library=chain, library_kind="chain of torch calls: norm, matmuls, activation, add",
-                           bound=bound(nbytes, 2 * rows * H * Fd * (3 if swiglu else 2)))
+                vector_bytes = 2 * (H + (H + Fd + H if biases else 0))  # ln scale (and bias), b1, b2
+                nbytes = 2 * 2 * rows * H + weight_bytes + vector_bytes
+                kernel = lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp(x, **w, activation=a, rms=n)  # noqa: E731
+                if swiglu:
+                    row = dict(source="lia_tpu_torch/csrc/fused_mlp.cu", replaces="lia_tpu/ops/pallas_mlp.py:98",
+                               max_abs_err=line["max_abs_err"], kernel=kernel,
+                               plain=lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp_plain(x, **w, activation=a,
+                                                                                             rms=n),
+                               library=chain, library_kind="chain of torch calls: norm, matmuls, activation, add",
+                               bound=bound(nbytes, 2 * rows * H * Fd * 3))
+                else:
+                    TIME_VARIANTS.append(dict(kernel_name="fused_mlp", variant=f"{label}, {rows} rows, biases",
+                                              parts=None, kernel=kernel, library=chain,
+                                              bound=bound(nbytes, 2 * rows * H * Fd * 2)))
     return {"fused_mlp": row}
 
 
@@ -770,7 +841,7 @@ def serving_kernel_checks(ca, randn, dpads):
     # then C=4, GQA (G=4) and D=64
     lengths = np.linspace(1, 1000, B).astype(int).tolist()
     for variant, C, Nkv, G, Dh in (("C=1", 1, N, 1, D), ("C=4", 4, N, 1, D), ("GQA G=4", 1, N // 4, 4, D),
-                                   ("D=64", 1, N, 1, 64)):
+                                   ("C=4 GQA G=4", 4, N // 4, 4, D), ("D=64", 1, N, 1, 64)):
         q, kp, vp, table, lens, kf, vf = paged_case(randn, lengths, C, Nkv, G, Dh)
         args = (q, kp, vp, 1, table, lens, kf, vf)
         compare("paged_decode_attention", variant, ca.paged_decode_attention(*args),
@@ -805,6 +876,36 @@ def serving_kernel_checks(ca, randn, dpads):
         library=lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=gmask),
         bound=bound(keys * N * D * 2 * 2 + 4 * q.numel() * 2 + table_bytes, 4 * D * N * (keys + B)),
     )
+    # timing variants: Llama-3-8B's G = 4 (8 kv heads, B 16) over the same
+    # lengths, and rows of ~1000 tokens (1000 - pad) at both head layouts,
+    # each beside SDPA over its keys gathered into a plane (K/V repeated to the
+    # 32 query heads at G = 4; the gather is not timed) and with the host's parts
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for variant, v_lengths, Nkv in (("llama-3-8b heads G=4 (N_kv 8), lengths 272 - pad", t_lengths, N // 4),
+                                    ("lengths 1000 - pad", [1000 - p for p in dpads], N),
+                                    ("llama-3-8b heads G=4, lengths 1000 - pad", [1000 - p for p in dpads], N // 4)):
+        G = N // Nkv
+        P = -(-(max(v_lengths) + 1) // SERVE_BLOCK)
+        va = paged_case(randn, v_lengths, 1, Nkv, G, D, P=P, L=1)  # one layer: these live to the timing phase
+        vargs = (va[0], va[1], va[2], 0, *va[3:])
+        compare("paged_decode_attention", variant, ca.paged_decode_attention(*vargs),
+                ca.paged_decode_attention_plain(*vargs))
+        S = P * SERVE_BLOCK
+        vk = va[1][0][va[3].long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, D)
+        vv = va[2][0][va[3].long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, D)
+        vk[rows_idx, :, va[4].long()] = va[5][:, :, 0]
+        vv[rows_idx, :, va[4].long()] = va[6][:, :, 0]
+        vk, vv = vk.repeat_interleave(G, 1), vv.repeat_interleave(G, 1)
+        vmask = (torch.arange(S, device="cuda")[None, :] <= va[4][:, None].long())[:, None, None, :]
+        vkeys = sum(v_lengths)
+        TIME_VARIANTS.append(dict(
+            kernel_name="paged_decode_attention", variant=variant,
+            parts=ca.paged_split_parts(B, 1, N, Nkv, P, sms),
+            kernel=lambda a=vargs: ca.paged_decode_attention(*a),
+            library=lambda a=(va[0].transpose(1, 2), vk, vv, vmask): F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=a[3]),
+            bound=bound(vkeys * Nkv * D * 2 * 2 + (2 * N + 2 * Nkv) * B * D * 2 + va[3].numel() * 4 + B * 4,
+                        4 * D * N * (vkeys + B))))
 
     # B6: a prefix-cache suffix (B=1, C=256, base=768 of 1024 slots), a first
     # chunk with left pads (B=2, C=128, base=0), a sliding window, the same
@@ -1951,7 +2052,7 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
         "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts),
         "new_tokens": sum(new_tokens), **{k: stats[k] for k in keys if k in stats}, "wall_s": wall,
         "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches,
-        "flash_split_launches": splits})
+        "split_launches": splits})
     return launches, cb
 
 
@@ -2484,6 +2585,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": sorted(paths)})
     flash_build_report(_build, paths)
     qmatmul_build_report(_build, paths)
+    paged_mlp_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)

@@ -33,8 +33,8 @@ extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, co
                                int S_p, int T_max, int D, float sscale, int is_bf16,
                                void* stream) {
   if (nb <= 0 || B % nb != 0 || S_p <= 0 || T_max <= 0) return (int)cudaErrorInvalidValue;
-  const lia_dec::Keys keys{static_cast<const uint8_t*>(prompt_mask), S_p, nullptr, 0, 0, kt, vt,
+  const lia_dec::Keys keys{static_cast<const uint8_t*>(prompt_mask), S_p, kt, vt,
                            T_max, nb, static_cast<const int*>(tail_len)};
   return lia_dec::dispatch<true, lia_dec::kBeam>(q, kf, vf, kp, vp, keys, prompt_len, 0, out, B,
-                                                 1, N, Nkv, D, sscale, is_bf16, stream);
+                                                 N, Nkv, D, sscale, is_bf16, stream);
 }

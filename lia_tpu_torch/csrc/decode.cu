@@ -20,8 +20,8 @@
 extern "C" int lia_decode(const void* q, const void* kc, const void* vc, const void* slot_mask,
                           const void* lengths, int length_stride, void* out, int B, int N,
                           int Nkv, int S_max, int D, float sscale, int is_bf16, void* stream) {
-  const lia_dec::Keys keys{static_cast<const uint8_t*>(slot_mask), S_max, nullptr, 0, 0};
+  const lia_dec::Keys keys{static_cast<const uint8_t*>(slot_mask), S_max};
   return lia_dec::dispatch<false, lia_dec::kPlane>(q, nullptr, nullptr, kc, vc, keys, lengths,
-                                         length_stride, out, B, 1, N, Nkv, D, sscale, is_bf16,
+                                         length_stride, out, B, N, Nkv, D, sscale, is_bf16,
                                          stream);
 }

@@ -1,25 +1,20 @@
 // Decode attention of one layer, bf16 (or fp32): the kernel body shared by
 // decode_fresh.cu (a contiguous cache plane, the fresh token merged last, the
 // cache read-only), decode.cu (the plane already holds the token, validity
-// includes it), paged_decode.cu (a paged pool walked through a block table,
-// a fresh chunk of C tokens merged last with the causal triangle) and
-// beam_decode.cu (a beam's group prompt plane, then its own generated tail,
+// includes it) and beam_decode.cu (a beam's group prompt plane, then its own generated tail,
 // then the fresh token).
 //
 // Math, all in fp32: q is scaled by scale*log2(e), the valid keys go through
-// an online softmax in exp2 units, and, with FRESH, chunk row c merges the
-// fresh keys/values 0..c (not in the cache) last; out = acc / max(l, 1e-30),
+// an online softmax in exp2 units, and, with FRESH, the fresh key/value (not
+// in the cache) merges last; out = acc / max(l, 1e-30),
 // so a row with no valid key and no fresh token comes out 0. Lengths are read
 // from device memory, so the caller never syncs with the host.
 //
 // Where the keys live is a template parameter (SRC), and only the key address
-// differs between the three:
+// differs between the two:
 // - kPlane, a plane [B, Nkv, S_max, D]: key t of (b, h) at ((b * Nkv + h) *
 //   S_max + t), validity [start, length), start = length - popcount(slot_mask[b])
 //   counted on the device;
-// - kPaged, a paged pool layer [nb, Nkv, bs, D]: key t of (b, h) at page
-//   table[b, t / bs], slot t % bs; validity [0, length). Pages past the
-//   frontier (the null page 0 in unused table entries) are never read;
 // - kBeam, the grouped beam cache: one virtual key range [pstart_g, plen +
 //   tlen) over two planes. Key t < plen sits in the prompt plane [B0, Nkv, S_p,
 //   D] of the beam's group g = b / nb at ((g * Nkv + h) * S_p + t); key t >=
@@ -36,14 +31,12 @@
 //
 // What bounds it on an H100: bytes. Each (batch row, kv head) streams its
 // valid K and V rows once and does 4 FLOP per byte. Design: one block per
-// (kv head, batch row, chunk row); the four warps split the key range into
+// (kv head, batch row); the four warps split the key range into
 // contiguous chunks, each lane holds D/32 dimensions, so a warp reads whole
 // rows (256 bytes at D = 128 in bf16); eight keys are loaded per step to keep
 // loads in flight; the G query heads of a kv head share every K/V load (never
-// replicated); partial (m, l, acc) of the warps merge in shared memory. With
-// C > 1 (speculative verify) each chunk row's block reads the keys again, from
-// L2. A later PR splits long key ranges over more blocks (split-K) and stages
-// K/V through TMA.
+// replicated); partial (m, l, acc) of the warps merge in shared memory. One
+// query a sequence (a chunk of C > 1 is the paged body's, paged_attn.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -53,17 +46,14 @@ namespace lia_dec {
 constexpr int NW = 4;  // warps per block
 constexpr int KT = 8;  // keys per warp step
 
-enum : int { kPlane = 0, kPaged = 1, kBeam = 2 };  // where the keys live (SRC)
+enum : int { kPlane = 0, kBeam = 1 };  // where the keys live (SRC)
 
-// The keys of one layer: a plane (slot_mask [B, S_max]), a paged pool layer
-// (table [B, P], page size bs) or the grouped beam cache (slot_mask: the
+// The keys of one layer: a plane (slot_mask [B, S_max]) or the grouped beam cache (slot_mask: the
 // prompt mask [B0, S_p] with S_max = S_p; the tail planes kt/vt [B, Nkv,
 // T_max, D], nb beams a group, the tail length on the device).
 struct Keys {
   const uint8_t* slot_mask;
   int S_max;
-  const int* table;
-  int P, bs;
   const void* kt;
   const void* vt;
   int T_max, nb;
@@ -72,26 +62,22 @@ struct Keys {
 
 template <typename T, int D, int G, bool FRESH, int SRC>
 __global__ void __launch_bounds__(NW * 32)
-decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
-              const T* __restrict__ kf,      // [B, Nkv, C, D] fresh keys (FRESH only)
-              const T* __restrict__ vf,      // [B, Nkv, C, D] fresh values (FRESH only)
-              const T* __restrict__ kc,      // one layer's plane, pool layer or group prompt plane
+decode_kernel(const T* __restrict__ q,       // [B, N, D]
+              const T* __restrict__ kf,      // [B, Nkv, D] fresh keys (FRESH only)
+              const T* __restrict__ vf,      // [B, Nkv, D] fresh values (FRESH only)
+              const T* __restrict__ kc,      // one layer's plane or group prompt plane
               const T* __restrict__ vc,
               Keys keys,
               const int* __restrict__ lengths, int length_stride,  // [B] or scalar
-              T* __restrict__ out,           // [B, C, N, D]
-              int Nkv, int C, float sscale) {
+              T* __restrict__ out,           // [B, N, D]
+              int Nkv, float sscale) {
   constexpr int DL = D / 32;  // dims per lane
   const int h = SRC == kBeam ? blockIdx.y : blockIdx.x;
   const int b = SRC == kBeam ? blockIdx.x : blockIdx.y;
-  const int c = blockIdx.z;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int N = Nkv * G;
   int start, length, plen = 0;
-  if constexpr (SRC == kPaged) {
-    length = min(max(lengths[b * length_stride], 0), keys.P * keys.bs);
-    start = 0;
-  } else if constexpr (SRC == kBeam) {
+  if constexpr (SRC == kBeam) {
     const int g = b / keys.nb;
     plen = min(max(lengths[0], 0), keys.S_max);
     length = plen + min(max(*keys.tail_len, 0), keys.T_max);
@@ -103,7 +89,7 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
   float qr[G][DL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    lia::load_vec<DL>(q + (((size_t)b * C + c) * N + h * G + g) * D + lane * DL, qr[g]);
+    lia::load_vec<DL>(q + ((size_t)b * N + h * G + g) * D + lane * DL, qr[g]);
 #pragma unroll
     for (int e = 0; e < DL; ++e) qr[g][e] *= sscale;
   }
@@ -174,12 +160,7 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
   const int chunk = (length - start + NW - 1) / NW;
   const int k0 = start + w * chunk, k1 = min(k0 + chunk, length);
   const auto plane_row = [](int t) -> size_t { return (size_t)t * D; };
-  if constexpr (SRC == kPaged) {
-    walk(kc, vc, k0, k1, [&](int t) -> size_t {
-      const int page = keys.table[(size_t)b * keys.P + t / keys.bs];
-      return (((size_t)page * Nkv + h) * keys.bs + t % keys.bs) * D;
-    });
-  } else if constexpr (SRC == kBeam) {
+  if constexpr (SRC == kBeam) {
     // this warp's prompt keys [k0, plen) of the group's plane, then its tail
     // keys, tail slot t - plen of the beam's own plane
     const size_t pb = ((size_t)(b / keys.nb) * Nkv + h) * keys.S_max * D;
@@ -206,12 +187,12 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
   __syncthreads();
   if (w != 0) return;
 
-  // merge the warps' partials, then (FRESH) the fresh keys 0..c, always valid:
-  // the first pass finds the maximum, the second sums
-  const size_t fresh = ((size_t)b * Nkv + h) * C;
-  auto fresh_score = [&](int g, int j) -> float {
+  // merge the warps' partials, then (FRESH) the fresh key, always valid: the
+  // first pass finds the maximum, the second sums
+  const size_t fresh = ((size_t)b * Nkv + h) * D + lane * DL;
+  auto fresh_score = [&](int g) -> float {
     float kfx[DL];
-    lia::load_vec<DL>(kf + (fresh + j) * D + lane * DL, kfx);
+    lia::load_vec<DL>(kf + fresh, kfx);
     float part = 0.f;
 #pragma unroll
     for (int e = 0; e < DL; ++e) part = fmaf(qr[g][e], kfx[e], part);
@@ -223,7 +204,7 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
 #pragma unroll
     for (int ww = 0; ww < NW; ++ww) M = fmaxf(M, sm_m[ww][g]);
     if constexpr (FRESH) {
-      for (int j = 0; j <= c; ++j) M = fmaxf(M, fresh_score(g, j));
+      M = fmaxf(M, fresh_score(g));
     }
     float L = 0.f, o[DL];
 #pragma unroll
@@ -236,17 +217,15 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
       for (int e = 0; e < DL; ++e) o[e] = fmaf(sm_acc[ww][g][lane * DL + e], a, o[e]);
     }
     if constexpr (FRESH) {
-      for (int j = 0; j <= c; ++j) {
-        const float pf = exp2f(fresh_score(g, j) - M);
-        float vfx[DL];
-        lia::load_vec<DL>(vf + (fresh + j) * D + lane * DL, vfx);
-        L += pf;
+      const float pf = exp2f(fresh_score(g) - M);
+      float vfx[DL];
+      lia::load_vec<DL>(vf + fresh, vfx);
+      L += pf;
 #pragma unroll
-        for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vfx[e], o[e]);
-      }
+      for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vfx[e], o[e]);
     }
     L = fmaxf(L, 1e-30f);
-    T* dst = out + (((size_t)b * C + c) * N + h * G + g) * D + lane * DL;
+    T* dst = out + ((size_t)b * N + h * G + g) * D + lane * DL;
 #pragma unroll
     for (int e = 0; e < DL; ++e) dst[e] = lia::from_f32<T>(o[e] / L);
   }
@@ -254,45 +233,44 @@ decode_kernel(const T* __restrict__ q,       // [B, C, N, D]
 
 template <typename T, int D, int G, bool FRESH, int SRC>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
-           Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv, int C,
+           Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv,
            float sscale, cudaStream_t stream) {
-  const dim3 grid = SRC == kBeam ? dim3(B, Nkv, C) : dim3(Nkv, B, C);
+  const dim3 grid = SRC == kBeam ? dim3(B, Nkv) : dim3(Nkv, B);
   decode_kernel<T, D, G, FRESH, SRC><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
       static_cast<const T*>(kc), static_cast<const T*>(vc), keys,
-      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, C, sscale);
+      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, sscale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, bool FRESH, int SRC>
 int launch_g(int G, const void* q, const void* kf, const void* vf, const void* kc,
              const void* vc, Keys keys, const void* lengths, int length_stride, void* out, int B,
-             int Nkv, int C, float sscale, cudaStream_t st) {
+             int Nkv, float sscale, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<T, D, 1, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 2: return launch<T, D, 2, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 4: return launch<T, D, 4, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    case 8: return launch<T, D, 8, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    case 1: return launch<T, D, 1, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+    case 2: return launch<T, D, 2, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+    case 4: return launch<T, D, 4, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+    case 8: return launch<T, D, 8, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Type, head-dim and group dispatch. D must be 64 or 128, G = N / Nkv one of
-// 1, 2, 4, 8, and C >= 1 (1 over a plane); returns a cudaError_t value, 0 on
-// a successful launch.
+// 1, 2, 4, 8; returns a cudaError_t value, 0 on a successful launch.
 template <bool FRESH, int SRC>
 int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
-             Keys keys, const void* lengths, int length_stride, void* out, int B, int C, int N,
+             Keys keys, const void* lengths, int length_stride, void* out, int B, int N,
              int Nkv, int D, float sscale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nkv <= 0 || N % Nkv != 0 || C < 1 || (SRC != kPaged && C != 1)) return (int)cudaErrorInvalidValue;
+  if (Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv;
   if (is_bf16) {
-    if (D == 128) return launch_g<__nv_bfloat16, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    if (D == 64) return launch_g<__nv_bfloat16, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 128) return launch_g<__nv_bfloat16, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+    if (D == 64) return launch_g<__nv_bfloat16, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
   } else {
-    if (D == 128) return launch_g<float, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
-    if (D == 64) return launch_g<float, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, C, sscale, st);
+    if (D == 128) return launch_g<float, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+    if (D == 64) return launch_g<float, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -227,9 +227,10 @@ def attn_post_mlp(cfg: ModelConfig, lp: Params, residual: torch.Tensor, attn_out
 def _fused_mlp_viable(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> bool:
     """The fused-MLP route (the reference's rules, :func:`lia_tpu_torch.ops.cuda_mlp.fused_mlp`):
     the gate on, separate unquantized ``w1`` (and ``wg``) and ``w2`` (not the
-    fused ``wg1``), at most 256 rows, H % 128 == 0 and F % 512 == 0. The
-    type is not a rule: on the card the kernel takes bf16 and raises for
-    another type."""
+    fused ``wg1``), at most 256 rows, H % 128 == 0 and F % 512 == 0; on the
+    card also H <= ``cuda_mlp.MAX_H``, the widest the kernel takes. The type
+    is not a rule: on the card the kernel takes bf16 and raises for another
+    type."""
     if not dispatch.fused_mlp_enabled():
         return False
     m = lp["mlp"]
@@ -237,8 +238,11 @@ def _fused_mlp_viable(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> bool:
         return False
     if any(is_quantized(m.get(k)) for k in ("w1", "wg", "w2") if m.get(k) is not None):
         return False
+    from lia_tpu_torch.ops.cuda_mlp import MAX_H
+
     B, S, H = x.shape
-    return B * S <= 256 and H % 128 == 0 and m["w1"].shape[-1] % 512 == 0
+    return (B * S <= 256 and H % 128 == 0 and m["w1"].shape[-1] % 512 == 0
+            and (x.device.type == "cpu" or H <= MAX_H))
 
 
 def _fused_mlp_call(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

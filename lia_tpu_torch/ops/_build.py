@@ -53,7 +53,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_decode_fresh_int8": [P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
     },
     "paged_decode": {
-        "lia_paged_decode": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, I, I, P],
+        "lia_paged_decode": [P] * 7 + [I, P, P] + [I] * 8 + [F, I, I, P],
+        "lia_paged_smem_bytes": [I] * 4,
+        "lia_paged_stages": [I] * 4,
     },
     "beam_decode": {
         "lia_beam_decode": [P] * 11 + [I] * 7 + [F, I, P],
@@ -72,6 +74,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "fused_mlp": {
         "lia_fused_mlp": [P] * 11 + [I] * 5 + [F, P],
+        "lia_fused_mlp_smem_bytes": [I],
+        "lia_fused_mlp_stages": [I],
+        "lia_fused_mlp_row_chunk": [I],
+        "lia_fused_mlp_blocks": [I, I],
     },
 }
 

@@ -35,6 +35,9 @@ KERNEL_GROUPS = (1, 2, 4, 8)  # GQA group sizes the decode kernels are instantia
 FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads
 FLASH_BK = 64  # keys of one flash K/V tile
 FLASH_MAX_PARTS = 16
+PAGED_WARPS = 4  # consumer warps of a paged block (csrc/paged_attn.cuh: NWC)
+PAGED_MAX_TABLE = 256  # block-table entries one paged block stages (csrc/paged_attn.cuh: MAXP)
+PAGED_MAX_PARTS = 8
 
 
 def _sscale(scale: Optional[float], D: int) -> float:
@@ -425,17 +428,41 @@ def flash_warpgroups(B: int, C: int, N: int, Nkv: int, parts: int, sms: int) -> 
 _SMS = {}
 
 
+def _sms(dev: int) -> int:
+    """SMs of CUDA device ``dev``, read once."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def _flash_grid(q, Nkv: int, S_kv: int):
     """(parts, warpgroups, workspace) of a flash launch over ``q`` [B, C, N, D]:
     the workspace holds the fp32 partials (o [parts, B*C*N, D], m and l
     [parts, B*C*N]) when parts > 1."""
     B, C, N, D = q.shape
-    dev = q.get_device()
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    parts = flash_split_parts(B, C, N, Nkv, S_kv, _SMS[dev])
+    sms = _sms(q.get_device())
+    parts = flash_split_parts(B, C, N, Nkv, S_kv, sms)
     ws = torch.empty(parts * B * C * N * (D + 2), dtype=torch.float32, device=q.device) if parts > 1 else None
-    return parts, flash_warpgroups(B, C, N, Nkv, parts, _SMS[dev]), ws
+    return parts, flash_warpgroups(B, C, N, Nkv, parts, sms), ws
+
+
+def paged_query_chunks(G: int, C: int) -> int:
+    """Blocks that share one (kv head, row)'s G * C queries in the paged
+    kernel: each of its four consumer warps holds one query where they are at
+    most four, else four queries, so a block takes up to 16."""
+    per_warp = 1 if G * C <= PAGED_WARPS else 4
+    return -(-G * C // (PAGED_WARPS * per_warp))
+
+
+def paged_split_parts(B: int, C: int, N: int, Nkv: int, P: int, sms: int) -> int:
+    """Parts into which the paged kernel splits each row's pages: as many as
+    keep its (kv head, row, query chunk) blocks times the parts within four
+    an SM (the registers hold four), at most PAGED_MAX_PARTS and the table's
+    P pages, and at least enough that a part stages at most PAGED_MAX_TABLE
+    table entries."""
+    blocks = Nkv * B * paged_query_chunks(N // Nkv, C)
+    parts = max(1, min(4 * sms // blocks, PAGED_MAX_PARTS, P))
+    return max(parts, -(-P // PAGED_MAX_TABLE))
 
 
 def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
@@ -733,7 +760,11 @@ def paged_decode_attention(
     pool [L, nb, N_kv, bs, D], read in place through the block table (int32
     [B, P]) with per-row ``lengths`` (int32 [B], or one for all); with the
     fresh chunk [B, N_kv, C, D], chunk row c merges fresh keys 0..c. The table
-    and lengths are read on the device."""
+    and lengths are read on the device. Where the (kv head, row) blocks fill
+    the card poorly the kernel splits each row's pages into
+    :func:`paged_split_parts` parts and a second launch merges them
+    (``split_launches`` counts those calls); scratch comes from the allocator,
+    so the call can be captured in a CUDA graph."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh, v_fresh, scale
@@ -762,13 +793,16 @@ def paged_decode_attention(
         raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
     kf_ptr, vf_ptr = (fresh[0].data_ptr(), fresh[1].data_ptr()) if fresh else (None, None)
     out = torch.empty_like(q)
+    parts = paged_split_parts(B, C, N, Nkv, P, _sms(q.get_device()))
+    ws = torch.empty(parts * B * C * N * (D + 2), dtype=torch.float32, device=q.device) if parts > 1 else None
     rc = _build.library("paged_decode").lia_paged_decode(
         q.data_ptr(), kf_ptr, vf_ptr, _layer_ptr(k_pool, layer_idx), _layer_ptr(v_pool, layer_idx), block_table.data_ptr(),
-        lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
+        lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, parts,
         B, C, N, Nkv, P, bs, D, _sscale(scale, D), is_bf16, int(bool(fresh)), stream,
     )
     _raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.split_launches += int(parts > 1)
     return out
 
 
@@ -777,15 +811,15 @@ KERNELS = (
     decode_attention, decode_attention_stacked, flash_attention_cached, paged_decode_attention,
     decode_beam_attention, decode_beam_attention_int8,
 )
-FLASH_KERNELS = (flash_attention_prefill, flash_attention_cached)
+SPLIT_KERNELS = (flash_attention_prefill, flash_attention_cached, paged_decode_attention)
 
 
 def reset_launch_counts() -> None:
-    """Zeroes every wrapper's ``launches`` and the flash wrappers'
-    ``split_launches`` (the launches that split their walks, parts > 1)."""
+    """Zeroes every wrapper's ``launches`` and the splitting wrappers'
+    ``split_launches`` (the calls that split their walks, parts > 1)."""
     for fn in KERNELS:
         fn.launches = 0
-    for fn in FLASH_KERNELS:
+    for fn in SPLIT_KERNELS:
         fn.split_launches = 0
 
 
@@ -798,5 +832,5 @@ def launch_counts() -> dict:
 
 
 def split_counts() -> dict:
-    """The flash wrappers' launches so far that split their walks (parts > 1)."""
-    return {fn.__name__: fn.split_launches for fn in FLASH_KERNELS}
+    """The flash and paged wrappers' calls so far that split their walks (parts > 1)."""
+    return {fn.__name__: fn.split_launches for fn in SPLIT_KERNELS}

@@ -580,21 +580,65 @@ def _paged_case(gen, dtype, B, C, G, D, L=2, Nkv=2, bs=16, P=8, lengths=(0, 37, 
     return q, kp, vp, table.cuda(), lens, kf, vf
 
 
+def _paged_parts(monkeypatch, parts):
+    """The paged kernel's split forced to ``parts`` (None: the host's own choice)."""
+    if parts is not None:
+        monkeypatch.setattr(ca, "paged_split_parts", lambda *a: parts)
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3])
+@pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("fresh", [False, True])
 @pytest.mark.parametrize("C", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (8, 64), (2, 64)])
-def test_paged_decode_kernel_matches_plain(cuda, G, D, dtype, C, fresh):
+@pytest.mark.parametrize("G,D,Nkv", [(1, 128, 2), (4, 128, 2), (8, 64, 2), (2, 64, 2), (4, 128, 8)])
+def test_paged_decode_kernel_matches_plain(cuda, monkeypatch, G, D, Nkv, dtype, C, fresh, bs, parts):
+    """Lengths 0, 37 (mid-page) and 128 (a page end at bs 8, 16 and 32), G = 4
+    at Nkv 8 (Llama-3-8B's heads), C = 4, the split off and forced on."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    q, kp, vp, table, lens, kf, vf = _paged_case(gen, dtype, 3, C, G, D)
+    P = 128 // bs + 1
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, dtype, 3, C, G, D, Nkv=Nkv, bs=bs, P=P)
     args = (q, kp, vp, 1, table, lens) + ((kf, vf) if fresh else ())
-    before = ca.paged_decode_attention.launches
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    used = parts or ca.paged_split_parts(3, C, Nkv * G, Nkv, P, sms)
+    _paged_parts(monkeypatch, parts)
+    before, splits = ca.paged_decode_attention.launches, ca.paged_decode_attention.split_launches
     out = ca.paged_decode_attention(*args)
     assert ca.paged_decode_attention.launches == before + 1
+    assert ca.paged_decode_attention.split_launches == splits + (used > 1)
     ref = ca.paged_decode_attention_plain(*args)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
     if not fresh:  # row 0 has no key and no fresh token
         assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_paged_decode_graph_replay_equals_eager(cuda, monkeypatch, parts):
+    """The call (and with a split, its merge launch) captured once in a CUDA
+    graph and replayed on new queries and lengths equals the eager call on
+    them: the table and lengths are read on the device, the split's scratch
+    comes from the allocator and needs no memset."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, torch.bfloat16, 3, 1, 4, 128, Nkv=8)
+    _paged_parts(monkeypatch, parts)
+
+    def fn():
+        return ca.paged_decode_attention(q, kp, vp, 1, table, lens, kf, vf)
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    q.copy_(_randn(gen, *q.shape, dtype=torch.bfloat16))
+    lens.copy_(torch.tensor([17, 0, 64], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
 
 
 def test_paged_and_cached_wrappers_raise_on_the_card(cuda):
@@ -816,28 +860,40 @@ FUSED_MLP_CASES = [  # (label, H, F, activation, rms, biases): OPT-6.7B's arms a
     ("opt-gelu_new", 4096, 16384, "gelu_new", False, True),
     ("llama3-swiglu", 4096, 14336, "silu", True, False),
 ]
+FUSED_MLP_WIDE_CASES = [  # the widths whose rows of H take chunks of 8 and 4 rows in phase 1
+    ("llama3-70b-swiglu", 8192, 28672, "silu", True, False),
+    ("opt-175b-relu", 12288, 49152, "relu", False, True),
+]
 
 
 def fused_mlp_inputs(gen, rows, H, F, act, biases, device="cuda"):
-    """bf16 inputs of one MLP block at the main path's widths: weights of
-    std 0.02 keep the up-projection and the sum over F of O(1)."""
+    """bf16 inputs of one MLP block: weights of std 0.02 at the main path's
+    widths (H 4096, F up to 16384), scaled by sqrt(4096 / H) (w1, wg) and
+    sqrt(16384 / F) (w2) past them, keep the up-projection and the sum over F
+    of O(1) at every width, as a trained model's are."""
     def r(*shape, sc=1.0):
         return (torch.randn(shape, generator=gen, device=device) * sc).to(torch.bfloat16)
 
+    up, down = 0.02 * min(1.0, (4096 / H) ** 0.5), 0.02 * min(1.0, (16384 / F) ** 0.5)
     return dict(x=r(rows, H), ln_scale=(1 + r(H, sc=0.1).float()).to(torch.bfloat16),
-                ln_bias=r(H, sc=0.1) if biases else None, w1=r(H, F, sc=0.02), b1=r(F, sc=0.1) if biases else None,
-                wg=r(H, F, sc=0.02) if act == "silu" else None, w2=r(F, H, sc=0.02),
+                ln_bias=r(H, sc=0.1) if biases else None, w1=r(H, F, sc=up), b1=r(F, sc=0.1) if biases else None,
+                wg=r(H, F, sc=up) if act == "silu" else None, w2=r(F, H, sc=down),
                 b2=r(H, sc=0.1) if biases else None)
 
 
 FUSED_MLP_TOL = 2e-2  # bf16 outputs of O(1): one or two bf16 steps; the kernel's
-# fp32 sums run in another order (its atomics in one that varies run to run),
-# which can move a rounding of the normed input or the activation by one step
+# fp32 sums run in another (fixed) order, which can move a rounding of the
+# normed input or the activation by one step
 
 
-@pytest.mark.parametrize("rows", [1, 16, 256])
-@pytest.mark.parametrize("case", FUSED_MLP_CASES, ids=[c[0] for c in FUSED_MLP_CASES])
+@pytest.mark.parametrize("rows", [1, 16, 17, 256])
+@pytest.mark.parametrize("case", FUSED_MLP_CASES + FUSED_MLP_WIDE_CASES,
+                         ids=[c[0] for c in FUSED_MLP_CASES + FUSED_MLP_WIDE_CASES])
 def test_fused_mlp_kernel_matches_plain(cuda, case, rows):
+    """Rows 1, the b16 decode step's 16, 17 (a second chunk of rows) and the
+    kernel's most, at OPT-6.7B's and Llama-3-8B's widths and at Llama-3-70B's
+    and OPT-175B's; a second call gives the same bits (the sums' order is
+    fixed), and the grid barrier's counters are left zero."""
     from lia_tpu_torch.ops import cuda_mlp
 
     _, H, F, act, rms, biases = case
@@ -851,9 +907,130 @@ def test_fused_mlp_kernel_matches_plain(cuda, case, rows):
     assert cuda_mlp.fused_mlp.launches == before + 2
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), rtol=FUSED_MLP_TOL, atol=FUSED_MLP_TOL)
-    torch.testing.assert_close(again.float(), out.float(), rtol=FUSED_MLP_TOL, atol=FUSED_MLP_TOL)
-    ws, tickets = cuda_mlp._workspace(torch.cuda.current_device(), H)
-    assert not ws.any() and not tickets.any()  # left zero for the next launch
+    assert torch.equal(again, out)
+    _, barrier = cuda_mlp._workspace(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream, rows, F)
+    assert not barrier.any()  # left zero for the next launch
+
+
+@pytest.mark.parametrize("rows", [17, 256])
+def test_fused_mlp_wide_error_is_the_plain_versions(cuda, rows):
+    """Llama-3-70B's SwiGLU with weights of std 0.02, unscaled, so outputs
+    reach ~35: against the same six roundings evaluated in fp64, the kernel
+    errs by no more than the plain version (cuBLAS's fp32 sums) plus one bf16
+    step of the largest output, and on average by less than an eighth of a
+    bf16 step of a typical output. Its fp32 sums run on the tensor cores,
+    whose accumulation rounds coarser than cuBLAS's: the activation scratch
+    differs from the fp64 one where a rounding flips (~1% of it; by a few
+    bf16 steps where a gate near 0 multiplies a large up), and the mean error
+    is several times the plain version's (printed)."""
+    from lia_tpu_torch.ops import cuda_mlp
+
+    _, H, F, act, rms, biases = FUSED_MLP_WIDE_CASES[0]
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * sc).to(torch.bfloat16)
+
+    a = dict(x=r(rows, H), ln_scale=(1 + r(H, sc=0.1).float()).to(torch.bfloat16), ln_bias=None, w1=r(H, F, sc=0.02),
+             b1=None, wg=r(H, F, sc=0.02), w2=r(F, H, sc=0.02), b2=None)
+    out = cuda_mlp.fused_mlp(**a, activation=act, rms=rms)
+    ref = cuda_mlp.fused_mlp_plain(**a, activation=act, rms=rms)
+    scratch, _ = cuda_mlp._workspace(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream, rows, F)
+    kact = scratch.reshape(-1)[: rows * F].view(rows, F)  # the kernel's [rows, F] activation, whatever the scratch's F
+    x = a["x"].double()
+    h = (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-5) * a["ln_scale"].double()).to(torch.bfloat16).double()
+    act64 = (torch.nn.functional.silu(h @ a["wg"].double()) * (h @ a["w1"].double())).to(torch.bfloat16)
+    out64 = (x + act64.double() @ a["w2"].double()).to(torch.bfloat16).double()
+    e_kernel, e_plain = (out.double() - out64).abs(), (ref.double() - out64).abs()
+    step = 2.0 ** (torch.floor(torch.log2(out64.abs().max())).item() - 7)  # a bf16 step at the largest output
+    flips = kact != act64  # a rounding flip where the sums differ in their last bits
+    mag = act64.double().abs().clamp(min=0.125)  # near 0, the sums' absolute error
+    d_act = (kact.double() - act64.double()).abs() / 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    print({"rows": rows, "e_kernel max, mean": [e_kernel.max().item(), e_kernel.mean().item()],
+           "e_plain max, mean": [e_plain.max().item(), e_plain.mean().item()], "step": step,
+           "mean |out|": out64.abs().mean().item(), "flips": flips.float().mean().item(),
+           "act steps": d_act.max().item()})
+    assert e_kernel.max() <= e_plain.max() + step
+    assert e_kernel.mean() <= 2.0 ** -10 * out64.abs().mean()
+    assert flips.float().mean() < 0.02
+
+
+def test_fused_mlp_row_chunks_cover_every_width(cuda):
+    """The kernel takes every H % 128 up to MAX_H: its phase-1 chunk of rows
+    (read from the library) is at least one row there, 16 at the 4096 of the
+    main path, and every registered model's width is within MAX_H."""
+    from lia_tpu_torch.models.registry import REGISTRY
+    from lia_tpu_torch.ops import _build, cuda_mlp
+
+    lib = _build.library("fused_mlp")
+    chunks = {H: lib.lia_fused_mlp_row_chunk(H) for H in range(128, cuda_mlp.MAX_H + 1, 128)}
+    assert min(chunks.values()) >= 1 and chunks[4096] == 16
+    assert chunks[8192] == 8 and chunks[12288] == 4  # the wide cases above run these
+    assert all(lib.lia_fused_mlp_smem_bytes(H) <= 232448 for H in chunks)
+    assert max(cfg.hidden_size for cfg in REGISTRY.values()) <= cuda_mlp.MAX_H
+
+
+@pytest.mark.parametrize("rows", [16, 40])
+def test_fused_mlp_graph_replay_equals_eager(cuda, monkeypatch, rows):
+    """Llama-3-8B's SwiGLU captured once in a CUDA graph and replayed on a new
+    x equals the eager call on it, and the grid barrier is zero afterwards:
+    no host value and no memset sit between launches."""
+    from lia_tpu_torch.ops import cuda_mlp
+
+    _, H, F, act, rms, biases = FUSED_MLP_CASES[3]
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    a = fused_mlp_inputs(gen, rows, H, F, act, biases)
+
+    def fn():
+        return cuda_mlp.fused_mlp(**a, activation=act, rms=rms)
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    held = []  # the captured call's own scratch and barrier
+    take = cuda_mlp._workspace
+    monkeypatch.setattr(cuda_mlp, "_workspace", lambda *k: held.append(take(*k)) or held[-1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    monkeypatch.setattr(cuda_mlp, "_workspace", take)
+    eager = take(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream, rows, F)
+    assert len(held) == 1 and held[0][1].data_ptr() != eager[1].data_ptr()
+    a["x"].copy_(_randn(gen, rows, H, dtype=torch.bfloat16))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not held[0][1].any() and not eager[1].any()
+    assert torch.equal(out, fn())
+
+
+def test_fused_mlp_streams_do_not_share_a_barrier(cuda):
+    """Calls on two streams at once each take their stream's scratch and
+    barrier, and give what one stream gives alone."""
+    from lia_tpu_torch.ops import cuda_mlp
+
+    _, H, F, act, rms, biases = FUSED_MLP_CASES[3]
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    a, b = fused_mlp_inputs(gen, 16, H, F, act, biases), fused_mlp_inputs(gen, 16, H, F, act, biases)
+    ref_a = cuda_mlp.fused_mlp(**a, activation=act, rms=rms)
+    ref_b = cuda_mlp.fused_mlp(**b, activation=act, rms=rms)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(8):
+        for st, inp in zip(streams, (a, b)):
+            with torch.cuda.stream(st):
+                outs.append(cuda_mlp.fused_mlp(**inp, activation=act, rms=rms))
+    torch.cuda.synchronize()
+    sets = [cuda_mlp._workspace(torch.cuda.current_device(), st.cuda_stream, 16, F) for st in streams]
+    assert sets[0][1].data_ptr() != sets[1][1].data_ptr()
+    assert not sets[0][1].any() and not sets[1][1].any()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, ref_a if i % 2 == 0 else ref_b)
 
 
 def test_fused_mlp_wrapper_raises_on_the_card(cuda):
@@ -867,6 +1044,9 @@ def test_fused_mlp_wrapper_raises_on_the_card(cuda):
         cuda_mlp.fused_mlp(**{**a, "x": torch.zeros(257, 256, dtype=torch.bfloat16, device=cuda)})
     with pytest.raises(ValueError):  # H % 128
         b = fused_mlp_inputs(gen, 4, 192, 512, "relu", True)
+        cuda_mlp.fused_mlp(**b, activation="relu")
+    with pytest.raises(ValueError):  # wider than x's TMA box
+        b = fused_mlp_inputs(gen, 4, cuda_mlp.MAX_H + 128, 64, "relu", True)
         cuda_mlp.fused_mlp(**b, activation="relu")
 
 
