@@ -12,12 +12,19 @@ entry) and B9 (``decode_beam_attention``) at chip_smoke's table shapes;
 ``paged``, B5 (``paged_decode_attention``: b16 over lengths 272 - pad, also
 at Llama-3-8B's G = 4 and over rows of ~1000 tokens); ``mlp``, B14
 (``fused_mlp``: Llama-3-8B's SwiGLU and OPT-6.7B's relu at 16 rows, and at 1
-and 256). ``--paths`` picks the main paths through ``generate(fused=True)``
+and 256); ``int8``, B3 (``decode_attention_fresh_int8``: b16 over past 272 -
+pad, at Llama-3-8B's G = 4 and over ~1000-token rows) and B10
+(``decode_beam_attention_int8``: 4 x 4 beams over a 256- and a 1024-slot
+prompt); ``host``, the host µs of B10's and B3's wrappers beside a direct
+call of their library functions, with B9's wrapper as the host's control
+(``ab_host`` lines). ``--paths`` picks the main paths through ``generate(fused=True)``
 at full width and depth, b16 x 256 prompt tokens and 32 new tokens (prefill
 ms and decode tokens/s, the median of 3 runs after a warm-up): ``quantized``,
 OPT-6.7B with bf16 weights, bench.py's w4a8+int8kv and weight-only int4
 g128; ``gates``, OPT-6.7B bf16 and Llama-3-8B with unfused projections, each
-with the fused-MLP gate off and on in turns on one engine. Then the serving
+with the fused-MLP gate off and on in turns on one engine; ``int8kv``,
+OPT-6.7B bf16 weights and Llama-3-8B with int8 KV, then beam-nb4-int8kv
+(``generate_beam``, 4 prompts x 4 beams: prefill ms and decode row-tokens/s). Then the serving
 cells serve-paged-chunk256 and serve-paged (64 requests through a
 ContinuousBatcher, as chip_smoke's serving phase, each ``--serving-repeats``
 times in turns; ``--serving-repeats 0`` skips them). Every line chip_smoke prints carries
@@ -45,8 +52,8 @@ import statistics
 import sys
 from pathlib import Path
 
-KERNEL_GROUPS = ("matmul", "flash", "decode", "paged", "mlp")
-MAIN_PATHS = ("quantized", "gates")
+KERNEL_GROUPS = ("matmul", "flash", "decode", "paged", "mlp", "int8", "host")
+MAIN_PATHS = ("quantized", "gates", "int8kv")
 SERVING_CELLS = ("serve-paged-chunk256", "serve-paged")
 
 
@@ -59,11 +66,18 @@ def summarize(log: Path) -> None:
             continue
         rec = json.loads(line)
         tree = rec.get("tree")
-        if rec.get("phase") == "main_path":
-            for key in ("prefill_ms", "decode_tokens_per_s"):
-                cells.setdefault((rec["config"].split(": ", 1)[1] + " " + key, tree), []).extend(rec[key + "_runs"])
+        if rec.get("phase") in ("main_path", "beam"):
+            for key in ("prefill_ms", "decode_tokens_per_s", "decode_row_tokens_per_s"):
+                if key + "_runs" in rec:
+                    cells.setdefault((rec["config"].split(": ", 1)[1] + " " + key, tree), []).extend(rec[key + "_runs"])
         elif rec.get("phase") == "ab_kernel":
             cells.setdefault((f"{rec['kernel']} {rec['shape']} M={rec['M']} ms", tree), []).append(rec["ms"])
+            if "host_us" in rec:
+                cells.setdefault((f"{rec['kernel']} {rec['shape']} M={rec['M']} host_us", tree), []).append(
+                    rec["host_us"])
+        elif rec.get("phase") == "ab_host":
+            for key in ("wrapper_us_min", "direct_us_min"):
+                cells.setdefault((f"{rec['kernel']} {key}", tree), []).append(rec[key])
         elif rec.get("phase") == "serving":
             for key in ("tokens_per_s", "wall_s", "p50_tpot_s", "p99_tpot_s"):
                 cells.setdefault((rec["config"] + " " + key, tree), []).append(rec[key])
@@ -89,14 +103,15 @@ def kernel_times(cs, ca, cm, groups) -> None:
         for c in itertools.chain(cs.matmul_cases(cm, quantize_act), cs.stacked_cases(cm, quantize_act)):
             if (c["name"], c["variant"]) in picked:
                 cs.emit({"phase": "ab_kernel", "kernel": c["name"], "shape": c["shape"], "M": c["M"],
-                         "ms": cs.device_ms(c["kernel"])})
+                         "ms": cs.kernel_trace(c["name"], c["kernel"])[0]})
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     def emit(kernel, shape, M, fn):
-        cs.emit({"phase": "ab_kernel", "kernel": kernel, "shape": shape, "M": M, "ms": cs.device_ms(fn)})
+        ms, _ = cs.kernel_trace(kernel, fn, cs.own_launches(ca, fn))
+        cs.emit({"phase": "ab_kernel", "kernel": kernel, "shape": shape, "M": M, "ms": ms, "host_us": cs.host_us(fn)})
 
     dpads = [0, 3, 7, 15] * 4  # chip_smoke's decode rows: lengths 272 - pad
     if "decode" in groups:
@@ -137,6 +152,16 @@ def kernel_times(cs, ca, cm, groups) -> None:
                          w2=0.02 * randn(Fd, H), b2=0.1 * randn(H) if biases else None)
                 x = randn(rows, H)
                 emit("fused_mlp", label, rows, lambda x=x, w=w, a=act, n=rms: cuda_mlp.fused_mlp(x, **w, activation=a, rms=n))
+    if "int8" in groups:
+        for shape, Nkv, past, S in (("b16 272-pad", cs.N, cs.PAST, 384), ("llama G4 b16 272-pad", cs.N // 4, cs.PAST, 384),
+                                    ("b16 ~1000", cs.N, 1000, 1024), ("llama G4 b16 ~1000", cs.N // 4, 1000, 1024)):
+            a = cs.int8_plane_case(randn, quantize_kv, [(past, p) for p in dpads], Nkv, cs.N // Nkv, S)
+            emit("decode_attention_fresh_int8", shape, cs.B, lambda a=a: ca.decode_attention_fresh_int8(*a))
+        for shape, S_p in (("4 x 4 beams, 256-slot prompt", 256), ("4 x 4 beams, 1024-slot prompt", 1024)):
+            kernel, _, args = cs.beam_case(ca, quantize_kv, randn, True, S_p=S_p)
+            emit("decode_beam_attention_int8", shape, cs.B, lambda k=kernel, a=args: k(*a))
+    if "host" in groups:
+        host_times(cs, ca, randn, quantize_kv, dpads)
     if "flash" not in groups:
         return
 
@@ -144,11 +169,71 @@ def kernel_times(cs, ca, cm, groups) -> None:
     mask = torch.ones(cs.B, cs.PROMPT, dtype=torch.bool, device="cuda")
     for b, p in enumerate(cs.PADS):
         mask[b, :p] = False
-    cs.emit({"phase": "ab_kernel", "kernel": "flash_attention_prefill", "shape": "b16 s256", "M": cs.B * cs.PROMPT,
-             "ms": cs.device_ms(lambda: ca.flash_attention_prefill(q, k, v, mask))})
+    emit("flash_attention_prefill", "b16 s256", cs.B * cs.PROMPT, lambda: ca.flash_attention_prefill(q, k, v, mask))
     a6 = cs.cached_case(randn, 1, 256, 768, [0])
-    cs.emit({"phase": "ab_kernel", "kernel": "flash_attention_cached", "shape": "C256 base 768", "M": 256,
-             "ms": cs.device_ms(lambda: ca.flash_attention_cached(*a6))})
+    emit("flash_attention_cached", "C256 base 768", 256, lambda: ca.flash_attention_cached(*a6))
+
+
+def host_times(cs, ca, randn, quantize_kv, dpads) -> None:
+    """Host µs of one call (min and median over 15 loops of 200 calls, GPU
+    work queued) of B10's and B3's wrappers at the int8 group's first shapes,
+    beside a direct call of the library function with the arguments the
+    wrapper passed (the C side and the launch), and of B9's wrapper, whose
+    code the trees share, as the host's control."""
+    import statistics
+    import time
+
+    import torch
+
+    from lia_tpu_torch.ops import _build
+
+    def host(fn, n=200, reps=15):
+        fn()
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        return min(runs), statistics.median(runs)
+
+    def direct(libname, fname, call):
+        """The library function and the arguments one wrapper call gives it."""
+        lib, seen = _build.library(libname), {}
+        real = getattr(lib, fname)
+
+        class Recorder:
+            def __getattr__(self, name):
+                if name != fname:
+                    return getattr(lib, name)
+
+                def record(*args):
+                    seen["args"] = args
+                    return real(*args)
+                return record
+
+        library = _build.library
+        _build.library = lambda name: Recorder() if name == libname else library(name)
+        try:
+            kept = call()  # its output stays alive while the recorded pointers are used
+        finally:
+            _build.library = library
+        return lambda: real(*seen["args"]), kept
+
+    k9, _, a9 = cs.beam_case(ca, quantize_kv, randn, False)
+    k10, _, a10 = cs.beam_case(ca, quantize_kv, randn, True)
+    a3 = cs.int8_plane_case(randn, quantize_kv, [(cs.PAST, p) for p in dpads], cs.N, 1, 384)
+    for kernel, lib, fname, call in (
+            ("decode_beam_attention", "beam_decode", "lia_beam_decode", lambda: k9(*a9)),
+            ("decode_beam_attention_int8", "beam_decode_int8", "lia_beam_decode_int8", lambda: k10(*a10)),
+            ("decode_attention_fresh_int8", "decode_fresh_int8", "lia_decode_fresh_int8",
+             lambda: ca.decode_attention_fresh_int8(*a3))):
+        raw, _kept = direct(lib, fname, call)
+        (w_min, w_med), (r_min, r_med) = host(call), host(raw)
+        cs.emit({"phase": "ab_host", "kernel": kernel, "wrapper_us_min": w_min, "wrapper_us_median": w_med,
+                 "direct_us_min": r_min, "direct_us_median": r_med})
 
 
 def main() -> int:
@@ -218,6 +303,22 @@ def main() -> int:
         cs.main_path(ca, cm, f"{label}: llama-3-8b, unfused projections, bf16 KV", lcfg,
                      lambda: device_dummy_params(lcfg, seed=0), cs.llama_prompts(lcfg), "none", {}, timed=True,
                      runtime={"fuse_projections": False}, ab=("fused_mlp", {"fused_mlp": lcfg.num_layers * steps}))
+
+    if "int8kv" in paths:
+        from lia_tpu_torch.config import RuntimeConfig
+        from lia_tpu_torch.engine.engine import InferenceEngine
+
+        cs.main_path(ca, cm, f"{label}: bf16 weights, int8 KV", cfg, lambda: device_dummy_params(cfg, seed=0),
+                     prompts, "int8", {}, timed=True)
+        lcfg = get_config("llama-3-8b")
+        cs.main_path(ca, cm, f"{label}: llama-3-8b, int8 KV", lcfg, lambda: device_dummy_params(lcfg, seed=0),
+                     cs.llama_prompts(lcfg), "int8", {}, timed=True)
+        engine = InferenceEngine(cfg, fuse_projections(cfg, device_dummy_params(cfg, seed=0)),
+                                 RuntimeConfig(quant=QuantConfig(kv_cache_dtype="int8")))
+        bprompts = [p[:n] for p, n in zip(prompts, cs.BEAM_PROMPT_LENS)]
+        cs.beam_path(ca, cm, f"{label}: beam-nb4-int8kv", cfg, engine, bprompts, "int8", True, False, True, None)
+        del engine
+        torch.cuda.empty_cache()
 
     if args.serving_repeats < 1:
         return 0

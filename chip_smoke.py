@@ -6,9 +6,9 @@ Phases, each printing one JSON line per item:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
-   the flash, quantized-matmul, paged-decode and fused-MLP libraries' kernels
-   as ptxas built them (registers, spills: none allowed) and their blocks'
-   dynamic shared memory;
+   the flash, quantized-matmul, paged-decode, fused-MLP and int8-decode
+   libraries' kernels as ptxas built them (registers, spills: none allowed)
+   and their blocks' dynamic shared memory (and ring stages);
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
@@ -22,7 +22,11 @@ Phases, each printing one JSON line per item:
    a short suffix that the host splits (C=48 at base 960, also at G = 4 with a
    window); grouped-beam decode,
    bf16 and int8, over 4 groups of 4 beams with a 256-slot prompt (group pads
-   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0); flash
+   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0); the
+   int8 decode body (B3, B10) with the host's split and forced to 1 and 3
+   parts: B3 over rows of length 0, start = length, starts off 4, a window
+   and ~1000 tokens at G = 1 and 4, B10 with tails of 0, 16 and 100, at
+   Llama-3-8B's heads and over a 1024-slot prompt; flash
    prefill and bf16 / int8 decode at Llama-3-8B's heads (32 over 8 KV heads,
    D 128), without and with a sliding window of 64 that binds. Quantized
    matmuls at M = 16 (decode rows) and 4096
@@ -108,11 +112,15 @@ Phases, each printing one JSON line per item:
    of llama-3-8b with bf16 KV under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
-   attention per step; one more beam-nb4 run;
+   attention per step; one more beam-nb4 and beam-nb4-int8kv run each;
 10. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 20 calls, L2 flushed before
-   each; the kernel's also from CUDA events, as a cross-check) and the
-   wrapper's host time, beside the least time the card could take for the
+   each, after a discarded warm-up step; each kernel's mean over the
+   launches traced; a kernel's trace must hold each of its launches in at
+   least three quarters of the calls, else it is taken again and, after
+   five, the run fails; the kernel's time also from CUDA events, as a
+   cross-check)
+   and the wrapper's host time, beside the least time the card could take for the
    same bytes or operations; the library call's time both from the trace
    (with the kernels it held per call) and from events, the events' where
    the trace reads under the bound (the stacked w4a8 entry's library call is
@@ -122,7 +130,11 @@ Phases, each printing one JSON line per item:
    Llama-3-8B heads (G = 4), a short prefix-cache suffix (C=48 at base 960) and
    a chunk256 first chunk, each with its number of parts and SDPA's time; the
    paged body at Llama-3-8B's heads (G = 4, 8 KV heads) and over rows of ~1000
-   tokens, with its parts and SDPA's time; the fused MLP at OPT-6.7B's relu
+   tokens, with its parts and SDPA's time; B3 at Llama-3-8B's heads and over
+   ~1000-token rows and B10 over a 1024-slot prompt, with their parts and
+   SDPA's time over the keys dequantized, each over ~1000 keys (B3 at G = 4
+   also ~2000) also with the split forced the other way, and B10 at
+   Llama-3-8B's heads (two blocks a group); the fused MLP at OPT-6.7B's relu
    (16 rows, biases) beside its unfused chain.
    Profiling comes last because a profiler session slows the process's later
    launches.
@@ -146,6 +158,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -282,28 +295,77 @@ def _flush() -> None:
 
 
 def device_trace(fn):
-    """Device time of one call of ``fn`` (every kernel it launches), L2 cold: the
-    profiler's trace of REPS (flush, fn) pairs without the flush kernels, over
-    REPS; with the kernels the trace holds per call, by name. Host time
-    between launches is not in it (see host_us)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` (every kernel it launches), L2 cold,
+    from the profiler's trace of REPS (flush, fn) pairs without the flush's
+    kernel; with the launches the trace holds per call, by name. The trace
+    starts with a warm-up step whose events are dropped. It still loses
+    launches now and then, whole (flush, fn) pairs at a time (seen on the
+    card: 19 or 18 of 20 calls, for some shapes in every trace, and once
+    none), so trace_time takes each kernel's mean over the launches traced.
+    Host time between launches is not in it (see host_us)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            _flush()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "ArgMax" not in e.key]
-    total_us = sum(e.self_device_time_total for e in events)
-    return total_us / REPS / 1e3, {e.key[:80]: e.count / REPS for e in events}
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for reps in (3, REPS):  # the warm-up step, then the traced one
+            for _ in range(reps):
+                _flush()
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return trace_time([e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and "ArgMax" not in e.key])
+
+
+def trace_time(events):
+    """(ms of one call, launches a call by name) from the profiler's averages
+    over a trace of REPS calls: each kernel's mean time over the launches
+    traced, times its launches a call (the traced count over REPS, rounded:
+    a kernel traced in fewer than half of the calls counts for none)."""
+    total_us, per_call = 0.0, {}
+    for e in events:
+        if e.count:
+            total_us += e.self_device_time_total / e.count * round(e.count / REPS)
+        per_call[e.key[:80]] = per_call.get(e.key[:80], 0.0) + e.count / REPS
+    return total_us / 1e3, per_call
 
 
 def device_ms(fn) -> float:
     return device_trace(fn)[0]
+
+
+# the port's own kernels in a trace, by their CUDA names (csrc/*.cu, *.cuh)
+OWN_KERNEL = re.compile(r"lia_(dec8?|flash|paged|qmm)::|fused_mlp_kernel")
+TRACE_TRIES = 5
+
+
+def own_launches(ca, fn) -> int:
+    """Kernels one call of the wrapper call ``fn`` launches: one, and a merge
+    launch where the call splits its walk (the wrappers' split counters)."""
+    before = sum(ca.split_counts().values())
+    fn()
+    return 1 + sum(ca.split_counts().values()) - before
+
+
+def kernel_trace(name: str, fn, launches=None):
+    """device_trace of a kernel wrapper call, held to what a call launches:
+    each of the port's own kernels traced in at least three quarters of the
+    calls, a whole number of times a call, ``launches`` of them in all (at
+    least one where None). A trace that missed more is taken again, up to
+    TRACE_TRIES times, and the run fails if every trace misses. Other events
+    are not held to a count: the flush's reduction clears its semaphores with
+    a memset, and the trace drops some of those too."""
+    for attempt in range(TRACE_TRIES):
+        ms, traced = device_trace(fn)
+        own = [c for k, c in traced.items() if OWN_KERNEL.search(k)]
+        kept = all(round(c) >= 1 and abs(c - round(c)) <= 0.25 for c in own)
+        n = sum(round(c) for c in own)
+        if kept and (n == launches if launches is not None else n >= 1):
+            return ms, traced
+        emit({"phase": "trace_retry", "kernel": name, "attempt": attempt, "launches": launches, "traced": traced})
+    raise AssertionError(f"{name}: {TRACE_TRIES} traces missed launches (expected {launches} a call): {traced}")
 
 
 def event_ms(fn) -> float:
@@ -453,6 +515,42 @@ def paged_mlp_build_report(_build, paths) -> None:
         emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
         check(len(kernels) == expect and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0
                                              for k in kernels), f"{lib}: ptxas reports spills (or no report): {kernels}")
+
+
+def int8_build_report(_build, paths) -> None:
+    """The int8 decode libraries' kernels as ptxas built them (the body's
+    instantiations by type and D, and the merge launch's: registers, spill
+    stores and loads; a spill fails the run), and a block's dynamic shared
+    memory and ring stages at the main path's grids on this card (B3 at
+    OPT-6.7B b16 and at Llama-3-8B's heads, B10 at 4 x 4 beams, and each
+    split in 2 over its ~1000-key walk), at D 64 and 128."""
+    import re
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lib in ("decode_fresh_int8", "beam_decode_int8"):
+        kernels, cur = [], None
+        for line in open(f"{paths[lib]}.log").read().splitlines():
+            m = re.search(r"Function properties for \S*?(int8_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E", line)
+            if m:
+                cur = {"kernel": f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, D={m.group(3)}>"}
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        L = _build.library(lib)
+        grids = {"decode_fresh_int8": (("OPT-6.7B b16", 32 * 16), ("Llama-3-8B b16", 8 * 16),
+                                       ("Llama-3-8B b16 over ~1000 tokens, 2 parts", 8 * 16 * 2)),
+                 "beam_decode_int8": (("4 x 4 beams", 32 * 4), ("4 x 4 beams, 1024-slot prompt, 2 parts", 32 * 4 * 2))}[lib]
+        smem = {f"{label}, D={dh}": {"blocks": blocks, "stages": L.lia_dec8_stages(dh, blocks, sms),
+                                     "bytes": L.lia_dec8_smem_bytes(dh, L.lia_dec8_stages(dh, blocks, sms))}
+                for label, blocks in grids for dh in (64, 128)}
+        emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
+        # the body and the merge launch at bf16 / fp32 and D 64 / 128
+        check(len(kernels) == 8 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+              f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +709,7 @@ def kernel_checks(ca, quantize_kv):
     )
     rows.update(serving_kernel_checks(ca, randn, dpads))
     rows.update(beam_kernel_checks(ca, quantize_kv, randn))
+    int8_decode_checks(ca, quantize_kv, randn)
     llama_attention_checks(ca, quantize_kv, randn)
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
@@ -807,17 +906,18 @@ def cached_case(randn, Bq: int, C: int, base: int, pads, S_max: int = SERVE_MAX_
     return q, kc, vc, torch.tensor(base, dtype=torch.int32, device="cuda"), sm
 
 
-def split_forced(ca, parts, fn):
-    """``fn`` with the flash kernels' split forced to ``parts`` (None: the
-    host's own choice)."""
+def split_forced(ca, parts, fn, plan: str = "flash_split_parts"):
+    """``fn`` with the split of the kernels whose parts ``ca.<plan>`` chooses
+    (the flash kernels', or ``int8_split_parts``: B3's and B10's) forced to
+    ``parts`` (None: the host's own choice)."""
     def call():
-        real = ca.flash_split_parts
+        real = getattr(ca, plan)
         if parts is not None:
-            ca.flash_split_parts = lambda *a: parts
+            setattr(ca, plan, lambda *a: parts)
         try:
             return fn()
         finally:
-            ca.flash_split_parts = real
+            setattr(ca, plan, real)
     return call
 
 
@@ -974,26 +1074,27 @@ def serving_kernel_checks(ca, randn, dpads):
     return rows
 
 
-def beam_case(ca, quantize_kv, randn, int8: bool, Nkv: int = N, Dh: int = D, tlen: int = BEAM_TLEN, L: int = 2):
+def beam_case(ca, quantize_kv, randn, int8: bool, Nkv: int = N, Dh: int = D, tlen: int = BEAM_TLEN, L: int = 2,
+              S_p: int = BEAM_PROMPT):
     """Grouped-beam kernel inputs at the beam path's shapes (OPT-6.7B heads,
-    BEAM_GROUPS groups of BEAM_NB beams over a BEAM_PROMPT-slot prompt with the
+    BEAM_GROUPS groups of BEAM_NB beams over an ``S_p``-slot prompt with the
     groups' left pads BEAM_PADS, ``tlen`` tail slots of a 32-slot bf16 or
     128-slot int8 tail), over layer 1 of a 2-layer cache: (kernel, plain
     version, args, prompt keys per group)."""
     B = BEAM_GROUPS * BEAM_NB
     q = randn(B, 1, N, Dh)
     kf, vf = randn(B, Nkv, 1, Dh), randn(B, Nkv, 1, Dh)
-    pm = torch.zeros(BEAM_GROUPS, BEAM_PROMPT, dtype=torch.bool, device="cuda")
+    pm = torch.zeros(BEAM_GROUPS, S_p, dtype=torch.bool, device="cuda")
     for g, p in enumerate(BEAM_PADS):
         pm[g, p:] = True
-    lens = (pm, torch.tensor(BEAM_PROMPT, dtype=torch.int32, device="cuda"),
+    lens = (pm, torch.tensor(S_p, dtype=torch.int32, device="cuda"),
             torch.tensor(tlen, dtype=torch.int32, device="cuda"), BEAM_NB)
     T_max = 128 if int8 else 32
     if int8:
-        planes = [x for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (B, T_max)) for _ in range(2)
+        planes = [x for rows, S in ((BEAM_GROUPS, S_p), (B, T_max)) for _ in range(2)
                   for x in quantize_kv(randn(L, rows, Nkv, S, Dh, dtype=torch.float32))]
         return ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain, (q, kf, vf, *planes, 1, *lens)
-    planes = [randn(L, rows, Nkv, S, Dh) for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (B, T_max)) for _ in range(2)]
+    planes = [randn(L, rows, Nkv, S, Dh) for rows, S in ((BEAM_GROUPS, S_p), (B, T_max)) for _ in range(2)]
     return ca.decode_beam_attention, ca.decode_beam_attention_plain, (q, kf, vf, *planes, 1, *lens)
 
 
@@ -1054,6 +1155,147 @@ def beam_kernel_checks(ca, quantize_kv, randn):
         emit({"phase": "beam_bound", "kernel": name, "bytes": nbytes, "prompt_bytes": prompt_keys * N * row_bytes * 2,
               "prompt_bytes_read_per_beam": BEAM_NB * prompt_keys * N * row_bytes * 2})
     return rows
+
+
+def int8_plane_case(randn, quantize_kv, rows, Nkv: int = N, G: int = 1, S_max: int = 384, L: int = 2):
+    """B3's inputs over layer L - 1 of an S_max-slot int8 cache: rows (length,
+    start) each valid on [start, length), G query heads a kv head."""
+    Bq = len(rows)
+    q, kf, vf = randn(Bq, 1, Nkv * G, D), randn(Bq, Nkv, 1, D), randn(Bq, Nkv, 1, D)
+    kq = quantize_kv(randn(L, Bq, Nkv, S_max, D, dtype=torch.float32))
+    vq = quantize_kv(randn(L, Bq, Nkv, S_max, D, dtype=torch.float32))
+    sm = torch.zeros(Bq, S_max, dtype=torch.bool, device="cuda")
+    for b, (n, s0) in enumerate(rows):
+        sm[b, s0:n] = True
+    lens = torch.tensor([n for n, _ in rows], dtype=torch.int32, device="cuda")
+    return (q, kf, vf, kq.q, kq.s, vq.q, vq.s, L - 1, sm, lens)
+
+
+def int8_decode_checks(ca, quantize_kv, randn):
+    """B3 and B10 (the int8 decode body) against their plain versions at the
+    split's shapes and edges, each with the host's parts and forced to 1 and
+    3: rows of length 0, start = length, starts off a multiple of 4, a window
+    of 64, and ~1000 tokens, at G = 1 and 4; the beam cache with its prompt /
+    tail boundary inside a part, tail 0, Llama-3-8B's heads (two blocks of 2
+    beams a group) and a 1024-slot prompt. Then the timing variants: B3 at
+    Llama-3-8B's heads and over ~1000-token rows, B10 over a 1024-slot prompt,
+    each with its parts, beside SDPA over its keys dequantized to bf16 (K/V
+    repeated to the query heads at G = 4; neither timed)."""
+    import torch.nn.functional as F
+
+    from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
+
+    def compare(name, variant, fn, plain):
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        emit({"phase": "kernel_check", "kernel": name, "variant": variant, "max_abs_err": err, "tol": KERNEL_TOL})
+        check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL, f"{name} {variant}: max abs err {err}")
+
+    edge_rows = [(0, 0), (19, 19), (277, 3), (300, 236), (384, 0), (272, 5), (1, 0), (150, 149)] * 2
+    for label, Nkv, G, rows, S_max in (("edges", N, 1, edge_rows, 384), ("edges G=4", N // 4, 4, edge_rows, 384),
+                                       ("rows ~1000", N, 1, [(1000 - p, p) for p in (0, 3, 7, 15)] * 4, 1024),
+                                       ("rows ~1000 G=4", N // 4, 4, [(1000 - p, p) for p in (0, 3, 7, 15)] * 4,
+                                        1024)):
+        args = int8_plane_case(randn, quantize_kv, rows, Nkv, G, S_max)
+        for parts in (None, 1, 3):
+            compare("decode_attention_fresh_int8", f"{label}, parts {parts or 'host'}",
+                    split_forced(ca, parts, lambda a=args: ca.decode_attention_fresh_int8(*a), "int8_split_parts"),
+                    lambda a=args: ca.decode_attention_fresh_int8_plain(*a))
+    for label, kw in (("4 x 4 beams", {}), ("tail 0", dict(tlen=0)), ("tail 100", dict(tlen=100)),
+                      ("llama heads G=4", dict(Nkv=N // 4)), ("prompt 1024", dict(S_p=1024))):
+        _, _, args = beam_case(ca, quantize_kv, randn, True, **kw)
+        for parts in (None, 1, 3):
+            compare("decode_beam_attention_int8", f"{label}, parts {parts or 'host'}",
+                    split_forced(ca, parts, lambda a=args: ca.decode_beam_attention_int8(*a), "int8_split_parts"),
+                    lambda a=args: ca.decode_beam_attention_int8_plain(*a))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pads = [0, 3, 7, 15] * 4
+    # the split forced where the host does not split (each part's start and
+    # the merge launch against the extra blocks)
+    g4 = int8_plane_case(randn, quantize_kv, [(PAST, p) for p in pads], N // 4, 4, 384, L=1)
+    keys = sum(PAST - p for p in pads)
+    TIME_VARIANTS.append(dict(
+        kernel_name="decode_attention_fresh_int8", variant="llama-3-8b heads G=4, past 272 - pad, 4 parts forced",
+        parts=4, kernel=split_forced(ca, 4, lambda a=g4: ca.decode_attention_fresh_int8(*a), "int8_split_parts"),
+        library=None, bound=bound(keys * (N // 4) * (D + 4) * 2 + 2 * g4[0].numel() * 2 + 2 * g4[1].numel() * 2
+                                  + g4[8].numel() + 4, 4 * D * N * (keys + B))))
+    _, _, bargs = beam_case(ca, quantize_kv, randn, True)
+    bkeys = sum(BEAM_PROMPT - p for p in BEAM_PADS)
+    TIME_VARIANTS.append(dict(
+        kernel_name="decode_beam_attention_int8", variant=f"4 x 4 beams, {BEAM_PROMPT}-slot prompt, 4 parts forced",
+        parts=4, kernel=split_forced(ca, 4, lambda a=bargs: ca.decode_beam_attention_int8(*a), "int8_split_parts"),
+        library=None, bound=bound((bkeys + B * BEAM_TLEN) * N * (D + 4) * 2 + 4 * bargs[0].numel() * 2
+                                  + bargs[-4].numel() + 8, 4 * D * N * (BEAM_NB * bkeys + B * BEAM_TLEN + B))))
+    for variant, Nkv, past, S_max in (("llama-3-8b heads G=4 (N_kv 8), past 272 - pad", N // 4, PAST, 384),
+                                      ("past ~1000 (1000 - pad)", N, 1000, 1024),
+                                      ("llama-3-8b heads G=4, past ~1000", N // 4, 1000, 1024),
+                                      ("llama-3-8b heads G=4, past ~2000", N // 4, 2000, 2048)):
+        G = N // Nkv
+        args = int8_plane_case(randn, quantize_kv, [(past, p) for p in pads], Nkv, G, S_max, L=1)
+        q, kf, vf, kq, ks, vq, vs, li, sm, lens = args
+        kd, vd = (dequantize_kv(QuantizedKV(c[li], sc[li])) for c, sc in ((kq, ks), (vq, vs)))
+        kd[:, :, past], vd[:, :, past] = kf[:, :, 0], vf[:, :, 0]
+        kd, vd = kd.repeat_interleave(G, 1), vd.repeat_interleave(G, 1)
+        amask = sm.clone()
+        amask[:, past] = True
+        keys = sum(past - p for p in pads)
+        host = ca.int8_decode_parts(B, N, Nkv, S_max, sms)
+        # over ~1000 keys and more also the other side of the split: 1 part
+        # where the host splits, 2 where it does not
+        for parts in (None, 1 if host > 1 else 2) if S_max > 1000 else (None,):
+            TIME_VARIANTS.append(dict(
+                kernel_name="decode_attention_fresh_int8",
+                variant=variant + (f", {parts} part{'s' * (parts > 1)} forced" if parts else ""),
+                parts=parts or host,
+                kernel=split_forced(ca, parts, lambda a=args: ca.decode_attention_fresh_int8(*a), "int8_split_parts"),
+                library=lambda a=(q.transpose(1, 2), kd, vd, amask[:, None, None, :]):
+                    F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3]),
+                bound=bound(keys * Nkv * (D + 4) * 2 + 2 * q.numel() * 2 + 2 * kf.numel() * 2 + sm.numel() + 4,
+                            4 * D * N * (keys + B))))
+
+    def beam_bound(args, S_p, Nkv, prompt_reads=1):
+        """B10's bound over ``args``: each group's prompt read ``prompt_reads``
+        times, each beam's tail once."""
+        q, kf, pm = args[0], args[1], args[-4]
+        prompt_keys = sum(S_p - p for p in BEAM_PADS)
+        return bound((prompt_reads * prompt_keys + q.shape[0] * BEAM_TLEN) * Nkv * (D + 4) * 2
+                     + (2 * q.numel() + 2 * kf.numel()) * 2 + pm.numel() + 8,
+                     4 * D * N * (BEAM_NB * prompt_keys + q.shape[0] * BEAM_TLEN + q.shape[0]))
+
+    S_p = 1024
+    kernel, _, args = beam_case(ca, quantize_kv, randn, True, S_p=S_p)  # layer 1 of 2
+    q, kf, vf = args[:3]
+    Bq = q.shape[0]
+    group = torch.arange(Bq, device="cuda") // BEAM_NB
+    kp, vp, kt, vt = (dequantize_kv(QuantizedKV(c[1], sc[1])) for c, sc in zip(args[3:11:2], args[4:11:2]))
+    k_all, v_all = torch.cat([kp[group], kt, kf], dim=2), torch.cat([vp[group], vt, vf], dim=2)
+    pm = args[-4]
+    tail_ok = (torch.arange(kt.shape[2], device="cuda") < BEAM_TLEN)[None].expand(Bq, kt.shape[2])
+    amask = torch.cat([pm[group], tail_ok, torch.ones(Bq, 1, dtype=torch.bool, device="cuda")], 1)[:, None, None]
+    host = ca.int8_beam_plan(Bq, BEAM_NB, N, N, S_p, kt.shape[2], sms)[1]
+    for parts in (None, 1 if host > 1 else 2):  # the host's choice, then the other side of the split
+        TIME_VARIANTS.append(dict(
+            kernel_name="decode_beam_attention_int8",
+            variant=f"4 x 4 beams, {S_p}-slot prompt, tail {BEAM_TLEN}"
+                    + (f", {parts} part{'s' * (parts > 1)} forced" if parts else ""),
+            parts=parts or host,
+            kernel=split_forced(ca, parts, lambda: kernel(*args), "int8_split_parts"),
+            library=lambda a=(q.transpose(1, 2), k_all, v_all, amask): F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=a[3]),
+            bound=beam_bound(args, S_p, N)))
+    # Llama-3-8B's heads (G = 4): a block holds INT8_QUERIES queries, so two
+    # blocks share a group's 16 and each reads its prompt; the bound counts the
+    # prompt once, and ``bound_ms_prompt_per_block`` once a block of beams
+    bpc, parts = ca.int8_beam_plan(Bq, BEAM_NB, N, N // 4, BEAM_PROMPT, kt.shape[2], sms)
+    _, _, largs = beam_case(ca, quantize_kv, randn, True, Nkv=N // 4)
+    TIME_VARIANTS.append(dict(
+        kernel_name="decode_beam_attention_int8",
+        variant=f"llama-3-8b heads G=4 (N_kv 8), 4 x 4 beams, {BEAM_PROMPT}-slot prompt, {bpc} beams a block",
+        parts=parts, kernel=lambda: ca.decode_beam_attention_int8(*largs), library=None,
+        bound=beam_bound(largs, BEAM_PROMPT, N // 4),
+        extra={"bound_ms_prompt_per_block": beam_bound(largs, BEAM_PROMPT, N // 4, -(-BEAM_NB // bpc))[0]}))
 
 
 def int4pack_call(codes, s, z=None):
@@ -1314,7 +1556,8 @@ def matmul_kernel_times(cm, quantize_act, rows) -> None:
     the kernels line."""
     stacked = (c for c in stacked_cases(cm, quantize_act) if c["shape"] == "wqkv" and c["variant"] == "g128")
     for c in itertools.chain(matmul_cases(cm, quantize_act), stacked):
-        t = dict(ms=device_ms(c["kernel"]), event_ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
+        t = dict(ms=kernel_trace(c["name"], c["kernel"])[0], event_ms=event_ms(c["kernel"]),
+                 host_us=host_us(c["kernel"]),
                  plain_ms=device_ms(c["plain"]), library_ms=c["library"] and device_ms(c["library"]),
                  other_function_ms=device_ms(c["other"]), bound_ms=c["bound"][0], bound_by=c["bound"][1])
         emit({"phase": "kernel_time", "kernel": c["name"], "variant": c["variant"], "M": c["M"],
@@ -1340,12 +1583,14 @@ def int_mm_layout() -> None:
               "col_major_ms": device_ms(lambda: torch._int_mm(xq, w_col))})
 
 
-def kernel_times(rows) -> None:
+def kernel_times(ca, rows) -> None:
     """Device times of each kernel, its plain version and the library call, and
     the wrapper's host time. Runs last: a profiler session leaves the process's
-    launches slower (measured on the card: eager decode loses ~40% after one)."""
+    launches slower (measured on the card: eager decode loses ~40% after one).
+    The kernel's time is its checked trace's (kernel_trace); the events' time
+    beside it is a cross-check that includes the host's gaps."""
     for name, r in rows.items():
-        r["ms"] = device_ms(r["kernel"])
+        r["ms"], traced = kernel_trace(name, r["kernel"], own_launches(ca, r["kernel"]))
         r["event_ms"] = event_ms(r["kernel"])
         r["host_us"] = host_us(r["kernel"])
         r["plain_ms"] = device_ms(r["plain"])
@@ -1355,20 +1600,22 @@ def kernel_times(rows) -> None:
             # that misses kernels (none at all where a library launches a CUDA
             # graph; the fused MLP's torch chain once read 0.039 ms against its
             # 0.105 ms bound) reads under the bound, and the events measure it
-            prof_ms, traced = device_trace(r["library"])
+            prof_ms, lib_traced = device_trace(r["library"])
             ev_ms = event_ms(r["library"])
             below = prof_ms < r["bound"][0]
             lib = dict(library_ms=ev_ms if below else prof_ms, library_timed_by="events" if below else "profiler",
-                       library_profiler_ms=prof_ms, library_event_ms=ev_ms, library_kernels_traced=traced)
+                       library_profiler_ms=prof_ms, library_event_ms=ev_ms, library_kernels_traced=lib_traced)
         r["library_ms"] = lib["library_ms"]
-        emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "event_ms": r["event_ms"], "host_us": r["host_us"],
+        emit({"phase": "kernel_time", "kernel": name, "ms": r["ms"], "kernels_traced": traced,
+              "event_ms": r["event_ms"], "host_us": r["host_us"],
               "plain_ms": r["plain_ms"], **lib,
               "library_kind": r.get("library_kind", "one call"), "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
-    for v in TIME_VARIANTS:  # the flash body at its other shapes: kernel (both launches of a split) and SDPA
+    for v in TIME_VARIANTS:  # the kernels at their other shapes: kernel (both launches of a split) and library
         lib = {"library_ms": device_ms(v["library"]), "library_event_ms": event_ms(v["library"])} if v["library"] else {}
+        ms, traced = kernel_trace(v["kernel_name"], v["kernel"], own_launches(ca, v["kernel"]))
         emit({"phase": "kernel_time", "kernel": v["kernel_name"], "variant": v["variant"], "parts": v["parts"],
-              "ms": device_ms(v["kernel"]), "event_ms": event_ms(v["kernel"]), **lib, "bound_ms": v["bound"][0],
-              "bound_by": v["bound"][1]})
+              "ms": ms, "kernels_traced": traced, "event_ms": event_ms(v["kernel"]), **lib,
+              "bound_ms": v["bound"][0], "bound_by": v["bound"][1], **v.get("extra", {})})
 
 
 # ---------------------------------------------------------------------------
@@ -2354,7 +2601,8 @@ def beam_phase(ca, cm, cfg, prompts, tree):
     """Every BEAM configuration at OPT-6.7B full width and depth (one fused bf16
     tree on the card for the resident ones, the pageable host tree for the
     tiered ones), then scoring, resident and tier-h50-p3. Returns (launches by
-    configuration, the median wall of beam-nb4, its prompts)."""
+    configuration, the median walls of beam-nb4 and beam-nb4-int8kv, their
+    prompts)."""
     from lia_tpu_torch.config import QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.ops.fuse import fuse_projections
@@ -2387,7 +2635,7 @@ def beam_phase(ca, cm, cfg, prompts, tree):
     diff = float(np.abs(ll - ll_t).max())
     emit({"phase": "score_vs_tiered", "max_abs_diff": diff, "max_abs_ll": float(np.abs(ll).max())})
     check(diff <= 1e-3 * float(np.abs(ll).max()), f"score: resident and tiered sums differ by {diff}")
-    return launches, walls["beam-nb4"], bprompts
+    return launches, {name: walls[name] for name in ("beam-nb4", "beam-nb4-int8kv")}, bprompts
 
 
 def beam_parity() -> None:
@@ -2461,17 +2709,17 @@ def beam_parity() -> None:
     torch.cuda.empty_cache()
 
 
-def beam_breakdown(ca, cfg, prompts, wall_s: float) -> None:
-    """Device time by kernel over one more beam-nb4 run under the profiler (the
-    weights made anew), and the idle share against the median wall time of
-    the unprofiled runs."""
+def beam_breakdown(ca, cfg, prompts, name: str, kv: str, wall_s: float) -> None:
+    """Device time by kernel over one more run of the grouped beam cell
+    ``name`` (KV type ``kv``) under the profiler (the weights made anew), and
+    the idle share against the median wall time of the unprofiled runs."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.utils.checkpoint import device_dummy_params
 
-    engine = InferenceEngine(cfg, device_dummy_params(cfg, seed=0))
+    engine = InferenceEngine(cfg, device_dummy_params(cfg, seed=0), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS, num_beams=BEAM_NB)
     engine.generate_beam(prompts, gen)  # warm-up
     torch.cuda.synchronize()
@@ -2481,7 +2729,7 @@ def beam_breakdown(ca, cfg, prompts, wall_s: float) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    emit({"phase": "device_breakdown", "config": "beam-nb4", "kv": "none", "device_busy_s": busy_s,
+    emit({"phase": "device_breakdown", "config": name, "kv": kv, "device_busy_s": busy_s,
           "wall_s": wall_s, "idle_share": 1 - busy_s / wall_s,
           "top_kernels": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3}
                           for e in top]})
@@ -2586,6 +2834,7 @@ def main() -> int:
     flash_build_report(_build, paths)
     qmatmul_build_report(_build, paths)
     paged_mlp_build_report(_build, paths)
+    int8_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)
@@ -2652,7 +2901,7 @@ def main() -> int:
     serving_parity()
     phase_time("serving")
 
-    beam_launches, beam_wall, beam_prompts = beam_phase(ca, cm, cfg, prompts, tree)
+    beam_launches, beam_walls, beam_prompts = beam_phase(ca, cm, cfg, prompts, tree)
     launches.update(beam_launches)
     beam_parity()
     phase_time("beam and score")
@@ -2671,9 +2920,10 @@ def main() -> int:
             tiered_breakdown(name, engine, prompts)
             del engine
     del tree
-    beam_breakdown(ca, cfg, beam_prompts, beam_wall)
+    for name, kv in (("beam-nb4", "none"), ("beam-nb4-int8kv", "int8")):
+        beam_breakdown(ca, cfg, beam_prompts, name, kv, beam_walls[name])
     phase_time("device breakdowns")
-    kernel_times(rows)
+    kernel_times(ca, rows)
     matmul_kernel_times(cm, quantize_act, mm_rows)
     int_mm_layout()
     phase_time("kernel times")

@@ -50,7 +50,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_decode_fresh": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
     },
     "decode_fresh_int8": {
-        "lia_decode_fresh_int8": [P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+        "lia_decode_fresh_int8": [P] * 9 + [I, P, P] + [I] * 7 + [F, I, P],
+        "lia_dec8_smem_bytes": [I, I],
+        "lia_dec8_stages": [I, I, I],
     },
     "paged_decode": {
         "lia_paged_decode": [P] * 7 + [I, P, P] + [I] * 8 + [F, I, I, P],
@@ -61,7 +63,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_beam_decode": [P] * 11 + [I] * 7 + [F, I, P],
     },
     "beam_decode_int8": {
-        "lia_beam_decode_int8": [P] * 15 + [I] * 7 + [F, I, P],
+        "lia_beam_decode_int8": [P] * 16 + [I] * 10 + [F, I, P],
+        "lia_dec8_smem_bytes": [I, I],
+        "lia_dec8_stages": [I, I, I],
     },
     "w4a8_matmul": {
         "lia_w4a8_matmul": [P] * 9 + [I] * 8 + [P],

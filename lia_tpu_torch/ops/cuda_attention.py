@@ -22,7 +22,7 @@ step or an admission never syncs with the host.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -38,6 +38,10 @@ FLASH_MAX_PARTS = 16
 PAGED_WARPS = 4  # consumer warps of a paged block (csrc/paged_attn.cuh: NWC)
 PAGED_MAX_TABLE = 256  # block-table entries one paged block stages (csrc/paged_attn.cuh: MAXP)
 PAGED_MAX_PARTS = 8
+INT8_QUERIES = 8  # queries one int8 decode block holds (csrc/decode_int8_attn.cuh: NQ)
+INT8_MAX_PARTS = 8
+INT8_PART_KEYS = 1024  # keys of a unit's longest walk a part takes at least: splits of walks
+# up to 1152 keys lost or tied on an H100 (chip_smoke.py's forced-split rows)
 
 
 def _sscale(scale: Optional[float], D: int) -> float:
@@ -465,6 +469,62 @@ def paged_split_parts(B: int, C: int, N: int, Nkv: int, P: int, sms: int) -> int
     return max(parts, -(-P // PAGED_MAX_TABLE))
 
 
+def int8_beams_a_block(nb: int, G: int) -> int:
+    """Beams of a group whose queries one int8 beam block holds: all nb where
+    their nb * G queries fit INT8_QUERIES, else as many as fit (the group's
+    prompt is then read once for each block of its beams)."""
+    return max(1, min(nb, INT8_QUERIES // G))
+
+
+def int8_split_parts(blocks: int, keys: int, sms: int) -> int:
+    """Parts into which the int8 decode kernels (B3, B10) split each unit's
+    keys: as many as keep the ``blocks`` (one a kv head and plane row, or kv
+    head, beam group and beam chunk) times the parts within four an SM (the
+    registers hold four), at most INT8_MAX_PARTS, and with each part at least
+    INT8_PART_KEYS of ``keys``, the longest walk the shapes allow (a plane's
+    slots; a prompt's slots plus a tail's): a split pays for its merge
+    launch and each part's fixed start only over long walks. The host never
+    reads a length, so a wide slab of short rows splits too: the device then
+    cuts each row's few keys into parts. chip_smoke.py times the host's
+    choice beside the split forced the other way at 272 keys, over ~1000
+    (B3 at G = 1 and 4, B10 over a 1024-slot prompt) and over ~2000 (B3 at
+    G = 4)."""
+    return max(1, min(4 * sms // blocks, INT8_MAX_PARTS, keys // INT8_PART_KEYS))
+
+
+def int8_decode_parts(B: int, N: int, Nkv: int, S_max: int, sms: int) -> int:
+    """B3's parts: its blocks are one a (kv head, row), the walk at most the
+    plane's S_max slots."""
+    return int8_split_parts(Nkv * B, S_max, sms)
+
+
+def int8_beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int) -> Tuple[int, int]:
+    """B10's (beams a block, parts): its blocks are one a (kv head, group,
+    chunk of beams), the walk at most the prompt's S_p slots and a tail's
+    T_max."""
+    bpc = int8_beams_a_block(nb, N // Nkv)
+    return bpc, int8_split_parts(Nkv * (B // nb) * -(-nb // bpc), S_p + T_max, sms)
+
+
+_int8_workspaces = {}
+
+
+def _int8_workspace(dev: int, stream: int, floats: int) -> torch.Tensor:
+    """The split's fp32 partials (every one written before it is read: no
+    zeroing). An eager call takes its (device, stream)'s workspace, grown when
+    a call needs more: the launches of one stream run in turn and never hold
+    it at once. A call captured into a CUDA graph takes one of its own, which
+    the graph holds, so a replay shares nothing with eager calls or other
+    graphs."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(floats, dtype=torch.float32, device=f"cuda:{dev}")
+    ws = _int8_workspaces.get((dev, stream))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=f"cuda:{dev}")
+        _int8_workspaces[dev, stream] = ws
+    return ws
+
+
 def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     """Causal GQA flash attention over a left-padded prompt → [B, S, N, D]."""
     if q.device.type == "cpu":
@@ -630,7 +690,9 @@ def decode_attention_fresh_int8(
     """Fresh-merge decode attention over an INT8 stacked cache (codes [L, B, N_kv,
     S_max, D] int8, scales [L, B, N_kv, S_max] f32). The fresh k/v come
     unquantized, in q's type; the kernel takes them through their int8 round
-    trip itself."""
+    trip itself. Where the (kv head, row) blocks fill the card poorly, each
+    row's keys split into :func:`int8_split_parts` parts and a second launch
+    merges them (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_fresh_int8_plain(
             q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale
@@ -649,17 +711,33 @@ def decode_attention_fresh_int8(
     if (ks.dtype is not torch.float32 or vs.dtype is not torch.float32
             or ks.shape != kq.shape[:-1] or vs.shape != ks.shape):
         raise ValueError("ks/vs must be float32 [L, B, N_kv, S_max]")
+    vecs = q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr()
+    planes = [_layer_ptr(t, layer_idx) for t in (kq, ks, vq, vs)]
+    _int8_aligned(*vecs, planes[0], planes[2])
+    dev = q.get_device()
+    sms = _sms(dev)
+    parts = int8_decode_parts(B, N, Nkv, S_max, sms)
+    ws = _int8_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("decode_fresh_int8").lia_decode_fresh_int8(
-        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
-        _layer_ptr(kq, layer_idx), _layer_ptr(ks, layer_idx),
-        _layer_ptr(vq, layer_idx), _layer_ptr(vs, layer_idx),
-        slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
-        B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
+        *vecs, *planes, slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, parts, B, N, Nkv, S_max, D, sms, _sscale(scale, D), is_bf16,
+        stream,
     )
     _raise_on(rc, "decode_attention_fresh_int8")
     decode_attention_fresh_int8.launches += 1
+    decode_attention_fresh_int8.split_launches += int(parts > 1)
     return out
+
+
+def _int8_aligned(*ptrs: int) -> None:
+    """The int8 kernels copy code rows and load q and the fresh k/v in 16-byte
+    words: ``ptrs`` are the addresses they get (a cache's at its layer)."""
+    acc = 0
+    for p in ptrs:
+        acc |= p
+    if acc % 16:
+        raise ValueError("q, the fresh k/v and the int8 caches' codes must be 16-byte aligned")
 
 
 def _beam_checks(q, k_fresh, v_fresh, prompt_shape, tail_shape, prompt_mask, lens, nb):
@@ -721,7 +799,11 @@ def decode_beam_attention_int8(
 ):
     """Grouped-beam decode attention over INT8 prompt and tail caches (codes
     int8 [L, ·, N_kv, S, D], scales f32 [L, ·, N_kv, S]). The fresh k/v come
-    already dequantized, in q's type."""
+    already dequantized, in q's type. One block holds the queries of
+    :func:`int8_beams_a_block` beams of a group, so a group's prompt is read
+    once for them; where those blocks fill the card poorly, each group's keys
+    split into :func:`int8_split_parts` parts and a second launch merges them
+    (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_beam_attention_int8_plain(
             q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len,
@@ -740,16 +822,23 @@ def decode_beam_attention_int8(
     if kpq.dim() != 5 or vpq.shape != kpq.shape or vtq.shape != ktq.shape:
         raise ValueError("prompt and tail caches must be [L, ·, N_kv, S, D] pairs")
     _beam_checks(q, k_fresh, v_fresh, kpq.shape, ktq.shape, prompt_mask, (plen, tlen), nb)
+    vecs = q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr()
+    planes = [_layer_ptr(t, layer_idx) for t in (kpq, kps, vpq, vps, ktq, kts, vtq, vts)]
+    _int8_aligned(*vecs, *planes[::2])
     Nkv, S_p, T_max = kpq.shape[2], kpq.shape[3], ktq.shape[3]
+    dev = q.get_device()
+    sms = _sms(dev)
+    bpc, parts = int8_beam_plan(B, nb, N, Nkv, S_p, T_max, sms)
+    ws = _int8_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("beam_decode_int8").lia_beam_decode_int8(
-        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
-        *(_layer_ptr(t, layer_idx) for t in (kpq, kps, vpq, vps, ktq, kts, vtq, vts)),
-        prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
-        B, nb, N, Nkv, S_p, T_max, D, _sscale(scale, D), is_bf16, stream,
+        *vecs, *planes, prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, parts, bpc,
+        B, nb, N, Nkv, S_p, T_max, D, sms, _sscale(scale, D), is_bf16, stream,
     )
     _raise_on(rc, "decode_beam_attention_int8")
     decode_beam_attention_int8.launches += 1
+    decode_beam_attention_int8.split_launches += int(parts > 1)
     return out
 
 
@@ -811,7 +900,8 @@ KERNELS = (
     decode_attention, decode_attention_stacked, flash_attention_cached, paged_decode_attention,
     decode_beam_attention, decode_beam_attention_int8,
 )
-SPLIT_KERNELS = (flash_attention_prefill, flash_attention_cached, paged_decode_attention)
+SPLIT_KERNELS = (flash_attention_prefill, flash_attention_cached, paged_decode_attention,
+                 decode_attention_fresh_int8, decode_beam_attention_int8)
 
 
 def reset_launch_counts() -> None:
@@ -832,5 +922,5 @@ def launch_counts() -> dict:
 
 
 def split_counts() -> dict:
-    """The flash and paged wrappers' calls so far that split their walks (parts > 1)."""
+    """The splitting wrappers' calls so far that split their walks (parts > 1)."""
     return {fn.__name__: fn.split_launches for fn in SPLIT_KERNELS}

@@ -1177,3 +1177,191 @@ def test_fused_mlp_route_on_an_fp32_card_model_raises(cuda):
         assert cuda_mlp.fused_mlp.launches == before
     finally:
         dispatch.set_fused_mlp(False)
+
+
+# ---------------------------------------------------------------------------
+# the int8 decode body (B3 decode_attention_fresh_int8, B10 decode_beam_attention_int8)
+# ---------------------------------------------------------------------------
+
+# (length, start) of plane rows: empty, start = length, a start off a multiple
+# of 4, a window, rows over several ring stages, one key, a full row
+INT8_ROWS = [(0, 0), (19, 19), (37, 3), (45, 37), (200, 5), (1, 0), (333, 0)]
+
+
+def _int8_parts(monkeypatch, parts):
+    """The int8 decode kernels' split forced to ``parts`` (None: the host's own choice)."""
+    if parts is not None:
+        monkeypatch.setattr(ca, "int8_split_parts", lambda *a: parts)
+
+
+def _int8_plane(gen, dtype, rows, Nkv, G, D, S_max, L=2):
+    """B3's arguments over layer 1 of an int8 cache, row b valid on [start, length)."""
+    B = len(rows)
+    q = _randn(gen, B, 1, Nkv * G, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
+    kc = quantize_kv(_randn(gen, L, B, Nkv, S_max, D, dtype=torch.float32))
+    vc = quantize_kv(_randn(gen, L, B, Nkv, S_max, D, dtype=torch.float32))
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device="cuda")
+    for b, (n, s0) in enumerate(rows):
+        sm[b, s0:n] = True
+    lens = torch.tensor([n for n, _ in rows], dtype=torch.int32, device="cuda")
+    return (q, kf, vf, kc.q, kc.s, vc.q, vc.s, 1, sm, lens)
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3, 8])
+@pytest.mark.parametrize("S_max", [384, 387])  # 387: scale rows off 16-byte boundaries
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,Nkv", [(1, 128, 2), (4, 128, 2), (2, 64, 2), (8, 64, 1), (4, 128, 8)])
+def test_int8_decode_split_matches_plain(cuda, monkeypatch, G, D, Nkv, dtype, S_max, parts):
+    """B3 at the plan test's edges (a row with no key gives the fresh token's
+    value), the split off and forced on; one launch a call, a split counted."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    args = _int8_plane(gen, dtype, INT8_ROWS, Nkv, G, D, S_max)
+    used = parts or ca.int8_decode_parts(len(INT8_ROWS), Nkv * G, Nkv, S_max,
+                                         torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _int8_parts(monkeypatch, parts)
+    fn = ca.decode_attention_fresh_int8
+    before, splits = fn.launches, fn.split_launches
+    out = fn(*args)
+    assert fn.launches == before + 1 and fn.split_launches == splits + (used > 1)
+    torch.testing.assert_close(out.float(), ca.decode_attention_fresh_int8_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# (plen, group starts, tlen, T_max): the prompt/tail boundary inside a part, a
+# group with no prompt key and no tail, a full tail, long prompts
+INT8_BEAMS = [(12, (2, 0, 11), 3, 8), (16, (3, 16, 0), 0, 8), (61, (0, 13, 60), 32, 32), (256, (0, 100, 7), 16, 128)]
+
+
+def _int8_beam(gen, dtype, case, nb, Nkv, G, D, L=2):
+    plen, starts, tlen, T_max = case
+    B0 = len(starts)
+    S_p = max(plen, 16)
+    B = B0 * nb
+    q = _randn(gen, B, 1, Nkv * G, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
+    pm = torch.zeros(B0, S_p, dtype=torch.bool, device="cuda")
+    for g, p in enumerate(starts):
+        pm[g, p:plen] = True
+    planes = [x for rows, S in ((B0, S_p), (B, T_max)) for _ in range(2)
+              for x in quantize_kv(_randn(gen, L, rows, Nkv, S, D, dtype=torch.float32))]
+    return (q, kf, vf, *planes, 1, pm, torch.tensor(plen, dtype=torch.int32, device="cuda"),
+            torch.tensor(tlen, dtype=torch.int32, device="cuda"), nb)
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3, 8])
+@pytest.mark.parametrize("case", INT8_BEAMS, ids=["boundary", "empty group", "full tail", "long prompt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,G,D", [(4, 1, 128), (3, 2, 64), (4, 4, 128), (2, 8, 64)])
+def test_int8_beam_split_matches_plain(cuda, monkeypatch, nb, G, D, dtype, case, parts):
+    """B10 at the plan test's edges, all of a group's beams in one block (or,
+    past 8 queries, in several), the split off and forced on."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    args = _int8_beam(gen, dtype, case, nb, 2, G, D)
+    _int8_parts(monkeypatch, parts)
+    fn = ca.decode_beam_attention_int8
+    before = fn.launches
+    out = fn(*args)
+    assert fn.launches == before + 1
+    torch.testing.assert_close(out.float(), ca.decode_beam_attention_int8_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _int8_entries(gen):
+    """B3 at Llama-3-8B's heads and B10 at 4 x 4 beams (bf16), as zero-argument calls."""
+    plane = _int8_plane(gen, torch.bfloat16, INT8_ROWS, 8, 4, 128, 384)
+    beam = _int8_beam(gen, torch.bfloat16, INT8_BEAMS[3][:3] + (128,), 4, 4, 1, 128)
+    return {"B3": (lambda: ca.decode_attention_fresh_int8(*plane), plane),
+            "B10": (lambda: ca.decode_beam_attention_int8(*beam), beam)}
+
+
+@pytest.mark.parametrize("parts", [None, 1, 4])
+@pytest.mark.parametrize("entry", ["B3", "B10"])
+def test_int8_decode_reruns_are_bit_identical(cuda, monkeypatch, entry, parts):
+    """The sums run in a fixed order: the same inputs give the same bits."""
+    _int8_parts(monkeypatch, parts)
+    fn, _ = _int8_entries(torch.Generator(device=cuda).manual_seed(33))[entry]
+    first = fn()
+    for _ in range(3):
+        assert torch.equal(fn(), first)
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("entry", ["B3", "B10"])
+def test_int8_decode_graph_replay_equals_eager(cuda, monkeypatch, entry, parts):
+    """The call (and with a split, its merge launch) captured once in a CUDA
+    graph and replayed on new queries and lengths equals the eager call on
+    them: lengths are read on the device, and the captured split keeps a
+    workspace of its own that needs no memset."""
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    _int8_parts(monkeypatch, parts)
+    fn, args = _int8_entries(gen)[entry]
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    args[0].copy_(_randn(gen, *args[0].shape, dtype=torch.bfloat16))
+    if entry == "B3":
+        args[-1].copy_(torch.tensor([300, 0, 64, 2, 45, 384, 17], dtype=torch.int32))
+    else:
+        args[-2].copy_(torch.tensor(9, dtype=torch.int32))  # tail length
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
+
+
+@pytest.mark.parametrize("entry", ["B3", "B10"])
+def test_int8_decode_streams_do_not_share_a_workspace(cuda, monkeypatch, entry):
+    """Split calls on two streams at once each take their stream's workspace,
+    and give what one stream gives alone."""
+    _int8_parts(monkeypatch, 4)
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    (fa, _), (fb, _) = _int8_entries(gen)[entry], _int8_entries(gen)[entry]
+    ref_a, ref_b = fa(), fb()
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(8):
+        for st, fn in zip(streams, (fa, fb)):
+            with torch.cuda.stream(st):
+                outs.append(fn())
+    torch.cuda.synchronize()
+    dev = torch.cuda.current_device()
+    ws = [ca._int8_workspaces[dev, st.cuda_stream] for st in streams]
+    assert ws[0].data_ptr() != ws[1].data_ptr()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, ref_a if i % 2 == 0 else ref_b)
+
+
+def test_int8_decode_wrappers_raise_on_the_card(cuda):
+    """What the int8 kernels do not take raises on a CUDA tensor; nothing falls back."""
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    args = list(_int8_plane(gen, torch.bfloat16, INT8_ROWS, 2, 1, 128, 384))
+    args[3] = args[3].view(torch.uint8).view(torch.int8)[..., :64].contiguous()  # D mismatch
+    with pytest.raises(ValueError):
+        ca.decode_attention_fresh_int8(*args)
+    args = list(_int8_plane(gen, torch.bfloat16, INT8_ROWS, 2, 1, 128, 384))
+    misaligned = torch.empty(args[3].numel() + 1, dtype=torch.int8, device=cuda)[1:].view(args[3].shape)
+    misaligned.copy_(args[3])
+    args[3] = misaligned  # codes off 16 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        ca.decode_attention_fresh_int8(*args)
+
+
+def test_int8_decode_takes_scales_at_any_offset(cuda):
+    """Scales are copied 4 bytes at a time: a scale tensor 4 bytes off a
+    16-byte boundary gives the plain version's output."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    args = list(_int8_plane(gen, torch.bfloat16, INT8_ROWS, 2, 1, 128, 387))
+    for i in (4, 6):
+        shifted = torch.empty(args[i].numel() + 1, dtype=torch.float32, device=cuda)[1:].view(args[i].shape)
+        shifted.copy_(args[i])
+        args[i] = shifted
+    torch.testing.assert_close(ca.decode_attention_fresh_int8(*args).float(),
+                               ca.decode_attention_fresh_int8_plain(*args).float(), rtol=2e-2, atol=2e-2)
