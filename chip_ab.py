@@ -8,7 +8,8 @@ cold) taken first: ``matmul``, the quantized-matmul entry points
 ``woq4z_matmul``) at OPT-6.7B's wqkv, fc2 and head with 16 and 4096 rows;
 ``flash``, B1 (b16 s256) and B6 (a 256-row chunk at base 768); ``decode``,
 B2 (``decode_attention_fresh``), B7/B8 (``decode_attention`` and its stacked
-entry) and B9 (``decode_beam_attention``) at chip_smoke's table shapes;
+entry) at chip_smoke's table shapes and B9 (``decode_beam_attention``) at 4 x
+4 beams over a 256- and a 1024-slot prompt and at Llama-3-8B's heads;
 ``paged``, B5 (``paged_decode_attention``: b16 over lengths 272 - pad, also
 at Llama-3-8B's G = 4 and over rows of ~1000 tokens); ``mlp``, B14
 (``fused_mlp``: Llama-3-8B's SwiGLU and OPT-6.7B's relu at 16 rows, and at 1
@@ -24,7 +25,8 @@ OPT-6.7B with bf16 weights, bench.py's w4a8+int8kv and weight-only int4
 g128; ``gates``, OPT-6.7B bf16 and Llama-3-8B with unfused projections, each
 with the fused-MLP gate off and on in turns on one engine; ``int8kv``,
 OPT-6.7B bf16 weights and Llama-3-8B with int8 KV, then beam-nb4-int8kv
-(``generate_beam``, 4 prompts x 4 beams: prefill ms and decode row-tokens/s). Then the serving
+(``generate_beam``, 4 prompts x 4 beams: prefill ms and decode row-tokens/s);
+``beam``, beam-nb4 (the same with bf16 KV: B9 at every decode step). Then the serving
 cells serve-paged-chunk256 and serve-paged (64 requests through a
 ContinuousBatcher, as chip_smoke's serving phase, each ``--serving-repeats``
 times in turns; ``--serving-repeats 0`` skips them). Every line chip_smoke prints carries
@@ -53,7 +55,7 @@ import sys
 from pathlib import Path
 
 KERNEL_GROUPS = ("matmul", "flash", "decode", "paged", "mlp", "int8", "host")
-MAIN_PATHS = ("quantized", "gates", "int8kv")
+MAIN_PATHS = ("quantized", "gates", "int8kv", "beam")
 SERVING_CELLS = ("serve-paged-chunk256", "serve-paged")
 
 
@@ -129,8 +131,10 @@ def kernel_times(cs, ca, cm, groups) -> None:
         emit("decode_attention", "b16 273-pad", cs.B, lambda: ca.decode_attention(qd, kc[li], vc[li], sm_inc, ln_inc))
         emit("decode_attention_stacked", "b16 273-pad", cs.B,
              lambda: ca.decode_attention_stacked(qd, kc, vc, li, sm_inc, ln_inc))
-        kernel, _, args = cs.beam_case(ca, quantize_kv, randn, False)
-        emit("decode_beam_attention", "4 x 4 beams", cs.B, lambda: kernel(*args))
+        for shape, kw in (("4 x 4 beams", {}), ("4 x 4 beams, 1024-slot prompt", dict(S_p=1024)),
+                          ("llama G4 4 x 4 beams", dict(Nkv=cs.N // 4))):
+            kernel, _, args = cs.beam_case(ca, quantize_kv, randn, False, **kw)
+            emit("decode_beam_attention", shape, cs.B, lambda k=kernel, a=args: k(*a))
     if "paged" in groups:
         for shape, lengths, G in (("b16 272-pad", [cs.PAST - p for p in dpads], 1),
                                   ("llama G4 b16 272-pad", [cs.PAST - p for p in dpads], 4),
@@ -317,6 +321,16 @@ def main() -> int:
                                  RuntimeConfig(quant=QuantConfig(kv_cache_dtype="int8")))
         bprompts = [p[:n] for p, n in zip(prompts, cs.BEAM_PROMPT_LENS)]
         cs.beam_path(ca, cm, f"{label}: beam-nb4-int8kv", cfg, engine, bprompts, "int8", True, False, True, None)
+        del engine
+        torch.cuda.empty_cache()
+
+    if "beam" in paths:
+        from lia_tpu_torch.config import RuntimeConfig
+        from lia_tpu_torch.engine.engine import InferenceEngine
+
+        engine = InferenceEngine(cfg, fuse_projections(cfg, device_dummy_params(cfg, seed=0)), RuntimeConfig())
+        bprompts = [p[:n] for p, n in zip(prompts, cs.BEAM_PROMPT_LENS)]
+        cs.beam_path(ca, cm, f"{label}: beam-nb4", cfg, engine, bprompts, "none", True, False, True, None)
         del engine
         torch.cuda.empty_cache()
 

@@ -6,9 +6,9 @@ Phases, each printing one JSON line per item:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
-   the flash, quantized-matmul, paged-decode, fused-MLP and int8-decode
-   libraries' kernels as ptxas built them (registers, spills: none allowed)
-   and their blocks' dynamic shared memory (and ring stages);
+   the flash, quantized-matmul, paged-decode, fused-MLP, int8-decode and bf16
+   beam libraries' kernels as ptxas built them (registers, spills: none
+   allowed) and their blocks' dynamic shared memory (and ring stages);
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
@@ -22,7 +22,9 @@ Phases, each printing one JSON line per item:
    a short suffix that the host splits (C=48 at base 960, also at G = 4 with a
    window); grouped-beam decode,
    bf16 and int8, over 4 groups of 4 beams with a 256-slot prompt (group pads
-   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0); the
+   0/7/31/100) and a 16-token tail, also at G = 4, D = 64 and tail 0; B9's
+   bf16 body also at tail 32, G = 8 (32 queries a group) and over a 1024-slot
+   prompt, each with the host's parts and forced to 1 and 3); the
    int8 decode body (B3, B10) with the host's split and forced to 1 and 3
    parts: B3 over rows of length 0, start = length, starts off 4, a window
    and ~1000 tokens at G = 1 and 4, B10 with tails of 0, 16 and 100, at
@@ -112,10 +114,13 @@ Phases, each printing one JSON line per item:
    of llama-3-8b with bf16 KV under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
-   attention per step; one more beam-nb4 and beam-nb4-int8kv run each;
+   attention per step; one more beam-nb4 and beam-nb4-int8kv run each (with
+   every launch of the port's kernels: the beam kernel's device ms a run);
 10. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 20 calls, L2 flushed before
-   each, after a discarded warm-up step; each kernel's mean over the
+   each, the flush's own events (traced once alone: its argmax and memset)
+   left out, and none of their names launched by a wrapper, after a
+   discarded warm-up step; each kernel's mean over the
    launches traced; a kernel's trace must hold each of its launches in at
    least three quarters of the calls, else it is taken again and, after
    five, the run fails; the kernel's time also from CUDA events, as a
@@ -134,8 +139,11 @@ Phases, each printing one JSON line per item:
    ~1000-token rows and B10 over a 1024-slot prompt, with their parts and
    SDPA's time over the keys dequantized, each over ~1000 keys (B3 at G = 4
    also ~2000) also with the split forced the other way, and B10 at
-   Llama-3-8B's heads (two blocks a group); the fused MLP at OPT-6.7B's relu
-   (16 rows, biases) beside its unfused chain.
+   Llama-3-8B's heads (two blocks a group); B9 at Llama-3-8B's heads (16
+   queries a block), D = 64, tail 0, over a 1024-slot prompt at both heads,
+   with its parts and SDPA's time, and each split shape with the split forced
+   the other way; the fused MLP at OPT-6.7B's relu (16 rows, biases) beside
+   its unfused chain.
    Profiling comes last because a profiler session slows the process's later
    launches.
 
@@ -285,26 +293,51 @@ _flush_buf = None
 def _flush() -> None:
     """Read 256 MB, so the next launch finds its inputs outside the 50 MB L2, as
     the decode loop does (each layer's cache plane and weights are cold when the
-    step reaches them). A read leaves no dirty lines to write back, and argmax
-    is a kernel none of the timed functions launches, so its trace is dropped
-    by name."""
+    step reaches them). A read leaves no dirty lines to write back. Every event
+    it launches (the argmax kernel, and the memset that clears the reduction's
+    semaphores) is dropped from a trace by name (flush_events)."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     _flush_buf.argmax()
 
 
+_FLUSH_EVENTS = []
+
+
+def flush_events() -> dict:
+    """The device events one _flush() launches, name -> launches a flush, from
+    a trace of the flush alone (taken once, and printed): device_trace leaves
+    them out of a call's time."""
+    if not _FLUSH_EVENTS:
+        from torch.profiler import ProfilerActivity, profile
+
+        _flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                _flush()
+            torch.cuda.synchronize()
+        events = {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+        emit({"phase": "flush_events", "calls": REPS, "events": events})
+        check(any("ArgMax" in k for k in events), f"the flush's trace holds no argmax kernel: {events}")
+        _FLUSH_EVENTS.append({k: c / REPS for k, c in events.items()})
+    return _FLUSH_EVENTS[0]
+
+
 def device_trace(fn):
     """Device time of one call of ``fn`` (every kernel it launches), L2 cold,
     from the profiler's trace of REPS (flush, fn) pairs without the flush's
-    kernel; with the launches the trace holds per call, by name. The trace
-    starts with a warm-up step whose events are dropped. It still loses
-    launches now and then, whole (flush, fn) pairs at a time (seen on the
-    card: 19 or 18 of 20 calls, for some shapes in every trace, and once
-    none), so trace_time takes each kernel's mean over the launches traced.
-    Host time between launches is not in it (see host_us)."""
+    events (flush_events); with the launches the trace holds per call, by name
+    (the flush's among them). The trace starts with a warm-up step whose
+    events are dropped. It still loses launches now and then, whole (flush,
+    fn) pairs at a time (seen on the card: 19 or 18 of 20 calls, for some
+    shapes in every trace, and once none), so trace_time takes each kernel's
+    mean over the launches traced. Host time between launches is not in it
+    (see host_us)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    flush = flush_events()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -315,8 +348,10 @@ def device_trace(fn):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    return trace_time([e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and "ArgMax" not in e.key])
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms, _ = trace_time([e for e in events if e.key not in flush])
+    _, per_call = trace_time(events)
+    return ms, per_call
 
 
 def trace_time(events):
@@ -337,7 +372,7 @@ def device_ms(fn) -> float:
 
 
 # the port's own kernels in a trace, by their CUDA names (csrc/*.cu, *.cuh)
-OWN_KERNEL = re.compile(r"lia_(dec8?|flash|paged|qmm)::|fused_mlp_kernel")
+OWN_KERNEL = re.compile(r"lia_(dec8?|flash|paged|qmm|beam)::|fused_mlp_kernel")
 TRACE_TRIES = 5
 
 
@@ -355,10 +390,15 @@ def kernel_trace(name: str, fn, launches=None):
     calls, a whole number of times a call, ``launches`` of them in all (at
     least one where None). A trace that missed more is taken again, up to
     TRACE_TRIES times, and the run fails if every trace misses. Other events
-    are not held to a count: the flush's reduction clears its semaphores with
-    a memset, and the trace drops some of those too."""
+    are not held to a count (the trace drops some of the flush's memsets
+    too), but no event of a name the flush launches may show more than once a
+    call: the wrappers zero their tickets and workspaces once, not per call,
+    and a launch of such a name would fall out of the kernel's time."""
+    flush = {k[:80]: n for k, n in flush_events().items()}  # trace_time's names
     for attempt in range(TRACE_TRIES):
         ms, traced = device_trace(fn)
+        extra = {k: c for k, c in traced.items() if k in flush and c > flush[k] + 0.5}
+        check(not extra, f"{name}: the call launches events the flush's are dropped as: {extra}")
         own = [c for k, c in traced.items() if OWN_KERNEL.search(k)]
         kept = all(round(c) >= 1 and abs(c - round(c)) <= 0.25 for c in own)
         n = sum(round(c) for c in own)
@@ -551,6 +591,47 @@ def int8_build_report(_build, paths) -> None:
         # the body and the merge launch at bf16 / fp32 and D 64 / 128
         check(len(kernels) == 8 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
+
+
+def beam_build_report(_build, paths) -> None:
+    """The bf16 beam body's kernels (beam_decode.cu, beam_attn.cuh) as ptxas
+    built them: beam_kernel at D 64 and 128 with one and two column tiles,
+    and its split's merge launch (registers, spill stores and loads; a spill
+    fails the run); the fp32 warp body's instantiations are listed with their
+    registers. A block's dynamic shared memory and ring stages at the main
+    path's grids on this card."""
+    import re
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels, cur = [], None
+    for line in open(f"{paths['beam_decode']}.log").read().splitlines():
+        m = re.search(r"Function properties for \S*?(?:beam_kernelILi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16Li(\d+)E"
+                      r"|decode_kernelIfLi(\d+)ELi(\d+)E)", line)
+        if m:
+            if m.group(1):
+                name = f"beam_kernel<D={m.group(1)}, column tiles={m.group(2)}>"
+            elif m.group(3):
+                name = f"merge_kernel<bf16, D={m.group(3)}>"
+            else:
+                name = f"decode_kernel<fp32, D={m.group(4)}, G={m.group(5)}> (warp body)"
+            cur = {"kernel": name}
+            kernels.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    L = _build.library("beam_decode")
+    grids = (("OPT-6.7B 4 x 4 beams", 32 * 4), ("Llama-3-8B 4 x 4 beams, 4 parts", 8 * 4 * 4),
+             ("16 x 4 beams at OPT-6.7B's heads", 32 * 16))
+    smem = {f"{label}, D={dh}": {"blocks": blocks, "stages": L.lia_beam_stages(dh, blocks, sms),
+                                 "bytes": L.lia_beam_smem_bytes(dh, L.lia_beam_stages(dh, blocks, sms))}
+            for label, blocks in grids for dh in (64, 128)}
+    emit({"phase": "kernel_build", "library": "beam_decode", "kernels": kernels, "dynamic_smem": smem})
+    body = [k for k in kernels if "warp body" not in k["kernel"]]
+    check(len(body) == 6 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in body),
+          f"beam_decode: ptxas reports spills (or no report): {body}")
 
 
 # ---------------------------------------------------------------------------
@@ -908,12 +989,13 @@ def cached_case(randn, Bq: int, C: int, base: int, pads, S_max: int = SERVE_MAX_
 
 def split_forced(ca, parts, fn, plan: str = "flash_split_parts"):
     """``fn`` with the split of the kernels whose parts ``ca.<plan>`` chooses
-    (the flash kernels', or ``int8_split_parts``: B3's and B10's) forced to
-    ``parts`` (None: the host's own choice)."""
+    (the flash kernels', ``int8_split_parts``: B3's and B10's, or
+    ``beam_plan``: B9's (beams a block, parts)) forced to ``parts`` (None:
+    the host's own choice)."""
     def call():
         real = getattr(ca, plan)
         if parts is not None:
-            setattr(ca, plan, lambda *a: parts)
+            setattr(ca, plan, (lambda *a: (real(*a)[0], parts)) if plan == "beam_plan" else (lambda *a: parts))
         try:
             return fn()
         finally:
@@ -1111,7 +1193,7 @@ def beam_kernel_checks(ca, quantize_kv, randn):
     from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
 
     rows = {}
-    for int8, name, source, replaces in ((False, "decode_beam_attention", "lia_tpu_torch/csrc/beam_decode.cu",
+    for int8, name, source, replaces in ((False, "decode_beam_attention", "lia_tpu_torch/csrc/beam_attn.cuh",
                                           "lia_tpu/ops/pallas_attention.py:813"),
                                          (True, "decode_beam_attention_int8", "lia_tpu_torch/csrc/beam_decode_int8.cu",
                                           "lia_tpu/ops/pallas_attention.py:992")):
@@ -1154,7 +1236,71 @@ def beam_kernel_checks(ca, quantize_kv, randn):
         )
         emit({"phase": "beam_bound", "kernel": name, "bytes": nbytes, "prompt_bytes": prompt_keys * N * row_bytes * 2,
               "prompt_bytes_read_per_beam": BEAM_NB * prompt_keys * N * row_bytes * 2})
+    beam_bf16_checks(ca, quantize_kv, randn)
     return rows
+
+
+def beam_bf16_checks(ca, quantize_kv, randn):
+    """B9's bf16 body against its plain version with the host's parts and
+    forced to 1 and 3: the kernels line's case, tails of 0 and 32 (T_max),
+    Llama-3-8B's heads (G = 4: a group's 16 queries in one block), G = 8 (32
+    queries a group: two blocks of 2 beams), D = 64 and a 1024-slot prompt.
+    Then its timing variants beside the kernels line's case, with the host's
+    parts: Llama-3-8B's heads, D = 64, tail 0, a 1024-slot prompt, and Llama's
+    heads over it, each beside SDPA over each beam's [prompt | tail | fresh]
+    view (K/V repeated to the query heads at G = 4; neither timed); and each
+    split shape (4 x 4 beams over either prompt at either heads) with the split
+    forced the other way."""
+    import torch.nn.functional as F
+
+    for label, kw in (("4 x 4 beams", {}), ("tail 0", dict(tlen=0)), ("tail 32", dict(tlen=32)),
+                      ("llama heads G=4, 16 queries a block", dict(Nkv=N // 4)),
+                      ("G=8, 32 queries a group", dict(Nkv=N // 8)), ("D=64", dict(Dh=64)),
+                      ("prompt 1024", dict(S_p=1024))):
+        _, plain, args = beam_case(ca, quantize_kv, randn, False, **kw)
+        ref = plain(*args)
+        for parts in (None, 1, 3):
+            out = split_forced(ca, parts, lambda a=args: ca.decode_beam_attention(*a), "beam_plan")()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            emit({"phase": "kernel_check", "kernel": "decode_beam_attention", "variant": f"{label}, parts {parts or 'host'}",
+                  "max_abs_err": err, "tol": KERNEL_TOL})
+            check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL,
+                  f"decode_beam_attention {label}, parts {parts}: max abs err {err}")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (label, beam_case arguments, whether the split is timed both ways)
+    for label, kw, both in (("opt-6.7b heads, 256-slot prompt", {}, True),
+                            ("llama-3-8b heads G=4 (N_kv 8), 256-slot prompt", dict(Nkv=N // 4), True),
+                            ("D=64, 256-slot prompt", dict(Dh=64), False), ("tail 0, 256-slot prompt", dict(tlen=0), False),
+                            ("opt-6.7b heads, 1024-slot prompt", dict(S_p=1024), True),
+                            ("llama-3-8b heads G=4 (N_kv 8), 1024-slot prompt", dict(Nkv=N // 4, S_p=1024), True)):
+        _, _, args = beam_case(ca, quantize_kv, randn, False, **kw)  # layer 1 of 2
+        q, kf, vf, kp, vp, kt, vt = (x if i < 3 else x[1] for i, x in enumerate(args[:7]))
+        Bq, Nkv, S_p, Dh = q.shape[0], kf.shape[1], kp.shape[2], q.shape[3]
+        G, tlen = N // Nkv, kw.get("tlen", BEAM_TLEN)
+        group = torch.arange(Bq, device="cuda") // BEAM_NB
+        k_all = torch.cat([kp[group], kt, kf], dim=2).repeat_interleave(G, 1)
+        v_all = torch.cat([vp[group], vt, vf], dim=2).repeat_interleave(G, 1)
+        pm = args[-4]
+        tail_ok = (torch.arange(kt.shape[2], device="cuda") < tlen)[None].expand(Bq, kt.shape[2])
+        amask = torch.cat([pm[group], tail_ok, torch.ones(Bq, 1, dtype=torch.bool, device="cuda")], 1)[:, None, None]
+        prompt_keys = sum(S_p - p for p in BEAM_PADS)
+        nbytes = ((prompt_keys + Bq * tlen) * Nkv * 2 * Dh * 2 + (2 * q.numel() + 2 * kf.numel()) * 2
+                  + pm.numel() + 8)
+        bpc, host = ca.beam_plan(Bq, BEAM_NB, N, Nkv, S_p, kt.shape[2], sms)
+        # the host's choice, then (split shapes) the other side of the split; the
+        # kernels line's row is the first's host choice
+        for parts in ((1 if host > 1 else 2,) if not kw else (None, 1 if host > 1 else 2) if both else (None,)):
+            TIME_VARIANTS.append(dict(
+                kernel_name="decode_beam_attention",
+                variant=f"4 x 4 beams, {label}, tail {tlen}, {bpc} beams a block"
+                        + (f", {parts} part{'s' * (parts > 1)} forced" if parts else ""),
+                parts=parts or host,
+                kernel=split_forced(ca, parts, lambda a=args: ca.decode_beam_attention(*a), "beam_plan"),
+                library=None if parts else (lambda a=(q.transpose(1, 2), k_all, v_all, amask):
+                                            F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3])),
+                bound=bound(nbytes, 4 * Dh * N * (BEAM_NB * prompt_keys + Bq * tlen + Bq))))
 
 
 def int8_plane_case(randn, quantize_kv, rows, Nkv: int = N, G: int = 1, S_max: int = 384, L: int = 2):
@@ -2732,7 +2878,10 @@ def beam_breakdown(ca, cfg, prompts, name: str, kv: str, wall_s: float) -> None:
     emit({"phase": "device_breakdown", "config": name, "kv": kv, "device_busy_s": busy_s,
           "wall_s": wall_s, "idle_share": 1 - busy_s / wall_s,
           "top_kernels": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3}
-                          for e in top]})
+                          for e in top],
+          # every launch of the port's own kernels in the run (the beam kernel's device ms among them)
+          "port_kernels": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3}
+                           for e in kernels if OWN_KERNEL.search(e.key)]})
     del engine
     torch.cuda.empty_cache()
 
@@ -2835,6 +2984,7 @@ def main() -> int:
     qmatmul_build_report(_build, paths)
     paged_mlp_build_report(_build, paths)
     int8_build_report(_build, paths)
+    beam_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)

@@ -1,8 +1,9 @@
 // Decode attention of one layer, bf16 (or fp32): the kernel body shared by
 // decode_fresh.cu (a contiguous cache plane, the fresh token merged last, the
 // cache read-only), decode.cu (the plane already holds the token, validity
-// includes it) and beam_decode.cu (a beam's group prompt plane, then its own generated tail,
-// then the fresh token).
+// includes it) and, for fp32 calls only, beam_decode.cu (a beam's group prompt
+// plane, then its own generated tail, then the fresh token; its bf16 calls
+// run beam_attn.cuh's body).
 //
 // Math, all in fp32: q is scaled by scale*log2(e), the valid keys go through
 // an online softmax in exp2 units, and, with FRESH, the fresh key/value (not
@@ -23,7 +24,8 @@
 //   read on the device, pstart_g = plen - popcount(prompt_mask[g]). Blocks are
 //   launched beams innermost (blockIdx.x = b), so the nb beams of a group read
 //   the same prompt rows at about the same time and the L2 serves nb - 1 of
-//   every nb of those reads. A warp walks the prompt part of its chunk of the
+//   every nb of those reads (beam_attn.cuh's bf16 body reads them once a
+//   group instead). A warp walks the prompt part of its chunk of the
 //   virtual range, then the tail part, each as a plane walk from its own base
 //   pointer, so a key's address is one offset as over a plane (choosing the
 //   plane per key held both planes' addresses live: 160 registers a thread

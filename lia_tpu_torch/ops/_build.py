@@ -60,7 +60,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_paged_stages": [I] * 4,
     },
     "beam_decode": {
-        "lia_beam_decode": [P] * 11 + [I] * 7 + [F, I, P],
+        "lia_beam_decode": [P] * 12 + [I] * 10 + [F, I, P],
+        "lia_beam_smem_bytes": [I, I],
+        "lia_beam_stages": [I, I, I],
     },
     "beam_decode_int8": {
         "lia_beam_decode_int8": [P] * 16 + [I] * 10 + [F, I, P],

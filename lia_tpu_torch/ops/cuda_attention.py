@@ -22,6 +22,7 @@ step or an admission never syncs with the host.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -42,6 +43,11 @@ INT8_QUERIES = 8  # queries one int8 decode block holds (csrc/decode_int8_attn.c
 INT8_MAX_PARTS = 8
 INT8_PART_KEYS = 1024  # keys of a unit's longest walk a part takes at least: splits of walks
 # up to 1152 keys lost or tied on an H100 (chip_smoke.py's forced-split rows)
+BEAM_QUERIES = 16  # queries one bf16 beam block holds (csrc/beam_attn.cuh: NQ)
+BEAM_MAX_PARTS = 8
+BEAM_PART_KEYS = 64  # keys of a group's longest walk a bf16 beam part takes at least (a ring stage):
+# on an H100 a split lost at one block an SM (4 x 4 beams, 32 heads: 128 blocks) and won at
+# Llama-3-8B's 32 blocks over 256 and 1024 prompt slots (chip_smoke.py's forced-split rows)
 
 
 def _sscale(scale: Optional[float], D: int) -> float:
@@ -55,7 +61,11 @@ def _contiguous_starts(mask: torch.Tensor, length: torch.Tensor) -> torch.Tensor
 
 def _lengths(length: Union[int, torch.Tensor], device) -> torch.Tensor:
     """``length`` (int, 0-dim or [B]) as an int32 tensor on ``device``; a kernel
-    reads element ``b * stride(0)``, so a 0-dim length serves every row."""
+    reads element ``b * stride(0)``, so a 0-dim length serves every row. An
+    int32 tensor already there comes back as it is, without the conversion
+    calls (a few µs of a decode wrapper's host time)."""
+    if type(length) is torch.Tensor and length.dtype is torch.int32 and length.device == device:
+        return length
     return torch.as_tensor(length, device=device).to(torch.int32)
 
 
@@ -506,22 +516,41 @@ def int8_beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms:
     return bpc, int8_split_parts(Nkv * (B // nb) * -(-nb // bpc), S_p + T_max, sms)
 
 
-_int8_workspaces = {}
+@functools.lru_cache(maxsize=None)
+def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int) -> Tuple[int, int]:
+    """B9's (beams a block, parts) for bf16 calls, cached by shape. A block
+    holds the queries of all nb beams of a group where their nb * G fit
+    BEAM_QUERIES, else as many whole beams as fit (the group's prompt is then
+    read once for each block of its beams). Its blocks are one a (kv head,
+    group, chunk of beams); where they leave SMs idle, each group's keys split
+    into as many parts as keep the blocks within one an SM (a block's copies
+    take about all of an SM's share of the memory's rate), at most
+    BEAM_MAX_PARTS, each at least BEAM_PART_KEYS of the longest walk the
+    shapes allow (the prompt's S_p slots and a tail's T_max): a split pays for
+    its merge launch and each part's fixed start only over long walks.
+    chip_smoke.py times the host's choice beside the split forced the other
+    way."""
+    bpc = max(1, min(nb, BEAM_QUERIES // (N // Nkv)))
+    blocks = Nkv * (B // nb) * -(-nb // bpc)
+    return bpc, max(1, min(sms // blocks, BEAM_MAX_PARTS, (S_p + T_max) // BEAM_PART_KEYS))
 
 
-def _int8_workspace(dev: int, stream: int, floats: int) -> torch.Tensor:
-    """The split's fp32 partials (every one written before it is read: no
-    zeroing). An eager call takes its (device, stream)'s workspace, grown when
-    a call needs more: the launches of one stream run in turn and never hold
-    it at once. A call captured into a CUDA graph takes one of its own, which
+_split_workspaces = {}
+
+
+def _split_workspace(dev: int, stream: int, floats: int) -> torch.Tensor:
+    """The decode kernels' split partials, fp32 (B3, B9 and B10; every one
+    written before it is read: no zeroing). An eager call takes its (device,
+    stream)'s workspace, grown when a call needs more: the launches of one
+    stream run in turn and never hold it at once. A call captured into a CUDA graph takes one of its own, which
     the graph holds, so a replay shares nothing with eager calls or other
     graphs."""
     if torch.cuda.is_current_stream_capturing():
         return torch.empty(floats, dtype=torch.float32, device=f"cuda:{dev}")
-    ws = _int8_workspaces.get((dev, stream))
+    ws = _split_workspaces.get((dev, stream))
     if ws is None or ws.numel() < floats:
         ws = torch.empty(floats, dtype=torch.float32, device=f"cuda:{dev}")
-        _int8_workspaces[dev, stream] = ws
+        _split_workspaces[dev, stream] = ws
     return ws
 
 
@@ -713,11 +742,11 @@ def decode_attention_fresh_int8(
         raise ValueError("ks/vs must be float32 [L, B, N_kv, S_max]")
     vecs = q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr()
     planes = [_layer_ptr(t, layer_idx) for t in (kq, ks, vq, vs)]
-    _int8_aligned(*vecs, planes[0], planes[2])
+    _aligned16(*vecs, planes[0], planes[2])
     dev = q.get_device()
     sms = _sms(dev)
     parts = int8_decode_parts(B, N, Nkv, S_max, sms)
-    ws = _int8_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
+    ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("decode_fresh_int8").lia_decode_fresh_int8(
         *vecs, *planes, slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
@@ -730,14 +759,15 @@ def decode_attention_fresh_int8(
     return out
 
 
-def _int8_aligned(*ptrs: int) -> None:
-    """The int8 kernels copy code rows and load q and the fresh k/v in 16-byte
-    words: ``ptrs`` are the addresses they get (a cache's at its layer)."""
+def _aligned16(*ptrs: int) -> None:
+    """The int8 and bf16 beam decode kernels copy cache rows and load q and the
+    fresh k/v in 16-byte words: ``ptrs`` are the addresses they get (a cache's
+    at its layer)."""
     acc = 0
     for p in ptrs:
         acc |= p
     if acc % 16:
-        raise ValueError("q, the fresh k/v and the int8 caches' codes must be 16-byte aligned")
+        raise ValueError("q, the fresh k/v and the caches (the int8 ones' codes) must be 16-byte aligned")
 
 
 def _beam_checks(q, k_fresh, v_fresh, prompt_shape, tail_shape, prompt_mask, lens, nb):
@@ -764,7 +794,12 @@ def decode_beam_attention(
     """Grouped-beam decode attention (B = B0 * nb beams): beam b's query over
     layer ``layer_idx`` of its group's prompt plane, its own tail and the fresh
     token. The stacked caches are read in place at the layer's offset;
-    ``prompt_len``, ``tail_len`` and the prompt mask are read on the device."""
+    ``prompt_len``, ``tail_len`` and the prompt mask are read on the device.
+    A bf16 block holds the queries of :func:`beam_plan`'s beams of a group, so
+    a group's prompt is read once for them; where those blocks fill the card
+    poorly, each group's keys split into parts and a second launch merges
+    them (``split_launches`` counts those calls). An fp32 call takes the warp
+    body, one block a (beam, kv head)."""
     if q.device.type == "cpu":
         return decode_beam_attention_plain(
             q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale
@@ -781,15 +816,24 @@ def decode_beam_attention(
                          f"{tuple(vp.shape)}, {tuple(kt.shape)}, {tuple(vt.shape)}")
     _beam_checks(q, k_fresh, v_fresh, kp.shape, kt.shape, prompt_mask, (plen, tlen), nb)
     Nkv, S_p, T_max = kp.shape[2], kp.shape[3], kt.shape[3]
+    ptrs = (q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(), _layer_ptr(kp, layer_idx),
+            _layer_ptr(vp, layer_idx), _layer_ptr(kt, layer_idx), _layer_ptr(vt, layer_idx))
+    dev = q.get_device()
+    sms = _sms(dev)
+    bpc, parts = 1, 1  # fp32: the warp body, which never splits
+    if is_bf16:
+        _aligned16(*ptrs)
+        bpc, parts = beam_plan(B, nb, N, Nkv, S_p, T_max, sms)
+    ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("beam_decode").lia_beam_decode(
-        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
-        _layer_ptr(kp, layer_idx), _layer_ptr(vp, layer_idx), _layer_ptr(kt, layer_idx), _layer_ptr(vt, layer_idx),
-        prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
-        B, nb, N, Nkv, S_p, T_max, D, _sscale(scale, D), is_bf16, stream,
+        *ptrs, prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, parts, bpc, B, nb, N, Nkv, S_p, T_max, D, sms,
+        _sscale(scale, D), is_bf16, stream,
     )
     _raise_on(rc, "decode_beam_attention")
     decode_beam_attention.launches += 1
+    decode_beam_attention.split_launches += int(parts > 1)
     return out
 
 
@@ -824,12 +868,12 @@ def decode_beam_attention_int8(
     _beam_checks(q, k_fresh, v_fresh, kpq.shape, ktq.shape, prompt_mask, (plen, tlen), nb)
     vecs = q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr()
     planes = [_layer_ptr(t, layer_idx) for t in (kpq, kps, vpq, vps, ktq, kts, vtq, vts)]
-    _int8_aligned(*vecs, *planes[::2])
+    _aligned16(*vecs, *planes[::2])
     Nkv, S_p, T_max = kpq.shape[2], kpq.shape[3], ktq.shape[3]
     dev = q.get_device()
     sms = _sms(dev)
     bpc, parts = int8_beam_plan(B, nb, N, Nkv, S_p, T_max, sms)
-    ws = _int8_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
+    ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("beam_decode_int8").lia_beam_decode_int8(
         *vecs, *planes, prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
@@ -901,7 +945,7 @@ KERNELS = (
     decode_beam_attention, decode_beam_attention_int8,
 )
 SPLIT_KERNELS = (flash_attention_prefill, flash_attention_cached, paged_decode_attention,
-                 decode_attention_fresh_int8, decode_beam_attention_int8)
+                 decode_attention_fresh_int8, decode_beam_attention, decode_beam_attention_int8)
 
 
 def reset_launch_counts() -> None:

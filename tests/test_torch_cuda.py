@@ -700,12 +700,13 @@ def test_batcher_on_the_card_matches_the_cpu(cuda, mode):
 
 def _beam_case(gen, dtype, int8, G, D, tlen, nb=3, B0=3, Nkv=2, S_p=64, T_max=32, L=2, plen=50):
     """Beam-kernel inputs over layer 1 of a 2-layer grouped cache: group
-    prompts starting at 0, 13 and plen - 1, and ``tlen`` tail slots."""
+    prompts starting at 0, 13 and plen - 1 (a fourth group at 7), and
+    ``tlen`` tail slots."""
     B, N = B0 * nb, Nkv * G
     q = _randn(gen, B, 1, N, D, dtype=dtype)
     kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
     pm = torch.zeros(B0, S_p, dtype=torch.bool, device="cuda")
-    for g, p in enumerate((0, 13, plen - 1)):
+    for g, p in enumerate((0, 13, plen - 1, 7)[:B0]):
         pm[g, p:plen] = True
     lens = (pm, torch.tensor(plen, dtype=torch.int32, device="cuda"),
             torch.tensor(tlen, dtype=torch.int32, device="cuda"), nb)
@@ -721,19 +722,69 @@ def _beam_case(gen, dtype, int8, G, D, tlen, nb=3, B0=3, Nkv=2, S_p=64, T_max=32
     return (q, kf, vf, prompt[0], prompt[1], tail[0], tail[1], 1, *lens)
 
 
+def _beam_parts(monkeypatch, parts):
+    """The beam kernels' split forced to ``parts`` (None: the host's own
+    choice): B9's bf16 plan (beam_plan) and B10's (int8_split_parts)."""
+    if parts is not None:
+        real = ca.beam_plan
+        monkeypatch.setattr(ca, "beam_plan", lambda *a: (real(*a)[0], parts))
+        monkeypatch.setattr(ca, "int8_split_parts", lambda *a: parts)
+
+
+@pytest.mark.parametrize("parts", [None, 3])
 @pytest.mark.parametrize("tlen", [0, 3, 32])
-@pytest.mark.parametrize("G,D", [(1, 128), (2, 64), (4, 128), (4, 64), (8, 64)])
+# (G, D, beams a group, prompt slots): 3, 6, 12 and 24 queries a group of 3
+# beams, 16 (one bf16 block) and 32 (two) of 4 beams, a 1024-slot prompt
+@pytest.mark.parametrize("G,D,nb,S_p", [(1, 128, 3, 64), (2, 64, 3, 64), (4, 128, 3, 64), (4, 64, 3, 64),
+                                        (8, 64, 3, 64), (4, 128, 4, 64), (8, 128, 4, 64), (1, 128, 3, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
-def test_beam_decode_kernels_match_plain(cuda, int8, dtype, G, D, tlen):
+def test_beam_decode_kernels_match_plain(cuda, monkeypatch, int8, dtype, G, D, nb, S_p, tlen, parts):
+    """B9 and B10 with the host's split and forced to 3 parts (B9's fp32
+    calls take the warp body, which never splits); one launch a call."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    args = _beam_case(gen, dtype, int8, G, D, tlen)
+    args = _beam_case(gen, dtype, int8, G, D, tlen, nb=nb, S_p=S_p, plen=50 if S_p == 64 else S_p - 24)
+    _beam_parts(monkeypatch, parts)
     kernel, plain = ((ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain) if int8
                      else (ca.decode_beam_attention, ca.decode_beam_attention_plain))
-    before = kernel.launches
+    before, splits = kernel.launches, kernel.split_launches
     out = kernel(*args)
     assert kernel.launches == before + 1
+    if parts is not None and (int8 or dtype is torch.bfloat16):
+        assert kernel.split_launches == splits + 1
     torch.testing.assert_close(out.float(), plain(*args).float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_beam_decode_graph_replay_equals_eager(cuda, monkeypatch, parts):
+    """B9 (bf16, 4 groups of 4 beams, G = 4: 16 queries a block), with a
+    split and its merge launch, captured once in a CUDA graph and replayed on
+    new queries and lengths equals the eager call on them: the lengths and
+    the mask are read on the device, and the captured split keeps a
+    workspace of its own that needs no memset."""
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    _beam_parts(monkeypatch, parts)
+    args = _beam_case(gen, torch.bfloat16, False, 4, 128, 5, nb=4, B0=4, S_p=128, plen=100)
+
+    def fn():
+        return ca.decode_beam_attention(*args)
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    args[0].copy_(_randn(gen, *args[0].shape, dtype=torch.bfloat16))
+    args[-3].copy_(torch.tensor(128, dtype=torch.int32))  # prompt length
+    args[-2].copy_(torch.tensor(17, dtype=torch.int32))  # tail length
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
+    torch.testing.assert_close(out.float(), ca.decode_beam_attention_plain(*args).float(), rtol=2e-2, atol=2e-2)
 
 
 def test_beam_wrappers_raise_on_the_card(cuda):
@@ -1333,7 +1384,7 @@ def test_int8_decode_streams_do_not_share_a_workspace(cuda, monkeypatch, entry):
                 outs.append(fn())
     torch.cuda.synchronize()
     dev = torch.cuda.current_device()
-    ws = [ca._int8_workspaces[dev, st.cuda_stream] for st in streams]
+    ws = [ca._split_workspaces[dev, st.cuda_stream] for st in streams]
     assert ws[0].data_ptr() != ws[1].data_ptr()
     for i, out in enumerate(outs):
         assert torch.equal(out, ref_a if i % 2 == 0 else ref_b)
