@@ -30,7 +30,10 @@ Phases, each printing one JSON line per item:
    and ~1000 tokens at G = 1 and 4, B10 with tails of 0, 16 and 100, at
    Llama-3-8B's heads and over a 1024-slot prompt; flash
    prefill and bf16 / int8 decode at Llama-3-8B's heads (32 over 8 KV heads,
-   D 128), without and with a sliding window of 64 that binds. Quantized
+   D 128), without and with a sliding window of 64 that binds; every
+   attention kernel (B1, B2, B7/B8, B3, B6, B5 at C = 1 and 4, B9, B10) at
+   Falcon-7B's heads (71 over one KV head, D 64: G = 71, a ragged last run
+   of queries) and ChatGLM3-6B's (32 over 2, D 128: G = 16). Quantized
    matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
@@ -53,7 +56,18 @@ Phases, each printing one JSON line per item:
    depth (dummy bf16 weights made once on the card), the same prompts' shape:
    the default engine with bf16 and with int8 KV, and with projections
    unfused, the fused-MLP gate off and on in turns (32 flash prefills, 992 decode
-   attention launches, 992 fused MLPs with the gate on). The launch
+   attention launches, 992 fused MLPs with the gate on). Then Falcon-7B at
+   full width and depth (H 4544, 71 heads over one KV head, F 18176, vocab
+   65024, 32 layers; bf16 weights drawn on the card) with bf16 and int8 KV
+   (median of 3), and ChatGLM3-6B, Baichuan2-7B and StableLM-2-1.6B at full
+   width and 4 layers with bf16 KV (32 flash prefills and 992 decode
+   launches for Falcon-7B, 4 and 124 for the others, no fused MLP); then the
+   checkpoint round trips on the card's machine, with the port's own
+   safetensors module: ChatGLM3-6B's 4-layer tree through save_params and
+   load_params, Falcon-7B at 2 layers written as two Hugging Face shards and
+   read by load_hf_checkpoint (equal to params_from_hf_state_dict on the same
+   dict), each giving the tokens of the tree it came from, with the save's
+   and load's seconds and GB/s (the `checkpoint` lines). The launch
    counters, zeroed just before one run and read just after it, must show
    each path's kernels exactly; for the bf16 paths, the two candidates, the
    gate A/Bs and the Llama runs prefill ms and decode tokens/s are the median
@@ -107,7 +121,9 @@ Phases, each printing one JSON line per item:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
    off, then with the stacked W4A8 route: 32 stacked launches) and
    weight-only int4 g128; Llama-3-8B width at 2 layers, projections unfused,
-   both gates on (the fused MLP at every layer), bf16 and int8 KV; and the tiered scheduler at 4 layers (half
+   both gates on (the fused MLP at every layer), bf16 and int8 KV;
+   Falcon-7B and ChatGLM3-6B widths (bf16 and int8 KV), Baichuan2-7B's and
+   StableLM-2-1.6B's (bf16 KV); and the tiered scheduler at 4 layers (half
    resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
    policy 3 over int8dyn weights and int8 KV;
 9. device breakdown: one more main-path run per timed OPT configuration and
@@ -142,8 +158,11 @@ Phases, each printing one JSON line per item:
    Llama-3-8B's heads (two blocks a group); B9 at Llama-3-8B's heads (16
    queries a block), D = 64, tail 0, over a 1024-slot prompt at both heads,
    with its parts and SDPA's time, and each split shape with the split forced
-   the other way; the fused MLP at OPT-6.7B's relu (16 rows, biases) beside
-   its unfused chain.
+   the other way; every attention kernel at Falcon-7B's and ChatGLM3-6B's
+   heads, with its parts, beside SDPA over K/V repeated to the query heads
+   (B5's pages gathered, B9's and B10's [prompt | tail | fresh] joined, B3's
+   and B10's dequantized; none of it timed); the fused MLP at OPT-6.7B's
+   relu (16 rows, biases) beside its unfused chain.
    Profiling comes last because a profiler session slows the process's later
    launches.
 
@@ -445,16 +464,20 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_FLOP_PER_S):
 
 def flash_build_report(_build, paths) -> None:
     """Each flash library's kernels as ptxas built them (registers, spill stores
-    and loads) and the body's dynamic shared memory a block at D 64 and 128,
-    with one and two consumer warpgroups; a spill fails the run."""
+    and loads: D 64 and 128, one and two consumer warpgroups, each with whole
+    positions a tile and, for groups past 64, flat rows; the merge at D 64
+    and 128) and the body's dynamic shared memory a block; a spill fails the
+    run."""
     import re
 
     for lib in ("flash_prefill", "flash_cached"):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
-            m = re.search(r"Function properties for \S*?(flash_kernel|merge_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
-            if m:  # flash_kernel<D, warpgroups>, merge_kernel<D>
-                cur = {"kernel": f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")}
+            m = re.search(r"Function properties for \S*?(flash_kernel|merge_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?",
+                          line)
+            if m:  # flash_kernel<D, warpgroups, flat rows>, merge_kernel<D>
+                args = [m.group(2)] + ([m.group(3)] if m.group(3) else []) + (["flat"] if m.group(4) == "1" else [])
+                cur = {"kernel": f"{m.group(1)}<{', '.join(args)}>"}
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and cur is not None:
@@ -465,7 +488,7 @@ def flash_build_report(_build, paths) -> None:
         smem = {f"D={dh}, {nw} warpgroups": _build.library(lib).lia_flash_smem_bytes(dh, nw)
                 for dh in (64, 128) for nw in (1, 2)}
         emit({"phase": "flash_build", "library": lib, "kernels": kernels, "dynamic_smem_bytes": smem})
-        check(len(kernels) == 6 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+        check(len(kernels) == 10 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
@@ -792,6 +815,7 @@ def kernel_checks(ca, quantize_kv):
     rows.update(beam_kernel_checks(ca, quantize_kv, randn))
     int8_decode_checks(ca, quantize_kv, randn)
     llama_attention_checks(ca, quantize_kv, randn)
+    group_kernel_checks(ca, quantize_kv, randn)
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
@@ -2958,6 +2982,332 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the families with large query-head groups and checkpoint I/O
+# ---------------------------------------------------------------------------
+
+# (label, N, N_kv, D): Falcon-7B's heads (71 over one KV head) and ChatGLM3-6B's
+# (32 over 2): G = 71 and 16
+GROUP_HEADS = [("falcon-7b heads G=71 (N 71, N_kv 1, D 64)", 71, 1, 64),
+               ("chatglm3-6b heads G=16 (N 32, N_kv 2, D 128)", 32, 2, 128)]
+# (model, layers or None for full depth, KV types, timed): the families run
+# through generate(fused=True) at full width
+FAMILY_CELLS = [("falcon-7b", None, ("none", "int8"), True), ("chatglm3-6b", 4, ("none",), False),
+                ("baichuan2-7b", 4, ("none",), False), ("stablelm-2-1.6b", 4, ("none",), False)]
+# (model, KV): the families at 2 layers, card against CPU (parity)
+FAMILY_PARITY = [("falcon-7b", "none"), ("falcon-7b", "int8"), ("chatglm3-6b", "none"), ("chatglm3-6b", "int8"),
+                 ("baichuan2-7b", "none"), ("stablelm-2-1.6b", "none")]
+
+
+def group_kernel_checks(ca, quantize_kv, randn) -> None:
+    """Every attention kernel on the four families' paths against its plain
+    version at GROUP_HEADS, where a kv head's queries take several blocks (or
+    straddle flash tiles) and G = 71's last run is ragged: B1 over the
+    prompt (B 16, S 256, left pads), B2 and B3 (past 272, 320- and 384-slot
+    caches), B7/B8 (the plane holding the token), B6 (a 256-row chunk at base
+    768 of 1024 slots), B5 at C = 1 and 4 (16 rows of 256-272 tokens, pages of
+    16), B9 and B10 (4 groups of 4 beams over a 256-slot prompt, tail 16).
+    Each adds a timing variant (kernels at the end, beside SDPA over K/V
+    repeated to the N heads, the repeat not timed, and the bound)."""
+    import torch.nn.functional as F
+
+    from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dpads = [0, 3, 7, 15] * 4
+    n_keys = [PAST - p for p in dpads]
+    past_keys = sum(n_keys)
+    for label, Nq, Nkv, Dh in GROUP_HEADS:
+        G = Nq // Nkv
+        errs = {}
+
+        def variant(kernel_name, fn, library, nbytes, ops, parts=1):
+            TIME_VARIANTS.append(dict(kernel_name=kernel_name, variant=label, parts=parts, kernel=fn,
+                                      library=library, bound=bound(nbytes, ops)))
+
+        def rep(x):  # K/V repeated to the query heads (SDPA's yardstick, not timed)
+            return x.repeat_interleave(G, 1)
+
+        # B1: the prompt
+        q, k, v = randn(B, PROMPT, Nq, Dh), randn(B, Nkv, PROMPT, Dh), randn(B, Nkv, PROMPT, Dh)
+        mask = torch.ones(B, PROMPT, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(PADS):
+            mask[b, :p] = False
+        out = ca.flash_attention_prefill(q, k, v, mask)
+        errs["flash_attention_prefill"] = ((out.float() - ca.flash_attention_prefill_plain(q, k, v, mask).float())
+                                           * mask[:, :, None, None]).abs().max().item()
+        causal = torch.tril(torch.ones(PROMPT, PROMPT, dtype=torch.bool, device="cuda"))
+        n_valid = [PROMPT - p for p in PADS]
+        variant("flash_attention_prefill", lambda q=q, k=k, v=v, m=mask: ca.flash_attention_prefill(q, k, v, m),
+                lambda qt=q.transpose(1, 2), kr=rep(k), vr=rep(v), am=(causal[None] & mask[:, None, :])[:, None]:
+                F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                sum(n_valid) * (Nq + 2 * Nkv) * Dh * 2 + q.numel() * 2 + mask.numel(),
+                4 * Dh * Nq * sum(n * (n + 1) / 2 for n in n_valid),
+                ca.flash_split_parts(B, PROMPT, Nq, Nkv, PROMPT, sms))
+
+        # B2, B7/B8 and B3: decode over layer 1 of a 2-layer cache
+        ln = torch.tensor(PAST, dtype=torch.int32, device="cuda")
+        qd, kf, vf = randn(B, 1, Nq, Dh), randn(B, Nkv, 1, Dh), randn(B, Nkv, 1, Dh)
+        sm = torch.zeros(B, 384, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(dpads):
+            sm[b, p:PAST] = True
+        kc, vc = randn(2, B, Nkv, 384, Dh), randn(2, B, Nkv, 384, Dh)
+        args = (qd, kf, vf, kc, vc, 1, sm, ln)
+        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms)[1]  # past G = 8: B9's body, maybe split
+        errs["decode_attention_fresh"] = (ca.decode_attention_fresh(*args).float()
+                                          - ca.decode_attention_fresh_plain(*args).float()).abs().max().item()
+        kp, vp = kc[1].clone(), vc[1].clone()
+        kp[:, :, PAST], vp[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+        sm_inc = sm.clone()
+        sm_inc[:, PAST] = True
+        ln_inc = torch.tensor(PAST + 1, dtype=torch.int32, device="cuda")
+        qdt, dmask = qd.transpose(1, 2), sm_inc[:, None, None, :]
+        io = 2 * qd.numel() * 2 + 2 * kf.numel() * 2 + 4  # q and out, the fresh k/v, the length
+        variant("decode_attention_fresh", lambda a=args: ca.decode_attention_fresh(*a),
+                lambda qt=qdt, kr=rep(kp), vr=rep(vp), am=dmask: F.scaled_dot_product_attention(qt, kr, vr,
+                                                                                                attn_mask=am),
+                past_keys * Nkv * Dh * 2 * 2 + io + sm.numel(), 4 * Dh * Nq * (past_keys + B), plane_parts)
+        out = ca.decode_attention(qd, kp, vp, sm_inc, ln_inc)
+        errs["decode_attention"] = (out.float() - ca.decode_attention_plain(qd, kp, vp, sm_inc, ln_inc).float()
+                                    ).abs().max().item()
+        kc_inc, vc_inc = kc.clone(), vc.clone()
+        kc_inc[1], vc_inc[1] = kp, vp
+        errs["decode_attention_stacked"] = (ca.decode_attention_stacked(qd, kc_inc, vc_inc, 1, sm_inc, ln_inc).float()
+                                            - out.float()).abs().max().item()
+        plane_keys = past_keys + B
+        variant("decode_attention", lambda a=(qd, kp, vp, sm_inc, ln_inc): ca.decode_attention(*a),
+                lambda qt=qdt, kr=rep(kp), vr=rep(vp), am=dmask: F.scaled_dot_product_attention(qt, kr, vr,
+                                                                                                attn_mask=am),
+                plane_keys * Nkv * Dh * 2 * 2 + 2 * qd.numel() * 2 + 4 + sm.numel(), 4 * Dh * Nq * plane_keys,
+                plane_parts)
+        kq = quantize_kv(randn(2, B, Nkv, 384, Dh, dtype=torch.float32))
+        vq = quantize_kv(randn(2, B, Nkv, 384, Dh, dtype=torch.float32))
+        args8 = (qd, kf, vf, kq.q, kq.s, vq.q, vq.s, 1, sm, ln)
+        errs["decode_attention_fresh_int8"] = (ca.decode_attention_fresh_int8(*args8).float()
+                                               - ca.decode_attention_fresh_int8_plain(*args8).float()
+                                               ).abs().max().item()
+        kd, vd = (dequantize_kv(QuantizedKV(c.q[1], c.s[1])) for c in (kq, vq))
+        kd[:, :, PAST], vd[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+        variant("decode_attention_fresh_int8", lambda a=args8: ca.decode_attention_fresh_int8(*a),
+                lambda qt=qdt, kr=rep(kd), vr=rep(vd), am=dmask: F.scaled_dot_product_attention(qt, kr, vr,
+                                                                                                attn_mask=am),
+                past_keys * Nkv * (Dh + 4) * 2 + io + sm.numel(), 4 * Dh * Nq * (past_keys + B),
+                ca.int8_decode_parts(B, Nq, Nkv, 384, sms))
+
+        # B6: a 256-row chunk at base 768 of a 1024-slot plane
+        C, base = 256, 768
+        qc, kcc, vcc = randn(1, C, Nq, Dh), randn(1, Nkv, 1024, Dh), randn(1, Nkv, 1024, Dh)
+        smc = torch.zeros(1, 1024, dtype=torch.bool, device="cuda")
+        smc[0, : base + C] = True
+        bt = torch.tensor(base, dtype=torch.int32, device="cuda")
+        out = ca.flash_attention_cached(qc, kcc, vcc, bt, smc)
+        errs["flash_attention_cached"] = (out.float() - ca.flash_attention_cached_plain(qc, kcc, vcc, bt, smc).float()
+                                          ).abs().max().item()
+        cmask = (torch.arange(1024, device="cuda")[None, :] <= base + torch.arange(C, device="cuda")[:, None])
+        variant("flash_attention_cached", lambda a=(qc, kcc, vcc, bt, smc): ca.flash_attention_cached(*a),
+                lambda qt=qc.transpose(1, 2), kr=rep(kcc), vr=rep(vcc), am=cmask[None, None]:
+                F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                (base + C) * Nkv * Dh * 2 * 2 + 2 * qc.numel() * 2 + smc.numel(),
+                4 * Dh * Nq * sum(base + t + 1 for t in range(C)), ca.flash_split_parts(1, C, Nq, Nkv, 1024, sms))
+
+        # B5: paged decode at C = 1 and 4 with the fresh chunk merged
+        lengths = [PAST - p for p in dpads]
+        for Cp in (1, 4):
+            pq, pk, pv, table, lens, pkf, pvf = paged_case(randn, lengths, Cp, Nkv, G, Dh)
+            pargs = (pq, pk, pv, 1, table, lens, pkf, pvf)
+            errs[f"paged_decode_attention C={Cp}"] = (ca.paged_decode_attention(*pargs).float()
+                                                      - ca.paged_decode_attention_plain(*pargs).float()
+                                                      ).abs().max().item()
+            keys = sum(lengths) + B * Cp
+            S = table.shape[1] * SERVE_BLOCK  # SDPA over each row's pages gathered, then the fresh chunk
+            kg = torch.cat([pk[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, Dh), pkf], 2)
+            vg = torch.cat([pv[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, Dh), pvf], 2)
+            am = torch.cat([(torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, :].expand(B, Cp, S),
+                            torch.tril(torch.ones(Cp, Cp, dtype=torch.bool, device="cuda")).expand(B, Cp, Cp)], 2)
+            variant("paged_decode_attention", lambda a=pargs: ca.paged_decode_attention(*a),
+                    lambda qt=pq.transpose(1, 2), kr=rep(kg), vr=rep(vg), am=am[:, None]:
+                    F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                    keys * Nkv * Dh * 2 * 2 + 2 * pq.numel() * 2 + table.numel() * 4,
+                    4 * Dh * Nq * Cp * keys, ca.paged_split_parts(B, Cp, Nq, Nkv, table.shape[1], sms))
+            TIME_VARIANTS[-1]["variant"] = f"{label}, C={Cp}"
+
+        # B9 and B10: 4 groups of 4 beams over a 256-slot prompt, tail 16
+        Bb = BEAM_GROUPS * BEAM_NB
+        bq, bkf, bvf = randn(Bb, 1, Nq, Dh), randn(Bb, Nkv, 1, Dh), randn(Bb, Nkv, 1, Dh)
+        pm = torch.zeros(BEAM_GROUPS, BEAM_PROMPT, dtype=torch.bool, device="cuda")
+        for g, p in enumerate(BEAM_PADS):
+            pm[g, p:] = True
+        lens_b = (pm, torch.tensor(BEAM_PROMPT, dtype=torch.int32, device="cuda"),
+                  torch.tensor(BEAM_TLEN, dtype=torch.int32, device="cuda"), BEAM_NB)
+        prompt_keys = sum(BEAM_PROMPT - p for p in BEAM_PADS)
+        beam_keys = BEAM_NB * prompt_keys + Bb * BEAM_TLEN
+        for int8 in (False, True):
+            T_max = 128 if int8 else 32
+            if int8:
+                planes = [x for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (Bb, T_max)) for _ in range(2)
+                          for x in quantize_kv(randn(2, rows, Nkv, S, Dh, dtype=torch.float32))]
+                kernel, plain, row_bytes = ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain, Dh + 4
+            else:
+                planes = [randn(2, rows, Nkv, S, Dh) for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (Bb, T_max))
+                          for _ in range(2)]
+                kernel, plain, row_bytes = ca.decode_beam_attention, ca.decode_beam_attention_plain, 2 * Dh
+            bargs = (bq, bkf, bvf, *planes, 1, *lens_b)
+            errs[kernel.__name__] = (kernel(*bargs).float() - plain(*bargs).float()).abs().max().item()
+            # SDPA over each beam's [group prompt | tail | fresh] (int8: dequantized to bf16)
+            if int8:
+                kpp, vpp, ktt, vtt = (dequantize_kv(QuantizedKV(c[1], sc[1])) for c, sc in zip(planes[0::2],
+                                                                                              planes[1::2]))
+            else:
+                kpp, vpp, ktt, vtt = (x[1] for x in planes)
+            group = torch.arange(Bb, device="cuda") // BEAM_NB
+            tail_ok = (torch.arange(T_max, device="cuda") < BEAM_TLEN)[None].expand(Bb, T_max)
+            am = torch.cat([pm[group], tail_ok, torch.ones(Bb, 1, dtype=torch.bool, device="cuda")], 1)
+            variant(kernel.__name__, lambda kernel=kernel, a=bargs: kernel(*a),
+                    lambda qt=bq.transpose(1, 2), kr=rep(torch.cat([kpp[group], ktt, bkf], 2)),
+                    vr=rep(torch.cat([vpp[group], vtt, bvf], 2)), am=am[:, None, None]:
+                    F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                    (prompt_keys + Bb * BEAM_TLEN) * Nkv * row_bytes * 2 + 2 * bq.numel() * 2 + 2 * bkf.numel() * 2
+                    + pm.numel() + 8, 4 * Dh * Nq * (beam_keys + Bb))
+        torch.cuda.synchronize()
+        for kernel, err in errs.items():
+            emit({"phase": "kernel_check", "kernel": kernel, "variant": label, "max_abs_err": err, "tol": KERNEL_TOL})
+            check(err == err and err <= KERNEL_TOL, f"{kernel} {label}: max abs err {err} > {KERNEL_TOL}")
+
+
+def families_phase(ca, cm) -> dict:
+    """Falcon-7B at full width and depth (H 4544, 71 heads over one KV head, D
+    64, F 18176, vocab 65024, 32 layers; bf16 weights drawn on the card) with
+    bf16 and int8 KV, then ChatGLM3-6B (G = 16), Baichuan2-7B and
+    StableLM-2-1.6B at full width and 4 layers with bf16 KV, each through
+    generate(fused=True) over 16 prompts x 256 tokens, 32 new tokens: exact
+    launches (L flash prefills, L * 31 decode-attention launches, no fused
+    MLP: its gate is off, and Falcon's F of 18176 fails its route's F % 512),
+    prefill ms and decode tokens/s (Falcon's the median of 3), with the card's
+    name and power limit."""
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    smi = nvidia_smi()
+    out = {}
+    for name, layers, kvs, timed in FAMILY_CELLS:
+        cfg = get_config(name)
+        cfg = cfg if layers is None else cfg.replace(num_layers=layers)
+        tree = device_dummy_params(cfg, seed=0)
+        emit({"phase": "family_weights", "model": name, "layers": cfg.num_layers, "gb": tree_bytes(tree) / 1e9,
+              "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], "card": smi})
+        prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (16, PROMPT)).tolist()
+        for kv in kvs:
+            label = f"{name}{'' if layers is None else f' {layers} layers'}, {'bf16' if kv == 'none' else kv} KV"
+            out.update(main_path(ca, cm, label, cfg, lambda tree=tree: tree, prompts, kv, {}, timed=timed))
+        del tree
+        torch.cuda.empty_cache()
+    return {name: counts for name, (counts, _) in out.items()}
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def falcon_hf_state_dict(cfg, tree) -> dict:
+    """A Falcon tree in the Hugging Face key layout, as CPU tensors: the fused
+    query_key_value [(N + 2) D, H] = [q heads | k | v], [out, in] linears,
+    tied embeddings (the inverse of the port's converter)."""
+    sd = {"transformer.word_embeddings.weight": tree["embed_tokens"],
+          "transformer.ln_f.weight": tree["final_norm"]["scale"], "transformer.ln_f.bias": tree["final_norm"]["bias"]}
+    lay = tree["layers"]
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        sd[p + "input_layernorm.weight"] = lay["ln1"]["scale"][i]
+        sd[p + "input_layernorm.bias"] = lay["ln1"]["bias"][i]
+        sd[p + "self_attention.query_key_value.weight"] = torch.cat(
+            [lay["attn"][w][i].T for w in ("wq", "wk", "wv")], dim=0)
+        sd[p + "self_attention.dense.weight"] = lay["attn"]["wo"][i].T
+        sd[p + "mlp.dense_h_to_4h.weight"] = lay["mlp"]["w1"][i].T
+        sd[p + "mlp.dense_4h_to_h.weight"] = lay["mlp"]["w2"][i].T
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
+def checkpoint_phase() -> None:
+    """Checkpoint I/O on the card's machine, with the port's own safetensors
+    reader and writer (that machine has neither the safetensors package nor
+    transformers): ChatGLM3-6B's tree at full width and 4 layers through
+    save_params and load_params, the same leaves and the same tokens; then
+    Falcon-7B at 2 layers written in the Hugging Face layout as two shards and
+    read by load_hf_checkpoint, equal to params_from_hf_state_dict on the same
+    dict and giving the tokens of the tree it was written from. Seconds and
+    GB/s of each save and load (the files in a directory under the checkout's
+    git-ignored tmp/, written and read warm in the page cache)."""
+    import os
+    import tempfile
+
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils import safetensors as st
+    from lia_tpu_torch.utils.checkpoint import (device_dummy_params, load_hf_checkpoint, load_params,
+                                                params_from_hf_state_dict, save_params, to_device)
+
+    gen = GenerationConfig(max_new_tokens=16)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp")
+    os.makedirs(root, exist_ok=True)
+
+    def tokens(cfg, tree, prompts):
+        return InferenceEngine(cfg, tree).generate(prompts, gen, fused=True).sequences
+
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        cfg = get_config("chatglm3-6b").replace(num_layers=4)
+        tree = device_dummy_params(cfg, seed=1)
+        prompts = np.random.default_rng(1).integers(2, cfg.vocab_size, (4, 128)).tolist()
+        ref = tokens(cfg, tree, prompts)
+        path = os.path.join(d, "chatglm3.safetensors")
+        t0 = time.perf_counter()
+        save_params(tree, path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = to_device(load_params(path), "cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        gb = os.path.getsize(path) / 1e9
+        check(_trees_equal(back, tree), "chatglm3-6b: load_params differs from the saved tree")
+        got = tokens(cfg, back, prompts)
+        check(torch.equal(torch.as_tensor(got), torch.as_tensor(ref)), "chatglm3-6b: loaded tree's tokens differ")
+        emit({"phase": "checkpoint", "case": "chatglm3-6b 4 layers save_params / load_params", "gb": gb,
+              "save_s": t_save, "load_s": t_load, "load_gb_per_s": gb / t_load, "tokens_equal": True})
+        del tree, back
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+        cfg = get_config("falcon-7b").replace(num_layers=2)
+        tree = device_dummy_params(cfg, seed=2)
+        prompts = np.random.default_rng(2).integers(2, cfg.vocab_size, (4, 128)).tolist()
+        ref = tokens(cfg, tree, prompts)
+        sd = falcon_hf_state_dict(cfg, tree)
+        keys = sorted(sd)
+        shards = [[k for k in keys if ".h.1." not in k and "ln_f" not in k], [k for k in keys if ".h.1." in k
+                                                                                or "ln_f" in k]]
+        t0 = time.perf_counter()
+        for i, part in enumerate(shards):
+            st.save_file({k: sd[k] for k in part}, os.path.join(d, f"model-0000{i + 1}-of-00002.safetensors"),
+                         metadata={"format": "pt"})
+        t_save = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9
+        t0 = time.perf_counter()
+        loaded = load_hf_checkpoint(cfg, d)
+        t_load = time.perf_counter() - t0
+        check(_trees_equal(loaded, params_from_hf_state_dict(cfg, sd)),
+              "falcon-7b: load_hf_checkpoint differs from params_from_hf_state_dict")
+        check(_trees_equal(loaded, tree), "falcon-7b: the HF round trip changed a weight")
+        got = tokens(cfg, to_device(loaded, "cuda"), prompts)
+        check(torch.equal(torch.as_tensor(got), torch.as_tensor(ref)), "falcon-7b: loaded checkpoint's tokens differ")
+        emit({"phase": "checkpoint", "case": "falcon-7b 2 layers HF shards / load_hf_checkpoint", "gb": gb,
+              "shards": len(shards), "save_s": t_save, "load_s": t_load, "load_gb_per_s": gb / t_load,
+              "tokens_equal": True})
+        del tree, loaded, sd
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3028,6 +3378,9 @@ def main() -> int:
     launches = {name: counts for name, (counts, _) in runs.items()}
     walls = {name: wall for name, (_, wall) in runs.items()}
     launches.update(llama_phase(ca, cm))
+    launches.update(families_phase(ca, cm))
+    checkpoint_phase()
+    phase_time("families and checkpoints")
 
     parity("bf16 weights, none KV", "none")
     parity("bf16 weights, int8 KV", "int8")
@@ -3040,6 +3393,8 @@ def main() -> int:
     for kv in ("none", "int8"):  # both gated routes on, projections unfused
         parity(f"llama-3-8b, {kv} KV, both gates", kv, model="llama-3-8b", fuse=False,
                gate=dict(stacked_w4a8=True, fused_mlp=True))
+    for model, kv in FAMILY_PARITY:  # the large groups' kernels inside the model
+        parity(f"{model}, {kv} KV", kv, model=model)
     phase_time("main path and parity")
 
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)

@@ -21,7 +21,14 @@
 //   16 queries (bpc beams x G heads, two n8 column tiles): a group's prompt
 //   crosses from memory once a launch for all of them (OPT-6.7B, G = 1: 4
 //   beams, 4 queries, 128 blocks at 4 x 4 beams; Llama-3-8B, G = 4: 16
-//   queries, 32 blocks). More queries go to further blocks.
+//   queries, 32 blocks). More queries go to further blocks: a group's
+//   queries, flattened (beam, head) as f = beam * G + head, go to blocks in
+//   runs of qpc = min(bpc * G, NQ), whole beams where G <= 16, else runs of
+//   16 heads that may straddle two beams (Falcon-7B's G = 71 at 4 beams: 18
+//   runs, the last of 12). A block's tail ranges are those of the beams its
+//   run reaches, each masked to that beam's columns, and it takes the fresh
+//   tokens of its own queries; a ragged run's missing columns hold q = 0 and
+//   are never stored.
 // - A producer warp copies each stage of UNIT = 64 keys (K and V rows, 2D
 //   bytes each) into a ring of mbarrier stages, up to `stages` ahead of the
 //   consumers; the ring's depth follows the blocks an SM (ring_stages). Its 32
@@ -67,11 +74,27 @@
 //   CUDA graph.
 // fp32 calls (tests and CPU-parity tools only; no model path on the card
 // runs fp32) stay on decode_attn.cuh's warp body, exact in fp32.
+//
+// The same body serves bf16 plane decode at query-head groups past 8 (B2
+// through decode_fresh.cu, B7/B8 through decode.cu): a plane row is a group
+// of one beam (nb = 1) whose prompt is the cache plane, with per-row lengths
+// (Keys::len_stride 1), no tail (a null tail_len) and, for B7/B8, no fresh
+// token (null kf: the plane already holds it). decode_attn.cuh's warp body
+// took 0.045 ms there (Falcon-7B's and ChatGLM3-6B's heads, b16, past 272,
+// on an H100), above SDPA's time, against ~0.01 for this body at beams of
+// those heads: it walks every key once per 8 heads and sums each score over
+// the warp with five shuffles.
 #pragma once
 
 #include "decode_int8_attn.cuh"  // mma_bf16, movmatrix_trans, the fresh tokens, the mask count, merge_kernel
 
 namespace lia_beam {
+// Internal linkage: beam_decode.cu, decode_fresh.cu and decode.cu each build
+// their own copy of the body into their own library, and a function-local
+// static of a template with external linkage would be one object across the
+// libraries of a process (a GNU unique symbol): the first library's launch
+// would set its kernel's shared-memory attribute and the others' never.
+namespace {
 
 using namespace lia;  // the PTX wrappers of hopper.cuh
 using bf16 = __nv_bfloat16;
@@ -88,8 +111,9 @@ constexpr int BLOCK_SMEM = 227 * 1024;   // most a block takes
 constexpr int PO_PAD = 4;                // floats after each row of the partials' o: writes spread over the banks
 
 // The keys of one layer: the group prompt plane [B0, Nkv, S, D] and its mask
-// [B0, S]; each beam's tail [B0 * nb, Nkv, T, D], nb beams a group, the tail
-// length on the device.
+// [B0, S], its length at prompt_len[g * len_stride] (one for all groups, or a
+// plane row's own); each beam's tail [B0 * nb, Nkv, T, D], nb beams a group,
+// the tail length on the device (null: no tail).
 struct Keys {
   const bf16* kp;
   const bf16* vp;
@@ -99,6 +123,7 @@ struct Keys {
   const bf16* vt;
   int T, nb;
   const int* tail_len;
+  int len_stride;
 };
 
 // Bytes of one ring stage: the K rows of UNIT keys, then their V rows.
@@ -147,12 +172,13 @@ struct Seg {
 };
 
 // One block: kv head blockIdx.x of beam group blockIdx.y, part blockIdx.z %
-// parts of its keys, beams [chunk * bpc, + bpc) of the group with chunk =
-// blockIdx.z / parts. NT column tiles of 8 queries (NT = 2 past 8 queries).
+// parts of its keys, the group's flat queries [chunk * qpc, + qpc) with chunk
+// = blockIdx.z / parts and qpc = min(bpc * G, NQ). NT column tiles of 8
+// queries (NT = 2 past 8 queries).
 template <int D, int NT>
 __global__ void __launch_bounds__(THREADS, 2)
 beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
-            const bf16* __restrict__ kf,  // [B, Nkv, D] fresh key
+            const bf16* __restrict__ kf,  // [B, Nkv, D] fresh key, or null
             const bf16* __restrict__ vf,
             Keys keys,
             const int* __restrict__ prompt_len,
@@ -165,6 +191,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   const int h = blockIdx.x, g = blockIdx.y;
   const int part = blockIdx.z % parts, chunk = blockIdx.z / parts;
   const int N = Nkv * G;
+  const bool fresh = kf != nullptr;  // a fresh token a beam (null: B7/B8's plane already holds it)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = lane >> 2, c = lane & 3;
 
@@ -184,9 +211,26 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int j0 = chunk * bpc, nbc = min(bpc, keys.nb - j0), nq = nbc * G;
-  // query j of the block: head h * G + j % G of beam j0 + j / G of group g
-  auto qrow = [&](int j) -> size_t { return (size_t)(g * keys.nb + j0 + j / G) * N + h * G + j % G; };
+  // the chunk's flat queries [q0, q0 + nq) of the group's nb * G, and the
+  // beams j0 .. j0 + nbc - 1 they reach: bpc whole beams (no division on the
+  // block's way to its first copies), or a run of NQ that may straddle two
+  int q0, nq, j0, nbc;
+  if (bpc * G <= NQ) {
+    j0 = chunk * bpc;
+    nbc = min(bpc, keys.nb - j0);
+    q0 = j0 * G;
+    nq = nbc * G;
+  } else {
+    q0 = chunk * NQ;
+    nq = min(NQ, keys.nb * G - q0);
+    j0 = q0 / G;
+    nbc = (q0 + nq - 1) / G - j0 + 1;
+  }
+  const int off = q0 - j0 * G;  // the run's first query's head in beam j0 (0 for whole beams)
+  // query j of the block: flat query f = q0 + j, head h * G + f % G of beam f / G of group g
+  auto qrow = [&](int j) -> size_t {
+    return (size_t)(g * keys.nb + j0 + (off + j) / G) * N + h * G + (off + j) % G;
+  };
   auto fresh_row = [&](int t) -> size_t { return ((size_t)(g * keys.nb + j0 + t) * Nkv + h) * D; };
 
   // the consumers' q fragments and the producer's first fresh rows, in flight
@@ -205,15 +249,16 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
         qf[nt][kk][1] = lia_dec8::ldg4(qp + 16 * kk + 8);
       }
     }
-  } else if (parts == 1) {
+  } else if (parts == 1 && fresh) {
     const int grp = lane >> 3, gl = lane & 7;
     const int t = min(grp, nbc - 1);
-    first.load(kf + fresh_row(t) + gl * (D / 8), vf + fresh_row(t) + gl * (D / 8), q + qrow(t * G) * D + gl * (D / 8));
+    first.load(kf + fresh_row(t) + gl * (D / 8), vf + fresh_row(t) + gl * (D / 8),
+               q + qrow(lia_dec8::first_query(t, q0, j0, nq, G)) * D + gl * (D / 8));
   }
 
   // this block's keys, cut on the device by each warp from the lengths and the mask
-  const int plen = min(max(prompt_len[0], 0), keys.S);
-  const int tl = min(max(*keys.tail_len, 0), keys.T);
+  const int plen = min(max(prompt_len[(size_t)g * keys.len_stride], 0), keys.S);
+  const int tl = keys.tail_len ? min(max(*keys.tail_len, 0), keys.T) : 0;
   const int pstart = max(plen - lia_dec8::warp_count_true(keys.mask + (size_t)g * keys.S, keys.S, lane), 0);
   // units: a prompt key counts 1, a tail key nbc (one row for each beam)
   const long long pn = plen - pstart, units = pn + (long long)nbc * tl;
@@ -268,8 +313,9 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     }
     // every stage is issued: the fresh tokens (the merge launch's where the
     // keys split), under the consumers' last stages
-    if (parts == 1)
-      lia_dec8::fresh_tokens<bf16, D>(kf, vf, q, fresh_row, qrow, nbc, G, sscale, fresh_s, fresh_v, lane, first);
+    if (parts == 1 && fresh)
+      lia_dec8::fresh_tokens<bf16, D>(kf, vf, q, fresh_row, qrow, nbc, q0, j0, nq, G, sscale, fresh_s, fresh_v, lane,
+                                      first);
     lia_dec8::named_arrive(2, THREADS);
     return;
   }
@@ -280,6 +326,16 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     if (8 * nt + r >= nq) {
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) qf[nt][kk][0] = qf[nt][kk][1] = 0u;
+    }
+  // the beams (0 .. nbc - 1 from j0) of this lane's columns 8 nt + 2c, + 1;
+  // -1 past the run's queries
+  int cbeam[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * nt + 2 * c + e;
+      cbeam[nt][e] = col < nq ? (off + col) / G : -1;
     }
 
   // per lane: O^T tile m, column tile nt at dims 16 m + r (and + 8) of
@@ -337,10 +393,9 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
       uint32_t pb[NT][2][2];  // P^T as the B operand: [column tile][hi, lo][keys 0-7, 8-15]
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const int col = 8 * nt + 2 * c;
-        // columns this range's keys reach: the block's, or one beam's G
-        const bool ok0 = col < nq && (sgm.beam < 0 || col / G == sgm.beam);
-        const bool ok1 = col + 1 < nq && (sgm.beam < 0 || (col + 1) / G == sgm.beam);
+        // columns this range's keys reach: the block's, or one beam's
+        const bool ok0 = cbeam[nt][0] >= 0 && (sgm.beam < 0 || cbeam[nt][0] == sgm.beam);
+        const bool ok1 = cbeam[nt][1] >= 0 && (sgm.beam < 0 || cbeam[nt][1] == sgm.beam);
         const bool in[4] = {v0 && ok0, v0 && ok1, v1 && ok0, v1 && ok1};
         float sc[4];
 #pragma unroll
@@ -441,7 +496,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   const size_t rows_all = (size_t)gridDim.y * keys.nb * N;
   for (int idx = tid; idx < nq * (D / 2); idx += NWC * 32) {
     const int j = idx / (D / 2), d = 2 * (idx % (D / 2));
-    float M = parts == 1 ? fresh_s[j] : LIA_NEG_INF;
+    float M = parts == 1 && fresh ? fresh_s[j] : LIA_NEG_INF;
 #pragma unroll
     for (int w = 0; w < NWC; ++w) M = fmaxf(M, pm[w * NQ + j]);
     float L = 0.f, o0 = 0.f, o1 = 0.f;
@@ -455,11 +510,15 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     }
     const size_t row = qrow(j);
     if (parts == 1) {
-      const float pf = exp2f(fresh_s[j] - M);
-      const float* v = fresh_v + (j / G) * D + d;
-      L = fmaxf(L + pf, 1e-30f);
-      *reinterpret_cast<__nv_bfloat162*>(out + row * D + d) =
-          __floats2bfloat162_rn(fmaf(pf, v[0], o0) / L, fmaf(pf, v[1], o1) / L);
+      if (fresh) {  // (without one, fresh_v holds no value: it is never read)
+        const float pf = exp2f(fresh_s[j] - M);
+        const float* v = fresh_v + ((off + j) / G) * D + d;
+        L += pf;
+        o0 = fmaf(pf, v[0], o0);
+        o1 = fmaf(pf, v[1], o1);
+      }
+      L = fmaxf(L, 1e-30f);
+      *reinterpret_cast<__nv_bfloat162*>(out + row * D + d) = __floats2bfloat162_rn(o0 / L, o1 / L);
     } else {
       *reinterpret_cast<float2*>(ws + ((size_t)part * rows_all + row) * D + d) = make_float2(o0, o1);
       if (d == 0) {
@@ -481,7 +540,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
                                                    (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return (int)attr;
-  const int chunks = (keys.nb + bpc - 1) / bpc, groups = B / keys.nb;
+  const int qpc = std::min(bpc * G, NQ), chunks = (keys.nb * G + qpc - 1) / qpc, groups = B / keys.nb;
   const dim3 grid(Nkv, groups, parts * chunks);
   const int stages = ring_stages(D, Nkv * groups * parts * chunks, sms);
   kern<<<grid, THREADS, smem_bytes(D, stages), stream>>>(
@@ -498,8 +557,9 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
   return (int)cudaGetLastError();
 }
 
-// Head-dim and column-tile dispatch, after the checks: D 64 or 128, G = N /
-// Nkv one of 1, 2, 4, 8, bpc beams a chunk with bpc * G <= NQ, parts >= 1 (a
+// Head-dim and column-tile dispatch, after the checks: D 64 or 128, any group
+// G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk with bpc * G
+// <= NQ or bpc = 1 (runs of NQ queries), parts >= 1 (a
 // workspace of parts * B * N * (D + 2) floats when parts > 1), q, the fresh
 // k/v and the caches 16-byte aligned. Returns a cudaError_t value, 0 on a
 // successful launch.
@@ -513,11 +573,12 @@ inline int dispatch(const void* q, const void* kf, const void* vf, const Keys& k
                          reinterpret_cast<uintptr_t>(vf) | reinterpret_cast<uintptr_t>(keys.kp) |
                          reinterpret_cast<uintptr_t>(keys.vp) | reinterpret_cast<uintptr_t>(keys.kt) |
                          reinterpret_cast<uintptr_t>(keys.vt);
-  if ((G != 1 && G != 2 && G != 4 && G != 8) || (D != 64 && D != 128) || bpc < 1 || bpc * G > NQ || (addr & 15) != 0)
+  if ((D != 64 && D != 128) || bpc < 1 || (bpc > 1 && bpc * G > NQ) || (addr & 15) != 0)
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) { return kern(q, kf, vf, keys, prompt_len, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st); };
-  if (bpc * G <= 8) return D == 128 ? run(&launch<128, 1>) : run(&launch<64, 1>);
+  if (std::min(bpc * G, NQ) <= 8) return D == 128 ? run(&launch<128, 1>) : run(&launch<64, 1>);
   return D == 128 ? run(&launch<128, 2>) : run(&launch<64, 2>);
 }
 
+}  // namespace
 }  // namespace lia_beam

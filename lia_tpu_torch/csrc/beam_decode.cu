@@ -27,12 +27,13 @@
 // cache and kt/vt at that layer of the [L, B, Nkv, T_max, D] tail (the
 // wrapper offsets them); kf/vf are [B, Nkv, 1, D]; prompt_mask is bool [B0,
 // S_p]; prompt_len and tail_len are int32 scalars on the device. B = B0 * nb.
-// bf16: a block holds bpc beams of a group (bpc * G <= 16); parts > 1 splits
+// bf16: a block holds bpc beams of a group (bpc * G <= 16), or with bpc = 1
+// a run of 16 of the group's flat queries (G > 16); parts > 1 splits
 // each group's keys and needs ws, parts * B * N * (D + 2) floats (no memset);
 // sms is the card's SM count; q, kf/vf and the caches 16-byte aligned. fp32:
 // parts must be 1 (bpc and sms are not read). Returns a cudaError_t value: 0
-// on a successful launch. D must be 64 or 128 and G = N / Nkv one of 1, 2, 4,
-// 8.
+// on a successful launch. D must be 64 or 128; G = N / Nkv any group (the
+// wrapper admits 1 .. 128).
 extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, const void* kp,
                                const void* vp, const void* kt, const void* vt,
                                const void* prompt_mask, const void* prompt_len,

@@ -13,7 +13,7 @@
 // group plus each beam's tail rows, ~10 MB a launch at OPT-6.7B width with 4
 // groups of 4 beams over a 256-slot prompt (~3 us at 3.35 TB/s). One block a
 // (kv head, group) holds the queries of all the group's beams (up to 8; more
-// go to further blocks), so a group's prompt crosses from memory once; see
+// go to further blocks, in runs of 8 flat queries where a beam has more), so a group's prompt crosses from memory once; see
 // decode_int8_attn.cuh for the design.
 #include "decode_int8_attn.cuh"
 
@@ -22,10 +22,12 @@
 // T_max(, D)] (the wrapper offsets them; the codes 16-byte aligned); kf/vf are
 // the dequantized fresh K/V [B, Nkv, 1, D] in q's type; prompt_mask is bool
 // [B0, S_p]; prompt_len and tail_len are int32 scalars on the device. B = B0 *
-// nb; a block holds bpc beams of a group (bpc * G <= 8). parts > 1 splits each
+// nb; a block holds bpc beams of a group (bpc * G <= 8), or with bpc = 1 a
+// run of 8 of the group's flat queries (G > 8). parts > 1 splits each
 // group's keys and needs ws, parts * B * N * (D + 2) floats (no memset); sms
 // is the card's SM count. Returns a cudaError_t value: 0 on a successful
-// launch. D must be 64 or 128 and G = N / Nkv one of 1, 2, 4, 8.
+// launch. D must be 64 or 128; G = N / Nkv any group (the wrapper admits 1 ..
+// 128).
 extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* vf,
                                     const void* kpq, const void* kps, const void* vpq,
                                     const void* vps, const void* ktq, const void* kts,

@@ -33,12 +33,27 @@
 //
 // What bounds it on an H100: bytes. Each (batch row, kv head) streams its
 // valid K and V rows once and does 4 FLOP per byte. Design: one block per
-// (kv head, batch row); the four warps split the key range into
-// contiguous chunks, each lane holds D/32 dimensions, so a warp reads whole
-// rows (256 bytes at D = 128 in bf16); eight keys are loaded per step to keep
-// loads in flight; the G query heads of a kv head share every K/V load (never
-// replicated); partial (m, l, acc) of the warps merge in shared memory. One
-// query a sequence (a chunk of C > 1 is the paged body's, paged_attn.cuh).
+// (kv head, batch row, chunk of query heads); the four warps split the key
+// range into contiguous chunks, each lane holds D/32 dimensions, so a warp
+// reads whole rows (256 bytes at D = 128 in bf16); eight keys are loaded per
+// step to keep loads in flight; the GC query heads of a block share every K/V
+// load; partial (m, l, acc) of the warps merge in shared memory. One query a
+// sequence (a chunk of C > 1 is the paged body's, paged_attn.cuh).
+//
+// Query-head groups: a block holds GC = 1, 2, 4 or 8 of the G query heads of
+// its kv head in registers (GC = G for G of 1, 2, 4 and 8, the next of those
+// above a smaller G, 8 above 8), and G > 8 heads go to ceil(G / 8) blocks, a
+// grid dimension of query chunks. The last chunk may be ragged (Falcon-7B's G
+// = 71 is 8 x 8 + 7): its missing heads take q = 0, so their scores stay
+// finite, and are never stored (G of 1, 2, 4 and 8 take an instantiation
+// without chunks, the group compile-time). The chunks of one (row, kv head) read the
+// same K/V rows, the first from memory and the others mostly from L2 (a
+// row's keys are ~70 KB at 272 slots, D = 64). This keeps the body's
+// registers at eight queries a thread whatever G is, and every fp32 call
+// takes it. It is slow there (0.045 ms at G = 16 and 71, b16, past 272, on
+// an H100: every key walked once per 8 heads, each score summed over the
+// warp with five shuffles), so bf16 plane calls past G = 8 run beam_attn.cuh's
+// mma body instead (decode_fresh.cu, decode.cu).
 #pragma once
 
 #include "common.cuh"
@@ -62,7 +77,7 @@ struct Keys {
   const int* tail_len;
 };
 
-template <typename T, int D, int G, bool FRESH, int SRC>
+template <typename T, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
 __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const T* __restrict__ q,       // [B, N, D]
               const T* __restrict__ kf,      // [B, Nkv, D] fresh keys (FRESH only)
@@ -72,9 +87,13 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
               Keys keys,
               const int* __restrict__ lengths, int length_stride,  // [B] or scalar
               T* __restrict__ out,           // [B, N, D]
-              int Nkv, float sscale) {
+              int Nkv, int G, int chunks, float sscale) {
   constexpr int DL = D / 32;  // dims per lane
-  const int h = SRC == kBeam ? blockIdx.y : blockIdx.x;
+  // CHUNKED: kv head * chunks + query chunk, heads g0 .. g0 + GC - 1 of the
+  // group; else G == GC, one block a kv head (compile-time group)
+  const int hc = SRC == kBeam ? blockIdx.y : blockIdx.x;
+  const int h = CHUNKED ? hc / chunks : hc, g0 = CHUNKED ? (hc % chunks) * GC : 0;
+  if (!CHUNKED) G = GC;
   const int b = SRC == kBeam ? blockIdx.x : blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int N = Nkv * G;
@@ -88,17 +107,22 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     length = min(max(lengths[b * length_stride], 0), keys.S_max);
     start = max(length - lia::block_count_true(keys.slot_mask + (size_t)b * keys.S_max, keys.S_max), 0);
   }
-  float qr[G][DL];
+  float qr[GC][DL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    lia::load_vec<DL>(q + ((size_t)b * N + h * G + g) * D + lane * DL, qr[g]);
+  for (int g = 0; g < GC; ++g) {
+    if (!CHUNKED || g0 + g < G) {
+      lia::load_vec<DL>(q + ((size_t)b * N + h * G + g0 + g) * D + lane * DL, qr[g]);
+    } else {  // a ragged last chunk's missing head
+#pragma unroll
+      for (int e = 0; e < DL; ++e) qr[g][e] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < DL; ++e) qr[g][e] *= sscale;
   }
 
-  float m[G], l[G], acc[G][DL];
+  float m[GC], l[GC], acc[GC][DL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     m[g] = LIA_NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -121,9 +145,9 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
           for (int e = 0; e < DL; ++e) kx[kk][e] = vx[kk][e] = 0.f;
         }
       }
-      float s[G][KT];
+      float s[GC][KT];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int g = 0; g < GC; ++g)
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk) {
           float part = 0.f;
@@ -132,7 +156,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
           s[g][kk] = lia::warp_sum(part);
         }
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GC; ++g) {
         float mt = LIA_NEG_INF;
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk)
@@ -175,10 +199,10 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     walk(kc + pb, vc + pb, k0, k1, plane_row);
   }
 
-  __shared__ float sm_m[NW][G], sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][D];
+  __shared__ float sm_m[NW][GC], sm_l[NW][GC];
+  __shared__ float sm_acc[NW][GC][D];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     if (lane == 0) {
       sm_m[w][g] = m[g];
       sm_l[w][g] = l[g];
@@ -201,7 +225,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     return lia::warp_sum(part);
   };
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     float M = LIA_NEG_INF;
 #pragma unroll
     for (int ww = 0; ww < NW; ++ww) M = fmaxf(M, sm_m[ww][g]);
@@ -226,40 +250,49 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
 #pragma unroll
       for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vfx[e], o[e]);
     }
+    if (CHUNKED && g0 + g >= G) continue;  // never stored
     L = fmaxf(L, 1e-30f);
-    T* dst = out + ((size_t)b * N + h * G + g) * D + lane * DL;
+    T* dst = out + ((size_t)b * N + h * G + g0 + g) * D + lane * DL;
 #pragma unroll
     for (int e = 0; e < DL; ++e) dst[e] = lia::from_f32<T>(o[e] / L);
   }
 }
 
-template <typename T, int D, int G, bool FRESH, int SRC>
+template <typename T, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
-           Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv,
+           Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv, int G,
            float sscale, cudaStream_t stream) {
-  const dim3 grid = SRC == kBeam ? dim3(B, Nkv) : dim3(Nkv, B);
-  decode_kernel<T, D, G, FRESH, SRC><<<grid, NW * 32, 0, stream>>>(
+  const int chunks = (G + GC - 1) / GC;
+  const dim3 grid = SRC == kBeam ? dim3(B, Nkv * chunks) : dim3(Nkv * chunks, B);
+  decode_kernel<T, D, GC, FRESH, SRC, CHUNKED><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
       static_cast<const T*>(kc), static_cast<const T*>(vc), keys,
-      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, sscale);
+      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, G, chunks, sscale);
   return (int)cudaGetLastError();
 }
+
+// Query heads a block holds for a group of G (the GC of the header).
+inline int group_cols(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
 
 template <typename T, int D, bool FRESH, int SRC>
 int launch_g(int G, const void* q, const void* kf, const void* vf, const void* kc,
              const void* vc, Keys keys, const void* lengths, int length_stride, void* out, int B,
              int Nkv, float sscale, cudaStream_t st) {
-  switch (G) {
-    case 1: return launch<T, D, 1, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-    case 2: return launch<T, D, 2, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-    case 4: return launch<T, D, 4, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-    case 8: return launch<T, D, 8, FRESH, SRC>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  switch (G) {  // a whole group a block, the group compile-time
+    case 1: return launch<T, D, 1, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 2: return launch<T, D, 2, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 4: return launch<T, D, 4, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 8: return launch<T, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (group_cols(G) == 4)  // G = 3
+    return launch<T, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+  return launch<T, D, 8, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
 }
 
-// Type, head-dim and group dispatch. D must be 64 or 128, G = N / Nkv one of
-// 1, 2, 4, 8; returns a cudaError_t value, 0 on a successful launch.
+// Type, head-dim and group dispatch. D must be 64 or 128, G = N / Nkv any
+// group (the wrapper admits 1 .. 128); returns a cudaError_t value, 0 on a
+// successful launch.
 template <bool FRESH, int SRC>
 int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
              Keys keys, const void* lengths, int length_stride, void* out, int B, int N,

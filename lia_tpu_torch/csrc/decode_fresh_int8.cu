@@ -18,8 +18,8 @@
 // offsets them; the codes 16-byte aligned). parts > 1 splits each row's keys
 // and needs ws, parts * B * N * (D + 2) floats (no memset); sms is the card's
 // SM count (the ring's depth follows the blocks an SM). Returns a cudaError_t
-// value: 0 on a successful launch. D must be 64 or 128 and G = N / Nkv one of
-// 1, 2, 4, 8.
+// value: 0 on a successful launch. D must be 64 or 128; G = N / Nkv any group
+// (the wrapper admits 1 .. 128), a row's heads in runs of up to 8 a block.
 extern "C" int lia_decode_fresh_int8(const void* q, const void* kf, const void* vf,
                                      const void* kq, const void* ks, const void* vq,
                                      const void* vs, const void* slot_mask,

@@ -34,6 +34,16 @@
 //   beam cache, holds all of that unit's queries (G heads, or nb beams x G
 //   heads; up to NQ = 8, more go to further blocks): a group's prompt crosses
 //   from memory once a launch and feeds every beam's queries.
+// - Query chunks: a unit's queries, flattened (beam, head) as f = beam * G +
+//   head, go to blocks in runs of qpc = min(bpc * G, NQ): bpc whole beams a
+//   block where G <= NQ (bpc = 1 on a plane: one run of G), else runs of NQ
+//   heads that may straddle two beams (Falcon-7B's G = 71: nine runs a row,
+//   the last of 7; ChatGLM3-6B's G = 16: two). A block's tail ranges are those
+//   of the beams its run reaches, each masked to that beam's columns; each
+//   block takes the fresh token(s) of its own queries, and the split's merge
+//   launch works a query row at a time, so neither cares where a run ends. A
+//   ragged last run's missing columns hold q = 0 (finite scores) and are never
+//   stored.
 // - A producer warp copies each stage of UNIT keys (K and V codes, D bytes a
 //   key, and their scales) into a ring of mbarrier stages, up to `stages`
 //   ahead of the consumers: its 32 lanes issue 16-byte cp.async copies of the
@@ -333,8 +343,8 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 }
 
 // The fresh row group `grp` of the producer warp takes first, in flight from
-// the block's start: token t0 = grp (or, with one token, token 0 and query
-// grp), its key, value and that query's row, D / 8 dims a lane.
+// the block's start: token t0 = grp, its key, value and its first query's
+// row in the block, D / 8 dims a lane.
 // Held as the raw 16-byte words (the registers of the producer's other work
 // stay free); unpack turns one array into the lane's D / 8 values.
 template <typename T, int D>
@@ -366,7 +376,7 @@ struct FreshFirst {
   }
 };
 
-// A plane row's one fresh token and its G queries' rows over the whole
+// A plane row's one fresh token and the block's nq queries' rows over the whole
 // producer warp (D / 32 dims a lane), held as raw 32-bit words from the
 // block's start; compute() takes the token through its int8 round trip
 // (RAW: a division a value, as quantize_kv) and writes its value and the
@@ -391,15 +401,15 @@ struct FreshPlane {
     }
   }
   template <typename QRow>
-  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qp, QRow qrow, int G, int lane) {
+  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qp, QRow qrow, int nq, int lane) {
     load_words(kr + lane * DL, k);
     load_words(vr + lane * DL, v);
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
-      if (j < G) load_words(qp + qrow(j) * D + lane * DL, q[j]);
+      if (j < nq) load_words(qp + qrow(j) * D + lane * DL, q[j]);
   }
   template <bool RAW>
-  __device__ __forceinline__ void compute(int G, float sscale, float* fresh_s, float* fresh_v, int lane) const {
+  __device__ __forceinline__ void compute(int nq, float sscale, float* fresh_s, float* fresh_v, int lane) const {
     float kx[DL], vx[DL];
     unpack(k, kx);
     unpack(v, vx);
@@ -411,7 +421,7 @@ struct FreshPlane {
     for (int e = 0; e < DL; ++e) fresh_v[lane * DL + e] = vx[e];
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
-      if (j < G) {
+      if (j < nq) {
         float qx[DL];
         unpack(q[j], qx);
         float part = 0.f;
@@ -424,15 +434,22 @@ struct FreshPlane {
   }
 };
 
+// The block's queries [first_query(t), first_query(t + 1)) of token t (beam
+// j0 + t of a run of nq flat queries from q0, G a beam).
+__device__ __forceinline__ int first_query(int t, int q0, int j0, int nq, int G) {
+  return min(max((j0 + t) * G - q0, 0), nq);
+}
+
 // A beam block's fresh tokens (already dequantized) over one warp, in four
 // groups of 8 lanes (each lane D / 8 dims): a group takes a token, its value
-// into fresh_v[token] and its G queries' scores q * scale . k into
-// fresh_s[query]. `first` holds each group's first token and query, loaded
-// at the block's start.
+// into fresh_v[token] and its queries' scores q * scale . k into
+// fresh_s[query] (the block's queries of that beam: first_query). `first`
+// holds each group's first token and query, loaded at the block's start.
 template <typename T, int D, typename FreshRow, typename QRow>
 __device__ __forceinline__ void fresh_tokens(const T* kf, const T* vf, const T* q, FreshRow fresh_row, QRow qrow,
-                                             int tokens, int G, float sscale, float* fresh_s, float* fresh_v,
-                                             int lane, const FreshFirst<T, D>& first) {
+                                             int tokens, int q0, int j0, int nq, int G, float sscale,
+                                             float* fresh_s, float* fresh_v, int lane,
+                                             const FreshFirst<T, D>& first) {
   constexpr int DG = D / 8;  // dims a lane
   const int grp = lane >> 3, gl = lane & 7;
   const unsigned gmask = 0xffu << (8 * grp);  // the group's lanes: groups run apart
@@ -447,26 +464,28 @@ __device__ __forceinline__ void fresh_tokens(const T* kf, const T* vf, const T* 
     }
 #pragma unroll
     for (int e = 0; e < DG; ++e) fresh_v[t * D + gl * DG + e] = vx[e];
-    for (int j = 0; j < G; ++j) {
+    const int jl = first_query(t, q0, j0, nq, G), jh = first_query(t + 1, q0, j0, nq, G);
+    for (int j = jl; j < jh; ++j) {
       float qx[DG];
-      if (t < 4 && j == 0) {
+      if (t < 4 && j == jl) {
         FreshFirst<T, D>::unpack(first.q, qx);
       } else {
-        lia::load_vec<DG>(q + qrow(t * G + j) * D + gl * DG, qx);
+        lia::load_vec<DG>(q + qrow(j) * D + gl * DG, qx);
       }
       float part = 0.f;
 #pragma unroll
       for (int e = 0; e < DG; ++e) part = fmaf(qx[e] * sscale, kx[e], part);
 #pragma unroll
       for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(gmask, part, off);
-      if (gl == 0) fresh_s[t * G + j] = part;
+      if (gl == 0) fresh_s[j] = part;
     }
   }
 }
 
 // One block: kv head blockIdx.x of plane row (or beam group) blockIdx.y, part
-// blockIdx.z % parts of its keys, query chunk blockIdx.z / parts (BEAM: beams
-// [chunk * bpc, + bpc) of the group; a plane row has one chunk of G queries).
+// blockIdx.z % parts of its keys, query chunk blockIdx.z / parts: the unit's
+// flat queries [chunk * qpc, + qpc), qpc = min(bpc * G, NQ) (BEAM: bpc whole
+// beams of the group where G <= NQ; a plane row's G heads in runs of NQ).
 // The walk is a list of 16-key tiles: the plane's (or prompt's) range, then
 // each beam's tail range; stage s holds tiles 4s .. 4s + 3, tile slot w for
 // consumer warp w, and tiles of one range in a stage come in one copy.
@@ -510,11 +529,17 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // the block's only barrier before the walk: each warp reads the lengths itself
-  const int j0 = BEAM ? chunk * bpc : 0, nbc = BEAM ? min(bpc, keys.nb - j0) : 1;
-  const int nq = nbc * G, tokens = BEAM ? nbc : 1;
-  // query j of the block: head h * G + j of row b, or head h * G + j % G of beam j0 + j / G of group b
+  // the chunk's flat queries [q0, q0 + nq) of the unit's G (or nb * G); the
+  // beams j0 .. j0 + nbc - 1 they reach
+  const int qpc = min(bpc * G, NQ), q0 = chunk * qpc;
+  const int nq = min(qpc, (BEAM ? keys.nb : 1) * G - q0);
+  const int j0 = BEAM ? q0 / G : 0, nbc = BEAM ? (q0 + nq - 1) / G - j0 + 1 : 1;
+  const int tokens = nbc;
+  // query j of the block: head h * G + q0 + j of row b, or flat query f = q0 + j
+  // of group b, head h * G + f % G of beam f / G
   auto qrow = [&](int j) -> size_t {
-    return BEAM ? ((size_t)(b * keys.nb + j0 + j / G) * N + h * G + j % G) : ((size_t)b * N + h * G + j);
+    return BEAM ? ((size_t)(b * keys.nb + (q0 + j) / G) * N + h * G + (q0 + j) % G)
+                : ((size_t)b * N + h * G + q0 + j);
   };
   auto fresh_row = [&](int t) -> size_t {  // the fresh k/v row of token t (beam j0 + t, or row b)
     return ((size_t)(BEAM ? b * keys.nb + j0 + t : b) * Nkv + h) * D;
@@ -535,9 +560,9 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
       const int grp = lane >> 3, gl = lane & 7;
       const int t = min(grp, tokens - 1);
       first.load(kf + fresh_row(t) + gl * (D / 8), vf + fresh_row(t) + gl * (D / 8),
-                 q + qrow(t * G) * D + gl * (D / 8));
+                 q + qrow(first_query(t, q0, j0, nq, G)) * D + gl * (D / 8));
     } else {
-      first.load(kf + fresh_row(0), vf + fresh_row(0), q, qrow, G, lane);
+      first.load(kf + fresh_row(0), vf + fresh_row(0), q, qrow, nq, lane);
     }
   }
 
@@ -613,9 +638,10 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     if (parts == 1) {
       if constexpr (BEAM) {
         static_assert(!RAW, "a beam block's fresh tokens come dequantized");
-        fresh_tokens<T, D>(kf, vf, q, fresh_row, qrow, tokens, G, sscale, fresh_s, fresh_v, lane, first);
+        fresh_tokens<T, D>(kf, vf, q, fresh_row, qrow, tokens, q0, j0, nq, G, sscale, fresh_s, fresh_v, lane,
+                           first);
       } else {
-        first.template compute<RAW>(G, sscale, fresh_s, fresh_v, lane);
+        first.template compute<RAW>(nq, sscale, fresh_s, fresh_v, lane);
       }
     }
     named_arrive(2, THREADS);
@@ -625,6 +651,8 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   // ---- the consumer warps ----
   uint32_t qf[PIECES][KW][2];
   q_frags<T, D, PIECES>(qraw, r < nq, qf);
+  // the beams (0 .. nbc - 1 from j0) of this lane's columns 2c and 2c + 1
+  const int cb0 = BEAM ? (q0 + 2 * c) / G - j0 : 0, cb1 = BEAM ? (q0 + 2 * c + 1) / G - j0 : 0;
 
   // per lane: O^T tile m at dims r * D / 8 + 2 m (+ 1) of queries 2c, 2c + 1;
   // each column's running max and this lane's part of its sum
@@ -662,8 +690,8 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
 
       const float* kscl = reinterpret_cast<const float*>(base + 2 * UNIT * D) + warp * TILE;
       const float* vscl = kscl + UNIT;
-      // columns this range's keys reach: all, or one beam's G
-      const bool ok0 = sgm.beam < 0 || (2 * c) / G == sgm.beam, ok1 = sgm.beam < 0 || (2 * c + 1) / G == sgm.beam;
+      // columns this range's keys reach: all, or one beam's
+      const bool ok0 = sgm.beam < 0 || cb0 == sgm.beam, ok1 = sgm.beam < 0 || cb1 == sgm.beam;
       // S^T = K Q^T: A rows r, r + 8 are keys r, r + 8 of the tile, each lane
       // its D / 4 contiguous bytes of them (two accumulators: shorter chains)
       float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
@@ -805,7 +833,7 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     const size_t row = qrow(j);
     if (parts == 1) {
       const float pf = exp2f(fresh_s[j] - M);
-      const float* v = fresh_v + (BEAM ? j / G : 0) * D + d;
+      const float* v = fresh_v + (BEAM ? (q0 + j) / G - j0 : 0) * D + d;
       L = fmaxf(L + pf, 1e-30f);
       out[row * D + d] = lia::from_f32<T>(fmaf(pf, v[0], o0) / L);
       out[row * D + d + 1] = lia::from_f32<T>(fmaf(pf, v[1], o1) / L);
@@ -820,7 +848,8 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
 }
 
 // The parts' partials of each query row merged (one warp a row), then the
-// fresh token (with RAW, after its round trip), normalised and written out.
+// fresh token (with RAW, after its round trip; none where kf is null: the
+// bf16 plane route of beam_attn.cuh for B7/B8), normalised and written out.
 template <typename T, int D, bool RAW>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __restrict__ kf,
@@ -829,9 +858,11 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
   const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= rows) return;
   const size_t fr = ((size_t)(row / N) * (N / G) + (row % N) / G) * D;
-  float kx[DL], vx[DL];
-  fresh_kv<T, DL, RAW>(kf + fr, vf + fr, kx, vx, lane);
-  const float sf = fresh_score<T, DL>(q + (size_t)row * D, kx, sscale, lane);
+  float kx[DL], vx[DL], sf = LIA_NEG_INF;
+  if (kf) {
+    fresh_kv<T, DL, RAW>(kf + fr, vf + fr, kx, vx, lane);
+    sf = fresh_score<T, DL>(q + (size_t)row * D, kx, sscale, lane);
+  }
   const float* ws_m = ws + (size_t)parts * rows * D;
   const float* ws_l = ws_m + (size_t)parts * rows;
   float M = sf, L = 0.f, o[DL];
@@ -851,10 +882,15 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
 #pragma unroll
     for (int e = 0; e < DL; ++e) o[e] = fmaf(v[e], a, o[e]);
   }
-  const float pf = exp2f(sf - M);
-  L = fmaxf(L + pf, 1e-30f);
+  if (kf) {
+    const float pf = exp2f(sf - M);
+    L += pf;
 #pragma unroll
-  for (int e = 0; e < DL; ++e) out[(size_t)row * D + lane * DL + e] = lia::from_f32<T>(fmaf(pf, vx[e], o[e]) / L);
+    for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vx[e], o[e]);
+  }
+  L = fmaxf(L, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < DL; ++e) out[(size_t)row * D + lane * DL + e] = lia::from_f32<T>(o[e] / L);
 }
 
 template <typename T, int D, bool RAW, bool BEAM>
@@ -869,7 +905,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
                                                    (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return (int)attr;
-  const int chunks = BEAM ? (keys.nb + bpc - 1) / bpc : 1;
+  const int qpc = std::min(bpc * G, NQ), chunks = ((BEAM ? keys.nb : 1) * G + qpc - 1) / qpc;
   const int units = BEAM ? B / keys.nb : B;  // plane rows, or beam groups
   const dim3 grid(Nkv, units, parts * chunks);
   const int stages = ring_stages(D, Nkv * units * parts * chunks, sms);
@@ -887,7 +923,8 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
 }
 
 // Type and head-dim dispatch, after the checks every entry shares: D 64 or
-// 128, G = N / Nkv one of 1, 2, 4, 8, bpc beams a chunk with bpc * G <= NQ,
+// 128, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk
+// with bpc * G <= NQ or bpc = 1 (runs of NQ queries),
 // parts >= 1 (a workspace of parts * B * N * (D + 2) floats when parts > 1),
 // the codes 16-byte aligned. Returns a cudaError_t value, 0 on a successful
 // launch.
@@ -898,7 +935,7 @@ int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nkv <= 0 || N % Nkv != 0 || B < 1 || parts < 1 || (parts > 1 && !ws) || sms < 1) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv;
-  if ((G != 1 && G != 2 && G != 4 && G != 8) || (D != 64 && D != 128) || bpc < 1 || bpc * G > NQ ||
+  if ((D != 64 && D != 128) || bpc < 1 || (bpc > 1 && bpc * G > NQ) ||
       ((reinterpret_cast<uintptr_t>(keys.kq) | reinterpret_cast<uintptr_t>(keys.vq)) & 15) != 0 ||
       (BEAM && ((reinterpret_cast<uintptr_t>(keys.ktq) | reinterpret_cast<uintptr_t>(keys.vtq)) & 15) != 0))
     return (int)cudaErrorInvalidValue;

@@ -17,8 +17,15 @@
 // What bounds it on an H100: bytes, at both entry points' timed shapes (the
 // notes in flash_prefill.cu and flash_cached.cu give the figures). The design
 // keeps the tensor cores and the copy engine busy at once and the card full:
-//  - A block owns a tile of 64 query rows, the G query heads of one kv head at
-//    64/G positions, so K/V are never replicated across heads. It is one
+//  - A block owns a tile of 64 query rows of one kv head, so K/V are never
+//    replicated across heads. Up to G = 64 a tile holds 64 / G whole
+//    positions of the G query heads (row r: position pos0 + r / G, head r %
+//    G). A larger group (Falcon-7B's G = 71) takes the FLAT instantiation:
+//    tile rows are the flat (position, head) index f = t * G + g, rows f0 ..
+//    f0 + 63 of tile f0 / 64, so a position's heads straddle two tiles and
+//    each row keeps its own causal and window limit. (The flat mapping gives
+//    the same tiles where G divides 64; it is kept apart because its
+//    prologue measured 3-7% slower at OPT-6.7B's b16 s256 on an H100.) It is one
 //    producer warp and one consumer warpgroup, or, where the grid is at most
 //    one block an SM, two consumer warpgroups that take alternate K/V tiles
 //    of the walk and merge their (o, m, l) through shared memory at the end.
@@ -199,10 +206,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 }
 
-// Grid: (row tiles * parts, N_kv, B), the longest walks (the last row tiles)
-// first. With parts == 1 the block writes `out`; otherwise its partials. NW:
-// consumer warpgroups splitting the walk (2 where the grid is one block an SM).
-template <int D, int NW>
+// Grid: (row tiles * parts, N_kv, B), row tiles ceil(C / (64 / G)), or with
+// FLAT ceil(C * G / 64), the longest walks (the last row tiles) first. With
+// parts == 1 the block writes `out`; otherwise its partials. NW: consumer
+// warpgroups splitting the walk (2 where the grid is one block an SM).
+template <int D, int NW, bool FLAT>
 __global__ void __launch_bounds__(Layout<D, NW>::THREADS, NW == 1 ? 2 : 1)
 flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
              const __grid_constant__ CUtensorMap tmv,  // v [B * Nkv, S_kv, D]
@@ -226,9 +234,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   const int h = blockIdx.y, b = blockIdx.z;
   const int n_rt = gridDim.x / parts;
   const int rt = n_rt - 1 - (int)blockIdx.x / parts, part = blockIdx.x % parts;
-  const int bqp = ROWS / G;  // query positions per tile
-  const int nrows = bqp * G;
-  const int pos0 = rt * bqp;
+  // this tile's rows: positions pos0 .. of 64 / G a tile, or (FLAT) the flat
+  // (position, head) indices f0 .. f0 + nrows - 1
+  const int bqp = FLAT ? 0 : ROWS / G;  // query positions per tile
+  const int f0 = FLAT ? rt * ROWS : 0;
+  const int nrows = FLAT ? min(ROWS, C * G - f0) : bqp * G;
+  const int pos0 = FLAT ? f0 / G : rt * bqp;
+  auto row_pos = [&](int r) { return FLAT ? (f0 + r) / G : pos0 + r / G; };
+  auto row_head = [&](int r) { return FLAT ? (f0 + r) % G : r % G; };
 
   if (tid == CONSUMERS) {  // the producer's tensor maps, fetched under the count
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmk)) : "memory");
@@ -241,24 +254,24 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the Q tile's loads go out before the count: row r is chunk row pos0 + r / G,
-  // head h * G + r % G
+  // the Q tile's loads go out before the count: row r is chunk row
+  // row_pos(r), head h * G + row_head(r)
   uint4 qv[QV];
 #pragma unroll
   for (int x = 0; x < QV; ++x) {
     const int idx = tid + x * CONSUMERS, r = idx / CH, c = idx % CH;
-    const int pos = pos0 + r / G;
+    const int pos = row_pos(r);
     qv[x] = make_uint4(0, 0, 0, 0);
     if (tid < CONSUMERS && r < nrows && pos < C)
-      qv[x] = *reinterpret_cast<const uint4*>(q + (((size_t)b * C + pos) * N + h * G + r % G) * D + c * 8);
+      qv[x] = *reinterpret_cast<const uint4*>(q + (((size_t)b * C + pos) * N + h * G + row_head(r)) * D + c * 8);
   }
   const int base = bases ? bases[b * base_stride] : 0;
   __syncthreads();  // the barriers are initialised
   const int start = base + C - lia::block_count_true(kv_mask + (size_t)b * S_kv, S_kv);
+  const int last_row = FLAT ? (f0 + nrows - 1) / G : min(pos0 + bqp, C) - 1;
 
   // kv tiles before start (or the window) or past this row tile's last row are
   // fully masked; this part walks its share [lo, hi) of the rest
-  const int last_row = min(pos0 + bqp, C) - 1;
   int j_lo = max(start, 0) / BK;
   if (window > 0) j_lo = max(j_lo, max(0, base + pos0 - window + 1) / BK);
   const int j_hi = min((base + last_row) / BK + 1, (S_kv + BK - 1) / BK);
@@ -303,7 +316,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   bool rvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qrow[i] = pos0 + (r0 + 8 * i) / G;
+    qrow[i] = row_pos(r0 + 8 * i);
     qpos[i] = base + qrow[i];
     rvalid[i] = r0 + 8 * i < nrows;
   }
@@ -380,9 +393,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
     wg0_sync();
     for (int idx = tid; idx < ROWS * CH; idx += WG) {
       const int r = idx / CH, c = idx % CH;
-      const int pos = pos0 + r / G;
+      const int pos = row_pos(r);
       if (r < nrows && pos < C)
-        *reinterpret_cast<uint4*>(out + (((size_t)b * C + pos) * N + h * G + r % G) * D + c * 8) =
+        *reinterpret_cast<uint4*>(out + (((size_t)b * C + pos) * N + h * G + row_head(r)) * D + c * 8) =
             *reinterpret_cast<const uint4*>(smem + swz(r, c * 8));
     }
     return;
@@ -395,7 +408,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (!rvalid[i] || qrow[i] >= C) continue;
-    const size_t row = (size_t)part * R + ((size_t)b * C + qrow[i]) * N + h * G + r % G;
+    const size_t row = (size_t)part * R + ((size_t)b * C + qrow[i]) * N + h * G + row_head(r);
     if (t == 0) {
       ws_m[row] = hi > lo ? m[i] : -INFINITY;
       ws_l[row] = l[i];
@@ -462,7 +475,7 @@ inline bool plane_map(CUtensorMap* map, const void* ptr, int planes, int S_kv, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int NW>
+template <int D, int NW, bool FLAT>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases, int base_stride,
            void* out, void* ws, int parts, int B, int C, int S_kv, int N, int Nkv, float sscale, int window,
            cudaStream_t stream) {
@@ -471,11 +484,11 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, con
   if (!plane_map(&tmk, k, B * Nkv, S_kv, D) || !plane_map(&tmv, v, B * Nkv, S_kv, D))
     return (int)cudaErrorInvalidValue;
   const int smem = Layout<D, NW>::BYTES;
-  auto kern = flash_kernel<D, NW>;
+  auto kern = flash_kernel<D, NW, FLAT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int bqp = ROWS / G;
-  dim3 grid(((C + bqp - 1) / bqp) * parts, Nkv, B);
+  const int tiles = FLAT ? (C * G + ROWS - 1) / ROWS : (C + ROWS / G - 1) / (ROWS / G);
+  dim3 grid(tiles * parts, Nkv, B);
   kern<<<grid, Layout<D, NW>::THREADS, smem, stream>>>(tmk, tmv, static_cast<const __nv_bfloat16*>(q),
                                         static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(bases),
                                         base_stride, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
@@ -491,20 +504,24 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, con
 // Head-dim and warpgroup dispatch; returns a cudaError_t value, 0 on a
 // successful launch. The wrapper chooses `parts` and `nw` (consumer
 // warpgroups a block, 1 or 2) from the grid; D must be 64 or 128, G = N / Nkv
-// at most 64, and parts > 1 needs a workspace of parts * B * C * N * (D + 2)
-// floats.
+// any group (the wrapper admits 1 .. 128), and parts > 1 needs a workspace of
+// parts * B * C * N * (D + 2) floats.
 inline int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases,
                     int base_stride, void* out, void* ws, int parts, int nw, int B, int C, int S_kv, int N, int Nkv,
                     int D, float sscale, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nkv <= 0 || N % Nkv != 0 || N / Nkv > ROWS || C <= 0 || parts < 1 || (parts > 1 && !ws) ||
+  if (Nkv <= 0 || N % Nkv != 0 || C <= 0 || parts < 1 || (parts > 1 && !ws) ||
       (nw != 1 && nw != 2) || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
     return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, sscale, window, st);
   };
-  if (D == 128) return nw == 2 ? run(&launch<128, 2>) : run(&launch<128, 1>);
-  return nw == 2 ? run(&launch<64, 2>) : run(&launch<64, 1>);
+  if (N / Nkv > ROWS) {  // a group that straddles tiles
+    if (D == 128) return nw == 2 ? run(&launch<128, 2, true>) : run(&launch<128, 1, true>);
+    return nw == 2 ? run(&launch<64, 2, true>) : run(&launch<64, 1, true>);
+  }
+  if (D == 128) return nw == 2 ? run(&launch<128, 2, false>) : run(&launch<128, 1, false>);
+  return nw == 2 ? run(&launch<64, 2, false>) : run(&launch<64, 1, false>);
 }
 
 }  // namespace lia_flash

@@ -15,7 +15,7 @@
 
 // Returns a cudaError_t value: 0 on a successful launch. The wrapper checks
 // shapes, type and contiguity and chooses `parts` and `nw` (consumer
-// warpgroups a block, 1 or 2); D must be 64 or 128, G = N / Nkv at most 64,
+// warpgroups a block, 1 or 2); D must be 64 or 128, G = N / Nkv any group,
 // and parts > 1 needs a workspace of parts * B * S * N * (D + 2) floats.
 extern "C" int lia_flash_prefill(const void* q, const void* k, const void* v, const void* mask, void* out,
                                  void* ws, int parts, int nw, int B, int S, int N, int Nkv, int D, float sscale,

@@ -53,20 +53,21 @@ from lia_tpu_torch.ops.rope import rope_angles, rotate
 
 Params = Dict[str, Any]
 
-# families whose RoPE layouts the port's tests hold against the reference
-ROPE_FAMILIES = ("llama", "gptj", "gpt_neox")
+# families whose RoPE layouts the port's tests hold against the reference (the
+# llama layout includes StableLM's LayerNorm; ChatGLM rotates half of each head,
+# interleaved)
+ROPE_FAMILIES = ("llama", "gptj", "gpt_neox", "falcon", "chatglm", "baichuan")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration features the port does not run yet."""
-    # stablelm is the llama layout with LayerNorm: not held against the reference yet
-    stablelm = cfg.family == "llama" and cfg.norm == Norm.LAYERNORM
-    rope_missing = cfg.rope and (cfg.family not in ROPE_FAMILIES or stablelm)
+    """Raise for configuration features the port does not run yet, naming
+    what is missing."""
     missing = [
         name for name, on in (
-            (f"RoPE in the {cfg.family} layout", rope_missing), ("ALiBi", cfg.alibi),
-            ("mixture of experts", cfg.num_experts), ("encoder-decoder", cfg.encoder_decoder),
-            ("vision tower", cfg.vision_hidden),
+            ("the codegen family (its converter; head dims 80 and 256)", cfg.family == "codegen"),
+            (f"RoPE in the {cfg.family} layout", cfg.rope and cfg.family not in ROPE_FAMILIES + ("codegen",)),
+            ("ALiBi", cfg.alibi), ("mixture of experts", cfg.num_experts),
+            ("encoder-decoder", cfg.encoder_decoder), ("vision tower", cfg.vision_hidden),
         ) if on
     ]
     if missing:

@@ -45,9 +45,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "decode": {
         "lia_decode": [P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+        "lia_decode_groups": [P] * 5 + [I, P, P] + [I] * 8 + [F, P],
     },
     "decode_fresh": {
         "lia_decode_fresh": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+        "lia_decode_fresh_groups": [P] * 7 + [I, P, P] + [I] * 8 + [F, P],
     },
     "decode_fresh_int8": {
         "lia_decode_fresh_int8": [P] * 9 + [I, P, P] + [I] * 7 + [F, I, P],

@@ -32,8 +32,10 @@ from lia_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 KERNEL_DIMS = (64, 128)  # head dims the kernels are instantiated for
-KERNEL_GROUPS = (1, 2, 4, 8)  # GQA group sizes the decode kernels are instantiated for
-FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads
+KERNEL_MAX_GROUP = 128  # largest GQA group G = N / N_kv the attention kernels take (any G from 1 up:
+# each splits a kv head's queries into chunks; checked on an H100 at G = 1, 2, 3, 4, 8, 16, 71 and 128)
+FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads, or past G = 64 flat (position,
+# head) rows t * G + g
 FLASH_BK = 64  # keys of one flash K/V tile
 FLASH_MAX_PARTS = 16
 PAGED_WARPS = 4  # consumer warps of a paged block (csrc/paged_attn.cuh: NWC)
@@ -44,6 +46,8 @@ INT8_MAX_PARTS = 8
 INT8_PART_KEYS = 1024  # keys of a unit's longest walk a part takes at least: splits of walks
 # up to 1152 keys lost or tied on an H100 (chip_smoke.py's forced-split rows)
 BEAM_QUERIES = 16  # queries one bf16 beam block holds (csrc/beam_attn.cuh: NQ)
+WARP_MAX_GROUP = 8  # bf16 plane decode (B2, B7/B8) past this group runs the bf16 beam body (csrc/decode.cu):
+# decode_attn.cuh's warp body took 0.045 ms at G = 16 and 71 on an H100 (chip_smoke.py's group rows)
 BEAM_MAX_PARTS = 8
 BEAM_PART_KEYS = 64  # keys of a group's longest walk a bf16 beam part takes at least (a ring stage):
 # on an H100 a split lost at one block an SM (4 x 4 beams, 32 heads: 128 blocks) and won at
@@ -111,15 +115,30 @@ def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None):
     return flash_attention_cached_plain(q, k, v, 0, input_mask, scale, window)
 
 
+def flash_tile_rows(C: int, G: int, device=None):
+    """First and last chunk position of the flash tile that holds each (chunk
+    row t, head g), [C, G] each: up to G = 64 a tile holds 64 // G whole
+    positions; past it the 64 flat rows f = t * G + g from 64 * (f // 64), so
+    a position's heads straddle two tiles."""
+    if G <= FLASH_ROWS:
+        per = FLASH_ROWS // G
+        t = torch.arange(C, device=device)[:, None].expand(C, G)
+        return t // per * per, torch.clamp(t // per * per + per, max=C) - 1
+    f = torch.arange(C * G, device=device).reshape(C, G)
+    f0 = f // FLASH_ROWS * FLASH_ROWS
+    return f0 // G, (torch.clamp(f0 + FLASH_ROWS, max=C * G) - 1) // G
+
+
 def flash_partials_plain(q, k_cache, v_cache, base, slot_mask, parts, scale=None, window=None):
-    """The flash kernels' split walk in plain torch: each 64-row tile of chunk
-    rows (64 / G positions) walks the 64-key tiles [j_lo, j_hi) that are not
-    fully masked for it, and part p of ``parts`` takes tiles [j_lo + n p /
-    parts, j_lo + n (p + 1) / parts), n = j_hi - j_lo. Inside a part's tiles a
-    masked key scores -1e30, as in the kernel. Arguments as
-    :func:`flash_attention_cached_plain`; returns the fp32 partials (o
-    unnormalised [parts, B, C, N, D], m and l [parts, B, C, N]) the kernel
-    writes to its workspace; a part with no tiles has m = -inf, l = 0, o = 0."""
+    """The flash kernels' split walk in plain torch: each 64-row tile of flat
+    (chunk row, head) rows t * G + g walks the 64-key tiles [j_lo, j_hi) that
+    are not fully masked for any of its rows (:func:`flash_tile_rows`), and
+    part p of ``parts`` takes tiles [j_lo + n p / parts, j_lo + n (p + 1) /
+    parts), n = j_hi - j_lo. Inside a part's tiles a masked key scores -1e30,
+    as in the kernel. Arguments as :func:`flash_attention_cached_plain`;
+    returns the fp32 partials (o unnormalised [parts, B, C, N, D], m and l
+    [parts, B, C, N]) the kernel writes to its workspace; a part with no
+    tiles has m = -inf, l = 0, o = 0."""
     B, C, N, D = q.shape
     _, Nkv, S_max, _ = k_cache.shape
     G = N // Nkv
@@ -127,13 +146,12 @@ def flash_partials_plain(q, k_cache, v_cache, base, slot_mask, parts, scale=None
     bases = _lengths(base, dev).expand(B).long()
     starts = bases + C - slot_mask.to(torch.int64).sum(dim=1)
     t = torch.arange(C, device=dev)
-    pos0 = t // (FLASH_ROWS // G) * (FLASH_ROWS // G)  # each row's tile's first position
-    last = torch.clamp(pos0 + FLASH_ROWS // G, max=C) - 1
-    j_lo = (starts.clamp(min=0) // FLASH_BK)[:, None].expand(B, C)
+    pos0, last = flash_tile_rows(C, G, dev)  # [C, G]
+    j_lo = (starts.clamp(min=0) // FLASH_BK)[:, None, None].expand(B, C, G)
     if window is not None:
-        j_lo = torch.maximum(j_lo, (bases[:, None] + pos0 - window + 1).clamp(min=0) // FLASH_BK)
-    j_hi = torch.clamp((bases[:, None] + last) // FLASH_BK + 1, max=-(-S_max // FLASH_BK))
-    n = (j_hi - j_lo).clamp(min=0)
+        j_lo = torch.maximum(j_lo, (bases[:, None, None] + pos0 - window + 1).clamp(min=0) // FLASH_BK)
+    j_hi = torch.clamp((bases[:, None, None] + last) // FLASH_BK + 1, max=-(-S_max // FLASH_BK))
+    n = (j_hi - j_lo).clamp(min=0)  # [B, C, G]
     qf = q.float().reshape(B, C, Nkv, G, D)
     s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k_cache.float()) * _sscale(scale, D)
     qpos = (bases[:, None] + t)[:, :, None]  # [B, C, 1]
@@ -142,11 +160,11 @@ def flash_partials_plain(q, k_cache, v_cache, base, slot_mask, parts, scale=None
     if window is not None:
         masked = masked | (kpos <= qpos - window)
     s = torch.where(masked[:, None, None], torch.full_like(s, NEG_INF), s)
-    jk = kpos // FLASH_BK
+    jk = kpos[..., None, :] // FLASH_BK  # [1, 1, 1, S]
     o, m, l = [], [], []
     for p in range(parts):
-        lo, hi = j_lo + n * p // parts, j_lo + n * (p + 1) // parts  # [B, C]
-        inside = ((jk >= lo[:, :, None]) & (jk < hi[:, :, None]))[:, None, None]  # [B, 1, 1, C, S]
+        lo, hi = j_lo + n * p // parts, j_lo + n * (p + 1) // parts  # [B, C, G]
+        inside = ((jk >= lo[..., None]) & (jk < hi[..., None])).permute(0, 2, 1, 3)[:, None]  # [B, 1, G, C, S]
         mp = torch.where(inside, s, torch.full_like(s, -float("inf"))).amax(dim=-1, keepdim=True)
         pr = torch.where(inside, torch.exp2(s - mp), torch.zeros_like(s))
         acc = torch.einsum("bhgqk,bhkd->bhgqd", pr.to(v_cache.dtype).float(), v_cache.float())
@@ -413,14 +431,23 @@ def _flash_checks(q, k, v, kv_mask, bases):
         raise ValueError(f"the mask must be [B, S] = {(B, S_kv)} bool")
     if bases is not None and bases.ndim and bases.shape != (B,):
         raise ValueError("base must be a scalar or [B]")
-    if D not in KERNEL_DIMS or N % Nkv or N // Nkv > 64:
+    _check_heads(N, Nkv, D)
+
+
+def _check_heads(N: int, Nkv: int, D: int) -> None:
+    """The head shapes every attention kernel takes: D in KERNEL_DIMS and any
+    group G = N / N_kv from 1 to KERNEL_MAX_GROUP."""
+    if D not in KERNEL_DIMS or Nkv < 1 or N % Nkv or not 1 <= N // Nkv <= KERNEL_MAX_GROUP:
         raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
 
 
 def _flash_tiles(B: int, C: int, N: int, Nkv: int) -> int:
     """(row tile, kv head, batch row) tiles of a flash launch: each row tile
-    holds 64 / G chunk positions of the G query heads of one kv head."""
-    return -(-C // (FLASH_ROWS // (N // Nkv))) * Nkv * B
+    holds 64 / G chunk positions of the G query heads of one kv head, or past
+    G = 64, 64 of the C * G flat (position, head) rows."""
+    G = N // Nkv
+    rows = -(-C // (FLASH_ROWS // G)) if G <= FLASH_ROWS else -(-C * G // FLASH_ROWS)
+    return rows * Nkv * B
 
 
 def flash_split_parts(B: int, C: int, N: int, Nkv: int, S_kv: int, sms: int) -> int:
@@ -482,8 +509,20 @@ def paged_split_parts(B: int, C: int, N: int, Nkv: int, P: int, sms: int) -> int
 def int8_beams_a_block(nb: int, G: int) -> int:
     """Beams of a group whose queries one int8 beam block holds: all nb where
     their nb * G queries fit INT8_QUERIES, else as many as fit (the group's
-    prompt is then read once for each block of its beams)."""
+    prompt is then read once for each block of its beams); 1 where one beam's
+    G queries do not fit, which then go to blocks in runs of INT8_QUERIES
+    (:func:`query_runs`)."""
     return max(1, min(nb, INT8_QUERIES // G))
+
+
+def query_runs(nb: int, G: int, bpc: int, nq: int) -> int:
+    """Blocks that share a unit's nb * G flat queries (beam, head) in runs of
+    min(bpc * G, nq): bpc whole beams a block where they fit the block's ``nq``
+    queries, else runs of ``nq`` heads that may straddle two beams (the last
+    run ragged: Falcon-7B's G = 71 is nine runs of at most 8 a plane row).
+    The decode kernels take a unit's queries so (csrc/decode_int8_attn.cuh,
+    csrc/beam_attn.cuh)."""
+    return -(-nb * G // min(bpc * G, nq))
 
 
 def int8_split_parts(blocks: int, keys: int, sms: int) -> int:
@@ -503,17 +542,18 @@ def int8_split_parts(blocks: int, keys: int, sms: int) -> int:
 
 
 def int8_decode_parts(B: int, N: int, Nkv: int, S_max: int, sms: int) -> int:
-    """B3's parts: its blocks are one a (kv head, row), the walk at most the
-    plane's S_max slots."""
-    return int8_split_parts(Nkv * B, S_max, sms)
+    """B3's parts: its blocks are one a (kv head, row, run of at most
+    INT8_QUERIES of the G heads), the walk at most the plane's S_max slots."""
+    return int8_split_parts(Nkv * B * query_runs(1, N // Nkv, 1, INT8_QUERIES), S_max, sms)
 
 
 def int8_beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int) -> Tuple[int, int]:
     """B10's (beams a block, parts): its blocks are one a (kv head, group,
-    chunk of beams), the walk at most the prompt's S_p slots and a tail's
-    T_max."""
-    bpc = int8_beams_a_block(nb, N // Nkv)
-    return bpc, int8_split_parts(Nkv * (B // nb) * -(-nb // bpc), S_p + T_max, sms)
+    run of queries: :func:`query_runs`), the walk at most the prompt's S_p
+    slots and a tail's T_max."""
+    G = N // Nkv
+    bpc = int8_beams_a_block(nb, G)
+    return bpc, int8_split_parts(Nkv * (B // nb) * query_runs(nb, G, bpc, INT8_QUERIES), S_p + T_max, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -521,8 +561,10 @@ def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int)
     """B9's (beams a block, parts) for bf16 calls, cached by shape. A block
     holds the queries of all nb beams of a group where their nb * G fit
     BEAM_QUERIES, else as many whole beams as fit (the group's prompt is then
-    read once for each block of its beams). Its blocks are one a (kv head,
-    group, chunk of beams); where they leave SMs idle, each group's keys split
+    read once for each block of its beams), and one (bpc = 1) where a beam's
+    G queries do not fit, which go to blocks in runs of BEAM_QUERIES. Its
+    blocks are one a (kv head, group, run of queries: :func:`query_runs`);
+    where they leave SMs idle, each group's keys split
     into as many parts as keep the blocks within one an SM (a block's copies
     take about all of an SM's share of the memory's rate), at most
     BEAM_MAX_PARTS, each at least BEAM_PART_KEYS of the longest walk the
@@ -530,8 +572,9 @@ def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int)
     its merge launch and each part's fixed start only over long walks.
     chip_smoke.py times the host's choice beside the split forced the other
     way."""
-    bpc = max(1, min(nb, BEAM_QUERIES // (N // Nkv)))
-    blocks = Nkv * (B // nb) * -(-nb // bpc)
+    G = N // Nkv
+    bpc = max(1, min(nb, BEAM_QUERIES // G))
+    blocks = Nkv * (B // nb) * query_runs(nb, G, bpc, BEAM_QUERIES)
     return bpc, max(1, min(sms // blocks, BEAM_MAX_PARTS, (S_p + T_max) // BEAM_PART_KEYS))
 
 
@@ -618,8 +661,7 @@ def _plane_checks(q, plane_shape, slot_mask, lengths):
         raise ValueError("slot_mask must be [B, S_max] bool")
     if lengths.ndim and lengths.shape != (B,):
         raise ValueError("length must be a scalar or [B]")
-    if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
-        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+    _check_heads(N, Nkv, D)
 
 
 def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
@@ -632,9 +674,47 @@ def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
         raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
 
 
+def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int) -> Tuple[int, int]:
+    """(beams a block, parts) of a plane decode call (B2, B7/B8): (1, 1) on
+    decode_attn.cuh's warp body (fp32, or G up to WARP_MAX_GROUP); past that
+    a bf16 call runs the bf16 beam body, each row a group of one beam with
+    no tail, and takes :func:`beam_plan`'s split."""
+    if not bf16 or N // Nkv <= WARP_MAX_GROUP:
+        return 1, 1
+    return beam_plan(B, 1, N, Nkv, S_max, 0, sms)
+
+
+def _plane_groups(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream):
+    """Launch ``lia_decode_groups`` (``fresh`` empty) or
+    ``lia_decode_fresh_groups`` (the fresh k/v): a bf16 plane call past G =
+    WARP_MAX_GROUP on the bf16 beam body, after the caller's checks; returns
+    (rc, out, parts)."""
+    from lia_tpu_torch.ops import _build
+
+    B, _, N, D = q.shape
+    _, Nkv, S_max, _ = plane_shape
+    dev = q.get_device()
+    sms = _sms(dev)
+    bpc, parts = plane_plan(B, N, Nkv, S_max, True, sms)
+    _aligned16(q.data_ptr(), kc_ptr, vc_ptr, *(t.data_ptr() for t in fresh))
+    ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
+    out = torch.empty_like(q)
+    lib = _build.library(name)
+    rest = (slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, parts, bpc, B, N, Nkv, S_max, D, sms, _sscale(scale, D),
+            stream)
+    if fresh:
+        rc = lib.lia_decode_fresh_groups(q.data_ptr(), fresh[0].data_ptr(), fresh[1].data_ptr(), kc_ptr, vc_ptr,
+                                         *rest)
+    else:
+        rc = lib.lia_decode_groups(q.data_ptr(), kc_ptr, vc_ptr, *rest)
+    return rc, out, parts
+
+
 def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length, scale):
-    """Launch ``lia_decode`` over one plane of ``plane_shape`` [B, N_kv, S_max,
-    D] at kc_ptr/vc_ptr (inside k_cache/v_cache)."""
+    """Launch ``lia_decode`` (or, bf16 past G = WARP_MAX_GROUP,
+    ``lia_decode_groups``) over one plane of ``plane_shape`` [B, N_kv, S_max,
+    D] at kc_ptr/vc_ptr (inside k_cache/v_cache); returns (rc, out, parts)."""
     from lia_tpu_torch.ops import _build
 
     B, _, N, D = q.shape
@@ -646,12 +726,14 @@ def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length,
     _plane_checks(q, plane_shape, slot_mask, lengths)
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v caches differ in shape")
+    if is_bf16 and N // Nkv > WARP_MAX_GROUP:
+        return _plane_groups("decode", q, (), kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream)
     out = torch.empty_like(q)
     rc = _build.library("decode").lia_decode(
         q.data_ptr(), kc_ptr, vc_ptr, slot_mask.data_ptr(), lengths.data_ptr(),
         1 if lengths.ndim else 0, out.data_ptr(), B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
     )
-    return rc, out
+    return rc, out, 1
 
 
 def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None):
@@ -659,10 +741,11 @@ def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None):
     holds this step's token; ``length`` (0-dim or [B]) includes it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale)
-    rc, out = _decode(q, k_cache.data_ptr(), v_cache.data_ptr(), k_cache.shape, k_cache, v_cache,
-                      slot_mask, length, scale)
+    rc, out, parts = _decode(q, k_cache.data_ptr(), v_cache.data_ptr(), k_cache.shape, k_cache, v_cache,
+                             slot_mask, length, scale)
     _raise_on(rc, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.split_launches += int(parts > 1)
     return out
 
 
@@ -675,17 +758,21 @@ def decode_attention_stacked(q, k_cache, v_cache, layer_idx, slot_mask, length, 
         return decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale)
     if k_cache.dim() != 5:
         raise ValueError(f"the cache must be [L, B, N_kv, S_max, D], got {tuple(k_cache.shape)}")
-    rc, out = _decode(q, _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx), k_cache.shape[1:],
-                      k_cache, v_cache, slot_mask, length, scale)
+    rc, out, parts = _decode(q, _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx), k_cache.shape[1:],
+                             k_cache, v_cache, slot_mask, length, scale)
     _raise_on(rc, "decode_attention_stacked")
     decode_attention_stacked.launches += 1
+    decode_attention_stacked.split_launches += int(parts > 1)
     return out
 
 
 def decode_attention_fresh(
     q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
 ):
-    """Decode attention over layer ``layer_idx``'s cache plane + the fresh token."""
+    """Decode attention over layer ``layer_idx``'s cache plane + the fresh
+    token. Past G = WARP_MAX_GROUP a bf16 call runs the bf16 beam body
+    (:func:`plane_plan`), which may split each row's keys and merge them in a
+    second launch (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_fresh_plain(
             q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale
@@ -701,15 +788,20 @@ def decode_attention_fresh(
     _decode_checks(q, k_fresh, v_fresh, k_cache, slot_mask, lengths)
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v caches differ in shape")
-    out = torch.empty_like(q)
-    rc = _build.library("decode_fresh").lia_decode_fresh(
-        q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
-        _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx),
-        slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
-        B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
-    )
+    kc_ptr, vc_ptr = _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx)
+    if is_bf16 and N // Nkv > WARP_MAX_GROUP:
+        rc, out, parts = _plane_groups("decode_fresh", q, (k_fresh, v_fresh), kc_ptr, vc_ptr, k_cache.shape[1:],
+                                       slot_mask, lengths, scale, stream)
+    else:
+        out, parts = torch.empty_like(q), 1
+        rc = _build.library("decode_fresh").lia_decode_fresh(
+            q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(), kc_ptr, vc_ptr,
+            slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
+            B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
+        )
     _raise_on(rc, "decode_attention_fresh")
     decode_attention_fresh.launches += 1
+    decode_attention_fresh.split_launches += int(parts > 1)
     return out
 
 
@@ -784,8 +876,7 @@ def _beam_checks(q, k_fresh, v_fresh, prompt_shape, tail_shape, prompt_mask, len
         raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
     if any(t.ndim for t in lens):
         raise ValueError("prompt_len and tail_len must be scalars")
-    if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
-        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+    _check_heads(N, Nkv, D)
 
 
 def decode_beam_attention(
@@ -922,8 +1013,7 @@ def paged_decode_attention(
         raise ValueError("lengths must be a scalar or [B]")
     if fresh and (fresh[0].shape != (B, Nkv, C, D) or fresh[1].shape != fresh[0].shape):
         raise ValueError("fresh k/v must be [B, N_kv, C, D]")
-    if D not in KERNEL_DIMS or N % Nkv or N // Nkv not in KERNEL_GROUPS:
-        raise ValueError(f"unsupported head shape N={N}, N_kv={Nkv}, D={D}")
+    _check_heads(N, Nkv, D)
     kf_ptr, vf_ptr = (fresh[0].data_ptr(), fresh[1].data_ptr()) if fresh else (None, None)
     out = torch.empty_like(q)
     parts = paged_split_parts(B, C, N, Nkv, P, _sms(q.get_device()))
@@ -945,7 +1035,8 @@ KERNELS = (
     decode_beam_attention, decode_beam_attention_int8,
 )
 SPLIT_KERNELS = (flash_attention_prefill, flash_attention_cached, paged_decode_attention,
-                 decode_attention_fresh_int8, decode_beam_attention, decode_beam_attention_int8)
+                 decode_attention_fresh_int8, decode_beam_attention, decode_beam_attention_int8,
+                 decode_attention_fresh, decode_attention, decode_attention_stacked)
 
 
 def reset_launch_counts() -> None:

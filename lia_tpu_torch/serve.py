@@ -3,15 +3,22 @@
 
 Standard library only (``ThreadingHTTPServer``): handler threads queue requests
 and block on completion events; ONE engine thread owns every CUDA call (the
-batcher's steps). Weights are random, drawn on the device from a seed at the
-registry's widths (``device_dummy_params``, with the quantization flags);
-checkpoints are not ported yet.
+batcher's steps). Weights come from ``--checkpoint``, a directory of Hugging
+Face ``*.safetensors`` shards (``load_hf_checkpoint``, as the root server's
+flag); without it they are random, drawn on the device from a seed at the
+registry's widths (``device_dummy_params``). The quantization flags quantize
+a checkpoint's weights on the host (``quantize_params``) and draw dummy
+weights directly in the quantized formats.
 
     python -m lia_tpu_torch.serve -m opt-1.3b --paged --port 8000
+    python -m lia_tpu_torch.serve -m falcon-7b --checkpoint /path/to/falcon-7b --port 8000
     curl -d '{"prompt_ids": [5, 9, 23], "max_new_tokens": 16}' localhost:8000/generate
 
 Endpoints:
-  POST /generate  {"prompt_ids": [...]} or {"prompt": "text"} (needs --tokenizer)
+  POST /generate  {"prompt_ids": [...]}, or {"prompt": "text"} where the
+                  ServingFrontend was given a tokenizer (a Hugging Face-style
+                  callable with ``decode``; the CLI gives none: the port
+                  imports no ``transformers``)
                   + optional max_new_tokens, do_sample, temperature, top_k,
                   top_p, stop_token_ids
   GET  /stats     throughput / TTFT / TPOT / prefix-cache counters + queue depth
@@ -122,7 +129,7 @@ def make_handler(frontend: ServingFrontend):
                 if ids is None:
                     text = req.get("prompt")
                     if text is None or frontend.tokenizer is None:
-                        raise ValueError("pass prompt_ids, or prompt with --tokenizer set")
+                        raise ValueError("pass prompt_ids (a text prompt needs a tokenizer, and this server has none)")
                     ids = frontend.tokenizer(text)["input_ids"]
                 kw = {k: req[k] for k in REQUEST_KEYS if k in req}
                 rid = frontend.submit([int(t) for t in ids], **kw)
@@ -148,17 +155,21 @@ def build_frontend(args) -> ServingFrontend:
     from lia_tpu_torch.config import GenerationConfig, QuantConfig
     from lia_tpu_torch.engine.serving import ContinuousBatcher
     from lia_tpu_torch.models.registry import get_config
-    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+    from lia_tpu_torch.ops.quant import quantize_params
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, load_hf_checkpoint, to_device
 
-    if args.checkpoint:
-        raise NotImplementedError("loading checkpoints is not ported yet (ROADMAP A2, A14); the server "
-                                  "draws random weights from a fixed seed")
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("the server needs a CUDA device (pass --device cpu to run on the CPU)")
     device = torch.device(args.device or "cuda")
     cfg = get_config(args.model).replace(dtype=args.dtype)
     quant = QuantConfig(weight_dtype=args.weight_dtype, group_size=args.group_size, act_quant=args.act_quant)
-    params = device_dummy_params(cfg, seed=0, device=device, quant=quant if quant.enabled else None)
+    if args.checkpoint:
+        params = load_hf_checkpoint(cfg, args.checkpoint)
+        if quant.enabled:
+            params = quantize_params(cfg, params, quant)
+        params = to_device(params, device)
+    else:
+        params = device_dummy_params(cfg, seed=0, device=device, quant=quant if quant.enabled else None)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens, eos_token_id=args.eos_token_id)
     batcher = ContinuousBatcher(
         cfg, params, max_batch=args.max_batch, max_len=args.max_len, gen=gen,
@@ -166,12 +177,7 @@ def build_frontend(args) -> ServingFrontend:
         speculate_k=args.speculate_k, fused_steps=args.fused_steps,
         enable_processors=args.enable_processors or None, device=device,
     )
-    tok = None
-    if args.tokenizer:
-        from transformers import AutoTokenizer
-
-        tok = AutoTokenizer.from_pretrained(args.tokenizer)
-    return ServingFrontend(batcher, tok)
+    return ServingFrontend(batcher)
 
 
 def parse_args(argv=None):
@@ -179,11 +185,10 @@ def parse_args(argv=None):
     ap.add_argument("-m", "--model", default="opt-1.3b")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--device", help="default: cuda")
-    ap.add_argument("--checkpoint")
+    ap.add_argument("--checkpoint", help="a directory of Hugging Face *.safetensors shards")
     ap.add_argument("--weight-dtype", default="none")
     ap.add_argument("--group-size", type=int, default=-1)
     ap.add_argument("--act-quant", default="none")
-    ap.add_argument("--tokenizer")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--max-new-tokens", type=int, default=128)

@@ -19,8 +19,13 @@ quantized weight is a :class:`~lia_tpu_torch.ops.quant.QuantizedWeight` record.
   quantized records included) to torch tensors, keeping the stacked layout.
   bf16 leaves convert through their 16-bit pattern, so ``ml_dtypes`` is never
   imported.
-- :func:`params_from_hf_state_dict`: a Hugging Face OPT, llama-layout, GPT-J
-  or GPT-NeoX state dict to the tree.
+- :func:`params_from_hf_state_dict`: a Hugging Face OPT, llama-layout (with
+  StableLM's LayerNorm), GPT-J, GPT-NeoX, Falcon, ChatGLM2/3 or Baichuan(-2)
+  state dict to the tree; :func:`load_hf_checkpoint` reads a directory of
+  ``*.safetensors`` shards into it, layer by layer from the mapped files.
+- :func:`save_params` / :func:`load_params`: a tree (quantized records and
+  int8 KV included) to one safetensors file and back, in the JAX package's key
+  scheme, so a file written by either package loads in the other.
 - :func:`to_device` places a tree on the accelerator; :func:`to_host` keeps it
   in host memory in the layout ``to_device`` gives it there, for the tiered
   scheduler's streamed layers.
@@ -28,6 +33,7 @@ quantized weight is a :class:`~lia_tpu_torch.ops.quant.QuantizedWeight` record.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -35,8 +41,9 @@ import torch
 
 from lia_tpu_torch.config import Activation, ModelConfig, Norm, QuantConfig, torch_dtype
 from lia_tpu_torch.ops.quant import (
-    QuantizedWeight, head_config, is_quantized, quantize_head_2d, quantize_tied_head,
+    QuantizedKV, QuantizedWeight, head_config, is_quantized, is_quantized_kv, quantize_head_2d, quantize_tied_head,
 )
+from lia_tpu_torch.utils import safetensors
 
 Params = Dict[str, Any]
 
@@ -321,12 +328,16 @@ def to_host(tree: Any, device) -> Any:
 
 
 def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
-    """Map a Hugging Face state dict (numpy arrays or tensors) into the stacked
-    tree, for OPT, the llama layout (llama, mistral, qwen2 with its qkv
-    biases; not mixture of experts), GPT-J and GPT-NeoX. HF linears store
-    ``weight`` as [out, in]; the tree stores [in, out]. Values go through fp32
-    and are cast once to ``cfg.dtype``, as the reference's mapping does. Other
-    families are not ported yet."""
+    """Map a Hugging Face state dict (numpy arrays or tensors, e.g. the mapped
+    tensors of :func:`load_hf_checkpoint`) into the stacked tree, for OPT, the
+    llama layout (llama, mistral, qwen2 with its qkv biases, StableLM with
+    LayerNorm; not mixture of experts), GPT-J, GPT-NeoX, Falcon (multi-query),
+    ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
+    [out, in]; the tree stores [in, out]. Values go through fp32 and are cast
+    once to ``cfg.dtype``, as the reference's mapping does, one key (one
+    layer) at a time: each stacked leaf is allocated once in ``cfg.dtype`` and
+    filled layer by layer, so the host holds the tree and one layer's fp32
+    copy, never the whole state dict in fp32. Other families raise."""
     dt = torch_dtype(cfg.dtype)
     L = cfg.num_layers
 
@@ -345,17 +356,26 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
 
     def stack(fmt, transpose=False):
         f = wT if transpose else raw
-        return torch.stack([f(fmt.format(i)) for i in range(L)])
+        return stack_layers(L, lambda i: f(fmt.format(i)))
 
-    if cfg.family == "llama" and not cfg.num_experts:
+    if cfg.alibi or cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: the {'ALiBi' if cfg.alibi else 'mixture-of-experts'} "
+                                  "state-dict mappings are not ported yet")
+    if cfg.family == "llama":
         return _params_llama(cfg, raw, wT, stack)
     if cfg.family == "gptj":
         return _params_gptj(raw, wT, stack)
     if cfg.family == "gpt_neox":
         return _params_gpt_neox(cfg, get, cast, raw, wT, stack)
+    if cfg.family == "falcon":
+        return _params_falcon(cfg, get, cast, raw, stack)
+    if cfg.family == "chatglm":
+        return _params_chatglm(cfg, get, cast, raw, stack)
+    if cfg.family == "baichuan":
+        return _params_baichuan(cfg, get, cast, raw, stack)
     if cfg.family != "opt":
-        raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J and GPT-NeoX state-dict "
-                                  "mappings are ported")
+        raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J, GPT-NeoX, Falcon, ChatGLM and "
+                                  "Baichuan state-dict mappings are ported")
 
     pre = "model.decoder."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -392,10 +412,21 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
     return params
 
 
+def stack_layers(L: int, layer: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """[L, ...] from ``layer(i)``, allocated once and filled a layer at a time
+    (``torch.stack`` of a list would hold every layer twice)."""
+    first = layer(0)
+    out = torch.empty((L, *first.shape), dtype=first.dtype)
+    out[0] = first
+    for i in range(1, L):
+        out[i] = layer(i)
+    return out
+
+
 def _params_llama(cfg: ModelConfig, raw, wT, stack) -> Params:
     """The llama layout (HF modeling_llama; mistral and qwen2 share it, qwen2
-    with q/k/v biases and no o_proj bias; a LayerNorm config also maps its
-    norms' biases)."""
+    with q/k/v biases and no o_proj bias; a LayerNorm config, StableLM, also
+    maps its norms' biases, and stablelm-2 its q/k/v biases)."""
     ln_bias = cfg.norm == Norm.LAYERNORM
     pre = "model."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -493,3 +524,178 @@ def _params_gpt_neox(cfg: ModelConfig, get, cast, raw, wT, stack) -> Params:
             },
         },
     }
+
+
+def _split_rows(L: int, get, cast, key: str, bounds, transpose: bool = True):
+    """Leaves cut from a packed [out, in] weight (or [out] bias) ``key``
+    (formatted with the layer): row ranges ``bounds`` [(lo, hi), ...] of each
+    layer, stacked [L, in, hi - lo] (or [L, hi - lo]); each layer read once."""
+    outs = [None] * len(bounds)
+    for i in range(L):
+        w = get(key.format(i))
+        for n, (lo, hi) in enumerate(bounds):
+            part = cast(w[lo:hi].T if transpose else w[lo:hi])
+            if outs[n] is None:
+                outs[n] = torch.empty((L, *part.shape), dtype=part.dtype)
+            outs[n][i] = part
+    return outs
+
+
+def _params_falcon(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """Falcon-7B-style (HF modeling_falcon, multi_query=True, parallel_attn=True,
+    new_decoder_architecture=False): parallel residual sharing
+    input_layernorm, a fused query_key_value laid out [q heads | k | v] along
+    the out-dim, no biases, tied embeddings. One KV head only, as the
+    reference's mapping (Falcon-40B's per-group interleave is not mapped)."""
+    if cfg.num_kv_heads != 1:
+        raise ValueError("the falcon mapping takes multi-query checkpoints (one kv head)")
+    N, D, L = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    lp = "transformer.h.{}."
+    wq, wk, wv = _split_rows(L, get, cast, lp + "self_attention.query_key_value.weight",
+                             [(0, N * D), (N * D, (N + 1) * D), ((N + 1) * D, (N + 2) * D)])
+    return {
+        "embed_tokens": raw("transformer.word_embeddings.weight"),
+        "final_norm": {"scale": raw("transformer.ln_f.weight"), "bias": raw("transformer.ln_f.bias")},
+        "layers": {
+            "ln1": {"scale": stack(lp + "input_layernorm.weight"), "bias": stack(lp + "input_layernorm.bias")},
+            "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": stack(lp + "self_attention.dense.weight", True)},
+            "mlp": {"w1": stack(lp + "mlp.dense_h_to_4h.weight", True),
+                    "w2": stack(lp + "mlp.dense_4h_to_h.weight", True)},
+        },
+    }
+
+
+def _params_chatglm(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """ChatGLM2/3 (THUDM modeling_chatglm): a packed ``query_key_value``
+    [(N + 2 N_kv) D, H] with its bias, split q | k | v; ``dense_h_to_4h`` [2F,
+    H] packs gate | up for SwiGLU; ``dense`` and ``dense_4h_to_h`` carry no
+    bias; an untied ``output_layer``; RMSNorm."""
+    L, F = cfg.num_layers, cfg.ffn_size
+    QD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    lp = "transformer.encoder.layers.{}."
+    qkv = [(0, QD), (QD, QD + KD), (QD + KD, QD + 2 * KD)]
+    wq, wk, wv = _split_rows(L, get, cast, lp + "self_attention.query_key_value.weight", qkv)
+    bq, bk, bv = _split_rows(L, get, cast, lp + "self_attention.query_key_value.bias", qkv, transpose=False)
+    wg, w1 = _split_rows(L, get, cast, lp + "mlp.dense_h_to_4h.weight", [(0, F), (F, 2 * F)])
+    return {
+        "embed_tokens": raw("transformer.embedding.word_embeddings.weight"),
+        "final_norm": {"scale": raw("transformer.encoder.final_layernorm.weight")},
+        "lm_head": cast(get("transformer.output_layer.weight").T),
+        "layers": {
+            "ln1": {"scale": stack(lp + "input_layernorm.weight")},
+            "attn": {"wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv,
+                     "wo": stack(lp + "self_attention.dense.weight", True)},
+            "ln2": {"scale": stack(lp + "post_attention_layernorm.weight")},
+            "mlp": {"wg": wg, "w1": w1, "w2": stack(lp + "mlp.dense_4h_to_h.weight", True)},
+        },
+    }
+
+
+def _params_baichuan(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """Baichuan(-2) with RoPE (baichuan-inc modeling_baichuan): the llama key
+    layout with one packed ``W_pack`` [3H, H] (no biases). Baichuan2's NormHead
+    L2-normalizes each lm_head row at inference; the mapping bakes it into the
+    weight (in fp32, rows of norm at least 1e-12), as the reference does."""
+    L, H = cfg.num_layers, cfg.hidden_size
+    lp = "model.layers.{}."
+    wq, wk, wv = _split_rows(L, get, cast, lp + "self_attn.W_pack.weight", [(0, H), (H, 2 * H), (2 * H, 3 * H)])
+    head = get("lm_head.weight")  # [V, H]
+    if cfg.norm_head:
+        head = head / np.maximum(np.linalg.norm(head, axis=1, keepdims=True), 1e-12)
+    return {
+        "embed_tokens": raw("model.embed_tokens.weight"),
+        "final_norm": {"scale": raw("model.norm.weight")},
+        "lm_head": cast(head.T),
+        "layers": {
+            "ln1": {"scale": stack(lp + "input_layernorm.weight")},
+            "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": stack(lp + "self_attn.o_proj.weight", True)},
+            "ln2": {"scale": stack(lp + "post_attention_layernorm.weight")},
+            "mlp": {"wg": stack(lp + "mlp.gate_proj.weight", True), "w1": stack(lp + "mlp.up_proj.weight", True),
+                    "w2": stack(lp + "mlp.down_proj.weight", True)},
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint files
+# ---------------------------------------------------------------------------
+
+
+def load_hf_checkpoint(cfg: ModelConfig, path: str) -> Params:
+    """A Hugging Face checkpoint from a local directory: every ``*.safetensors``
+    shard, in sorted order, mapped (:func:`lia_tpu_torch.utils.safetensors.load_file`:
+    nothing is read until the conversion touches it), then
+    :func:`params_from_hf_state_dict`. CPU tensors in ``cfg.dtype``; the caller
+    places them (:func:`to_device`). Raises FileNotFoundError where the
+    directory holds no shard."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    sd: Dict[str, torch.Tensor] = {}
+    for f in files:
+        sd.update(safetensors.load_file(os.path.join(path, f)))
+    return params_from_hf_state_dict(cfg, sd)
+
+
+# A tree flattens to "a/b/c" keys; a quantized record to its tensors tagged
+# with the format, as the JAX package's save_params writes them:
+#   "<key>#q#<fmt>", "<key>#s#<fmt>" (and "<key>#z#<fmt>")   QuantizedWeight
+#   "<key>#kvq#", "<key>#kvs#"                                QuantizedKV
+
+
+def _flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        elif is_quantized(v):
+            out[f"{key}#q#{v.fmt}"] = v.q
+            out[f"{key}#s#{v.fmt}"] = v.s
+            if v.z is not None:
+                out[f"{key}#z#{v.fmt}"] = v.z
+        elif is_quantized_kv(v):
+            out[f"{key}#kvq#"] = v.q
+            out[f"{key}#kvs#"] = v.s
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+    tree: Params = {}
+    records: Dict[str, Dict[str, Any]] = {}
+
+    def put(key: str, v: Any) -> None:
+        *path, last = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = v
+
+    for key, v in flat.items():
+        if "#" in key:
+            base, part, fmt = key.split("#")
+            records.setdefault(base, {"fmt": fmt})[part] = v
+        else:
+            put(key, v)
+    for base, rec in records.items():
+        if "kvq" in rec:
+            put(base, QuantizedKV(rec["kvq"], rec["kvs"]))
+        else:
+            put(base, QuantizedWeight(rec["q"], rec["s"], rec["fmt"], rec.get("z")))
+    return tree
+
+
+def save_params(params: Params, path: str) -> None:
+    """Write a tree to one safetensors file (leaves of any device, bf16
+    included; quantized records as their codes, scales and zero-points)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    safetensors.save_file(_flatten(params), path)
+
+
+def load_params(path: str) -> Params:
+    """A tree written by :func:`save_params` or by the JAX package's
+    ``save_params``: CPU tensors over a mapping of the file (place them with
+    :func:`to_device`), quantized records rebuilt with their formats."""
+    return _unflatten(safetensors.load_file(path))

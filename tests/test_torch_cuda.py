@@ -1416,3 +1416,160 @@ def test_int8_decode_takes_scales_at_any_offset(cuda):
         args[i] = shifted
     torch.testing.assert_close(ca.decode_attention_fresh_int8(*args).float(),
                                ca.decode_attention_fresh_int8_plain(*args).float(), rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# query-head groups past 8: Falcon-7B (N 71, N_kv 1, D 64: G = 71, a ragged
+# last run of queries), ChatGLM3-6B (N 32, N_kv 2, D 128: G = 16), and the
+# gate's edges (G = 3 and 128)
+# ---------------------------------------------------------------------------
+
+LARGE_GROUPS = [(71, 1, 64), (32, 2, 128), (6, 2, 64), (128, 1, 64)]  # (N, N_kv, D)
+LARGE_IDS = ["falcon-7b G71", "chatglm3-6b G16", "G3", "G128"]
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
+def test_flash_kernels_at_large_groups(cuda, N, Nkv, D, window):
+    """B1 and B6 where a group straddles 64-row tiles: prompt rows with left
+    pads and a pad-only row, and a chunk over a plane at per-row bases."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    B, S, dtype = 4, 80, torch.bfloat16
+    q, k, v = _randn(gen, B, S, N, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    mask[1, :7] = False
+    mask[3] = False
+    out = ca.flash_attention_prefill(q, k, v, mask, window=window)
+    ref = ca.flash_attention_prefill_plain(q, k, v, mask, window=window)
+    valid = mask[:, :, None, None]
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.isfinite(out.float()).all()
+    C, S_max, bases, starts = 40, 200, [0, 96, 128, 64], [5, 0, 30, 100]
+    q = _randn(gen, B, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, B, Nkv, S_max, D, dtype=dtype), _randn(gen, B, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    for b, (s, base) in enumerate(zip(starts, bases)):
+        sm[b, s : base + C] = True
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    out = ca.flash_attention_cached(q, kc, vc, base, sm, window=window)
+    ref = ca.flash_attention_cached_plain(q, kc, vc, base, sm, window=window)
+    valid = torch.zeros(B, C, 1, 1, dtype=torch.bool, device=cuda)  # rows at a valid slot (row 3's first 36: none)
+    for b, (s, bb) in enumerate(zip(starts, bases)):
+        valid[b, max(s - bb, 0):] = True
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [2, 5])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS[:2], ids=LARGE_IDS[:2])
+def test_flash_cached_split_at_large_groups(cuda, monkeypatch, N, Nkv, D, parts):
+    """B6's split where tiles straddle positions: each tile's walk is cut from
+    its own first and last position (flash_tile_rows); the kernel equals the
+    plain version and the plain split merged."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    C, S_max, base, dtype = 48, 1024, 960, torch.bfloat16
+    q = _randn(gen, 1, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, 1, Nkv, S_max, D, dtype=dtype), _randn(gen, 1, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(1, S_max, dtype=torch.bool, device=cuda)
+    sm[0, 3 : base + C] = True
+    b = torch.tensor(base, dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(ca, "flash_split_parts", lambda *a: parts)
+    splits = ca.flash_attention_cached.split_launches
+    out = ca.flash_attention_cached(q, kc, vc, b, sm, window=100)
+    assert ca.flash_attention_cached.split_launches == splits + 1
+    torch.testing.assert_close(out.float(), ca.flash_attention_cached_plain(q, kc, vc, b, sm, window=100).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    merged = ca.flash_merge_plain(*ca.flash_partials_plain(q, kc, vc, b, sm, parts, window=100))
+    torch.testing.assert_close(out.float(), merged, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
+def test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts):
+    """B2 (fresh token merged), B7 and B8 (the plane holds the token): fp32
+    calls and G = 3 on the warp body in runs of 8 heads (the last ragged),
+    bf16 calls past G = 8 on the bf16 beam body (a row a group of one beam,
+    runs of 16 heads), with one length for all rows or one a row (a row with
+    no key: 0 without the fresh token) and its split forced to 3 parts."""
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    L, B, S_max, past = 2, 3, 128, 77
+    q = _randn(gen, B, 1, N, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    ends = (past, 40, 0) if ragged else (past,) * B
+    for b, (p, e) in enumerate(zip((0, 9, 76), ends)):
+        sm[b, min(p, e):e] = True
+    length = torch.tensor(ends if ragged else past, dtype=torch.int32, device=cuda)
+    kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=dtype), _randn(gen, L, B, Nkv, S_max, D, dtype=dtype)
+    _beam_parts(monkeypatch, parts)
+    used = ca.plane_plan(B, N, Nkv, S_max, dtype is torch.bfloat16,
+                         torch.cuda.get_device_properties(cuda).multi_processor_count)[1]
+    args = (q, kf, vf, kc, vc, 1, sm, length)
+    splits = ca.decode_attention_fresh.split_launches
+    torch.testing.assert_close(ca.decode_attention_fresh(*args).float(), ca.decode_attention_fresh_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert ca.decode_attention_fresh.split_launches == splits + (used > 1)
+    out = ca.decode_attention(q, kc[1].contiguous(), vc[1].contiguous(), sm, length)
+    torch.testing.assert_close(out.float(), ca.decode_attention_plain(q, kc[1], vc[1], sm, length).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(ca.decode_attention_stacked(q, kc, vc, 1, sm, length), out, rtol=0, atol=0)
+    if ragged:  # row 2 holds no key and takes no fresh token
+        assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
+def test_int8_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, dtype, parts):
+    """B3 with a plane row's G heads in runs of 8, each run with the fresh
+    token's round trip, the split off and forced on."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    args = _int8_plane(gen, dtype, INT8_ROWS, Nkv, N // Nkv, D, 384)
+    used = parts or ca.int8_decode_parts(len(INT8_ROWS), N, Nkv, 384,
+                                         torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _int8_parts(monkeypatch, parts)
+    fn = ca.decode_attention_fresh_int8
+    splits = fn.split_launches
+    out = fn(*args)
+    assert fn.split_launches == splits + (used > 1)
+    torch.testing.assert_close(out.float(), ca.decode_attention_fresh_int8_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("tlen", [0, 3])
+@pytest.mark.parametrize("nb", [4, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
+def test_beam_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, int8, dtype, nb, tlen, parts):
+    """B9 and B10 where one beam's queries take several blocks and a run
+    straddles two beams (G = 71: runs of 16 (bf16) or 8 (int8) over nb * 71
+    flat queries), each run with its beams' tails and fresh tokens."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    args = _beam_case(gen, dtype, int8, N // Nkv, D, tlen, nb=nb, Nkv=Nkv)
+    _beam_parts(monkeypatch, parts)
+    kernel, plain = ((ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain) if int8
+                     else (ca.decode_beam_attention, ca.decode_beam_attention_plain))
+    before = kernel.launches
+    out = kernel(*args)
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
+def test_paged_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, dtype, C, fresh, parts):
+    """B5's blocks take a (kv head, row)'s G * C queries 16 at a time, the
+    last run ragged."""
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, dtype, 3, C, N // Nkv, D, Nkv=Nkv, bs=16, P=9)
+    args = (q, kp, vp, 1, table, lens) + ((kf, vf) if fresh else ())
+    _paged_parts(monkeypatch, parts)
+    out = ca.paged_decode_attention(*args)
+    torch.testing.assert_close(out.float(), ca.paged_decode_attention_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])

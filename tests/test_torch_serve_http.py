@@ -97,12 +97,13 @@ def test_http_stats_health_and_errors(server):
 
 def test_build_frontend_on_the_cpu_and_checkpoint_raises():
     """The CLI's builder: random weights from the registry on the requested
-    device; a checkpoint is refused, naming its ROADMAP items."""
+    device; a checkpoint that is not there raises (checkpoints that are load:
+    tests/test_torch_checkpoint.py)."""
     args = parse_args(["-m", "opt-tiny", "--dtype", "float32", "--device", "cpu", "--paged", "--max-batch", "2",
                        "--max-len", "64", "--max-new-tokens", "3"])
     fe = build_frontend(args)
     assert fe.batcher.paged and fe.batcher.B == 2 and fe.batcher.device.type == "cpu"
     fe.batcher.submit([5, 6, 7])
     assert len(fe.batcher.run()[0].output) == 3
-    with pytest.raises(NotImplementedError, match="A2"):
-        build_frontend(parse_args(["-m", "opt-tiny", "--device", "cpu", "--checkpoint", "x"]))
+    with pytest.raises(FileNotFoundError):
+        build_frontend(parse_args(["-m", "opt-tiny", "--device", "cpu", "--checkpoint", "no-such-checkpoint"]))
