@@ -80,7 +80,8 @@ Phases, each printing one JSON line per item:
    max_inflight_layers=3: a ring of 3, two layers in flight ahead),
    tier-h0-p3-int8kv (all streamed, int8 KV),
    tier-h50-p0 (KV on the host), tier-h50-p0-p2-mb4 (prefill policy 0 in 4
-   minibatches, decode policy 2: host attention), tier-p1-2layer (policy 1,
+   minibatches, decode policy 2: host attention), the last three at 8 layers
+   of the same tree (TIER_DEPTH), tier-p1-2layer (policy 1,
    2 layers, 2 prompts of 64 tokens, all on the CPU) and, over an int8dyn
    tree, tier-h50-p3-int8dyn against the resident engine on the same tree.
    Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
@@ -108,7 +109,7 @@ Phases, each printing one JSON line per item:
    tokens, no EOS: beam-nb4 (grouped, bf16 KV) and beam-nb4-int8kv (median of
    3), beam-nb4-expanded, beam-nb4-proc (repetition penalty 1.2,
    no_repeat_ngram_size 3), tier-h50-p3-beam (grouped under the scheduler)
-   and tier-h50-p0-beam (expanded, host KV), one run each. Each line: prefill
+   and tier-h50-p0-beam (expanded, host KV, 8 layers), one run each. Each line: prefill
    ms, decode row-tokens/s (16 rows x 31 steps over the decode seconds), the
    bytes a step's beam shuffle rewrites, peak memory, exact launch counts.
    score: loglikelihood of 16 records of 256 + 32 tokens, resident and
@@ -116,6 +117,26 @@ Phases, each printing one JSON line per item:
    2 layers, a grouped beam cache and 4 beam_decode_step calls (the CPU run's
    tokens and shuffles forced on both sides) and score_logprobs, card against
    CPU, bf16 and int8 KV;
+7b. speculative: OPT-6.7B at full width and depth, 16 prompts of 256
+   tokens (each a seeded 32-token pattern repeated), 32 new tokens, k = 4:
+   spec-lookup over bf16 and int8 KV (generate_speculative, ngram 3),
+   spec-draft with opt-125m (full width and depth) drafting greedy,
+   spec-draft-sampled (temperature 0.8, top_p 0.95) and spec-draft-topk1
+   (sampled at top_k 1: its tokens and steps must equal spec-draft's), each
+   greedy cell checked against a teacher-forced score pass over prompt and
+   emitted tokens (every emitted token's log-prob within SPEC_GREEDY_BOUND
+   of the top one) and beside plain greedy generate's tokens;
+   serve-slab-spec4, serve-paged-spec4 and serve-paged-draft (the serving
+   workload with speculate_k 4, the last with the opt-125m draft);
+   tier-h50-p3-spec4 (prompt lookup under tier-h50-p3, the weight stream's
+   bytes per emitted token beside tier-h50-p3's plain decode in this run).
+   Each line: verify steps, tokens emitted and per step, prefill ms and
+   tokens/s (serving: TTFT and TPOT percentiles), exact launch counts (B1
+   once per model and layer, B6 per verify layer, B5 per paged verify
+   layer, B2 per draft layer and step; B6's splits as flash_split_parts
+   plans). speculative_parity: OPT-6.7B width at 2 layers, the slab, paged
+   and tiered verify passes (two chunks of 5 with an uneven accept between)
+   on the card against the CPU;
 8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
@@ -162,7 +183,9 @@ Phases, each printing one JSON line per item:
    heads, with its parts, beside SDPA over K/V repeated to the query heads
    (B5's pages gathered, B9's and B10's [prompt | tail | fresh] joined, B3's
    and B10's dequantized; none of it timed); the fused MLP at OPT-6.7B's
-   relu (16 rows, biases) beside its unfused chain.
+   relu (16 rows, biases) beside its unfused chain; the speculative
+   verify's shapes (B6 over 16 rows of a 5-row chunk at bases 256-300, B5
+   at C = 5, G = 1) beside SDPA.
    Profiling comes last because a profiler session slows the process's later
    launches.
 
@@ -232,8 +255,14 @@ TIERED = [
     ("tier-h50-p3-ring3", "none", 50, (3, 3), 1, 3, True),
     ("tier-h0-p3-int8kv", "int8", 0, (3, 3), 1, 2, False),
     ("tier-h50-p0", "none", 50, (0, 0), 1, 2, True),
-    ("tier-h50-p0-p2-mb4", "none", 50, (0, 2), 4, 2, False),  # host attention: ~40 s a run
+    ("tier-h50-p0-p2-mb4", "none", 50, (0, 2), 4, 2, False),  # host attention: ~40 s a run at 32 layers
 ]
+# the configurations that run at a cut depth (OPT-6.7B's width, the first n
+# layers of the same tree), to make room in the time limit for the
+# speculative phase: the host-KV and host-attention cells decode at 15-84
+# tokens/s and the fully streamed one at 56
+TIER_DEPTH = {"tier-h50-p0": 8, "tier-h0-p3-int8kv": 8, "tier-h50-p0-p2-mb4": 8, "tier-h50-p0-beam": 8}
+TIER_COPY_BYTES = {}  # the weight stream's bytes per decode step of each tiered configuration
 # (name, (prefill, decode) policy, KV, weight quantization or None): the tiered
 # scheduler at 4 layers, half resident, on the card against the CPU
 TIER_PARITY = [
@@ -816,6 +845,7 @@ def kernel_checks(ca, quantize_kv):
     int8_decode_checks(ca, quantize_kv, randn)
     llama_attention_checks(ca, quantize_kv, randn)
     group_kernel_checks(ca, quantize_kv, randn)
+    verify_kernel_checks(ca, randn)  # last: the earlier checks keep their draws from the shared generator
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
@@ -1178,6 +1208,74 @@ def serving_kernel_checks(ca, randn, dpads):
         bound=bound(2 * kc6.numel() * 2 + 2 * q6.numel() * 2 + sm6.numel() + 4, 4 * D * N * keys6),
     )
     return rows
+
+
+VERIFY_BASES = np.linspace(256, 300, B).astype(int).tolist()  # per-row bases after uneven acceptance
+
+
+def verify_kernel_checks(ca, randn) -> None:
+    """The speculative verify's two shapes, against the plain versions and as
+    timing variants beside SDPA over the same keys: B6 over 16 rows of a C =
+    k + 1 = 5 chunk at per-row bases 256-300 of a 384-slot plane (the slab
+    and tiered verify of the speculative cells; left pads PADS), and B5 at C
+    = 5, G = 1 over the pages of rows with as many real tokens, the chunk
+    merged causally (serve-paged-spec4's verify)."""
+    import torch.nn.functional as F
+    from lia_tpu_torch.engine.lookahead import spec_slots
+
+    C, S_max = SPEC_K + 1, spec_slots(PROMPT, NEW_TOKENS, SPEC_K + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q = randn(B, C, N, D)
+    kc, vc = randn(B, N, S_max, D), randn(B, N, S_max, D)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device="cuda")
+    for b, (p, base) in enumerate(zip(PADS, VERIFY_BASES)):
+        sm[b, p : base + C] = True
+    bases = torch.tensor(VERIFY_BASES, dtype=torch.int32, device="cuda")
+    out, ref = ca.flash_attention_cached(q, kc, vc, bases, sm), ca.flash_attention_cached_plain(q, kc, vc, bases, sm)
+    err = (out.float() - ref.float()).abs().max().item()
+    emit({"phase": "kernel_check", "kernel": "flash_attention_cached", "variant": "verify C=5, bases 256-300",
+          "max_abs_err": err, "tol": KERNEL_TOL})
+    check(err <= KERNEL_TOL, f"flash_attention_cached verify shape: max abs err {err} > {KERNEL_TOL}")
+    qpos = bases[:, None] + torch.arange(C, device="cuda")[None, :]  # [B, C]
+    cmask = ((torch.arange(S_max, device="cuda")[None, None, :] <= qpos[:, :, None]) & sm[:, None, :])[:, None]
+    keys = sum(base + t + 1 - p for p, base in zip(PADS, VERIFY_BASES) for t in range(C))
+    valid = sum(base + C - p for p, base in zip(PADS, VERIFY_BASES))
+    TIME_VARIANTS.append(dict(
+        kernel_name="flash_attention_cached", variant="verify C=5 (16 rows, bases 256-300)",
+        parts=ca.flash_split_parts(B, C, N, N, S_max, sms),
+        kernel=lambda a=(q, kc, vc, bases, sm): ca.flash_attention_cached(*a),
+        library=lambda a=(q.transpose(1, 2), kc, vc, cmask): F.scaled_dot_product_attention(
+            a[0], a[1], a[2], attn_mask=a[3]),
+        bound=bound(2 * valid * N * D * 2 + 2 * q.numel() * 2 + sm.numel() + B * 4, 4 * D * N * keys)))
+
+    lengths = [base - p for p, base in zip(PADS, VERIFY_BASES)]  # each row's real tokens
+    P = -(-(max(lengths) + C) // SERVE_BLOCK)
+    pq, kp, vp, table, lens, kf, vf = paged_case(randn, lengths, C, N, 1, D, P=P, L=1)
+    args = (pq, kp, vp, 0, table, lens, kf, vf)
+    out, ref = ca.paged_decode_attention(*args), ca.paged_decode_attention_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    emit({"phase": "kernel_check", "kernel": "paged_decode_attention", "variant": "verify C=5, G=1",
+          "max_abs_err": err, "tol": KERNEL_TOL})
+    check(err <= KERNEL_TOL, f"paged_decode_attention verify shape: max abs err {err} > {KERNEL_TOL}")
+    # SDPA's side: the pages gathered into a plane with the chunk written at
+    # [length, length + C), causal over it (the gather is not timed)
+    S = P * SERVE_BLOCK
+    kg = kp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, N, S, D)
+    vg = vp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, N, S, D)
+    for b, n in enumerate(lengths):
+        kg[b, :, n : n + C] = kf[b]
+        vg[b, :, n : n + C] = vf[b]
+    kpos = lens[:, None].long() + torch.arange(C, device="cuda")[None, :]
+    gmask = (torch.arange(S, device="cuda")[None, None, :] <= kpos[:, :, None])[:, None]
+    pkeys = sum(n + t + 1 for n in lengths for t in range(C))
+    TIME_VARIANTS.append(dict(
+        kernel_name="paged_decode_attention", variant="verify C=5, G=1 (16 rows of 256-300 tokens less pads)",
+        parts=ca.paged_split_parts(B, C, N, N, P, sms),
+        kernel=lambda a=args: ca.paged_decode_attention(*a),
+        library=lambda a=(pq.transpose(1, 2), kg, vg, gmask): F.scaled_dot_product_attention(
+            a[0], a[1], a[2], attn_mask=a[3]),
+        bound=bound((sum(lengths) + B * C) * N * D * 2 * 2 + 2 * pq.numel() * 2 + table.numel() * 4 + B * 4,
+                    4 * D * N * pkeys)))
 
 
 def beam_case(ca, quantize_kv, randn, int8: bool, Nkv: int = N, Dh: int = D, tlen: int = BEAM_TLEN, L: int = 2,
@@ -2167,6 +2265,7 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
     check(peak - base < limit, f"{name}: peak device memory {(peak - base) / 1e9:.2f} GB above the residency "
                                f"limit {limit / 1e9:.2f} GB: streamed layers stayed on the card")
     passes = NEW_TOKENS  # the prompt and each decode step stream every streamed layer once
+    TIER_COPY_BYTES[name] = copies["bytes"] / passes
     med = {}
     for key, out_key, scale in (("first_token_latency_s", "prefill_ms", 1e3),
                                 ("decode_tokens_per_s", "decode_tokens_per_s", 1.0)):
@@ -2184,6 +2283,13 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
           "memory": rep,
           "host_threads": torch.get_num_threads(), "launches": launches})
     return seqs, launches, engine
+
+
+def tier_model(name: str, cfg, tree):
+    """(config, host tree) of a tiering configuration: full depth, or the
+    first TIER_DEPTH[name] layers."""
+    n = TIER_DEPTH.get(name)
+    return (cfg, tree) if n is None else (cfg.replace(num_layers=n), first_layers(tree, n))
 
 
 def tiered_runtime(kv: str, hbm: int, policies, nm: int, inflight: int = 2):
@@ -2305,11 +2411,11 @@ def tiered_parity() -> None:
 
 
 def tiered_phase(ca, cm, cfg, prompts):
-    """The tiering configurations at OPT-6.7B full width and depth: bf16
-    weights from one pinned host tree (h50-p3, h0-p3 over int8 KV, h50-p0,
-    h50-p0-p2 with 4 minibatches, and policy 1 at 2 layers over 2 short
-    prompts), then int8dyn weights (h50-p3 over int8 KV) against the resident
-    engine on the same tree. Returns (launches by configuration, the bf16 host
+    """The tiering configurations at OPT-6.7B full width (full depth, or the
+    TIER_DEPTH cut): bf16 weights from one pinned host tree (h50-p3, h0-p3
+    over int8 KV, h50-p0, h50-p0-p2 with 4 minibatches, and policy 1 at 2
+    layers over 2 short prompts), then int8dyn weights (h50-p3 over int8 KV)
+    against the resident engine on the same tree. Returns (launches by configuration, the bf16 host
     tree, the engines to break down later)."""
     from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine, pack_prompts
@@ -2322,8 +2428,8 @@ def tiered_phase(ca, cm, cfg, prompts):
     h2d_bandwidth(layer_bytes)
     launches = {}
     for name, kv, hbm, policies, nm, inflight, timed in TIERED:
-        _, launches[name], engine = tiered_path(ca, cm, name, cfg, tree, prompts, kv, hbm, policies, nm, inflight,
-                                                timed)
+        _, launches[name], engine = tiered_path(ca, cm, name, *tier_model(name, cfg, tree), prompts, kv, hbm,
+                                                policies, nm, inflight, timed)
         del engine
     # policy 1 (all host) at 2 layers over 2 prompts of 64 tokens: the host's
     # bf16 matmuls are the cost, and no kernel runs
@@ -2398,35 +2504,46 @@ def serving_workload(vocab: int):
     return [prompts[i] for i in order], [new[i] for i in order]
 
 
-def serving_expected(cfg, opts: dict, stats: dict, prompts, names) -> dict:
+def serving_expected(cfg, opts: dict, stats: dict, prompts, names, dcfg=None) -> dict:
     """Kernel launches of one serving run, from the batcher's own counters:
     every decode step runs one attention kernel per layer (the paged kernel
-    over the pool, the fresh-merge kernel over the slab); every admission runs
-    one prefill attention per layer: flash_attention_cached per chunk of a
+    over the pool, the fresh-merge kernel over the slab); with
+    ``speculate_k`` every step is a verify instead, the paged kernel at k + 1
+    queries over the pool or flash_attention_cached over the slab, and a
+    draft (``dcfg``) adds its k + 1 fresh-merge decode steps per layer and a
+    flash prefill per layer of each admission. Every admission runs one
+    prefill attention per layer: flash_attention_cached per chunk of a
     chunked admission (prefill_chunk, no prefix cache: ceil(n / chunk) chunks)
     and per prefix-cache hit (one suffix chunk), flash_attention_prefill for
     every other admission. Nothing else launches (bf16 weights: cuBLAS)."""
     L, steps = cfg.num_layers, int(stats["decode_steps"])
+    k = opts.get("speculate_k")
     out = {name: 0 for name in names}
-    if opts.get("paged"):
+    if k:
+        out["paged_decode_attention" if opts.get("paged") else "flash_attention_cached"] = L * steps
+        if dcfg is not None:
+            out["decode_attention_fresh"] = dcfg.num_layers * (k + 1) * steps
+            out["flash_attention_prefill"] = dcfg.num_layers * len(prompts)
+    elif opts.get("paged"):
         out["paged_decode_attention"] = L * steps
     else:
         out["decode_attention_fresh_int8" if opts.get("kv_quantized") else "decode_attention_fresh"] = L * steps
     chunk = opts.get("prefill_chunk")
     hits = int(stats.get("prefix_hits", 0))
     if chunk:
-        out["flash_attention_cached"] = L * sum(-(-len(p) // chunk) for p in prompts)
+        out["flash_attention_cached"] += L * sum(-(-len(p) // chunk) for p in prompts)
     else:
-        out["flash_attention_cached"] = L * hits
-        out["flash_attention_prefill"] = L * (len(prompts) - hits)
+        out["flash_attention_cached"] += L * hits
+        out["flash_attention_prefill"] += L * (len(prompts) - hits)
     return out
 
 
-def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens):
+def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens, draft=None):
     """One serving configuration: SERVE_REQUESTS requests through a fresh
-    ContinuousBatcher, counters zeroed just before the run and read just after
-    it and checked exactly, every request's length and vocabulary, and (paged)
-    the pool's accounting at the end. Returns (launches, the batcher)."""
+    ContinuousBatcher (with ``draft``, a (config, params) draft model),
+    counters zeroed just before the run and read just after it and checked
+    exactly, every request's length and vocabulary, and (paged) the pool's
+    accounting at the end. Returns (launches, the batcher)."""
     import gc
 
     from lia_tpu_torch.config import GenerationConfig
@@ -2438,7 +2555,7 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the weights, and the kernel checks' inputs
     cb = ContinuousBatcher(cfg, params, max_batch=SERVE_MAX_BATCH, max_len=SERVE_MAX_LEN,
-                           gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, **opts)
+                           gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, draft=draft, **opts)
     reset_counts(ca, cm)
     t0 = time.perf_counter()
     ids = [cb.submit(p, max_new_tokens=n) for p, n in zip(prompts, new_tokens)]
@@ -2458,13 +2575,14 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
         check(bool((cb.page_rc == 0).all()), f"{name}: nonzero page refcounts after the run")
         n_back = len(cb.free_blocks) + len(cb.cached_pages)
         check(n_back == cb.num_blocks - 1, f"{name}: {n_back} pages back of {cb.num_blocks - 1}")
-    expected = serving_expected(cfg, opts, stats, prompts, launches)
+    expected = serving_expected(cfg, opts, stats, prompts, launches, None if draft is None else draft[0])
     check(launches == expected, f"{name}: launches {launches} != expected {expected}")
     if name == "serve-paged":
         check(stats["prefix_hits"] >= 1, f"{name}: no prefix-cache hit")
     keys = ("tokens_per_s", "p50_ttft_s", "p90_ttft_s", "p99_ttft_s", "p50_tpot_s", "p90_tpot_s", "p99_tpot_s",
             "decode_steps", "decode_dispatches", "steps_per_dispatch", "prefix_hits", "prefix_tokens_reused")
     emit({"phase": "serving", "config": name, "model": cfg.name, "layers": cfg.num_layers, **opts,
+          "draft": None if draft is None else draft[0].name,
           "requests": len(prompts), "max_batch": SERVE_MAX_BATCH,
         "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts),
         "new_tokens": sum(new_tokens), **{k: stats[k] for k in keys if k in stats}, "wall_s": wall,
@@ -2653,6 +2771,337 @@ def serving_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: speculative decoding (prompt lookup, a draft model, sampled
+# acceptance) through generate, the tiered verify pass and serving
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_NGRAM, SPEC_PATTERN = 4, 3, 32  # 256-token prompts: a seeded 32-token pattern, repeated
+SPEC_DRAFT = "opt-125m"  # the draft model, full width and depth
+SPEC_SAMPLED = dict(do_sample=True, temperature=0.8, top_p=0.95)
+SPEC_RUNS = 3  # generate calls of each greedy generate cell (median and all)
+# the teacher-forced check: every greedy token the speculative paths emit lies
+# within this of the top log-prob of a score pass over prompt + emitted tokens
+# (the same as the logit gap). Two times the logit tolerance of the 2-layer
+# parity of PARITY_TOL, the bf16 model against fp32, whose observed error was
+# about 0.012: the verify and the score pass run different kernels (B6 at C = 5
+# against B1 over the whole sequence), and a random model's top logits lie
+# within bf16 noise of one another, so the argmax may flip where the gap is
+# smaller than that noise
+SPEC_GREEDY_BOUND = 2 * PARITY_TOL
+SPEC_SERVING = [
+    ("serve-slab-spec4", dict(speculate_k=SPEC_K), False),
+    ("serve-paged-spec4", dict(paged=True, speculate_k=SPEC_K), False),
+    ("serve-paged-draft", dict(paged=True, speculate_k=SPEC_K), True),
+]
+
+
+def spec_prompts(vocab: int):
+    """B prompts of PROMPT tokens, each a seeded SPEC_PATTERN-token pattern repeated."""
+    rng = np.random.default_rng(6)
+    return [rng.integers(2, vocab, SPEC_PATTERN).tolist() * (PROMPT // SPEC_PATTERN) for _ in range(B)]
+
+
+def spec_expected(names, cfg, steps: int, verify: str, dcfg=None) -> dict:
+    """Kernel launches of one speculative generate: the target's flash prefill
+    per layer, its verify kernel per layer per step (B6 over a slab or the
+    scheduler's segments), and with a draft its flash prefill per layer and
+    its k + 1 fresh-merge decode steps per layer per step (B2; bf16 KV)."""
+    out = {name: 0 for name in names}
+    out[verify] = cfg.num_layers * steps
+    out["flash_attention_prefill"] = cfg.num_layers + (dcfg.num_layers if dcfg else 0)
+    if dcfg is not None:
+        out["decode_attention_fresh"] = dcfg.num_layers * (SPEC_K + 1) * steps
+    return out
+
+
+def teacher_forced_gaps(engine, prompts, seqs) -> np.ndarray:
+    """The score pass (``loglikelihood``'s path, :meth:`InferenceEngine._logprob_matrix`)
+    over each prompt with its emitted tokens: per emitted token, the top
+    log-prob at its position less its own, [B, new]."""
+    from lia_tpu_torch.engine.engine import pack_prompts
+
+    new = seqs.shape[1]
+    tokens, mask = pack_prompts([list(p) + [int(t) for t in s_] for p, s_ in zip(prompts, seqs)], 1)
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        lp = engine._logprob_matrix(tokens, mask)[:, S - new - 1 : S - 1]  # position t scores token t + 1
+        emitted = torch.from_numpy(tokens[:, S - new :]).to(lp.device).long()
+        gaps = lp.max(dim=-1).values - lp.gather(-1, emitted[..., None])[..., 0]
+    del lp
+    torch.cuda.empty_cache()
+    return gaps.cpu().numpy()
+
+
+def spec_cell(ca, cm, name: str, cfg, engine, prompts, run, verify: str, dcfg=None, timed: bool = True,
+              greedy_ref=None, extra=None):
+    """One speculative generate cell: ``run()`` gives (sequences, verify
+    steps). Counters zeroed just before one run and read just after it, and
+    checked exactly (no plain version: the CPU path launches nothing the
+    counters see, and every kernel of the path is counted); the split
+    launches of B6 against flash_split_parts' plan at this shape; sequences'
+    shape and vocabulary, steps within [ceil(new / (k+1)), new]. With
+    ``timed``, SPEC_RUNS runs (median and all). With ``greedy_ref`` (plain
+    greedy generate's sequences on the card), the teacher-forced check and the
+    agreement. Returns (sequences, steps, launches)."""
+    from lia_tpu_torch.engine.lookahead import spec_slots
+
+    torch.cuda.synchronize()
+    reset_counts(ca, cm)
+    t0 = time.perf_counter()
+    seqs, steps = run()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches, splits = launch_counts(ca, cm), ca.split_counts()
+    expected = spec_expected(launches, cfg, steps, verify, dcfg)
+    check(launches == expected, f"{name}: launches {launches} != expected {expected}")
+    if verify == "flash_attention_cached":
+        parts = ca.flash_split_parts(B, SPEC_K + 1, cfg.num_heads, cfg.num_kv_heads,
+                                     spec_slots(PROMPT, NEW_TOKENS, SPEC_K + 1),
+                                     torch.cuda.get_device_properties(0).multi_processor_count)
+        want = cfg.num_layers * steps if parts > 1 else 0
+        check(splits["flash_attention_cached"] == want, f"{name}: {splits['flash_attention_cached']} split B6 calls, "
+                                                         f"{want} planned")
+    check(seqs.shape == (B, NEW_TOKENS), f"{name}: sequences shape {seqs.shape}")
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"{name}: token outside the vocabulary")
+    check(-(-NEW_TOKENS // (SPEC_K + 1)) <= steps <= NEW_TOKENS, f"{name}: {steps} verify steps")
+    for _ in range(SPEC_RUNS - 1 if timed else 0):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    record = {"phase": "speculative", "config": name, "model": cfg.name, "layers": cfg.num_layers, "batch": B,
+              "prompt": PROMPT, "new_tokens": NEW_TOKENS, "k": SPEC_K, "draft": dcfg.name if dcfg else None,
+              "verify_steps": steps, "tokens_emitted": int(seqs.size),
+              # the first token of each row comes from the prefill; the rest from the verifies
+              "tokens_per_step_per_row": (seqs.size - B) / (steps * B),
+              "wall_s": statistics.median(walls), "wall_s_runs": walls,
+              "tokens_per_s": seqs.size / statistics.median(walls), "launches": launches,
+              "split_launches": splits, **(extra or {})}
+    if greedy_ref is not None:
+        gaps = teacher_forced_gaps(engine, prompts, seqs)
+        same = seqs == greedy_ref
+        record.update(teacher_forced_max_gap=float(gaps.max()), teacher_forced_bound=SPEC_GREEDY_BOUND,
+                      tokens_agree_with_greedy=float(same.mean()),
+                      rows_equal_to_greedy=int(same.all(axis=1).sum()))
+        check(gaps.max() <= SPEC_GREEDY_BOUND, f"{name}: an emitted greedy token lies {gaps.max()} below the "
+                                               f"teacher-forced top log-prob (bound {SPEC_GREEDY_BOUND})")
+    emit(record)
+    return seqs, steps, launches
+
+
+def prefill_ms(engine, prompts) -> float:
+    """The target's prompt pass alone (the speculative cells' first step), on
+    the host's clock around a synchronized call: resident prefill or the
+    scheduler's prefill pass."""
+    from lia_tpu_torch.engine.engine import pack_prompts
+    from lia_tpu_torch.engine.lookahead import spec_slots
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.ops import kv_cache as kvc
+
+    tokens, mask = pack_prompts(prompts, 1)
+    max_len = spec_slots(tokens.shape[1], NEW_TOKENS, SPEC_K + 1)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if engine.scheduler is not None:
+            engine.scheduler.prefill_pass(tokens, mask, max_len)
+        else:
+            cache = kvc.init_cache(engine.cfg, len(prompts), max_len, torch.bfloat16,
+                                   quantized=engine.runtime.quant.kv_cache_dtype == "int8", device="cuda")
+            T.prefill(engine.cfg, engine.params, torch.from_numpy(tokens).cuda(), torch.from_numpy(mask).cuda(), cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+
+def speculative_phase(ca, cm, cfg, tree) -> dict:
+    """The speculative cells at OPT-6.7B full width and depth, b16, 256-token
+    repetitive prompts, 32 new tokens, k = 4: prompt lookup over bf16 and int8
+    KV, the opt-125m draft greedy, sampled (temperature 0.8, top_p 0.95) and
+    sampled at top_k = 1 (whose tokens must equal greedy's), the three
+    speculative serving cells over the serving workload, and prompt lookup
+    under tier-h50-p3 (the weight stream's bytes per emitted token beside
+    plain tiered decode's, from this run's tier-h50-p3 cell). Returns the
+    launches by cell."""
+    from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    prompts = spec_prompts(cfg.vocab_size)
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=0))
+    dcfg = get_config(SPEC_DRAFT)
+    dparams = fuse_projections(dcfg, device_dummy_params(dcfg, seed=0))
+    draft = InferenceEngine(dcfg, dparams)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    launches = {}
+    for kv in ("none", "int8"):
+        engine = InferenceEngine(cfg, params, RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
+        engine.generate_speculative(prompts[:2], GenerationConfig(max_new_tokens=4), ngram=SPEC_NGRAM, k=SPEC_K)  # warm-up
+        greedy = engine.generate(prompts, gen).sequences
+        pre = {"prefill_ms": prefill_ms(engine, prompts)}
+        name = "spec-lookup" + ("-int8kv" if kv == "int8" else "")
+        _, _, launches[name] = spec_cell(
+            ca, cm, name, cfg, engine, prompts,
+            lambda: engine.generate_speculative(prompts, gen, ngram=SPEC_NGRAM, k=SPEC_K), "flash_attention_cached",
+            greedy_ref=greedy, extra=pre)
+        if kv == "none":
+            greedy_draft, steps_draft, launches["spec-draft"] = spec_cell(
+                ca, cm, "spec-draft", cfg, engine, prompts,
+                lambda: engine.generate_speculative_draft(draft, prompts, gen, k=SPEC_K), "flash_attention_cached",
+                dcfg, greedy_ref=greedy, extra=pre)
+            _, _, launches["spec-draft-sampled"] = spec_cell(
+                ca, cm, "spec-draft-sampled", cfg, engine, prompts,
+                lambda: engine.generate_speculative_draft(draft, prompts, gen.replace(**SPEC_SAMPLED), k=SPEC_K,
+                                                          seed=3), "flash_attention_cached", dcfg, extra=pre)
+            top1, steps_top1, launches["spec-draft-topk1"] = spec_cell(
+                ca, cm, "spec-draft-topk1", cfg, engine, prompts,
+                lambda: engine.generate_speculative_draft(draft, prompts, gen.replace(**SPEC_SAMPLED, top_k=1),
+                                                          k=SPEC_K, seed=3), "flash_attention_cached", dcfg,
+                timed=False, extra=pre)
+            equal = float((top1 == greedy_draft).mean())
+            emit({"phase": "speculative_topk1", "tokens_equal": equal, "steps": [steps_top1, steps_draft]})
+            check(equal == 1.0 and steps_top1 == steps_draft,
+                  f"spec-draft-topk1: {equal} of its tokens equal greedy spec-draft's, steps {steps_top1} "
+                  f"against {steps_draft}")
+        del engine
+        torch.cuda.empty_cache()
+
+    serve_prompts, serve_new = serving_workload(cfg.vocab_size)
+    for name, opts, with_draft in SPEC_SERVING:
+        launches[name], cb = serving_path(ca, cm, name, opts, cfg, params, serve_prompts, serve_new,
+                                          (dcfg, dparams) if with_draft else None)
+        st = cb.stats()
+        emit({"phase": "speculative", "config": name, "model": cfg.name, "layers": cfg.num_layers, "k": SPEC_K,
+              "draft": dcfg.name if with_draft else None, "requests": len(serve_prompts),
+              "verify_steps": st["decode_steps"], "tokens_emitted": st["total_tokens"],
+              # each request's first token comes from its prefill
+              "tokens_per_verify_step": (st["total_tokens"] - st["requests"]) / st["decode_steps"],
+              **{key: st[key] for key in ("tokens_per_s", "p50_ttft_s", "p99_ttft_s", "p50_tpot_s", "p99_tpot_s")}})
+        del cb
+    del params, draft, dparams
+    torch.cuda.empty_cache()
+
+    name = "tier-h50-p3-spec4"
+    engine = InferenceEngine(cfg, tree, tiered_runtime("none", 50, (3, 3), 1))
+    pre = {"prefill_ms": prefill_ms(engine, prompts)}
+    wm = engine.scheduler.wm
+    wm.copy_stats()
+    seqs, steps, launches[name] = spec_cell(
+        ca, cm, name, cfg, engine, prompts,
+        lambda: engine.generate_speculative(prompts, gen, ngram=SPEC_NGRAM, k=SPEC_K), "flash_attention_cached",
+        timed=False, extra=pre)
+    copies = wm.copy_stats()
+    plain = TIER_COPY_BYTES["tier-h50-p3"] / B  # a plain decode step streams the layers once for B tokens
+    emit({"phase": "speculative_tiered", "config": name, "verify_steps": steps, "copy_bytes": copies["bytes"],
+          "copy_ms": copies["copy_ms"], "streamed_bytes_per_emitted_token": copies["bytes"] / seqs.size,
+          "plain_tiered_bytes_per_emitted_token": plain,
+          "ratio": copies["bytes"] / seqs.size / plain})
+    check(copies["bytes"] > 0, f"{name}: no weight streamed")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def speculative_parity(ca, cm) -> None:
+    """OPT-6.7B width at 2 layers, the verify passes on the card (bf16,
+    kernels) against the CPU (fp32, plain versions) over the same tree and
+    prompts (row 1 left-padded): the slab verify (B6), the paged verify (B5,
+    the prompts written to shuffled pages) and the tiered verify (half
+    resident, B6 over both segments), each from the same prefilled cache and
+    the same two C = 5 chunks with an uneven accept between them, so the
+    second pass runs at per-row bases. Logits within PARITY_TOL."""
+    from lia_tpu_torch.config import RuntimeConfig
+    from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import kv_cache as kvc
+    from lia_tpu_torch.ops import paged as pg
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.runtime.scheduler import StreamingScheduler
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg32 = cfg.replace(dtype="float32")
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    params32 = to_device(params, "cpu", torch.float32)
+    rng = np.random.default_rng(9)
+    C = SPEC_K + 1
+    tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), bool)
+    mask[1, :14] = False
+    tokens[1, :14] = 1
+    chunks = rng.integers(2, cfg.vocab_size, (2, 2, C)).astype(np.int32)
+    accept = np.asarray([4, 1], np.int32)  # after the first pass: rows 4 and 1 tokens on
+    n_real = mask.sum(1).astype(np.int32)
+    bs, P = SERVE_BLOCK, 8
+    table = np.zeros((2, P), np.int32)
+    table[0, :5] = [9, 3, 14, 1, 7]  # shuffled pages; the prompts' 64 and 50 tokens and two chunks
+    table[1, :5] = [2, 17, 8, 30, 5]
+
+    def positions(step):
+        return (n_real + (accept if step else 0))[:, None] + np.arange(C, dtype=np.int32)[None, :]
+
+    def slab(dev, c, p, dtype):
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        cache = kvc.init_cache(c, 2, 128, dtype, device=dev)
+        _, cache = T.prefill(c, p, t(tokens), t(mask), cache)
+        cache = cache._replace(length=cache.length.reshape(1).repeat(2))
+        out = []
+        for i in range(2):
+            out.append(T.verify_chunk(c, p, t(chunks[i]), t(positions(i)), cache).float().cpu())
+            cache = kvc.accept_ragged(cache, t(accept))
+        return torch.stack(out)
+
+    def paged(dev, c, p, dtype):
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        kp = torch.zeros(c.num_layers, 32, c.num_kv_heads, bs, c.head_dim, dtype=dtype, device=dev)
+        vp = torch.zeros_like(kp)
+        seg = kvc.init_cache(c, 2, 64, dtype, device=dev)
+        _, seg = T.prefill(c, p, t(tokens), t(mask), seg)
+        for b in range(2):
+            pad = 64 - int(n_real[b])
+            pg.write_prompt_all_layers(kp, vp, seg.k[:, b, :, pad:], seg.v[:, b, :, pad:], t(table[b]), int(n_real[b]))
+        lengths, out = n_real.copy(), []
+        for i in range(2):
+            logits, _, _ = pg.verify_step_paged(c, p, t(chunks[i]), t(positions(i)), kp, vp, t(table), t(lengths),
+                                                torch.ones(2, dtype=torch.bool, device=dev))
+            out.append(logits.float().cpu())
+            lengths = lengths + accept
+        return torch.stack(out)
+
+    def tiered(dev, c, p, dtype):
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        sched = StreamingScheduler(c, RuntimeConfig(hbm_percentage=50), p, dev)
+        _, state = sched.prefill_pass(tokens, mask, 128)
+        state = sched.ragged_state(state)
+        out = []
+        for i in range(2):
+            logits, state = sched.verify_logits(t(chunks[i]), t(positions(i)), state)
+            out.append(logits.float().cpu())
+            state = sched.accept_state(state, t(accept))
+        return torch.stack(out)
+
+    for label, fn, kernel in (("slab verify", slab, "flash_attention_cached"),
+                              ("paged verify", paged, "paged_decode_attention"),
+                              ("tiered verify", tiered, "flash_attention_cached")):
+        with torch.inference_mode():
+            reset_counts(ca, cm)
+            gpu = fn(torch.device("cuda"), cfg, params, torch.bfloat16)
+            launched = launch_counts(ca, cm)[kernel]
+            cpu = fn(torch.device("cpu"), cfg32, params32, torch.float32)
+        err = (gpu - cpu).abs().max().item()
+        emit({"phase": "speculative_parity", "config": label, "layers": 2, "batch": 2, "prompt": 64, "chunk": C,
+              "passes": 2, "accept": accept.tolist(), "kernel": kernel, "launches": launched,
+              "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(), "tol": PARITY_TOL,
+              "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
+        check(launched == 2 * cfg.num_layers, f"speculative_parity {label}: {launched} {kernel} launches")
+        check(bool(torch.isfinite(gpu).all()), f"speculative_parity {label}: non-finite logits on the card")
+        check(err <= PARITY_TOL, f"speculative_parity {label}: max abs logit err {err} > {PARITY_TOL}")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: beam search and scoring
 # ---------------------------------------------------------------------------
 
@@ -2770,7 +3219,7 @@ def score_path(ca, cm, name: str, cfg, engine, contexts, continuations):
 def beam_phase(ca, cm, cfg, prompts, tree):
     """Every BEAM configuration at OPT-6.7B full width and depth (one fused bf16
     tree on the card for the resident ones, the pageable host tree for the
-    tiered ones), then scoring, resident and tier-h50-p3. Returns (launches by
+    tiered ones; tier-h50-p0-beam at the TIER_DEPTH cut), then scoring, resident and tier-h50-p3. Returns (launches by
     configuration, the median walls of beam-nb4 and beam-nb4-int8kv, their
     prompts)."""
     from lia_tpu_torch.config import QuantConfig, RuntimeConfig
@@ -2782,12 +3231,14 @@ def beam_phase(ca, cm, cfg, prompts, tree):
     params = fuse_projections(cfg, device_dummy_params(cfg, seed=0))
     launches, walls = {}, {}
     for name, kv, grouped, proc, timed, tiering in BEAM:
+        bcfg, btree = tier_model(name, cfg, tree)
         if tiering is None:
             engine = InferenceEngine(cfg, params, RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv)))
         else:
-            engine = InferenceEngine(cfg, tree, tiered_runtime(kv, tiering[0], tiering[1], 1))
+            engine = InferenceEngine(bcfg, btree, tiered_runtime(kv, tiering[0], tiering[1], 1))
             check((engine.scheduler.grouped_beam_ok) == grouped, f"{name}: grouped_beam_ok is not {grouped}")
-        launches[name], walls[name] = beam_path(ca, cm, name, cfg, engine, bprompts, kv, grouped, proc, timed, tiering)
+        launches[name], walls[name] = beam_path(ca, cm, name, bcfg, engine, bprompts, kv, grouped, proc, timed,
+                                                tiering)
         del engine
         torch.cuda.empty_cache()
 
@@ -3411,6 +3862,10 @@ def main() -> int:
     beam_parity()
     phase_time("beam and score")
 
+    launches.update(speculative_phase(ca, cm, cfg, tree))
+    speculative_parity(ca, cm)
+    phase_time("speculative")
+
     # every profiler session comes after the timed runs
     for label, make, kv, _ in timed:
         device_breakdown(label, cfg, make, prompts, kv, walls[label])
@@ -3421,7 +3876,8 @@ def main() -> int:
 
     for name, kv, hbm, policies, nm, inflight, _ in TIERED:
         if name in ("tier-h50-p3", "tier-h50-p0-p2-mb4"):
-            engine = InferenceEngine(cfg, tree, tiered_runtime(kv, hbm, policies, nm, inflight))
+            tcfg, ttree = tier_model(name, cfg, tree)
+            engine = InferenceEngine(tcfg, ttree, tiered_runtime(kv, hbm, policies, nm, inflight))
             tiered_breakdown(name, engine, prompts)
             del engine
     del tree

@@ -32,8 +32,14 @@ or a policy other than 3) hands the tree to the tiered scheduler
 ``hbm_percentage``% of layers go to the device, the rest stay in pinned host
 memory and stream in layer by layer, and ``generate`` runs the scheduler's
 stepwise loop (``fused`` is ignored there, as in the reference; ``on_token``
-raises); beam search and scoring run the scheduler's passes too. Meshes and
-speculative decoding are not ported yet; asking for either raises.
+raises); beam search and scoring run the scheduler's passes too. Meshes are
+not ported yet; asking for one raises.
+
+:meth:`InferenceEngine.generate_speculative` (prompt lookup) and
+:meth:`InferenceEngine.generate_speculative_draft` (a draft model, greedy or
+sampled) are speculative decoding (:mod:`.lookahead`), over the resident
+slab cache or, for plans that keep KV on the card, the scheduler's verify
+pass.
 """
 
 from __future__ import annotations
@@ -244,6 +250,48 @@ class InferenceEngine:
             if eos is not None and bool(finished.all()):
                 break
         return GenerationResult(np.stack(out, axis=1), lat)
+
+    # -- speculative decoding ----------------------------------------------------
+
+    @torch.inference_mode()
+    def generate_speculative(
+        self,
+        prompts: Sequence[Sequence[int]],
+        gen: GenerationConfig = GenerationConfig(),
+        ngram: int = 3,
+        k: int = 4,
+    ):
+        """Greedy generation with prompt-lookup speculation
+        (:mod:`lia_tpu_torch.engine.lookahead`). Returns ``(sequences,
+        n_verify_steps)``: the sequences equal :meth:`generate`'s greedy
+        output, and the steps fall below ``max_new_tokens`` wherever the n-gram
+        proposals land (repetitive or retrieval-heavy text). Under the tiered
+        scheduler each verify streams every layer's weights once for k + 1
+        candidates."""
+        from lia_tpu_torch.engine.lookahead import generate_prompt_lookup
+
+        return generate_prompt_lookup(self, prompts, gen, ngram=ngram, k=k)
+
+    @torch.inference_mode()
+    def generate_speculative_draft(
+        self,
+        draft_engine: "InferenceEngine",
+        prompts: Sequence[Sequence[int]],
+        gen: GenerationConfig = GenerationConfig(),
+        k: int = 4,
+        seed: int = 0,
+    ):
+        """Generation with a draft model (a resident engine over the same
+        vocabulary, e.g. opt-125m for opt-6.7b) proposing k tokens per verify
+        pass. Greedy requests are exact, as prompt lookup's; ``gen.do_sample``
+        runs Leviathan acceptance sampling, whose output is distributed as
+        plain target sampling, every draw from a generator seeded with
+        ``seed``. Returns ``(sequences, n_verify_steps)``."""
+        from lia_tpu_torch.engine import lookahead as la
+
+        if gen.do_sample:
+            return la.generate_draft_speculative_sampled(self, draft_engine, prompts, gen, k=k, seed=seed)
+        return la.generate_draft_speculative(self, draft_engine, prompts, gen, k=k)
 
     # -- beam search -----------------------------------------------------------
 

@@ -36,10 +36,26 @@ the host once (a fused block once per block). ``device=None`` means ``"cuda"``
 and the constructor raises without a GPU; the tests pass ``device="cpu"``,
 where the kernels' plain versions run.
 
+``speculate_k`` makes every engine step speculative
+(:mod:`lia_tpu_torch.engine.lookahead`): each active slot proposes k tokens,
+by prompt lookup over its own history (``speculate_ngram``) or by k + 1
+decode steps of a ``draft`` model over the draft's own ragged slab cache,
+and one chunked verify pass checks all k + 1 positions of every slot: over
+the slab cache through ``flash_attention_cached`` at per-row bases
+(:func:`lia_tpu_torch.models.transformer.verify_chunk`), over the paged pool
+through ``paged_decode_attention`` at k + 1 queries
+(:func:`lia_tpu_torch.ops.paged.verify_step_paged`). Greedy requests accept
+the longest argmax-matching prefix and the bonus token (exact); with
+``gen.do_sample`` proposals are accepted by the Leviathan rule under the
+engine-level warp (per-request sampling overrides are refused). Every
+admission reserves k + 1 slots of slack; the lengths advance by the accepted
+count only, and the draft's cache is rewound to the verified prefix.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-speculative serving and draft models (A9), serving over the tiered scheduler
-(A10), tensor-parallel meshes (A13), the logits processors (A3), and paged
-pools with int8 KV (the reference keeps its pools in the model's dtype).
+serving over the tiered scheduler (A10; speculation included), tensor-parallel
+meshes (A13), the logits processors (A3; speculation refuses them as the
+reference does), and paged pools with int8 KV (the reference keeps its pools
+in the model's dtype).
 """
 
 from __future__ import annotations
@@ -103,7 +119,8 @@ class ContinuousBatcher:
         fused_steps: int = 1,
         enable_processors: Optional[bool] = None,
         speculate_k: Optional[int] = None,
-        draft: Optional[tuple] = None,
+        speculate_ngram: int = 3,
+        draft: Optional[tuple] = None,  # (draft ModelConfig, draft params)
         prefix_cache: bool = True,  # paged mode: automatic prefix caching (the A/B knob)
         device=None,
     ):
@@ -115,8 +132,8 @@ class ContinuousBatcher:
             raise NotImplementedError("serving over a tensor-parallel mesh is not ported yet (ROADMAP A13)")
         if runtime is not None and needs_scheduler(runtime):
             raise NotImplementedError("serving over the tiered scheduler is not ported yet (ROADMAP A10)")
-        if speculate_k is not None or draft is not None:
-            raise NotImplementedError("speculative serving and draft models are not ported yet (ROADMAP A9)")
+        if draft is not None and speculate_k is None:
+            raise ValueError("draft serving requires speculate_k")
         if enable_processors is None:
             enable_processors = (
                 gen.repetition_penalty != 1.0
@@ -185,6 +202,21 @@ class ContinuousBatcher:
         self._s_dev = None  # device copies of the slot params, made when they change
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.tokens = np.full(max_batch, gen.pad_token_id, np.int32)
+        # speculation: k proposals a slot (prompt lookup or the draft) and one
+        # verify pass a step; the draft keeps its own ragged slab cache, each
+        # slot holding its history but the pending token
+        self.speculate_k = speculate_k
+        self.speculate_ngram = speculate_ngram
+        self.draft = draft
+        if draft is not None:
+            self.dcfg, dparams = draft
+            T.check_supported(self.dcfg)
+            if runtime is None or runtime.fuse_projections:
+                dparams = fuse_projections(self.dcfg, dparams)
+            self.dparams = to_device(dparams, dev)
+            dcache = kvc.init_cache(self.dcfg, max_batch, max_len, torch_dtype(self.dcfg.dtype), device=dev)
+            self.dcache = dcache._replace(length=torch.zeros(max_batch, dtype=torch.int32, device=dev))
+            self.dlen = np.zeros(max_batch, np.int32)  # the draft cache's lengths, on the host
         self.prefill_chunk = prefill_chunk
         self._pending = None  # in-flight chunked admission
         self.queue: Deque[Request] = deque()
@@ -265,7 +297,7 @@ class ContinuousBatcher:
         pages (the caller requeues)."""
         n = len(req.prompt)
         bs_pg = self.block_size
-        n_pages = -(-(n + req.max_new_tokens) // bs_pg)
+        n_pages = -(-(n + req.max_new_tokens + self._slack()) // bs_pg)
         if self.prefix_cache:
             chain, reused = self._prefix_lookup(req.prompt)
         else:
@@ -342,6 +374,11 @@ class ContinuousBatcher:
             raise ValueError(
                 "per-request repetition_penalty/min_new_tokens/no_repeat_ngram_size need the logits "
                 "processors, which are not ported yet (ROADMAP A3)"
+            )
+        if self.speculate_k is not None and any(x is not None for x in (do_sample, temperature, top_k, top_p)):
+            raise ValueError(
+                "speculative serving samples under the engine-level warp (one p/q warp a verify pass); "
+                "per-request sampling overrides do not compose"
             )
         rid = self._next_id
         self._next_id += 1
@@ -424,10 +461,9 @@ class ContinuousBatcher:
                     return
             base = plan[2] if plan is not None else 0
             total = -(-(n - base) // C) * C  # chunked span (all real tokens if base > 0)
-            if total + req.max_new_tokens > self.max_len:
-                raise ValueError(
-                    f"request {req.req_id} needs {total + req.max_new_tokens} slots > max_len {self.max_len}"
-                )
+            need = total + req.max_new_tokens + self._slack()
+            if need > self.max_len:
+                raise ValueError(f"request {req.req_id} needs {need} slots > max_len {self.max_len}")
             if base > 0:
                 toks = np.asarray(req.prompt[base:], np.int32)  # == total tokens
                 mask = np.ones(total, bool)
@@ -456,6 +492,11 @@ class ContinuousBatcher:
                                pad=len(toks) - len(req.prompt) if base == 0 else 0)
         else:
             kvc.insert_slot(self.cache, seg, slot)
+        if self.draft is not None:
+            # the draft prefills the whole prompt at the last chunk (chunking
+            # bounds the target's prefill stalls; the draft is small)
+            self._draft_admit(*pack_prompts([req.prompt], self.gen.pad_token_id,
+                                            bucket=bucket_length(len(req.prompt))), slot)
         self._activate_slot(slot, req, first)
 
     def _admit(self) -> None:
@@ -467,16 +508,17 @@ class ContinuousBatcher:
             req = self.queue.popleft()
             n = len(req.prompt)
             bucket = bucket_length(n)
-            if bucket + req.max_new_tokens > self.max_len:
-                raise ValueError(
-                    f"request {req.req_id} needs {bucket + req.max_new_tokens} slots > max_len {self.max_len}"
-                )
+            need = bucket + req.max_new_tokens + self._slack()
+            if need > self.max_len:
+                raise ValueError(f"request {req.req_id} needs {need} slots > max_len {self.max_len}")
             tokens, mask = pack_prompts([req.prompt], self.gen.pad_token_id, bucket=bucket)
             if not self.paged:
                 seg = self._new_seg(self.max_len)
                 logits, seg = T.prefill(self.cfg, self.params, self._dev(tokens), self._dev(mask), seg)
                 first = self._sample_one(logits, req)
                 kvc.insert_slot(self.cache, seg, slot)
+                if self.draft is not None:
+                    self._draft_admit(tokens, mask, slot)
                 self._activate_slot(slot, req, first)
                 continue
             # automatic prefix caching: reuse the longest cached full-block
@@ -502,7 +544,24 @@ class ContinuousBatcher:
                 pad = bucket - n
             first = self._sample_one(logits, req)
             self._paged_commit(req, slot, seg, row, chain, base, n_shared, n_seed, pad)
+            if self.draft is not None:
+                self._draft_admit(tokens, mask, slot)
             self._activate_slot(slot, req, first)
+
+    def _slack(self) -> int:
+        """Slots past a request's last token that a verify may write: k + 1
+        with speculation, else none."""
+        return self.speculate_k + 1 if self.speculate_k is not None else 0
+
+    def _draft_admit(self, tokens: np.ndarray, mask: np.ndarray, slot: int) -> None:
+        """Prefill the draft's slab cache for a newly admitted slot ([1, bucket]
+        left-padded prompt). The draft's cache is a slab whatever the
+        target's storage, so draft speculation composes with paged targets
+        and chunked admission."""
+        seg = kvc.init_cache(self.dcfg, 1, self.max_len, torch_dtype(self.dcfg.dtype), device=self.device)
+        _, seg = T.prefill(self.dcfg, self.dparams, self._dev(tokens), self._dev(mask), seg)
+        kvc.insert_slot(self.dcache, seg, slot)
+        self.dlen[slot] = tokens.shape[1]
 
     def _maybe_finish(self, slot: int, tok: int) -> None:
         req = self.slot_req[slot]
@@ -530,7 +589,7 @@ class ContinuousBatcher:
         active slots, so in-block writes stay inside each slot's reservation.
         A queued request has no free slot (or no pages) after ``_admit``, so a
         block delays it at most by that cap."""
-        if self.fused_steps <= 1 or self._pending is not None:
+        if self.fused_steps <= 1 or self._pending is not None or self.speculate_k is not None:
             return 1
         remaining = [
             self.slot_req[b].max_new_tokens - len(self.slot_req[b].output)
@@ -597,6 +656,9 @@ class ContinuousBatcher:
         self._admit()
         if not self.active.any():
             return bool(self.queue) or self._pending is not None
+        if self.speculate_k is not None:
+            self._spec_step()
+            return True
         k = self._fused_k()
         if k > 1:
             self._fused_block(k)
@@ -621,6 +683,95 @@ class ContinuousBatcher:
             self.logical_pos[slot] += 1
             self._maybe_finish(slot, t)
         return True
+
+    def _spec_step(self) -> None:
+        """One speculative iteration: k proposals per active slot (prompt
+        lookup or the draft), one verify of all k + 1 positions, acceptance.
+        Greedy rows take the longest argmax-matching prefix and the bonus
+        token; with ``gen.do_sample`` the Leviathan rule runs on the device
+        (prompt lookup's proposals as point masses), and only the [B] counts
+        and tokens come to the host. Each request's budget and stop tokens
+        cut its accepted run."""
+        from lia_tpu_torch.engine import lookahead as la
+
+        k, g = self.speculate_k, self.gen
+        C = k + 1
+        sampled = g.do_sample
+        active = self.active.copy()
+        active_dev = self._dev(active)
+        qs = None
+        if self.draft is not None:
+            tok, pos = self._dev(self.tokens), self._dev(self.logical_pos.astype(np.int32))
+            if sampled:
+                props_dev, qs, self.dcache = la.draft_loop_sampled(self.dcfg, self.dparams, tok, pos, self.dcache, k,
+                                                                   g, self._rng, active_dev)
+            else:
+                props_dev, self.dcache = la.draft_loop(self.dcfg, self.dparams, tok, pos, self.dcache, k, active_dev)
+            props = props_dev.cpu().numpy()
+        else:
+            props = np.stack([
+                la.propose_ngram(self.slot_req[b].prompt + self.slot_req[b].output, self.speculate_ngram, k,
+                                 g.pad_token_id)
+                if active[b] and self.slot_req[b] is not None else [g.pad_token_id] * k
+                for b in range(self.B)
+            ]).astype(np.int32)
+            props_dev = self._dev(props)
+        chunk = np.concatenate([self.tokens[:, None].astype(np.int32), props], axis=1)
+        positions = self.logical_pos[:, None].astype(np.int32) + np.arange(C, dtype=np.int32)[None, :]
+        if self.paged:
+            logits, _, _ = pg.verify_step_paged(
+                self.cfg, self.params, self._dev(chunk), self._dev(positions), self.k_pool, self.v_pool,
+                self._dev(self.block_table), self._dev(self.kv_lengths), active_dev,
+            )
+        else:
+            logits = T.verify_chunk(self.cfg, self.params, self._dev(chunk), self._dev(positions), self.cache)
+        if sampled:
+            ps = sampling.warped_probs(logits, g)
+            u = la.uniforms(self.B, k, self._rng)
+            if self.draft is not None:
+                a_dev, extra_dev = la.sampled_accept(props_dev, qs, ps, u, self._rng)
+            else:
+                a_dev, extra_dev = la.lookup_accept(props_dev, ps, u, self._rng)
+            a_np, extra_np = a_dev.cpu().numpy(), extra_dev.cpu().numpy()
+        else:
+            greedy = sampling.greedy(logits).cpu().numpy()
+            accepted = la.greedy_accept(props, greedy)
+        self._steps += 1
+        self._dispatches += 1
+        accept = np.zeros(self.B, np.int32)
+        for b in np.flatnonzero(active):
+            b = int(b)
+            req = self.slot_req[b]
+            if sampled:
+                a = int(a_np[b])
+                new_toks = [int(t) for t in props[b, :a]] + [int(extra_np[b])]
+            else:
+                a = int(accepted[b])
+                new_toks = [int(t) for t in chunk[b, 1 : a + 1]] + [int(greedy[b, a])]
+            new_toks = new_toks[: req.max_new_tokens - len(req.output)]
+            stops = set() if g.eos_token_id is None else {g.eos_token_id}
+            if req.stop_token_ids:
+                stops |= set(req.stop_token_ids)
+            for j, t in enumerate(new_toks):
+                if t in stops:
+                    new_toks = new_toks[: j + 1]
+                    break
+            accept[b] = len(new_toks)
+            req.output.extend(new_toks)
+            self.tokens[b] = new_toks[-1]
+            self.logical_pos[b] += len(new_toks)
+            self._maybe_finish(b, new_toks[-1])
+        if self.paged:
+            # rejected chunk slots lie past the advanced length, dead until the
+            # next verify overwrites them; a slot that finished this step has
+            # released its pages and zeroed its length, and is not advanced
+            self.kv_lengths = self.kv_lengths + accept * self.active
+        else:
+            self.cache = kvc.accept_ragged(self.cache, self._dev(accept))
+        if self.draft is not None:
+            # the draft advanced active rows k + 1 slots: back to the verified prefix
+            self.dlen = self.dlen + accept
+            self.dcache = kvc.rewind_ragged(self.dcache, self._dev(self.dlen))
 
     def run(self) -> List[Request]:
         while self.step() or self.queue or self.active.any() or self._pending is not None:

@@ -1,8 +1,8 @@
 """Functional transformer decoder (port of ``lia_tpu/models/transformer.py``,
 the OPT main path: prefill, the fused-merge decode step, the per-layer
 write-then-attend decode layer that the tiered scheduler runs, continuous
-batching's chunked prefill and ragged decode step, the grouped-beam decode
-step and the scoring pass).
+batching's chunked prefill and ragged decode step, speculative decoding's
+verify pass, the grouped-beam decode step and the scoring pass).
 
 The model is a pure function over a parameter tree whose decoder layers are
 stacked ``[L, ...]``, as in the reference. Where the reference scans over the
@@ -381,14 +381,45 @@ def prefill_chunk(cfg, params, tokens, chunk_mask, cache: kvc.KVCache) -> Tuple[
     positions = prev_real[:, None] + torch.cumsum(chunk_mask.to(torch.int32), dim=1) - 1
     x = embed(cfg, params, tokens, positions)
     cache = kvc.advance(cache, chunk_mask, C)  # the mask now covers the chunk's slots
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        kl, vl = kvc.index_layer_kv(cache.k, i), kvc.index_layer_kv(cache.v, i)
-        q, k, v = attn_in(cfg, lp, x, positions)
-        kvc.update_layer(kl, vl, k, v, base)
-        attn_out = att.attend_prefill_cached(q, kl, vl, base, cache.mask, cfg.sliding_window)
-        x = attn_post_mlp(cfg, lp, x, attn_out)
+    x = chunk_layers(cfg, params["layers"], x, cache, base, cache.mask, positions, cfg.num_layers)
     return lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
+
+
+def decoder_layer_chunk(cfg, lp, x, k_layer, v_layer, base, slot_mask, positions):
+    """One decoder layer over a C-token chunk against its cache plane: the
+    chunk's K/V are written at ``base`` (int, 0-dim or [B]; in place), then
+    row t attends the slots of ``slot_mask`` up to ``base + t``
+    (``flash_attention_cached``)."""
+    q, k, v = attn_in(cfg, lp, x, positions)
+    kvc.update_layer(k_layer, v_layer, k, v, base)
+    attn_out = att.attend_prefill_cached(q, k_layer, v_layer, base, slot_mask, cfg.sliding_window)
+    return attn_post_mlp(cfg, lp, x, attn_out)
+
+
+def chunk_layers(cfg, layers: Params, x, cache: kvc.KVCache, base, slot_mask, positions, n_layers: int):
+    """Decoder layers ``0 .. n_layers-1`` of a stacked tree over a chunk, each
+    writing its plane of ``cache`` at ``base`` (:func:`decoder_layer_chunk`);
+    returns the hidden states. The cache's mask and length are not touched."""
+    for i in range(n_layers):
+        x = decoder_layer_chunk(cfg, layer_params(layers, i), x, kvc.index_layer_kv(cache.k, i),
+                                kvc.index_layer_kv(cache.v, i), base, slot_mask, positions)
+    return x
+
+
+def verify_chunk(cfg, params, tokens, positions, cache: kvc.KVCache) -> torch.Tensor:
+    """Speculative decoding's verify pass over a ragged cache (``cache.length``
+    [B]): the C candidate tokens of each row (tokens/positions [B, C]) run
+    through every layer, write-then-attend at the row's own base, over the
+    cache's valid slots and the chunk's (:func:`lia_tpu_torch.ops.kv_cache.chunk_slot_mask`).
+    Returns the logits of every chunk position [B, C, V] fp32. Every layer's
+    plane holds all C candidates afterwards; the mask and length are left as
+    they are, for the caller to advance by the accepted count
+    (:func:`lia_tpu_torch.ops.kv_cache.accept_ragged`)."""
+    check_supported(cfg)
+    x = embed(cfg, params, tokens, positions)
+    slot_mask = kvc.chunk_slot_mask(cache, tokens.shape[1])
+    x = chunk_layers(cfg, params["layers"], x, cache, cache.length, slot_mask, positions, cfg.num_layers)
+    return lm_head(cfg, params, x)
 
 
 def decode_layers_scan(cfg, layers: Params, x, ck, cv, start, ctx: att.DecodeAttn, positions, n_layers: int):

@@ -8,7 +8,8 @@ validity mask and a scalar length.
 Unlike the reference, whose arrays are immutable (XLA aliases the buffer under
 donation), every write here is **in place**: :func:`update_layer`,
 :func:`write_token_all`, :func:`write_token`, :func:`advance`,
-:func:`advance_ragged`, :func:`insert_slot` and the beam reorders modify the
+:func:`advance_ragged`, :func:`accept_ragged`, :func:`rewind_ragged`,
+:func:`insert_slot` and the beam reorders modify the
 cache tensors they are given, and return them (or the cache) only for symmetry
 with the reference. A reorder gathers into a temporary and copies it back, so
 every buffer keeps its address (and a pinned host cache stays pinned). ``length`` is an int32 tensor
@@ -175,6 +176,34 @@ def advance_ragged(cache: KVCache, active: torch.Tensor) -> KVCache:
     idx = _slots(cache.length, 1, cache.mask.shape[1], cache.mask.device)
     cache.mask.scatter_(1, idx, active.to(torch.bool)[:, None])
     return cache._replace(length=cache.length + active.to(cache.length.dtype))
+
+
+def chunk_slot_mask(cache: KVCache, C: int) -> torch.Tensor:
+    """The validity a speculative verify attends over: ``cache.mask`` with each
+    row's C slots from its length set (a new mask; the cache's is left as it
+    is). The slots are clamped into the plane as the chunk's write is."""
+    B, S_max = cache.mask.shape
+    idx = _slots(cache.length, C, S_max, cache.mask.device)
+    return cache.mask.scatter(1, idx.expand(B, C), True)
+
+
+def accept_ragged(cache: KVCache, accept: torch.Tensor) -> KVCache:
+    """After a verify that wrote C chunk slots per row: mark only each row's
+    first ``accept`` [B] of them valid (in place) and advance its length by
+    as many. The rejected slots stay invalid until a later write."""
+    pos = torch.arange(cache.mask.shape[1], device=cache.mask.device)[None, :]
+    lo = cache.length[:, None]
+    cache.mask.logical_or_((pos >= lo) & (pos < lo + accept[:, None]))
+    return cache._replace(length=cache.length + accept.to(cache.length.dtype))
+
+
+def rewind_ragged(cache: KVCache, new_length: torch.Tensor) -> KVCache:
+    """Drop every slot at or past each row's ``new_length`` [B] (in place) and
+    set the lengths to it: the draft cache's rewind to the verified prefix
+    (validity is contiguous, so the cut is a single bound per row)."""
+    pos = torch.arange(cache.mask.shape[1], device=cache.mask.device)[None, :]
+    cache.mask.logical_and_(pos < new_length[:, None])
+    return cache._replace(length=new_length.to(cache.length.dtype))
 
 
 def insert_slot(cache: KVCache, seg: KVCache, slot: int) -> KVCache:

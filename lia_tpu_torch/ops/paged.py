@@ -9,18 +9,21 @@ inactive rows and positions past a sequence's length write there.
 
 Every write is **in place** and is one vectorized ``index_put_`` per plane
 (:func:`reshape_and_cache`, :func:`write_prompt_paged`,
-:func:`write_prompt_all_layers`, :func:`write_token_all_layers`); reads are one
+:func:`write_prompt_all_layers`, :func:`write_token_all_layers`,
+:func:`write_chunk_all_layers`); reads are one
 gather per plane (:func:`gather_sequence`, :func:`seed_prefix_cache`).
 
-The front doors :func:`paged_attention` and :func:`attend_decode_paged` go
-through the ``paged_decode_attention`` kernel wrapper
+The front doors :func:`paged_attention` and :func:`attend_chunk_paged` (the
+reference's :func:`attend_decode_paged` at one query a row) go through the
+``paged_decode_attention`` kernel wrapper
 (:mod:`lia_tpu_torch.ops.cuda_attention`): the CUDA kernel, which walks the
 block table itself, for a CUDA tensor; its plain version for a CPU tensor.
 :func:`paged_attention_gather` and :func:`attend_decode_paged_gather` are the
 reference's gather-then-attend golden paths, kept as the other side of the
-tests; no serving path calls them. Speculative verify over pages
-(``attend_chunk_paged``, ``verify_step_paged``, ``write_chunk_all_layers``)
-waits for ROADMAP A9; the kernel already takes C >= 1 chunk queries.
+tests; no serving path calls them. :func:`verify_step_paged` runs C tokens
+a row through every layer and commits them with
+:func:`write_chunk_all_layers`: C = k + 1 is speculative decoding's verify,
+C = 1 a decode step (:func:`decode_step_paged`).
 """
 
 from __future__ import annotations
@@ -139,20 +142,30 @@ def seed_prefix_cache(k_pool, v_pool, block_table_row, base, bucket: int) -> KVC
 
 
 def write_token_all_layers(k_pool, v_pool, k_stack, v_stack, block_table, lengths, active):
-    """Decode-step write: ONE index_put per plane commits every layer's fresh
-    token (k/v stacks [L, B, N_kv, 1, D]) at each row's ``lengths`` [B], in
-    place; inactive rows write to the null page (the paged analog of
+    """Decode-step write: every layer's fresh token (k/v stacks [L, B, N_kv,
+    1, D]) at each row's ``lengths`` [B], in place, inactive rows to the null
+    page: :func:`write_chunk_all_layers` at C = 1 (the paged analog of
     :func:`lia_tpu_torch.ops.kv_cache.write_token_all`)."""
-    L = k_stack.shape[0]
+    return write_chunk_all_layers(k_pool, v_pool, k_stack, v_stack, block_table, lengths, active)
+
+
+def write_chunk_all_layers(k_pool, v_pool, k_stack, v_stack, block_table, lengths, active):
+    """Speculative verify's write: ONE index_put per plane commits every
+    layer's C chunk tokens (k/v stacks [L, B, N_kv, C, D]) at positions
+    [lengths_b, lengths_b + C) of each row, in place; inactive rows write to
+    the null page. A chunk may straddle a page boundary; a position past the
+    table clamps to its last page, as the reference's clip does. The rejected
+    tail of a chunk is dead past the advanced length until a later write."""
+    L, B, _, C, _ = k_stack.shape
     bs = k_pool.shape[3]
-    lengths = lengths.long()
-    page_idx = (lengths // bs).clamp(0, block_table.shape[1] - 1)
-    blk = block_table.gather(1, page_idx[:, None])[:, 0].long()
-    blk = torch.where(active, blk, 0)
-    off = lengths % bs
-    l_idx = torch.arange(L, device=k_stack.device)[:, None]
+    pos = lengths.long()[:, None] + torch.arange(C, device=k_stack.device)[None, :]  # [B, C]
+    page_idx = (pos // bs).clamp(0, block_table.shape[1] - 1)
+    blk = block_table.long().gather(1, page_idx)
+    blk = torch.where(active[:, None], blk, 0)
+    off = pos % bs
+    l_idx = torch.arange(L, device=k_stack.device)[:, None, None]
     for pool, stack in ((k_pool, k_stack), (v_pool, v_stack)):
-        pool[l_idx, blk[None, :], :, off[None, :], :] = stack[:, :, :, 0, :].to(pool.dtype)
+        pool[l_idx, blk[None], :, off[None], :] = stack.permute(0, 1, 3, 2, 4).to(pool.dtype)  # [L, B, C, H, D]
     return k_pool, v_pool
 
 
@@ -173,16 +186,21 @@ def paged_attention_gather(q, cache: PagedKVCache, block_table, lengths, scale: 
     return att.attend(q, ks, vs, mask[:, None, :].expand(q.shape[0], 1, -1), scale=scale)
 
 
-def attend_decode_paged(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, block_table, lengths,
-                        alibi_slopes=None):
-    """Paged decode attention (q [B, 1, N, D]) over layer ``layer_idx`` of the
-    stacked pool with the fresh token (k/v [B, N_kv, 1, D], not yet in the
-    pool) merged in the kernel; ``lengths`` [B] count past tokens only."""
+def attend_chunk_paged(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, block_table, lengths,
+                       alibi_slopes=None):
+    """Paged attention of C >= 1 queries a row (q [B, C, N, D]) over layer
+    ``layer_idx`` of the stacked pool, ``lengths`` [B] past tokens, with the
+    chunk's own keys (k/v [B, N_kv, C, D], not yet in the pool) merged
+    causally in the kernel: row c sees the pages and chunk keys 0..c. C = 1
+    is a decode step's fresh token; C = k + 1 a speculative verify."""
     if alibi_slopes is not None:
         raise NotImplementedError("ALiBi attention biases are not ported yet (ROADMAP A3)")
     return ca.paged_decode_attention(
         q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh.to(q.dtype), v_fresh.to(q.dtype)
     )
+
+
+attend_decode_paged = attend_chunk_paged  # the reference's name for C = 1
 
 
 def attend_decode_paged_gather(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, block_table, lengths):
@@ -202,22 +220,34 @@ def decode_step_paged(cfg: ModelConfig, params, tokens, logical_pos, k_pool, v_p
                       active):
     """One ragged decode step over the paged pool (continuous batching):
     tokens [B, 1], logical_pos / lengths (past tokens) / active [B], the block
-    table int32 [B, P] on the pool's device. Each layer attends through the
-    paged kernel with its fresh token merged; the fresh K/V of all layers are
-    stacked and one :func:`write_token_all_layers` commits them, in place.
-    Returns (logits [B, V] fp32, k_pool, v_pool)."""
+    table int32 [B, P] on the pool's device; :func:`verify_step_paged` at
+    C = 1. Returns (logits [B, V] fp32, k_pool, v_pool)."""
+    logits, k_pool, v_pool = verify_step_paged(cfg, params, tokens, logical_pos[:, None], k_pool, v_pool,
+                                               block_table, lengths, active)
+    return logits[:, 0, :], k_pool, v_pool
+
+
+def verify_step_paged(cfg: ModelConfig, params, tokens, positions, k_pool, v_pool, block_table, lengths, active):
+    """C tokens a row (tokens/positions [B, C]) through every layer over the
+    paged pool: each layer attends over its pages and the chunk's causal
+    triangle (:func:`attend_chunk_paged`, ``paged_decode_attention`` at C
+    queries); one :func:`write_chunk_all_layers` then commits every layer's
+    chunk K/V, in place. ``lengths`` [B] count past tokens. At C = k + 1 it
+    is speculative decoding's verify (the paged analog of
+    :func:`lia_tpu_torch.models.transformer.verify_chunk`): the caller
+    advances the lengths by the accepted count only. Returns (logits [B, C,
+    V] fp32, k_pool, v_pool)."""
     from lia_tpu_torch.models import transformer as T
 
     T.check_supported(cfg)
-    positions = logical_pos[:, None]
     x = T.embed(cfg, params, tokens, positions)
     k_new, v_new = [], []
     for idx in range(cfg.num_layers):
         lp = T.layer_params(params["layers"], idx)
         q, k, v = T.attn_in(cfg, lp, x, positions)
-        attn_out = attend_decode_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths)
+        attn_out = attend_chunk_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths)
         x = T.attn_post_mlp(cfg, lp, x, attn_out)
         k_new.append(k)
         v_new.append(v)
-    write_token_all_layers(k_pool, v_pool, torch.stack(k_new), torch.stack(v_new), block_table, lengths, active)
-    return T.lm_head(cfg, params, x)[:, 0, :], k_pool, v_pool
+    write_chunk_all_layers(k_pool, v_pool, torch.stack(k_new), torch.stack(v_new), block_table, lengths, active)
+    return T.lm_head(cfg, params, x), k_pool, v_pool

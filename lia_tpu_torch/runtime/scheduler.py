@@ -34,8 +34,9 @@ and a step's shuffle gathers only the tails) where both plans keep KV on the
 card, and expanded (the whole of both caches gathered each step, the host
 cache included) under host-KV plans (policies 0, 1, 2, 4), as in the
 reference. The scoring pass is the prefill over both segments with the head
-on every position. Ragged and paged serving and the verify pass under the
-scheduler are not ported yet and raise.
+on every position. The chunked verify pass (:meth:`StreamingScheduler.verify_pass`,
+speculative decoding) runs where both plans keep KV on the card. Ragged and
+paged serving under the scheduler are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -412,6 +413,67 @@ class StreamingScheduler:
         both segments, in place (O(tail) traffic, not O(cache))."""
         return {k: None if c is None else kvc.beam_tail_reorder(c, flat_src) for k, c in state.items()}
 
+    # -- chunked verify pass: speculation under tiering -------------------------
+    #
+    # A verify pass runs C = k + 1 candidate tokens through every layer at
+    # once, so each streamed layer's weights cross once per C candidates
+    # instead of once per token. Plans that keep KV on the card only: the
+    # chunk attends through flash_attention_cached, which the host tier has
+    # no counterpart of.
+
+    def ragged_state(self, state):
+        """The prefill's state (one length for every row) with a length per
+        row, [B]: speculation advances the rows unevenly."""
+        return {key: None if c is None else c._replace(length=c.length.reshape(1).repeat(c.mask.shape[0]))
+                for key, c in state.items()}
+
+    def verify_logits(self, tokens: torch.Tensor, positions: torch.Tensor, state):
+        """Run the C candidate tokens of each row (tokens/positions [B, C] on
+        the card) through both segments over a ragged state: the resident
+        prefix over its cache as the resident engine's verify does, then each
+        streamed layer with its weights from the prefetch ring (one transfer
+        for all C candidates), in :meth:`decode_pass`'s layer order. Each
+        layer writes all C candidates into its plane at the row's length and
+        attends over the valid slots and the chunk's. Returns (logits of every
+        position [B, C, V] fp32, state); the masks and lengths advance by the
+        accepted count in :meth:`accept_state`."""
+        if not self.tpu_kv_plans:
+            from lia_tpu_torch.engine.lookahead import HOST_PLANS
+
+            raise NotImplementedError(HOST_PLANS)
+        cfg, wm = self.cfg, self.wm
+        n_res, L = wm.n_resident, cfg.num_layers
+        res, st = state["res"], state["str"]
+        C = tokens.shape[1]
+        x = T.embed(cfg, self.top, tokens, positions)
+        if res is not None:
+            x = T.chunk_layers(cfg, wm.resident, x, res, res.length, kvc.chunk_slot_mask(res, C), positions, n_res)
+        if st is not None:
+            slot_mask = kvc.chunk_slot_mask(st, C)
+            wm.prefetch(n_res)
+            for idx in range(n_res, L):
+                wm.prefetch_after(idx)
+                lp = wm.get_layer(idx)
+                li = idx - n_res
+                x = T.decoder_layer_chunk(cfg, lp, x, kvc.index_layer_kv(st.k, li), kvc.index_layer_kv(st.v, li),
+                                          st.length, slot_mask, positions)
+                self._sync()
+        return T.lm_head(cfg, self.top, x), {"res": res, "str": st}
+
+    def verify_pass(self, tokens: torch.Tensor, positions: torch.Tensor, state, probs_gen=None):
+        """:meth:`verify_logits` with the greedy head (the argmax of every
+        position, [B, C] int32) or, given ``probs_gen``, the warped
+        distributions [B, C, V] fp32 that sampled acceptance takes. Returns
+        (that, state)."""
+        logits, state = self.verify_logits(tokens, positions, state)
+        return (sampling.greedy(logits) if probs_gen is None else sampling.warped_probs(logits, probs_gen)), state
+
+    def accept_state(self, state, accept: torch.Tensor):
+        """Advance both segments' masks and lengths by the accepted count [B]
+        (the verify wrote all C candidates; only the first ``accept`` of them
+        become valid)."""
+        return {key: None if c is None else kvc.accept_ragged(c, accept) for key, c in state.items()}
+
     # -- passes not ported yet -------------------------------------------------
 
     def init_serving_state(self, *args, **kwargs):
@@ -426,11 +488,4 @@ class StreamingScheduler:
     def decode_pass_paged(self, *args, **kwargs):
         _unported("paged serving", "the scheduler's serving passes, ROADMAP A10")
 
-    def ragged_state(self, *args, **kwargs):
-        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
 
-    def verify_pass(self, *args, **kwargs):
-        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")
-
-    def accept_state(self, *args, **kwargs):
-        _unported("the chunked verify pass", "speculative decoding, ROADMAP A9")

@@ -694,6 +694,119 @@ def test_batcher_on_the_card_matches_the_cpu(cuda, mode):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding's verify shapes: B6 and B5 at C = k + 1 = 5
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bases", ["verify", "spread"])
+@pytest.mark.parametrize("N,Nkv", [(32, 32), (32, 8)])
+def test_flash_cached_at_the_verify_shape(cuda, N, Nkv, bases):
+    """B6 over 16 rows of a C = 5 verify chunk at D 128 (OPT-6.7B's heads and
+    Llama-3-8B's, G = 1 and 4), each row at its own base after uneven
+    acceptance: bases 256-301 (the main path's), or spread over 5-290 so that
+    rows differ by several 64-key tiles; left pads per row."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, C, D, S_max, dtype = 16, 5, 128, 384, torch.bfloat16
+    base_list = [256 + 3 * b for b in range(B)] if bases == "verify" else [5 + 19 * b for b in range(B)]
+    starts = [min(p, bb) for p, bb in zip([0, 3, 7, 15, 31, 64, 100, 200] * 2, base_list)]
+    q = _randn(gen, B, C, N, D, dtype=dtype)
+    kc, vc = _randn(gen, B, Nkv, S_max, D, dtype=dtype), _randn(gen, B, Nkv, S_max, D, dtype=dtype)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
+    for b, (st, bb) in enumerate(zip(starts, base_list)):
+        sm[b, st : bb + C] = True
+    base = torch.tensor(base_list, dtype=torch.int32, device=cuda)
+    before = ca.flash_attention_cached.launches
+    out = ca.flash_attention_cached(q, kc, vc, base, sm)
+    assert ca.flash_attention_cached.launches == before + 1
+    ref = ca.flash_attention_cached_plain(q, kc, vc, base, sm)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("G,Nkv", [(1, 32), (4, 8)])
+def test_paged_verify_chunk_matches_plain(cuda, G, Nkv):
+    """B5 at C = 5 with the chunk merged causally: lengths that put the
+    chunk across a page boundary (13, 30 and 47 at 16-slot pages), a long
+    row, and inactive rows at length 0 over the null page; then the chunk's
+    write (write_chunk_all_layers) on the card equals the CPU's, the
+    inactive rows' into page 0."""
+    from lia_tpu_torch.ops import paged as pg
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    lengths = (13, 0, 30, 160, 47, 0)
+    q, kp, vp, table, lens, kf, vf = _paged_case(gen, torch.bfloat16, len(lengths), 5, G, 128, Nkv=Nkv, bs=16, P=12,
+                                                 lengths=lengths)
+    out = ca.paged_decode_attention(q, kp, vp, 1, table, lens, kf, vf)
+    ref = ca.paged_decode_attention_plain(q, kp, vp, 1, table, lens, kf, vf)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    active = lens > 0
+    # one chunk a row, every layer: [L, B, N_kv, C, D]
+    ks = torch.stack([kf, kf * 2]).contiguous()
+    vs = torch.stack([vf, vf * 2]).contiguous()
+    kp_cpu, vp_cpu = kp.cpu(), vp.cpu()
+    pg.write_chunk_all_layers(kp, vp, ks, vs, table, lens, active)
+    pg.write_chunk_all_layers(kp_cpu, vp_cpu, ks.cpu(), vs.cpu(), table.cpu(), lens.cpu(), active.cpu())
+    torch.testing.assert_close(kp[:, 1:].cpu(), kp_cpu[:, 1:], rtol=0, atol=0)
+    torch.testing.assert_close(vp[:, 1:].cpu(), vp_cpu[:, 1:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["lookup", "draft", "serve-paged", "serve-slab-draft"])
+def test_speculation_on_the_card_launches_its_kernels(cuda, mode):
+    """opt-125m widths at 2 layers, bf16 on the card: prompt lookup and a
+    draft through generate (B6 per verify layer, B2 per draft layer and
+    step) and speculative serving (B5 per paged verify layer): every token in
+    the vocabulary, the verify steps within [ceil(new / (k+1)), new], the
+    exact launch counts of the kernels on each path."""
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.engine.engine import InferenceEngine
+    from lia_tpu_torch.engine.serving import ContinuousBatcher
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils.checkpoint import init_dummy_params
+
+    cfg = get_config("opt-125m").replace(num_layers=2)
+    params = init_dummy_params(cfg, seed=0, scale=0.02)
+    rng = np.random.default_rng(2)
+    pattern = rng.integers(2, cfg.vocab_size, 8).tolist()
+    prompts = [pattern * 4, rng.integers(2, cfg.vocab_size, 21).tolist(), pattern * 2 + [5, 6]]
+    k, new, L = 4, 12, cfg.num_layers
+    ca.reset_launch_counts()
+    if mode in ("lookup", "draft"):
+        eng = InferenceEngine(cfg, params, device=cuda)
+        ca.reset_launch_counts()
+        gen = GenerationConfig(max_new_tokens=new)
+        if mode == "lookup":
+            seqs, steps = eng.generate_speculative(prompts, gen, k=k)
+        else:
+            seqs, steps = eng.generate_speculative_draft(eng, prompts, gen, k=k)
+        counts = ca.launch_counts()
+        assert seqs.shape == (3, new) and ((seqs >= 0) & (seqs < cfg.vocab_size)).all()
+        assert -(-new // (k + 1)) <= steps <= new
+        assert counts["flash_attention_cached"] == L * steps
+        assert counts["flash_attention_prefill"] == L * (2 if mode == "draft" else 1)
+        assert counts["decode_attention_fresh"] == (L * (k + 1) * steps if mode == "draft" else 0)
+        if mode == "draft":
+            assert steps == -(-new // (k + 1))  # the draft is the target: every proposal is accepted
+        return
+    kw = dict(max_batch=2, max_len=128, gen=GenerationConfig(max_new_tokens=new), speculate_k=k)
+    if mode == "serve-paged":
+        kw["paged"] = True
+    else:
+        kw["draft"] = (cfg, params)
+    cb = ContinuousBatcher(cfg, params, device=cuda, **kw)
+    for p in prompts:
+        cb.submit(p)
+    done = cb.run()
+    counts = ca.launch_counts()
+    steps = int(cb.stats()["decode_steps"])
+    assert len(done) == 3 and all(len(r.output) == new for r in done)
+    if mode == "serve-paged":
+        assert counts["paged_decode_attention"] == L * steps and counts["flash_attention_cached"] == 0
+        assert (cb.page_rc == 0).all() and len(cb.free_blocks) + len(cb.cached_pages) == cb.num_blocks - 1
+    else:
+        assert counts["flash_attention_cached"] == L * steps and counts["paged_decode_attention"] == 0
+        assert counts["decode_attention_fresh"] == L * (k + 1) * steps
+
+
+# ---------------------------------------------------------------------------
 # grouped-beam decode (B9 decode_beam_attention, B10 decode_beam_attention_int8)
 # ---------------------------------------------------------------------------
 

@@ -295,8 +295,8 @@ def test_fused_steps_with_waiting_queue(model):
 def test_unported_options_raise(model):
     _, _, tcfg, tp = model
     cases = {
-        "A9": [dict(speculate_k=2), dict(draft=(tcfg, tp))],
-        "A10": [dict(runtime=RuntimeConfig(hbm_percentage=50))],
+        "A10": [dict(runtime=RuntimeConfig(hbm_percentage=50)),
+                dict(runtime=RuntimeConfig(hbm_percentage=50), speculate_k=2)],
         "A13": [dict(mesh=object())],
         "A3": [dict(enable_processors=True), dict(gen=GenerationConfig(repetition_penalty=1.2))],
     }
