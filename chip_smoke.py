@@ -33,7 +33,11 @@ Phases, each printing one JSON line per item:
    D 128), without and with a sliding window of 64 that binds; every
    attention kernel (B1, B2, B7/B8, B3, B6, B5 at C = 1 and 4, B9, B10) at
    Falcon-7B's heads (71 over one KV head, D 64: G = 71, a ragged last run
-   of queries) and ChatGLM3-6B's (32 over 2, D 128: G = 16). Quantized
+   of queries) and ChatGLM3-6B's (32 over 2, D 128: G = 16), and at the head
+   dims 80, 96 and 256 (the padded bodies): OPT-2.7B's heads (32 over 32, D
+   80), GPT-NeoX-20B's (64 over 64, D 96) and GPT-J-6B's (16 over 16, D 256),
+   each D also at G = 4. Each check draws its inputs from a generator of its
+   own, seeded from its name (check_randn). Quantized
    matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
@@ -61,15 +65,22 @@ Phases, each printing one JSON line per item:
    65024, 32 layers; bf16 weights drawn on the card) with bf16 and int8 KV
    (median of 3), and ChatGLM3-6B, Baichuan2-7B and StableLM-2-1.6B at full
    width and 4 layers with bf16 KV (32 flash prefills and 992 decode
-   launches for Falcon-7B, 4 and 124 for the others, no fused MLP); then the
+   launches for Falcon-7B, 4 and 124 for the others, no fused MLP); the head
+   dims 80, 96 and 256: OPT-2.7B at full width and depth (D 80) with bf16
+   and int8 KV (median of 3), GPT-J-6B (D 256, 28 layers) with both and
+   GPT-NeoX-20B (D 96, 44 layers, ~40 GB) with bf16 KV, one run each, and
+   StableLM-3B, CodeGen-2B and CodeGen-6B at 4 layers (L flash prefills and
+   L * 31 decode launches each, no plain version on the card); then the
    checkpoint round trips on the card's machine, with the port's own
    safetensors module: ChatGLM3-6B's 4-layer tree through save_params and
-   load_params, Falcon-7B at 2 layers written as two Hugging Face shards and
-   read by load_hf_checkpoint (equal to params_from_hf_state_dict on the same
-   dict), each giving the tokens of the tree it came from, with the save's
-   and load's seconds and GB/s (the `checkpoint` lines). The launch
+   load_params, Falcon-7B and CodeGen-2B (mp_num = 4 qkv_proj) at 2 layers
+   written as two Hugging Face shards and read by load_hf_checkpoint (equal
+   to params_from_hf_state_dict on the same dict), each giving the tokens of
+   the tree it came from, with the save's and load's seconds and GB/s (the
+   `checkpoint` lines). The launch
    counters, zeroed just before one run and read just after it, must show
-   each path's kernels exactly; for the bf16 paths, the two candidates, the
+   each path's kernels exactly, and no plain version may run on the card in
+   that run; for the bf16 paths, the two candidates, the
    gate A/Bs and the Llama runs prefill ms and decode tokens/s are the median
    of 3 runs. Each configuration's engine is freed before the next is made;
 5. tiered: LIA's offload path, InferenceEngine.generate over a tiering
@@ -80,10 +91,11 @@ Phases, each printing one JSON line per item:
    max_inflight_layers=3: a ring of 3, two layers in flight ahead),
    tier-h0-p3-int8kv (all streamed, int8 KV),
    tier-h50-p0 (KV on the host), tier-h50-p0-p2-mb4 (prefill policy 0 in 4
-   minibatches, decode policy 2: host attention), the last three at 8 layers
+   minibatches, decode policy 2: host attention), the last four at 8 layers
    of the same tree (TIER_DEPTH), tier-p1-2layer (policy 1,
    2 layers, 2 prompts of 64 tokens, all on the CPU) and, over an int8dyn
-   tree, tier-h50-p3-int8dyn against the resident engine on the same tree.
+   tree, tier-h50-p3-int8dyn (8 layers) against the resident engine on the
+   same tree.
    Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
    bytes streamed and copy-stream ms per step, peak device memory under a
    residency limit, exact launch counts;
@@ -103,20 +115,21 @@ Phases, each printing one JSON line per item:
    concurrent /generate requests, /stats and /health. serving_parity:
    OPT-6.7B width at 2 layers, the batcher's functions in its order (prefill,
    page commit, a prefix-cache admission, 4 paged decode steps; insert_slot
-   and 4 ragged steps over a bf16 and an int8 slab), card against CPU;
+   and 4 ragged steps over a bf16 and an int8 slab), card against CPU, also
+   at OPT-2.7B's and GPT-J-6B's widths (D 80 and 256);
 7. beam and score: InferenceEngine.generate_beam at OPT-6.7B full width and
    depth, 4 seeded prompts cut to 256/240/200/160 tokens, 4 beams, 32 new
    tokens, no EOS: beam-nb4 (grouped, bf16 KV) and beam-nb4-int8kv (median of
    3), beam-nb4-expanded, beam-nb4-proc (repetition penalty 1.2,
    no_repeat_ngram_size 3), tier-h50-p3-beam (grouped under the scheduler)
-   and tier-h50-p0-beam (expanded, host KV, 8 layers), one run each. Each line: prefill
+   and tier-h50-p0-beam (expanded, host KV), at 8 and 4 layers, one run each. Each line: prefill
    ms, decode row-tokens/s (16 rows x 31 steps over the decode seconds), the
    bytes a step's beam shuffle rewrites, peak memory, exact launch counts.
    score: loglikelihood of 16 records of 256 + 32 tokens, resident and
    tier-h50-p3, ms per call, the two agreeing. beam_parity: OPT-6.7B width at
    2 layers, a grouped beam cache and 4 beam_decode_step calls (the CPU run's
    tokens and shuffles forced on both sides) and score_logprobs, card against
-   CPU, bf16 and int8 KV;
+   CPU, bf16 and int8 KV, also at OPT-2.7B's and GPT-J-6B's widths;
 7b. speculative: OPT-6.7B at full width and depth, 16 prompts of 256
    tokens (each a seeded 32-token pattern repeated), 32 new tokens, k = 4:
    spec-lookup over bf16 and int8 KV (generate_speculative, ngram 3),
@@ -144,9 +157,12 @@ Phases, each printing one JSON line per item:
    weight-only int4 g128; Llama-3-8B width at 2 layers, projections unfused,
    both gates on (the fused MLP at every layer), bf16 and int8 KV;
    Falcon-7B and ChatGLM3-6B widths (bf16 and int8 KV), Baichuan2-7B's and
-   StableLM-2-1.6B's (bf16 KV); and the tiered scheduler at 4 layers (half
-   resident) under policies 3, 0 and 0/2 with bf16 and with int8 KV, and
-   policy 3 over int8dyn weights and int8 KV;
+   StableLM-2-1.6B's (bf16 KV), OPT-2.7B's and GPT-J-6B's (both KV types),
+   GPT-NeoX-20B's, StableLM-3B's, CodeGen-2B's and CodeGen-6B's (bf16 KV);
+   and the tiered scheduler at 4 layers (half resident) under policies 3, 0
+   and 0/2 with bf16 and with int8 KV, and policy 3 over int8dyn weights and
+   int8 KV, and policy 3 with both KV types at OPT-2.7B's and GPT-J-6B's
+   widths;
 9. device breakdown: one more main-path run per timed OPT configuration and
    of llama-3-8b with bf16 KV under the
    profiler (weights made anew), device time by kernel and the idle share;
@@ -171,6 +187,9 @@ Phases, each printing one JSON line per item:
    over a row- and a column-major int8 weight; the flash body also at B1's
    Llama-3-8B heads (G = 4), a short prefix-cache suffix (C=48 at base 960) and
    a chunk256 first chunk, each with its number of parts and SDPA's time; the
+   every attention kernel at OPT-2.7B's, GPT-NeoX-20B's and GPT-J-6B's heads
+   (D 80, 96, 256), with its parts, beside SDPA, bound from the bytes at the
+   real D; the
    paged body at Llama-3-8B's heads (G = 4, 8 KV heads) and over rows of ~1000
    tokens, with its parts and SDPA's time; B3 at Llama-3-8B's heads and over
    ~1000-token rows and B10 over a 1024-slot prompt, with their parts and
@@ -213,6 +232,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -259,9 +279,12 @@ TIERED = [
 ]
 # the configurations that run at a cut depth (OPT-6.7B's width, the first n
 # layers of the same tree), to make room in the time limit for the
-# speculative phase: the host-KV and host-attention cells decode at 15-84
-# tokens/s and the fully streamed one at 56
-TIER_DEPTH = {"tier-h50-p0": 8, "tier-h0-p3-int8kv": 8, "tier-h50-p0-p2-mb4": 8, "tier-h50-p0-beam": 8}
+# speculative phase (the host-KV and host-attention cells decode at 15-84
+# tokens/s and the fully streamed one at 56) and for the head-dim phases
+# (tier-h50-p3-ring3, tier-h50-p3's ring of 3, tier-h50-p3-beam,
+# tier-h50-p3-int8dyn and tier-h50-p0-beam at 4)
+TIER_DEPTH = {"tier-h50-p0": 8, "tier-h0-p3-int8kv": 8, "tier-h50-p0-p2-mb4": 8, "tier-h50-p0-beam": 4,
+              "tier-h50-p3-ring3": 8, "tier-h50-p3-beam": 8, "tier-h50-p3-int8dyn": 8}
 TIER_COPY_BYTES = {}  # the weight stream's bytes per decode step of each tiered configuration
 # (name, (prefill, decode) policy, KV, weight quantization or None): the tiered
 # scheduler at 4 layers, half resident, on the card against the CPU
@@ -274,6 +297,7 @@ TIER_PARITY = [
     ("tier-parity-p0-p2-int8kv", (0, 2), "int8", None),
     ("tier-parity-p3-int8dyn", (3, 3), "int8", dict(weight_dtype="int8", group_size=-1, act_quant="dynamic")),
 ]
+TIER_PARITY_HEAD_DIMS = TIER_PARITY[0:1] + TIER_PARITY[3:4]  # policy 3 over bf16 and int8 KV, at HEAD_DIM_PARITY
 # bench.py's two candidates (bench.py:68-78) and the weight-only formats
 CANDIDATES = {
     "int8dyn+int8kv": (dict(weight_dtype="int8", group_size=-1, kv_cache_dtype="int8",
@@ -493,11 +517,13 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_FLOP_PER_S):
 
 def flash_build_report(_build, paths) -> None:
     """Each flash library's kernels as ptxas built them (registers, spill stores
-    and loads: D 64 and 128, one and two consumer warpgroups, each with whole
-    positions a tile and, for groups past 64, flat rows; the merge at D 64
-    and 128) and the body's dynamic shared memory a block; a spill fails the
-    run."""
+    and loads: widths 64 and 128 with one and two consumer warpgroups, 256
+    with one, each with whole positions a tile and, for groups past 64, flat
+    rows; the merge at each width) and the body's dynamic shared memory a
+    block at each head dim; a spill fails the run."""
     import re
+
+    from lia_tpu_torch.ops.cuda_attention import KERNEL_DIMS
 
     for lib in ("flash_prefill", "flash_cached"):
         kernels, cur = [], None
@@ -515,9 +541,9 @@ def flash_build_report(_build, paths) -> None:
             if m and cur is not None:
                 cur["registers"] = int(m.group(1))
         smem = {f"D={dh}, {nw} warpgroups": _build.library(lib).lia_flash_smem_bytes(dh, nw)
-                for dh in (64, 128) for nw in (1, 2)}
+                for dh in KERNEL_DIMS for nw in (1, 2) if dh <= 128 or nw == 1}
         emit({"phase": "flash_build", "library": lib, "kernels": kernels, "dynamic_smem_bytes": smem})
-        check(len(kernels) == 10 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+        check(len(kernels) == 13 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
@@ -569,22 +595,24 @@ def paged_mlp_build_report(_build, paths) -> None:
     """The paged-decode and fused-MLP libraries' kernels as ptxas built them
     (registers, spill stores and loads; a spill fails the run), each block's
     dynamic shared memory and the ring stages it holds: the paged body at bs
-    16 (bf16 and fp32, D 64 and 128, one or four queries a consumer warp), the
+    16 (bf16 and fp32, widths 64, 128 and 256 (D 64, 80, 96, 128, 256), one or four queries a consumer warp), the
     fused MLP at H 4096 (with the rows one phase-1 pass normalizes, and the
     persistent grid's blocks at Llama-3-8B's F on this card)."""
     import re
 
+    from lia_tpu_torch.ops.cuda_attention import KERNEL_DIMS
+
     patterns = {"paged_decode": r"Function properties for \S*?(paged_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
                                 r"(?:Li(\d+)E)?",
                 "fused_mlp": r"Function properties for \S*?(fused_mlp_kernel)ILb(\d)ELb(\d)E"}
-    for lib, expect in (("paged_decode", 12), ("fused_mlp", 4)):
+    for lib, expect in (("paged_decode", 18), ("fused_mlp", 4)):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
             m = re.search(patterns[lib], line)
             if m:
                 if lib == "paged_decode":
                     t = "bf16" if m.group(2) != "f" else "fp32"
-                    name = f"{m.group(1)}<{t}, D={m.group(3)}" + (f", qpw={m.group(4)}>" if m.group(4) else ">")
+                    name = f"{m.group(1)}<{t}, width={m.group(3)}" + (f", qpw={m.group(4)}>" if m.group(4) else ">")
                 else:
                     name = f"fused_mlp_kernel<rms={m.group(2)}, gated={m.group(3)}>"
                 cur = {"kernel": name}
@@ -599,7 +627,7 @@ def paged_mlp_build_report(_build, paths) -> None:
         if lib == "paged_decode":
             smem = {f"{t}, D={dh}, bs 16, qpw={qpw}": {"bytes": L.lia_paged_smem_bytes(es, dh, SERVE_BLOCK, qpw),
                                                        "stages": L.lia_paged_stages(es, dh, SERVE_BLOCK, qpw)}
-                    for t, es in (("bf16", 2), ("fp32", 4)) for dh in (64, 128) for qpw in (1, 4)}
+                    for t, es in (("bf16", 2), ("fp32", 4)) for dh in KERNEL_DIMS for qpw in (1, 4)}
         else:
             smem = {f"H {H}": {"bytes": L.lia_fused_mlp_smem_bytes(H), "stages": L.lia_fused_mlp_stages(H),
                                "rows_a_pass": L.lia_fused_mlp_row_chunk(H), f"blocks at F {Fd}": L.lia_fused_mlp_blocks(H, Fd)}
@@ -611,20 +639,24 @@ def paged_mlp_build_report(_build, paths) -> None:
 
 def int8_build_report(_build, paths) -> None:
     """The int8 decode libraries' kernels as ptxas built them (the body's
-    instantiations by type and D, and the merge launch's: registers, spill
-    stores and loads; a spill fails the run), and a block's dynamic shared
-    memory and ring stages at the main path's grids on this card (B3 at
-    OPT-6.7B b16 and at Llama-3-8B's heads, B10 at 4 x 4 beams, and each
-    split in 2 over its ~1000-key walk), at D 64 and 128."""
+    instantiations by type, width (64, 128, 256) and D, and the merge launch's:
+    registers, spill stores and loads; a spill fails the run), and a block's
+    dynamic shared memory and ring stages at the main path's grids on this
+    card (B3 at OPT-6.7B b16 and at Llama-3-8B's heads, B10 at 4 x 4 beams,
+    and each split in 2 over its ~1000-key walk), at each head dim."""
     import re
+
+    from lia_tpu_torch.ops.cuda_attention import KERNEL_DIMS
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for lib in ("decode_fresh_int8", "beam_decode_int8"):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
-            m = re.search(r"Function properties for \S*?(int8_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E", line)
-            if m:
-                cur = {"kernel": f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, D={m.group(3)}>"}
+            m = re.search(r"Function properties for \S*?(int8_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
+                          r"(?:Li(\d+)ELb)?", line)
+            if m:  # int8_kernel<type, width, D>, merge_kernel<type, width>
+                cur = {"kernel": f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, width={m.group(3)}"
+                                 + (f", D={m.group(4)}>" if m.group(4) else ">")}
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and cur is not None:
@@ -638,34 +670,37 @@ def int8_build_report(_build, paths) -> None:
                  "beam_decode_int8": (("4 x 4 beams", 32 * 4), ("4 x 4 beams, 1024-slot prompt, 2 parts", 32 * 4 * 2))}[lib]
         smem = {f"{label}, D={dh}": {"blocks": blocks, "stages": L.lia_dec8_stages(dh, blocks, sms),
                                      "bytes": L.lia_dec8_smem_bytes(dh, L.lia_dec8_stages(dh, blocks, sms))}
-                for label, blocks in grids for dh in (64, 128)}
+                for label, blocks in grids for dh in KERNEL_DIMS}
         emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
-        # the body and the merge launch at bf16 / fp32 and D 64 / 128
-        check(len(kernels) == 8 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+        # the body at bf16 / fp32 and each D, the merge launch at each width
+        check(len(kernels) == 16 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
 def beam_build_report(_build, paths) -> None:
     """The bf16 beam body's kernels (beam_decode.cu, beam_attn.cuh) as ptxas
-    built them: beam_kernel at D 64 and 128 with one and two column tiles,
-    and its split's merge launch (registers, spill stores and loads; a spill
-    fails the run); the fp32 warp body's instantiations are listed with their
-    registers. A block's dynamic shared memory and ring stages at the main
-    path's grids on this card."""
+    built them: beam_kernel at D 64, 80, 96 and 128 with one and two column
+    tiles and at 256 with one, and its split's merge launch at each width
+    (registers, spill stores and loads; a spill fails the run); the fp32 warp
+    body's instantiations are listed with their registers. A block's dynamic
+    shared memory and ring stages at the main path's grids on this card, at
+    each head dim."""
     import re
+
+    from lia_tpu_torch.ops.cuda_attention import KERNEL_DIMS
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels, cur = [], None
     for line in open(f"{paths['beam_decode']}.log").read().splitlines():
-        m = re.search(r"Function properties for \S*?(?:beam_kernelILi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16Li(\d+)E"
-                      r"|decode_kernelIfLi(\d+)ELi(\d+)E)", line)
+        m = re.search(r"Function properties for \S*?(?:beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16"
+                      r"Li(\d+)E|decode_kernelIfLi(\d+)ELi(\d+)ELi(\d+)E)", line)
         if m:
             if m.group(1):
-                name = f"beam_kernel<D={m.group(1)}, column tiles={m.group(2)}>"
-            elif m.group(3):
-                name = f"merge_kernel<bf16, D={m.group(3)}>"
+                name = f"beam_kernel<width={m.group(1)}, D={m.group(2)}, column tiles={m.group(3)}>"
+            elif m.group(4):
+                name = f"merge_kernel<bf16, width={m.group(4)}>"
             else:
-                name = f"decode_kernel<fp32, D={m.group(4)}, G={m.group(5)}> (warp body)"
+                name = f"decode_kernel<fp32, width={m.group(5)}, D={m.group(6)}, G={m.group(7)}> (warp body)"
             cur = {"kernel": name}
             kernels.append(cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -679,11 +714,49 @@ def beam_build_report(_build, paths) -> None:
              ("16 x 4 beams at OPT-6.7B's heads", 32 * 16))
     smem = {f"{label}, D={dh}": {"blocks": blocks, "stages": L.lia_beam_stages(dh, blocks, sms),
                                  "bytes": L.lia_beam_smem_bytes(dh, L.lia_beam_stages(dh, blocks, sms))}
-            for label, blocks in grids for dh in (64, 128)}
+            for label, blocks in grids for dh in KERNEL_DIMS}
     emit({"phase": "kernel_build", "library": "beam_decode", "kernels": kernels, "dynamic_smem": smem})
     body = [k for k in kernels if "warp body" not in k["kernel"]]
-    check(len(body) == 6 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in body),
+    check(len(body) == 12 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in body),
           f"beam_decode: ptxas reports spills (or no report): {body}")
+
+
+def decode_build_report(_build, paths) -> None:
+    """The bf16 and fp32 plane decode libraries' kernels (decode.cu: B7/B8,
+    decode_fresh.cu: B2) as ptxas built them: the warp body (decode_attn.cuh)
+    by type, width, D and query heads a block, the bf16 beam body behind it
+    past G = 8 and its merge (registers, spill stores and loads). A spill in
+    the beam body or in a warp body at D 80, 96 or 256 fails the run (at 64
+    and 128 the G = 3 runs spill a few bytes, as before these head dims)."""
+    import re
+
+    for lib in ("decode", "decode_fresh"):
+        kernels, cur = [], None
+        for line in open(f"{paths[lib]}.log").read().splitlines():
+            m = re.search(r"Function properties for \S*?(?:decode_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E"
+                          r"Lb\dELi\dELb(\d)E|beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16"
+                          r"Li(\d+)E)", line)
+            if m:
+                if m.group(1):
+                    t = "bf16" if m.group(1) != "f" else "fp32"
+                    name = (f"decode_kernel<{t}, width={m.group(2)}, D={m.group(3)}, heads={m.group(4)}"
+                            f"{', chunked' if m.group(5) == '1' else ''}> (warp body)")
+                elif m.group(6):
+                    name = f"beam_kernel<width={m.group(6)}, D={m.group(7)}, column tiles={m.group(8)}>"
+                else:
+                    name = f"merge_kernel<bf16, width={m.group(9)}>"
+                cur = {"kernel": name}
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        emit({"phase": "kernel_build", "library": lib, "kernels": kernels})
+        held = [k for k in kernels if "warp body" not in k["kernel"] or re.search(r"D=(80|96|256),", k["kernel"])]
+        check(len(kernels) == 64 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in held),
+              f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
 # ---------------------------------------------------------------------------
@@ -691,15 +764,23 @@ def beam_build_report(_build, paths) -> None:
 # ---------------------------------------------------------------------------
 
 
-def kernel_checks(ca, quantize_kv):
-    import torch.nn.functional as F
-
+def check_randn(name: str):
+    """Normal draws on the card for the check ``name`` (in ``dtype``, bf16 by
+    default) from a generator of its own, seeded from the name: adding,
+    moving or resizing a check leaves every other check's inputs as they were."""
     g = torch.Generator(device="cuda")
-    g.manual_seed(0)
+    g.manual_seed(zlib.crc32(name.encode()))
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
+    return randn
+
+
+def kernel_checks(ca, quantize_kv):
+    import torch.nn.functional as F
+
+    randn = check_randn("kernel_checks")
     rows = {}
 
     # flash prefill
@@ -840,12 +921,12 @@ def kernel_checks(ca, quantize_kv):
         library_kind="one call over K/V dequantized to bf16 (another function)",
         bound=bound(past_keys * N * (D + 4) * 2 + io_bytes + sm8.numel(), 4 * D * N * (past_keys + B)),
     )
-    rows.update(serving_kernel_checks(ca, randn, dpads))
-    rows.update(beam_kernel_checks(ca, quantize_kv, randn))
-    int8_decode_checks(ca, quantize_kv, randn)
-    llama_attention_checks(ca, quantize_kv, randn)
-    group_kernel_checks(ca, quantize_kv, randn)
-    verify_kernel_checks(ca, randn)  # last: the earlier checks keep their draws from the shared generator
+    rows.update(serving_kernel_checks(ca, check_randn("serving_kernel_checks"), dpads))
+    rows.update(beam_kernel_checks(ca, quantize_kv, check_randn("beam_kernel_checks")))
+    int8_decode_checks(ca, quantize_kv, check_randn("int8_decode_checks"))
+    llama_attention_checks(ca, quantize_kv, check_randn("llama_attention_checks"))
+    head_kernel_checks(ca, quantize_kv, GROUP_HEADS + HEAD_DIM_HEADS)
+    verify_kernel_checks(ca, check_randn("verify_kernel_checks"))
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
         check(r["max_abs_err"] <= KERNEL_TOL, f"{name}: max abs err {r['max_abs_err']} > {KERNEL_TOL}")
@@ -1358,7 +1439,7 @@ def beam_kernel_checks(ca, quantize_kv, randn):
         )
         emit({"phase": "beam_bound", "kernel": name, "bytes": nbytes, "prompt_bytes": prompt_keys * N * row_bytes * 2,
               "prompt_bytes_read_per_beam": BEAM_NB * prompt_keys * N * row_bytes * 2})
-    beam_bf16_checks(ca, quantize_kv, randn)
+    beam_bf16_checks(ca, quantize_kv, check_randn("beam_bf16_checks"))
     return rows
 
 
@@ -1905,6 +1986,31 @@ def reset_counts(ca, cm) -> None:
 
 
 @contextlib.contextmanager
+def plain_calls(*mods):
+    """Calls of the plain versions (every ``*_plain`` function of ``mods``)
+    with a CUDA tensor among their arguments for the duration, by name: a
+    path on the card must run none (a wrapper takes its plain version only
+    for a tensor on the CPU)."""
+    calls, saved = {}, []
+    for mod in mods:
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if name.endswith("_plain") and callable(fn):
+                def counted(*args, _fn=fn, _name=name, **kw):
+                    if any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kw.values())):
+                        calls[_name] = calls.get(_name, 0) + 1
+                    return _fn(*args, **kw)
+
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
 def gates(stacked_w4a8: bool = False, fused_mlp: bool = False):
     """The port's two gated routes on for the duration (off by default)."""
     from lia_tpu_torch.ops import dispatch
@@ -1924,6 +2030,7 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
     just before one run and read just after: prefill attention once per layer,
     decode attention per layer per step and each matmul kernel of
     ``per_forward`` that many times per forward pass (prefill and 31 steps).
+    No plain version may run on the card in that run (:func:`plain_calls`).
     ``runtime``: the engine's RuntimeConfig arguments besides the KV type.
     ``ab``: (gate, exact) for a gate A/B on the same engine: the gated route
     on (:func:`gates`) in the second side, whose run launches each kernel of
@@ -1936,6 +2043,7 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
     from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.models import transformer as T
+    from lia_tpu_torch.ops import cuda_mlp
     from lia_tpu_torch.ops import kv_cache as kvc
 
     engine = InferenceEngine(cfg, make_params(), RuntimeConfig(quant=QuantConfig(kv_cache_dtype=kv), **(runtime or {})))
@@ -1960,9 +2068,11 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(ca, cm)
-            res = engine.generate(prompts, gen, fused=True)
+            with plain_calls(ca, cm, cuda_mlp) as plain:
+                res = engine.generate(prompts, gen, fused=True)
             launches[name] = launch_counts(ca, cm)
             check(launches[name] == want, f"{name}: launches {launches[name]} != expected {want}")
+            check(not plain, f"{name}: plain versions ran on the card: {plain}")
             check(ca.split_counts()["flash_attention_prefill"] == 0, f"{name}: B1 split its walks at b16 s256")
             peak[name] = torch.cuda.max_memory_allocated()
             seqs = res.sequences
@@ -1995,7 +2105,7 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
             "phase": "main_path", "config": name, "model": cfg.name, "layers": L, "kv": kv,
             "runtime": runtime or {}, "gates": gate,
             "batch": len(prompts), "prompt": len(prompts[0]), "new_tokens": gen.max_new_tokens,
-            "launches": launches[name], "peak_mem_gb": peak[name] / 1e9,
+            "launches": launches[name], "plain_calls_on_card": 0, "peak_mem_gb": peak[name] / 1e9,
         }
         for key, field, scale in (("first_token_latency_s", "prefill_ms", 1e3),
                                   ("decode_tokens_per_s", "decode_tokens_per_s", 1.0),
@@ -2353,19 +2463,20 @@ def tiered_breakdown(name: str, engine, prompts) -> None:
           "top": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top]})
 
 
-def tiered_parity() -> None:
-    """OPT-6.7B width at 4 layers, half resident: prefill and 4 decode steps of
-    the scheduler on the card (bf16, kernels, streamed weights) against the
-    CPU (fp32, plain versions and the host tier's golden attention) over the
-    same tree, for each TIER_PARITY configuration (int8 KV: the streamed
-    layers dequantize each plane and run decode_attention on the card)."""
+def tiered_parity(model: str = "opt-6.7b", configs=TIER_PARITY) -> None:
+    """``model``'s width (OPT-6.7B by default) at 4 layers, half resident:
+    prefill and 4 decode steps of the scheduler on the card (bf16, kernels,
+    streamed weights) against the CPU (fp32, plain versions and the host
+    tier's golden attention) over the same tree, for each of ``configs``
+    (TIER_PARITY entries; int8 KV: the streamed layers dequantize each plane
+    and run decode_attention on the card)."""
     from lia_tpu_torch.config import QuantConfig, RuntimeConfig
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops.fuse import fuse_projections
     from lia_tpu_torch.runtime.scheduler import StreamingScheduler
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config("opt-6.7b").replace(num_layers=4)
+    cfg = get_config(model).replace(num_layers=4)
     cfg32 = cfg.replace(dtype="float32")
     rng = np.random.default_rng(1)
     tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
@@ -2386,7 +2497,7 @@ def tiered_parity() -> None:
             return torch.stack(out)
 
     trees = {}
-    for label, (p, d), kv, quant in TIER_PARITY:
+    for label, (p, d), kv, quant in configs:
         key = json.dumps(quant)
         if key not in trees:
             trees.clear()
@@ -2400,7 +2511,7 @@ def tiered_parity() -> None:
         cpu = run(StreamingScheduler(cfg32, rt, params32, "cpu"), "cpu")
         err = (gpu - cpu).abs().max().item()
         tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
-        emit({"phase": "parity", "config": label, "layers": 4, "hbm_percentage": 50, "prefill_policy": p,
+        emit({"phase": "parity", "config": label, "model": model, "layers": 4, "hbm_percentage": 50, "prefill_policy": p,
               "decode_policy": d, "kv": kv, "weights": (quant or {}).get("weight_dtype", "bf16"), "batch": 2,
               "prompt": 64, "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
               "tol": tol, "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
@@ -2448,12 +2559,13 @@ def tiered_phase(ca, cm, cfg, prompts):
     # lia_tpu's attend_decode does), so the first step's logits agree to a
     # tolerance and greedy tokens of random weights may part after it
     qc = QuantConfig(weight_dtype="int8", group_size=-1, kv_cache_dtype="int8", act_quant="dynamic")
-    tree8, make_s = host_tree(cfg, qc)
+    cfg8 = cfg.replace(num_layers=TIER_DEPTH["tier-h50-p3-int8dyn"])
+    tree8, make_s = host_tree(cfg8, qc)
     emit({"phase": "host_tree", "weights": "int8dyn", "gb": tree_bytes(tree8) / 1e9, "seconds": make_s})
-    seqs, launches["tier-h50-p3-int8dyn"], engine = tiered_path(ca, cm, "tier-h50-p3-int8dyn", cfg, tree8, prompts,
+    seqs, launches["tier-h50-p3-int8dyn"], engine = tiered_path(ca, cm, "tier-h50-p3-int8dyn", cfg8, tree8, prompts,
                                                                "int8", 50, (3, 3), 1, 2, timed=False)
     wm = engine.scheduler.wm
-    streamed = wm.get_layer(cfg.num_layers - 1)["attn"]["wqkv"].q
+    streamed = wm.get_layer(cfg8.num_layers - 1)["attn"]["wqkv"].q
     check(streamed.stride(-2) == 1, f"int8dyn: streamed codes are not column-major (strides {streamed.stride()})")
     from lia_tpu_torch.ops import kv_cache as kvc
 
@@ -2464,13 +2576,13 @@ def tiered_phase(ca, cm, cfg, prompts):
         nxt = tier_logits.argmax(-1).to(torch.int32)
         tier_step, _ = engine.scheduler.decode_pass(nxt, pos, state)
     del engine, state
-    resident = InferenceEngine(cfg, tree8, RuntimeConfig(quant=QuantConfig(kv_cache_dtype="int8")))
+    resident = InferenceEngine(cfg8, tree8, RuntimeConfig(quant=QuantConfig(kv_cache_dtype="int8")))
     ref = resident.generate(prompts, GenerationConfig(max_new_tokens=NEW_TOKENS)).sequences
     with torch.inference_mode():
-        cache = kvc.init_cache(cfg, len(prompts), 384, torch.bfloat16, quantized=True, device="cuda")
-        res_logits, cache = T.prefill(cfg, resident.params, torch.from_numpy(tokens).cuda(),
+        cache = kvc.init_cache(cfg8, len(prompts), 384, torch.bfloat16, quantized=True, device="cuda")
+        res_logits, cache = T.prefill(cfg8, resident.params, torch.from_numpy(tokens).cuda(),
                                       torch.from_numpy(mask).cuda(), cache)
-        res_step, _ = T.decode_step(cfg, resident.params, nxt[:, None], pos[:, None], cache)
+        res_step, _ = T.decode_step(cfg8, resident.params, nxt[:, None], pos[:, None], cache)
     prefill_diff = (tier_logits - res_logits).abs().max().item()
     step_diff = (tier_step - res_step).abs().max().item()
     agree = float((seqs == ref).mean())
@@ -2675,8 +2787,8 @@ def serving_phase(ca, cm, cfg):
     return launches
 
 
-def serving_parity() -> None:
-    """OPT-6.7B width at 2 layers, the functions the batcher calls in its order,
+def serving_parity(model: str = "opt-6.7b") -> None:
+    """``model``'s width (OPT-6.7B by default) at 2 layers, the functions the batcher calls in its order,
     on the card (bf16, kernels) against the CPU (fp32, plain versions) over the
     same tree: a prompt's prefill into a one-row cache, its commit to pages,
     a second prompt sharing its first 64 tokens admitted from the prefix
@@ -2691,7 +2803,7 @@ def serving_parity() -> None:
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
     from lia_tpu_torch.engine.engine import bucket_length, pack_prompts
 
-    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=2)
     cfg32 = cfg.replace(dtype="float32")
     params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
     params32 = to_device(params, "cpu", torch.float32)
@@ -2760,7 +2872,7 @@ def serving_parity() -> None:
         cpu = fn("cpu", cfg32, params32, torch.float32)
         errs = [(g - c_).abs().max().item() for g, c_ in zip(gpu, cpu)]
         err = max(errs)
-        emit({"phase": "serving_parity", "config": label, "layers": 2, "prompts": [len(a), len(b)],
+        emit({"phase": "serving_parity", "config": label, "model": model, "layers": 2, "prompts": [len(a), len(b)],
               "shared_prefix": 64, "decode_steps": len(steps), "max_abs_err": err, "max_abs_err_by_call": errs,
               "max_abs_logit": max(c_.abs().max().item() for c_ in cpu), "tol": PARITY_TOL,
               "argmax_agree": float(np.mean([bool((g.argmax(-1) == c_.argmax(-1)).all()) for g, c_ in zip(gpu, cpu)]))})
@@ -3259,8 +3371,8 @@ def beam_phase(ca, cm, cfg, prompts, tree):
     return launches, {name: walls[name] for name in ("beam-nb4", "beam-nb4-int8kv")}, bprompts
 
 
-def beam_parity() -> None:
-    """OPT-6.7B width at 2 layers, one tree on both sides: a grouped beam cache
+def beam_parity(model: str = "opt-6.7b") -> None:
+    """``model``'s width (OPT-6.7B by default) at 2 layers, one tree on both sides: a grouped beam cache
     of 2 prompts × 4 beams, the prompt and 4 beam_decode_step calls on the card
     (bf16, kernels) against the CPU (fp32, plain versions), every step's
     tokens and tail shuffle (flat_src) the CPU run's, over bf16 and int8 KV;
@@ -3273,7 +3385,7 @@ def beam_parity() -> None:
     from lia_tpu_torch.ops.fuse import fuse_projections
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=2)
     cfg32 = cfg.replace(dtype="float32")
     params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
     params32 = to_device(params, "cpu", torch.float32)
@@ -3319,7 +3431,7 @@ def beam_parity() -> None:
         err = (gpu - cpu).abs().max().item()
         valid = torch.from_numpy(mask)[:, :, None]
         lp_err = ((lp_gpu - lp_cpu).abs() * valid).max().item()
-        emit({"phase": "beam_parity", "kv": kv, "layers": 2, "groups": 2, "num_beams": nb, "prompt": 64,
+        emit({"phase": "beam_parity", "model": model, "kv": kv, "layers": 2, "groups": 2, "num_beams": nb, "prompt": 64,
               "decode_steps": n_steps, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
               "score_logprobs_max_abs_err": lp_err, "tol": PARITY_TOL,
               "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
@@ -3437,29 +3549,49 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
 # the families with large query-head groups and checkpoint I/O
 # ---------------------------------------------------------------------------
 
-# (label, N, N_kv, D): Falcon-7B's heads (71 over one KV head) and ChatGLM3-6B's
-# (32 over 2): G = 71 and 16
-GROUP_HEADS = [("falcon-7b heads G=71 (N 71, N_kv 1, D 64)", 71, 1, 64),
-               ("chatglm3-6b heads G=16 (N 32, N_kv 2, D 128)", 32, 2, 128)]
-# (model, layers or None for full depth, KV types, timed): the families run
-# through generate(fused=True) at full width
-FAMILY_CELLS = [("falcon-7b", None, ("none", "int8"), True), ("chatglm3-6b", 4, ("none",), False),
-                ("baichuan2-7b", 4, ("none",), False), ("stablelm-2-1.6b", 4, ("none",), False)]
+# (label, N, N_kv, D, timed): Falcon-7B's heads (71 over one KV head) and
+# ChatGLM3-6B's (32 over 2): G = 71 and 16
+GROUP_HEADS = [("falcon-7b heads G=71 (N 71, N_kv 1, D 64)", 71, 1, 64, True),
+               ("chatglm3-6b heads G=16 (N 32, N_kv 2, D 128)", 32, 2, 128, True)]
+# the head dims 80, 96 and 256 at OPT-2.7B's, GPT-NeoX-20B's and GPT-J-6B's
+# heads (timed), and each at G = 4
+HEAD_DIM_HEADS = [("opt-2.7b heads D=80 (N 32, N_kv 32)", 32, 32, 80, True),
+                  ("D=80 G=4 (N 32, N_kv 8)", 32, 8, 80, False),
+                  ("gpt-neox-20b heads D=96 (N 64, N_kv 64)", 64, 64, 96, True),
+                  ("D=96 G=4 (N 64, N_kv 16)", 64, 16, 96, False),
+                  ("gpt-j-6b heads D=256 (N 16, N_kv 16)", 16, 16, 256, True),
+                  ("D=256 G=4 (N 16, N_kv 4)", 16, 4, 256, False)]
+# (model, layers or None for full depth, KV types, the KV types timed): the
+# families run through generate(fused=True) at full width (Falcon-7B's int8-KV
+# run untimed since the head-dim cells came)
+FAMILY_CELLS = [("falcon-7b", None, ("none", "int8"), ("none",)), ("chatglm3-6b", 4, ("none",), ()),
+                ("baichuan2-7b", 4, ("none",), ()), ("stablelm-2-1.6b", 4, ("none",), ()),
+                ("opt-2.7b", None, ("none", "int8"), ("none", "int8")), ("gpt-j-6b", None, ("none", "int8"), ()),
+                ("gpt-neox-20b", None, ("none",), ()), ("stablelm-3b", 4, ("none",), ()),
+                ("codegen-2b", 4, ("none",), ()), ("codegen-6b", 4, ("none",), ())]
 # (model, KV): the families at 2 layers, card against CPU (parity)
 FAMILY_PARITY = [("falcon-7b", "none"), ("falcon-7b", "int8"), ("chatglm3-6b", "none"), ("chatglm3-6b", "int8"),
-                 ("baichuan2-7b", "none"), ("stablelm-2-1.6b", "none")]
+                 ("baichuan2-7b", "none"), ("stablelm-2-1.6b", "none"),
+                 ("opt-2.7b", "none"), ("opt-2.7b", "int8"), ("gpt-j-6b", "none"), ("gpt-j-6b", "int8"),
+                 ("gpt-neox-20b", "none"), ("stablelm-3b", "none"), ("codegen-2b", "none"), ("codegen-6b", "none")]
+# the models whose widths the serving, beam and tiered parities also run at
+# (D 80 and 256): B5, B6, B7, B9 and B10 inside a model at the new head dims
+HEAD_DIM_PARITY = ("opt-2.7b", "gpt-j-6b")
 
 
-def group_kernel_checks(ca, quantize_kv, randn) -> None:
-    """Every attention kernel on the four families' paths against its plain
-    version at GROUP_HEADS, where a kv head's queries take several blocks (or
-    straddle flash tiles) and G = 71's last run is ragged: B1 over the
-    prompt (B 16, S 256, left pads), B2 and B3 (past 272, 320- and 384-slot
-    caches), B7/B8 (the plane holding the token), B6 (a 256-row chunk at base
-    768 of 1024 slots), B5 at C = 1 and 4 (16 rows of 256-272 tokens, pages of
-    16), B9 and B10 (4 groups of 4 beams over a 256-slot prompt, tail 16).
-    Each adds a timing variant (kernels at the end, beside SDPA over K/V
-    repeated to the N heads, the repeat not timed, and the bound)."""
+def head_kernel_checks(ca, quantize_kv, cases) -> None:
+    """Every attention kernel on the families' paths against its plain
+    version at each case's heads (GROUP_HEADS: a kv head's queries take
+    several blocks, or straddle flash tiles, and G = 71's last run is ragged;
+    HEAD_DIM_HEADS: head dims 80, 96 and 256 on the padded bodies): B1 over
+    the prompt (B 16, S 256, left pads), B2 and B3 (past 272, 320- and
+    384-slot caches), B7/B8 (the plane holding the token), B6 (a 256-row chunk
+    at base 768 of 1024 slots), B5 at C = 1 and 4 (16 rows of 256-272 tokens,
+    pages of 16), B9 and B10 (4 groups of 4 beams over a 256-slot prompt, tail
+    16). Each case draws from its own generator (check_randn of its label);
+    a timed case adds a timing variant of each kernel (kernels at the end,
+    beside SDPA over K/V repeated to the N heads, the repeat not timed, and
+    the bound from the bytes at the real D)."""
     import torch.nn.functional as F
 
     from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
@@ -3468,13 +3600,15 @@ def group_kernel_checks(ca, quantize_kv, randn) -> None:
     dpads = [0, 3, 7, 15] * 4
     n_keys = [PAST - p for p in dpads]
     past_keys = sum(n_keys)
-    for label, Nq, Nkv, Dh in GROUP_HEADS:
+    for label, Nq, Nkv, Dh, timed in cases:
         G = Nq // Nkv
         errs = {}
+        randn = check_randn(label)
 
         def variant(kernel_name, fn, library, nbytes, ops, parts=1):
-            TIME_VARIANTS.append(dict(kernel_name=kernel_name, variant=label, parts=parts, kernel=fn,
-                                      library=library, bound=bound(nbytes, ops)))
+            if timed:
+                TIME_VARIANTS.append(dict(kernel_name=kernel_name, variant=label, parts=parts, kernel=fn,
+                                          library=library, bound=bound(nbytes, ops)))
 
         def rep(x):  # K/V repeated to the query heads (SDPA's yardstick, not timed)
             return x.repeat_interleave(G, 1)
@@ -3504,7 +3638,7 @@ def group_kernel_checks(ca, quantize_kv, randn) -> None:
             sm[b, p:PAST] = True
         kc, vc = randn(2, B, Nkv, 384, Dh), randn(2, B, Nkv, 384, Dh)
         args = (qd, kf, vf, kc, vc, 1, sm, ln)
-        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms)[1]  # past G = 8: B9's body, maybe split
+        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms, Dh)[1]  # past G = 8: B9's body, maybe split
         errs["decode_attention_fresh"] = (ca.decode_attention_fresh(*args).float()
                                           - ca.decode_attention_fresh_plain(*args).float()).abs().max().item()
         kp, vp = kc[1].clone(), vc[1].clone()
@@ -3580,7 +3714,8 @@ def group_kernel_checks(ca, quantize_kv, randn) -> None:
                     F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
                     keys * Nkv * Dh * 2 * 2 + 2 * pq.numel() * 2 + table.numel() * 4,
                     4 * Dh * Nq * Cp * keys, ca.paged_split_parts(B, Cp, Nq, Nkv, table.shape[1], sms))
-            TIME_VARIANTS[-1]["variant"] = f"{label}, C={Cp}"
+            if timed:
+                TIME_VARIANTS[-1]["variant"] = f"{label}, C={Cp}"
 
         # B9 and B10: 4 groups of 4 beams over a 256-slot prompt, tail 16
         Bb = BEAM_GROUPS * BEAM_NB
@@ -3626,14 +3761,18 @@ def group_kernel_checks(ca, quantize_kv, randn) -> None:
 
 
 def families_phase(ca, cm) -> dict:
-    """Falcon-7B at full width and depth (H 4544, 71 heads over one KV head, D
-    64, F 18176, vocab 65024, 32 layers; bf16 weights drawn on the card) with
-    bf16 and int8 KV, then ChatGLM3-6B (G = 16), Baichuan2-7B and
-    StableLM-2-1.6B at full width and 4 layers with bf16 KV, each through
-    generate(fused=True) over 16 prompts x 256 tokens, 32 new tokens: exact
-    launches (L flash prefills, L * 31 decode-attention launches, no fused
-    MLP: its gate is off, and Falcon's F of 18176 fails its route's F % 512),
-    prefill ms and decode tokens/s (Falcon's the median of 3), with the card's
+    """FAMILY_CELLS through generate(fused=True) over 16 prompts x 256 tokens,
+    32 new tokens, bf16 weights drawn on the card: Falcon-7B at full width and
+    depth (H 4544, 71 heads over one KV head, D 64, F 18176, vocab 65024, 32
+    layers) with bf16 and int8 KV; ChatGLM3-6B (G = 16), Baichuan2-7B and
+    StableLM-2-1.6B at full width and 4 layers with bf16 KV; the head dims
+    80, 96 and 256 at full width: OPT-2.7B (D 80, 32 layers) with bf16 and
+    int8 KV, GPT-J-6B (D 256, 28 layers) with both, GPT-NeoX-20B (D 96, H
+    6144, 44 layers, ~40 GB) with bf16 KV, and StableLM-3B (D 80), CodeGen-2B
+    (D 80) and CodeGen-6B (D 256) at 4 layers. Exact launches (L flash
+    prefills, L * 31 decode-attention launches, no fused MLP: its gate is
+    off), no plain version on the card, prefill ms and decode tokens/s
+    (Falcon-7B's bf16-KV run and OPT-2.7B's the median of 3), with the card's
     name and power limit."""
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.utils.checkpoint import device_dummy_params
@@ -3643,14 +3782,14 @@ def families_phase(ca, cm) -> dict:
     for name, layers, kvs, timed in FAMILY_CELLS:
         cfg = get_config(name)
         cfg = cfg if layers is None else cfg.replace(num_layers=layers)
-        tree = device_dummy_params(cfg, seed=0)
-        emit({"phase": "family_weights", "model": name, "layers": cfg.num_layers, "gb": tree_bytes(tree) / 1e9,
+        held = [device_dummy_params(cfg, seed=0)]  # the last run's engine takes the only reference
+        emit({"phase": "family_weights", "model": name, "layers": cfg.num_layers, "gb": tree_bytes(held[0]) / 1e9,
               "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], "card": smi})
         prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (16, PROMPT)).tolist()
-        for kv in kvs:
+        for i, kv in enumerate(kvs):
             label = f"{name}{'' if layers is None else f' {layers} layers'}, {'bf16' if kv == 'none' else kv} KV"
-            out.update(main_path(ca, cm, label, cfg, lambda tree=tree: tree, prompts, kv, {}, timed=timed))
-        del tree
+            make = held.pop if i == len(kvs) - 1 else (lambda: held[0])
+            out.update(main_path(ca, cm, label, cfg, make, prompts, kv, {}, timed=kv in timed))
         torch.cuda.empty_cache()
     return {name: counts for name, (counts, _) in out.items()}
 
@@ -3680,13 +3819,70 @@ def falcon_hf_state_dict(cfg, tree) -> dict:
     return {k: v.contiguous().cpu() for k, v in sd.items()}
 
 
+def codegen_hf_state_dict(cfg, tree) -> dict:
+    """A CodeGen tree in the Hugging Face key layout, as CPU tensors: the fused
+    qkv_proj [3H, H] in mp_num = 4 blocks, each [q | v | k] chunks of H / 4
+    rows; [out, in] linears; the biased MLP and lm_head (the inverse of the
+    port's converter)."""
+    H, mp = cfg.hidden_size, 4
+    sd = {"transformer.wte.weight": tree["embed_tokens"], "transformer.ln_f.weight": tree["final_norm"]["scale"],
+          "transformer.ln_f.bias": tree["final_norm"]["bias"], "lm_head.weight": tree["lm_head"].T,
+          "lm_head.bias": tree["lm_head_bias"]}
+    lay = tree["layers"]
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        sd[p + "ln_1.weight"], sd[p + "ln_1.bias"] = lay["ln1"]["scale"][i], lay["ln1"]["bias"][i]
+        q, k, v = (lay["attn"][w][i].T.reshape(mp, H // mp, H) for w in ("wq", "wk", "wv"))
+        sd[p + "attn.qkv_proj.weight"] = torch.stack([q, v, k], dim=1).reshape(3 * H, H)
+        sd[p + "attn.out_proj.weight"] = lay["attn"]["wo"][i].T
+        sd[p + "mlp.fc_in.weight"], sd[p + "mlp.fc_in.bias"] = lay["mlp"]["w1"][i].T, lay["mlp"]["b1"][i]
+        sd[p + "mlp.fc_out.weight"], sd[p + "mlp.fc_out.bias"] = lay["mlp"]["w2"][i].T, lay["mlp"]["b2"][i]
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
+def hf_round_trip(d, case: str, cfg, tree, sd, tokens) -> None:
+    """``sd`` (``tree`` in the Hugging Face layout) written to directory ``d``
+    as two safetensors shards (layer 1 and the final norm in the second), read
+    back by load_hf_checkpoint: equal to params_from_hf_state_dict on the same
+    dict and to ``tree``, and giving ``tree``'s tokens (``tokens(cfg, tree)``).
+    Emits the save's and load's seconds and GB/s."""
+    import os
+
+    from lia_tpu_torch.utils import safetensors as st
+    from lia_tpu_torch.utils.checkpoint import load_hf_checkpoint, params_from_hf_state_dict, to_device
+
+    ref = tokens(cfg, tree)
+    keys = sorted(sd)
+    shards = [[k for k in keys if ".h.1." not in k and "ln_f" not in k], [k for k in keys if ".h.1." in k
+                                                                            or "ln_f" in k]]
+    t0 = time.perf_counter()
+    for i, part in enumerate(shards):
+        st.save_file({k: sd[k] for k in part}, os.path.join(d, f"model-0000{i + 1}-of-00002.safetensors"),
+                     metadata={"format": "pt"})
+    t_save = time.perf_counter() - t0
+    gb = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9
+    t0 = time.perf_counter()
+    loaded = load_hf_checkpoint(cfg, d)
+    t_load = time.perf_counter() - t0
+    check(_trees_equal(loaded, params_from_hf_state_dict(cfg, sd)),
+          f"{cfg.name}: load_hf_checkpoint differs from params_from_hf_state_dict")
+    check(_trees_equal(loaded, tree), f"{cfg.name}: the HF round trip changed a weight")
+    got = tokens(cfg, to_device(loaded, "cuda"))
+    check(torch.equal(torch.as_tensor(got), torch.as_tensor(ref)), f"{cfg.name}: loaded checkpoint's tokens differ")
+    emit({"phase": "checkpoint", "case": case, "gb": gb, "shards": len(shards), "save_s": t_save, "load_s": t_load,
+          "load_gb_per_s": gb / t_load, "tokens_equal": True})
+    for f in os.listdir(d):
+        os.remove(os.path.join(d, f))
+
+
 def checkpoint_phase() -> None:
     """Checkpoint I/O on the card's machine, with the port's own safetensors
     reader and writer (that machine has neither the safetensors package nor
     transformers): ChatGLM3-6B's tree at full width and 4 layers through
     save_params and load_params, the same leaves and the same tokens; then
-    Falcon-7B at 2 layers written in the Hugging Face layout as two shards and
-    read by load_hf_checkpoint, equal to params_from_hf_state_dict on the same
+    Falcon-7B and CodeGen-2B (its mp_num = 4 qkv_proj) at 2 layers written in
+    the Hugging Face layout as two shards and read by load_hf_checkpoint
+    (:func:`hf_round_trip`), equal to params_from_hf_state_dict on the same
     dict and giving the tokens of the tree it was written from. Seconds and
     GB/s of each save and load (the files in a directory under the checkout's
     git-ignored tmp/, written and read warm in the page cache)."""
@@ -3696,9 +3892,7 @@ def checkpoint_phase() -> None:
     from lia_tpu_torch.config import GenerationConfig
     from lia_tpu_torch.engine.engine import InferenceEngine
     from lia_tpu_torch.models.registry import get_config
-    from lia_tpu_torch.utils import safetensors as st
-    from lia_tpu_torch.utils.checkpoint import (device_dummy_params, load_hf_checkpoint, load_params,
-                                                params_from_hf_state_dict, save_params, to_device)
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, load_params, save_params, to_device
 
     gen = GenerationConfig(max_new_tokens=16)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp")
@@ -3730,33 +3924,14 @@ def checkpoint_phase() -> None:
         os.remove(path)
         torch.cuda.empty_cache()
 
-        cfg = get_config("falcon-7b").replace(num_layers=2)
-        tree = device_dummy_params(cfg, seed=2)
-        prompts = np.random.default_rng(2).integers(2, cfg.vocab_size, (4, 128)).tolist()
-        ref = tokens(cfg, tree, prompts)
-        sd = falcon_hf_state_dict(cfg, tree)
-        keys = sorted(sd)
-        shards = [[k for k in keys if ".h.1." not in k and "ln_f" not in k], [k for k in keys if ".h.1." in k
-                                                                                or "ln_f" in k]]
-        t0 = time.perf_counter()
-        for i, part in enumerate(shards):
-            st.save_file({k: sd[k] for k in part}, os.path.join(d, f"model-0000{i + 1}-of-00002.safetensors"),
-                         metadata={"format": "pt"})
-        t_save = time.perf_counter() - t0
-        gb = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9
-        t0 = time.perf_counter()
-        loaded = load_hf_checkpoint(cfg, d)
-        t_load = time.perf_counter() - t0
-        check(_trees_equal(loaded, params_from_hf_state_dict(cfg, sd)),
-              "falcon-7b: load_hf_checkpoint differs from params_from_hf_state_dict")
-        check(_trees_equal(loaded, tree), "falcon-7b: the HF round trip changed a weight")
-        got = tokens(cfg, to_device(loaded, "cuda"), prompts)
-        check(torch.equal(torch.as_tensor(got), torch.as_tensor(ref)), "falcon-7b: loaded checkpoint's tokens differ")
-        emit({"phase": "checkpoint", "case": "falcon-7b 2 layers HF shards / load_hf_checkpoint", "gb": gb,
-              "shards": len(shards), "save_s": t_save, "load_s": t_load, "load_gb_per_s": gb / t_load,
-              "tokens_equal": True})
-        del tree, loaded, sd
-        torch.cuda.empty_cache()
+        for name, to_hf, seed in (("falcon-7b", falcon_hf_state_dict, 2), ("codegen-2b", codegen_hf_state_dict, 3)):
+            cfg = get_config(name).replace(num_layers=2)
+            tree = device_dummy_params(cfg, seed=seed)
+            prompts = np.random.default_rng(seed).integers(2, cfg.vocab_size, (4, 128)).tolist()
+            hf_round_trip(d, f"{name} 2 layers HF shards / load_hf_checkpoint", cfg, tree, to_hf(cfg, tree),
+                          lambda c, p, prompts=prompts: tokens(c, p, prompts))
+            del tree
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3786,6 +3961,7 @@ def main() -> int:
     paged_mlp_build_report(_build, paths)
     int8_build_report(_build, paths)
     beam_build_report(_build, paths)
+    decode_build_report(_build, paths)
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)
@@ -3851,15 +4027,21 @@ def main() -> int:
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
     launches.update(tier_launches)
     tiered_parity()
+    for model in HEAD_DIM_PARITY:
+        tiered_parity(model, TIER_PARITY_HEAD_DIMS)
     phase_time("tiered")
 
     launches.update(serving_phase(ca, cm, cfg))
     serving_parity()
+    for model in HEAD_DIM_PARITY:
+        serving_parity(model)
     phase_time("serving")
 
     beam_launches, beam_walls, beam_prompts = beam_phase(ca, cm, cfg, prompts, tree)
     launches.update(beam_launches)
     beam_parity()
+    for model in HEAD_DIM_PARITY:
+        beam_parity(model)
     phase_time("beam and score")
 
     launches.update(speculative_phase(ca, cm, cfg, tree))

@@ -72,6 +72,14 @@
 //   second launch, combines with the fresh token. Every partial is written,
 //   so the workspace needs no memset and the pair of launches replays in a
 //   CUDA graph.
+// - Head dims: the ring's rows are DP wide (64, 128 or 256; the swizzle
+//   permutes a row's chunks within aligned runs of 8), while a row in memory
+//   is D wide (both template parameters). The producer
+//   copies a row's D / 8 chunks only, and the consumers' products step over
+//   the D / 16 dims a tile that hold data, so D = 80 and 96 (DP = 128) do the
+//   arithmetic of their own width and never read the padding. At DP = 256 a
+//   block holds up to QN = 8 queries (one column tile), so its O^T and q
+//   fragments stay at 96 registers.
 // fp32 calls (tests and CPU-parity tools only; no model path on the card
 // runs fp32) stay on decode_attn.cuh's warp body, exact in fp32.
 //
@@ -103,7 +111,7 @@ constexpr int NWC = 4;                   // consumer warps a block
 constexpr int THREADS = 32 * (NWC + 1);  // and one producer warp
 constexpr int TILE = 16;                 // keys of a consumer warp's mma tile
 constexpr int UNIT = NWC * TILE;         // keys of a ring stage
-constexpr int NQ = 16;                   // queries a block: two n8 column tiles
+constexpr int NQ = 16;                   // queries a block: two n8 column tiles (8 at DP = 256: qn)
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_PER_SM = 4;
 constexpr int SM_SMEM = 228 * 1024;      // shared memory of an SM
@@ -126,25 +134,29 @@ struct Keys {
   int len_stride;
 };
 
+// Queries a block holds at width DP: NQ, or one column tile at DP = 256.
+__host__ __device__ constexpr int qn(int DP) { return DP > 128 ? 8 : NQ; }
 // Bytes of one ring stage: the K rows of UNIT keys, then their V rows.
-__host__ __device__ constexpr int stage_bytes(int D) { return 2 * UNIT * D * 2; }
-// The fresh tokens' scores [NQ] and values [NQ][D] (fp32), after the ring.
-__host__ __device__ constexpr int fresh_bytes(int D) { return (NQ + NQ * D) * 4; }
-__host__ __device__ constexpr int smem_bytes(int D, int stages) {
-  return stages * stage_bytes(D) + fresh_bytes(D) + 16 * stages;
+__host__ __device__ constexpr int stage_bytes(int DP) { return 2 * UNIT * DP * 2; }
+// The fresh tokens' scores [NQ] and values [qn][DP] (fp32), after the ring.
+__host__ __device__ constexpr int fresh_bytes(int DP) { return (NQ + qn(DP) * DP) * 4; }
+__host__ __device__ constexpr int smem_bytes(int DP, int stages) {
+  return stages * stage_bytes(DP) + fresh_bytes(DP) + 16 * stages;
 }
-// The consumer warps' partials (m, l [NWC][NQ], o [NWC][NQ][D + PO_PAD]) go
+// The consumer warps' partials (m, l [NWC][NQ], o [NWC][NQ][DP + PO_PAD]) go
 // through the ring once the walk is over: two stages hold them.
 static_assert(2 * NWC * NQ * 4 + NWC * NQ * (64 + PO_PAD) * 4 <= 2 * stage_bytes(64), "partials exceed the ring");
 static_assert(2 * NWC * NQ * 4 + NWC * NQ * (128 + PO_PAD) * 4 <= 2 * stage_bytes(128), "partials exceed the ring");
+static_assert(2 * NWC * NQ * 4 + NWC * NQ * (256 + PO_PAD) * 4 <= 2 * stage_bytes(256), "partials exceed the ring");
 
 // Stages of the ring for a launch of `blocks` blocks on `sms` SMs: as many as
 // fit when the blocks an SM share its shared memory.
-inline int ring_stages(int D, int blocks, int sms) {
+inline int ring_stages(int DP, int blocks, int sms) {
   const int per_sm = std::min(MAX_PER_SM, std::max(1, (blocks + sms - 1) / std::max(sms, 1)));
-  const int room = std::min(SM_SMEM / per_sm - 1024, BLOCK_SMEM) - fresh_bytes(D) - 16 * MAX_STAGES;
-  return std::max(2, std::min(MAX_STAGES, room / stage_bytes(D)));
+  const int room = std::min(SM_SMEM / per_sm - 1024, BLOCK_SMEM) - fresh_bytes(DP) - 16 * MAX_STAGES;
+  return std::max(2, std::min(MAX_STAGES, room / stage_bytes(DP)));
 }
+
 
 // Four 8 x 8 matrices of 16-bit values from shared memory, lanes 8i .. 8i + 7
 // giving the row addresses of matrix i; .trans hands each lane the transpose.
@@ -158,9 +170,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4], uint32_t addr) {
 }
 
 // Byte offset of 16-byte chunk `ch` of K or V row `row` in a stage's half.
-template <int D>
+template <int DP>
 __device__ __forceinline__ int row_at(int row, int ch) {
-  return row * (2 * D) + ((ch ^ (row & 7)) << 4);
+  return row * (2 * DP) + ((ch ^ (row & 7)) << 4);
 }
 
 // One range of keys [lo, hi) of the prompt row or of a beam's tail row; beam
@@ -173,10 +185,12 @@ struct Seg {
 
 // One block: kv head blockIdx.x of beam group blockIdx.y, part blockIdx.z %
 // parts of its keys, the group's flat queries [chunk * qpc, + qpc) with chunk
-// = blockIdx.z / parts and qpc = min(bpc * G, NQ). NT column tiles of 8
-// queries (NT = 2 past 8 queries).
-template <int D, int NT>
-__global__ void __launch_bounds__(THREADS, 2)
+// = blockIdx.z / parts and qpc = min(bpc * G, qn(DP)). NT column tiles of 8
+// queries (NT = 2 past 8 queries). Rows lie D apart in memory, DP apart in the
+// ring. Two blocks an SM, one at DP = 256 (its 16 O^T tiles and q fragments
+// spill at the 168 registers of two).
+template <int DP, int D, int NT>
+__global__ void __launch_bounds__(THREADS, DP > 128 ? 1 : 2)
 beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
             const bf16* __restrict__ kf,  // [B, Nkv, D] fresh key, or null
             const bf16* __restrict__ vf,
@@ -185,9 +199,10 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
             bf16* __restrict__ out,       // [B, N, D] (parts == 1)
             float* __restrict__ ws,       // parts > 1: o [parts, B*N, D], m, l [parts, B*N]
             int parts, int Nkv, int G, int bpc, float sscale, int stages) {
-  constexpr int KK = D / 16;  // k16 chunks of a K row; 16-dim tiles of O^T
-  constexpr int CH = D / 8;   // 16-byte chunks of a row
-  constexpr int PO = D + PO_PAD;
+  constexpr int KK = DP / 16;  // k16 chunks of a K row; 16-dim tiles of O^T (those below D / 16 hold data)
+  constexpr int QN = qn(DP);   // queries a block at most
+  constexpr int PO = DP + PO_PAD;
+  constexpr int CH = D / 8;    // 16-byte chunks of a row in memory
   const int h = blockIdx.x, g = blockIdx.y;
   const int part = blockIdx.z % parts, chunk = blockIdx.z / parts;
   const int N = Nkv * G;
@@ -196,10 +211,10 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   const int r = lane >> 2, c = lane & 3;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const int sbytes = stage_bytes(D);
+  const int sbytes = stage_bytes(DP);
   float* fresh_s = reinterpret_cast<float*>(smem + stages * sbytes);  // [NQ]
-  float* fresh_v = fresh_s + NQ;                                      // [NQ][D]
-  const uint32_t full0 = smem_addr(fresh_v + NQ * D), empty0 = full0 + 8 * stages;
+  float* fresh_v = fresh_s + NQ;                                      // [QN][DP]
+  const uint32_t full0 = smem_addr(fresh_v + QN * DP), empty0 = full0 + 8 * stages;
   float* pm = reinterpret_cast<float*>(smem);  // after the walk: m [NWC][NQ], l, o [NWC][NQ][PO]
   float* pl = pm + NWC * NQ;
   float* po = pl + NWC * NQ;
@@ -213,16 +228,16 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   }
   // the chunk's flat queries [q0, q0 + nq) of the group's nb * G, and the
   // beams j0 .. j0 + nbc - 1 they reach: bpc whole beams (no division on the
-  // block's way to its first copies), or a run of NQ that may straddle two
+  // block's way to its first copies), or a run of QN that may straddle two
   int q0, nq, j0, nbc;
-  if (bpc * G <= NQ) {
+  if (bpc * G <= QN) {
     j0 = chunk * bpc;
     nbc = min(bpc, keys.nb - j0);
     q0 = j0 * G;
     nq = nbc * G;
   } else {
-    q0 = chunk * NQ;
-    nq = min(NQ, keys.nb * G - q0);
+    q0 = chunk * QN;
+    nq = min(QN, keys.nb * G - q0);
     j0 = q0 / G;
     nbc = (q0 + nq - 1) / G - j0 + 1;
   }
@@ -237,7 +252,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   // under the mask's count: lane (r, c) holds query 8 nt + r's dims 16 kk +
   // 2c, + 1 and 16 kk + 2c + 8, + 9 (Q^T's B fragment of chunk kk)
   uint32_t qf[NT][KK][2];
-  lia_dec8::FreshFirst<bf16, D> first;
+  lia_dec8::FreshFirst<bf16, DP> first;
   if (warp < NWC) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -245,15 +260,18 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
       const bf16* qp = q + qrow(j < nq ? j : 0) * D + 2 * c;
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
-        qf[nt][kk][0] = lia_dec8::ldg4(qp + 16 * kk);
-        qf[nt][kk][1] = lia_dec8::ldg4(qp + 16 * kk + 8);
+        qf[nt][kk][0] = qf[nt][kk][1] = 0u;
+        if (16 * kk < D) {
+          qf[nt][kk][0] = lia_dec8::ldg4(qp + 16 * kk);
+          qf[nt][kk][1] = lia_dec8::ldg4(qp + 16 * kk + 8);
+        }
       }
     }
   } else if (parts == 1 && fresh) {
     const int grp = lane >> 3, gl = lane & 7;
     const int t = min(grp, nbc - 1);
-    first.load(kf + fresh_row(t) + gl * (D / 8), vf + fresh_row(t) + gl * (D / 8),
-               q + qrow(lia_dec8::first_query(t, q0, j0, nq, G)) * D + gl * (D / 8));
+    first.load(kf + fresh_row(t) + gl * (DP / 8), vf + fresh_row(t) + gl * (DP / 8),
+               q + qrow(lia_dec8::first_query(t, q0, j0, nq, G)) * D + gl * (DP / 8), gl * (DP / 8) < D);
   }
 
   // this block's keys, cut on the device by each warp from the lengths and the mask
@@ -300,9 +318,9 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
         const unsigned char* kg = reinterpret_cast<const unsigned char*>(sgm.k + (size_t)k0 * D);
         const unsigned char* vg = reinterpret_cast<const unsigned char*>(sgm.v + (size_t)k0 * D);
         for (int i = lane; i < n * CH; i += 32) {
-          const int at = row_at<D>(w * TILE + i / CH, i % CH);
+          const int at = row_at<DP>(w * TILE + i / CH, i % CH);
           lia::cp_async16(base + at, kg + 16 * i, true);
-          lia::cp_async16(base + UNIT * 2 * D + at, vg + 16 * i, true);
+          lia::cp_async16(base + UNIT * 2 * DP + at, vg + 16 * i, true);
         }
         w += k;
         const int sg0 = sg;
@@ -314,8 +332,8 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     // every stage is issued: the fresh tokens (the merge launch's where the
     // keys split), under the consumers' last stages
     if (parts == 1 && fresh)
-      lia_dec8::fresh_tokens<bf16, D>(kf, vf, q, fresh_row, qrow, nbc, q0, j0, nq, G, sscale, fresh_s, fresh_v, lane,
-                                      first);
+      lia_dec8::fresh_tokens<bf16, DP>(kf, vf, q, fresh_row, qrow, nbc, q0, j0, nq, G, D, sscale, fresh_s, fresh_v,
+                                       lane, first);
     lia_dec8::named_arrive(2, THREADS);
     return;
   }
@@ -360,8 +378,8 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   // dims x keys, transposed on load): keys 8 (mi / 2) + li, chunk 2 m + (mi & 1).
   const int mi = lane >> 3, li = lane & 7;
   const uint32_t ring = smem_addr(smem);
-  const uint32_t koff = (warp * TILE + 8 * (mi & 1) + li) * (2 * D);
-  const uint32_t voff = UNIT * 2 * D + (warp * TILE + 8 * (mi >> 1) + li) * (2 * D);
+  const uint32_t koff = (warp * TILE + 8 * (mi & 1) + li) * (2 * DP);
+  const uint32_t voff = UNIT * 2 * DP + (warp * TILE + 8 * (mi >> 1) + li) * (2 * DP);
   const int kch = mi >> 1, vch = mi & 1;
   auto chunk_at = [&](int c) -> uint32_t { return (c ^ li) << 4; };  // chunk c of the lane's row, swizzled
 
@@ -382,6 +400,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
         for (int e = 0; e < 4; ++e) sacc[nt][0][e] = sacc[nt][1][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
+        if (16 * kk >= D) break;  // the ring's padding: never copied
         uint32_t a[4];
         ldsm_x4(a, base + koff + chunk_at(2 * kk + kch));
 #pragma unroll
@@ -441,6 +460,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
       const uint32_t km1 = (2 * c + 8 < nv ? 0x0000ffffu : 0u) | (2 * c + 9 < nv ? 0xffff0000u : 0u);
 #pragma unroll
       for (int m = 0; m < KK; ++m) {
+        if (16 * m >= D) break;
         uint32_t a[4];
         ldsm_x4_trans(a, base + voff + chunk_at(2 * m + vch));
         if (nv < TILE) {
@@ -512,7 +532,7 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
     if (parts == 1) {
       if (fresh) {  // (without one, fresh_v holds no value: it is never read)
         const float pf = exp2f(fresh_s[j] - M);
-        const float* v = fresh_v + ((off + j) / G) * D + d;
+        const float* v = fresh_v + ((off + j) / G) * DP + d;
         L += pf;
         o0 = fmaf(pf, v[0], o0);
         o1 = fmaf(pf, v[1], o1);
@@ -529,10 +549,10 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   }
 }
 
-template <int D, int NT>
+template <int DP, int D, int NT>
 int launch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* prompt_len, void* out,
            void* ws, int parts, int B, int Nkv, int G, int bpc, int sms, float sscale, cudaStream_t stream) {
-  auto kern = beam_kernel<D, NT>;
+  auto kern = beam_kernel<DP, D, NT>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
     return e != cudaSuccess ? e
@@ -540,26 +560,27 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
                                                    (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return (int)attr;
-  const int qpc = std::min(bpc * G, NQ), chunks = (keys.nb * G + qpc - 1) / qpc, groups = B / keys.nb;
+  const int qpc = std::min(bpc * G, qn(DP)), chunks = (keys.nb * G + qpc - 1) / qpc, groups = B / keys.nb;
   const dim3 grid(Nkv, groups, parts * chunks);
-  const int stages = ring_stages(D, Nkv * groups * parts * chunks, sms);
-  kern<<<grid, THREADS, smem_bytes(D, stages), stream>>>(
+  const int stages = ring_stages(DP, Nkv * groups * parts * chunks, sms);
+  kern<<<grid, THREADS, smem_bytes(DP, stages), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kf), static_cast<const bf16*>(vf), keys,
       static_cast<const int*>(prompt_len), static_cast<bf16*>(out), static_cast<float*>(ws), parts, Nkv, G, bpc,
       sscale, stages);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * Nkv * G;
-  lia_dec8::merge_kernel<bf16, D, false>
+  lia_dec8::merge_kernel<bf16, DP, false>
       <<<(rows + lia_dec8::MERGE_WARPS - 1) / lia_dec8::MERGE_WARPS, 32 * lia_dec8::MERGE_WARPS, 0, stream>>>(
           static_cast<const float*>(ws), static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
-          static_cast<const bf16*>(vf), static_cast<bf16*>(out), parts, rows, Nkv * G, G, sscale);
+          static_cast<const bf16*>(vf), static_cast<bf16*>(out), parts, rows, Nkv * G, G, D, sscale);
   return (int)cudaGetLastError();
 }
 
-// Head-dim and column-tile dispatch, after the checks: D 64 or 128, any group
-// G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk with bpc * G
-// <= NQ or bpc = 1 (runs of NQ queries), parts >= 1 (a
+// Head-dim and column-tile dispatch, after the checks: D 64, 80, 96, 128 or
+// 256, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk
+// with bpc * G <= qn or bpc = 1 (runs of qn queries: 16, or 8 at D = 256),
+// parts >= 1 (a
 // workspace of parts * B * N * (D + 2) floats when parts > 1), q, the fresh
 // k/v and the caches 16-byte aligned. Returns a cudaError_t value, 0 on a
 // successful launch.
@@ -573,11 +594,19 @@ inline int dispatch(const void* q, const void* kf, const void* vf, const Keys& k
                          reinterpret_cast<uintptr_t>(vf) | reinterpret_cast<uintptr_t>(keys.kp) |
                          reinterpret_cast<uintptr_t>(keys.vp) | reinterpret_cast<uintptr_t>(keys.kt) |
                          reinterpret_cast<uintptr_t>(keys.vt);
-  if ((D != 64 && D != 128) || bpc < 1 || (bpc > 1 && bpc * G > NQ) || (addr & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  auto run = [&](auto kern) { return kern(q, kf, vf, keys, prompt_len, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st); };
-  if (std::min(bpc * G, NQ) <= 8) return D == 128 ? run(&launch<128, 1>) : run(&launch<64, 1>);
-  return D == 128 ? run(&launch<128, 2>) : run(&launch<64, 2>);
+  const int DP = padded_dim(D);
+  if (DP == 0 || bpc < 1 || (bpc > 1 && bpc * G > qn(DP)) || (addr & 15) != 0) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kern) {
+    return kern(q, kf, vf, keys, prompt_len, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st);
+  };
+  if (D == 256) return run(&launch<256, 256, 1>);
+  const bool one = std::min(bpc * G, NQ) <= 8;  // one column tile of 8 queries
+  switch (D) {
+    case 64: return one ? run(&launch<64, 64, 1>) : run(&launch<64, 64, 2>);
+    case 80: return one ? run(&launch<128, 80, 1>) : run(&launch<128, 80, 2>);
+    case 96: return one ? run(&launch<128, 96, 1>) : run(&launch<128, 96, 2>);
+  }
+  return one ? run(&launch<128, 128, 1>) : run(&launch<128, 128, 2>);
 }
 
 }  // namespace

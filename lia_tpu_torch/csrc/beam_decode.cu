@@ -32,8 +32,8 @@
 // each group's keys and needs ws, parts * B * N * (D + 2) floats (no memset);
 // sms is the card's SM count; q, kf/vf and the caches 16-byte aligned. fp32:
 // parts must be 1 (bpc and sms are not read). Returns a cudaError_t value: 0
-// on a successful launch. D must be 64 or 128; G = N / Nkv any group (the
-// wrapper admits 1 .. 128).
+// on a successful launch. D must be 64, 80, 96, 128 or 256 (bf16 blocks hold
+// up to 8 queries at 256); G = N / Nkv any group (the wrapper admits 1 .. 128).
 extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, const void* kp,
                                const void* vp, const void* kt, const void* vt,
                                const void* prompt_mask, const void* prompt_len,
@@ -45,14 +45,8 @@ extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, co
     if (parts != 1 || Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
     const lia_dec::Keys keys{static_cast<const uint8_t*>(prompt_mask), S_p, kt, vt,
                              T_max, nb, static_cast<const int*>(tail_len)};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (D == 128)
-      return lia_dec::launch_g<float, 128, true, lia_dec::kBeam>(N / Nkv, q, kf, vf, kp, vp, keys, prompt_len, 0,
-                                                                 out, B, Nkv, sscale, st);
-    if (D == 64)
-      return lia_dec::launch_g<float, 64, true, lia_dec::kBeam>(N / Nkv, q, kf, vf, kp, vp, keys, prompt_len, 0,
-                                                                out, B, Nkv, sscale, st);
-    return (int)cudaErrorInvalidValue;
+    return lia_dec::launch_d<float, true, lia_dec::kBeam>(N / Nkv, q, kf, vf, kp, vp, keys, prompt_len, 0, out, B,
+                                                          Nkv, D, sscale, static_cast<cudaStream_t>(stream));
   }
   using lia_beam::bf16;
   const lia_beam::Keys keys{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
@@ -65,7 +59,11 @@ extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, co
 
 // Dynamic shared memory of one bf16 block (for the build report) at head dim
 // D with a ring of `stages`.
-extern "C" int lia_beam_smem_bytes(int D, int stages) { return lia_beam::smem_bytes(D, stages); }
+extern "C" int lia_beam_smem_bytes(int D, int stages) {
+  return lia_beam::smem_bytes(lia::padded_dim(D), stages);
+}
 
 // Stages of the bf16 body's ring for a launch of `blocks` blocks on `sms` SMs.
-extern "C" int lia_beam_stages(int D, int blocks, int sms) { return lia_beam::ring_stages(D, blocks, sms); }
+extern "C" int lia_beam_stages(int D, int blocks, int sms) {
+  return lia_beam::ring_stages(lia::padded_dim(D), blocks, sms);
+}

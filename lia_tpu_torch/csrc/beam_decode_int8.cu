@@ -26,7 +26,7 @@
 // run of 8 of the group's flat queries (G > 8). parts > 1 splits each
 // group's keys and needs ws, parts * B * N * (D + 2) floats (no memset); sms
 // is the card's SM count. Returns a cudaError_t value: 0 on a successful
-// launch. D must be 64 or 128; G = N / Nkv any group (the wrapper admits 1 ..
+// launch. D must be 64, 80, 96, 128 or 256; G = N / Nkv any group (the wrapper admits 1 ..
 // 128).
 extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* vf,
                                     const void* kpq, const void* kps, const void* vpq,
@@ -48,7 +48,11 @@ extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* v
 
 // Dynamic shared memory of one block (for the build report) at head dim D
 // with a ring of `stages`.
-extern "C" int lia_dec8_smem_bytes(int D, int stages) { return lia_dec8::smem_bytes(D, stages); }
+extern "C" int lia_dec8_smem_bytes(int D, int stages) {
+  return lia_dec8::smem_bytes(lia::padded_dim(D), stages);
+}
 
 // Stages of the ring for a launch of `blocks` blocks on `sms` SMs.
-extern "C" int lia_dec8_stages(int D, int blocks, int sms) { return lia_dec8::ring_stages(D, blocks, sms); }
+extern "C" int lia_dec8_stages(int D, int blocks, int sms) {
+  return lia_dec8::ring_stages(lia::padded_dim(D), blocks, sms);
+}

@@ -80,6 +80,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// The width the attention bodies compute over for head dim D (64, 80, 96, 128
+// or 256: 80 and 96 over the 128-wide bodies, zero-padded), 0 for any other.
+inline int padded_dim(int D) {
+  return D == 64 ? 64 : (D == 80 || D == 96 || D == 128) ? 128 : D == 256 ? 256 : 0;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);

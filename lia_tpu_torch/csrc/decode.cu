@@ -19,7 +19,7 @@
 
 // kc/vc point at one [B, Nkv, S_max, D] plane (for the stacked entry the
 // wrapper offsets them to layer layer_idx). Returns a cudaError_t value: 0 on
-// a successful launch. D must be 64 or 128; G = N / Nkv any group:
+// a successful launch. D must be 64, 80, 96, 128 or 256; G = N / Nkv any group:
 // decode_attn.cuh's warp body, in blocks of up to 8 heads. The wrapper sends
 // bf16 calls past G = 8 to lia_decode_groups.
 extern "C" int lia_decode(const void* q, const void* kc, const void* vc, const void* slot_mask,

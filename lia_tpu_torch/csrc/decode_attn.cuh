@@ -54,6 +54,13 @@
 // an H100: every key walked once per 8 heads, each score summed over the
 // warp with five shuffles), so bf16 plane calls past G = 8 run beam_attn.cuh's
 // mma body instead (decode_fresh.cu, decode.cu).
+//
+// Head dims: a lane holds DP / 32 dims of a width DP of 64, 128 or 256, and
+// rows lie D apart (both template parameters: D's loads and offsets stay
+// compile-time, as they were at 64 and 128 alone): at D = 80 and 96 (DP =
+// 128) the lanes past D / 4 hold zeros, read nothing and store nothing. At DP = 256 a step loads four keys and a block holds at most four
+// query heads (G = 8 takes two blocks), so the registers stay those of DP =
+// 128.
 #pragma once
 
 #include "common.cuh"
@@ -61,7 +68,10 @@
 namespace lia_dec {
 
 constexpr int NW = 4;  // warps per block
-constexpr int KT = 8;  // keys per warp step
+
+// Keys per warp step, and query heads a block holds at most, at width DP.
+__host__ __device__ constexpr int keys_a_step(int DP) { return DP > 128 ? 4 : 8; }
+__host__ __device__ constexpr int max_cols(int DP) { return DP > 128 ? 4 : 8; }
 
 enum : int { kPlane = 0, kBeam = 1 };  // where the keys live (SRC)
 
@@ -77,7 +87,7 @@ struct Keys {
   const int* tail_len;
 };
 
-template <typename T, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
+template <typename T, int DP, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
 __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const T* __restrict__ q,       // [B, N, D]
               const T* __restrict__ kf,      // [B, Nkv, D] fresh keys (FRESH only)
@@ -88,7 +98,8 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
               const int* __restrict__ lengths, int length_stride,  // [B] or scalar
               T* __restrict__ out,           // [B, N, D]
               int Nkv, int G, int chunks, float sscale) {
-  constexpr int DL = D / 32;  // dims per lane
+  constexpr int DL = DP / 32;  // dims per lane
+  constexpr int KT = keys_a_step(DP);
   // CHUNKED: kv head * chunks + query chunk, heads g0 .. g0 + GC - 1 of the
   // group; else G == GC, one block a kv head (compile-time group)
   const int hc = SRC == kBeam ? blockIdx.y : blockIdx.x;
@@ -96,6 +107,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   if (!CHUNKED) G = GC;
   const int b = SRC == kBeam ? blockIdx.x : blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool on = D == DP || lane * DL < D;  // the lane's dims lie inside the row
   const int N = Nkv * G;
   int start, length, plen = 0;
   if constexpr (SRC == kBeam) {
@@ -110,9 +122,9 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   float qr[GC][DL];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
-    if (!CHUNKED || g0 + g < G) {
+    if ((!CHUNKED || g0 + g < G) && on) {
       lia::load_vec<DL>(q + ((size_t)b * N + h * G + g0 + g) * D + lane * DL, qr[g]);
-    } else {  // a ragged last chunk's missing head
+    } else {  // a ragged last chunk's missing head, or dims past D
 #pragma unroll
       for (int e = 0; e < DL; ++e) qr[g][e] = 0.f;
     }
@@ -136,7 +148,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
       float kx[KT][DL], vx[KT][DL];
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        if (t0 + kk < hi) {
+        if (t0 + kk < hi && on) {
           const size_t r = row(t0 + kk) + lane * DL;
           lia::load_vec<DL>(kb + r, kx[kk]);
           lia::load_vec<DL>(vb + r, vx[kk]);
@@ -200,7 +212,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   }
 
   __shared__ float sm_m[NW][GC], sm_l[NW][GC];
-  __shared__ float sm_acc[NW][GC][D];
+  __shared__ float sm_acc[NW][GC][DP];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     if (lane == 0) {
@@ -217,8 +229,8 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   // first pass finds the maximum, the second sums
   const size_t fresh = ((size_t)b * Nkv + h) * D + lane * DL;
   auto fresh_score = [&](int g) -> float {
-    float kfx[DL];
-    lia::load_vec<DL>(kf + fresh, kfx);
+    float kfx[DL] = {};
+    if (on) lia::load_vec<DL>(kf + fresh, kfx);
     float part = 0.f;
 #pragma unroll
     for (int e = 0; e < DL; ++e) part = fmaf(qr[g][e], kfx[e], part);
@@ -244,13 +256,13 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     }
     if constexpr (FRESH) {
       const float pf = exp2f(fresh_score(g) - M);
-      float vfx[DL];
-      lia::load_vec<DL>(vf + fresh, vfx);
+      float vfx[DL] = {};
+      if (on) lia::load_vec<DL>(vf + fresh, vfx);
       L += pf;
 #pragma unroll
       for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vfx[e], o[e]);
     }
-    if (CHUNKED && g0 + g >= G) continue;  // never stored
+    if ((CHUNKED && g0 + g >= G) || !on) continue;  // never stored
     L = fmaxf(L, 1e-30f);
     T* dst = out + ((size_t)b * N + h * G + g0 + g) * D + lane * DL;
 #pragma unroll
@@ -258,41 +270,63 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   }
 }
 
-template <typename T, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
+template <typename T, int DP, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
            Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv, int G,
            float sscale, cudaStream_t stream) {
   const int chunks = (G + GC - 1) / GC;
   const dim3 grid = SRC == kBeam ? dim3(B, Nkv * chunks) : dim3(Nkv * chunks, B);
-  decode_kernel<T, D, GC, FRESH, SRC, CHUNKED><<<grid, NW * 32, 0, stream>>>(
+  decode_kernel<T, DP, D, GC, FRESH, SRC, CHUNKED><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
       static_cast<const T*>(kc), static_cast<const T*>(vc), keys,
       static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, G, chunks, sscale);
   return (int)cudaGetLastError();
 }
 
-// Query heads a block holds for a group of G (the GC of the header).
-inline int group_cols(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
-
-template <typename T, int D, bool FRESH, int SRC>
+// Query heads a block holds for a group of G at width DP (the GC of the
+// header): the group itself up to max_cols(DP) where it is 1, 2, 4 or 8,
+// else runs of max_cols(DP) (4 for G = 3 at D = 64 and 128).
+template <typename T, int DP, int D, bool FRESH, int SRC>
 int launch_g(int G, const void* q, const void* kf, const void* vf, const void* kc,
              const void* vc, Keys keys, const void* lengths, int length_stride, void* out, int B,
              int Nkv, float sscale, cudaStream_t st) {
+  constexpr int GMAX = max_cols(DP);
   if (G < 1) return (int)cudaErrorInvalidValue;
   switch (G) {  // a whole group a block, the group compile-time
-    case 1: return launch<T, D, 1, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-    case 2: return launch<T, D, 2, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-    case 4: return launch<T, D, 4, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-    case 8: return launch<T, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 1: return launch<T, DP, D, 1, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 2: return launch<T, DP, D, 2, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 4: return launch<T, DP, D, 4, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 8:
+      if constexpr (GMAX == 8)
+        return launch<T, DP, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+      break;
   }
-  if (group_cols(G) == 4)  // G = 3
-    return launch<T, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-  return launch<T, D, 8, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+  if constexpr (GMAX == 8 && D == DP) {  // at D = 80 and 96 a run of 4 spilled in bf16: G = 3 takes a run of 8
+    if (G == 3)
+      return launch<T, DP, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+  }
+  return launch<T, DP, D, GMAX, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
 }
 
-// Type, head-dim and group dispatch. D must be 64 or 128, G = N / Nkv any
-// group (the wrapper admits 1 .. 128); returns a cudaError_t value, 0 on a
-// successful launch.
+// Head-dim dispatch of one type: D 64 (DP 64), 80, 96 or 128 (DP 128) or 256.
+template <typename T, bool FRESH, int SRC>
+int launch_d(int G, const void* q, const void* kf, const void* vf, const void* kc, const void* vc, Keys keys,
+             const void* lengths, int length_stride, void* out, int B, int Nkv, int D, float sscale,
+             cudaStream_t st) {
+  auto run = [&](auto kern) { return kern(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st); };
+  switch (D) {
+    case 64: return run(&launch_g<T, 64, 64, FRESH, SRC>);
+    case 80: return run(&launch_g<T, 128, 80, FRESH, SRC>);
+    case 96: return run(&launch_g<T, 128, 96, FRESH, SRC>);
+    case 128: return run(&launch_g<T, 128, 128, FRESH, SRC>);
+    case 256: return run(&launch_g<T, 256, 256, FRESH, SRC>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Type, head-dim and group dispatch. D must be 64, 80, 96, 128 or 256, G = N
+// / Nkv any group (the wrapper admits 1 .. 128); returns a cudaError_t value,
+// 0 on a successful launch.
 template <bool FRESH, int SRC>
 int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
              Keys keys, const void* lengths, int length_stride, void* out, int B, int N,
@@ -300,14 +334,10 @@ int dispatch(const void* q, const void* kf, const void* vf, const void* kc, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv;
-  if (is_bf16) {
-    if (D == 128) return launch_g<__nv_bfloat16, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-    if (D == 64) return launch_g<__nv_bfloat16, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-  } else {
-    if (D == 128) return launch_g<float, 128, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-    if (D == 64) return launch_g<float, 64, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return launch_d<__nv_bfloat16, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D,
+                                               sscale, st);
+  return launch_d<float, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D, sscale, st);
 }
 
 }  // namespace lia_dec

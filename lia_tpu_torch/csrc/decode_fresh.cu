@@ -14,8 +14,8 @@
 #include "decode_attn.cuh"
 
 // kc/vc point at layer layer_idx of the stacked cache (the wrapper offsets
-// them). Returns a cudaError_t value: 0 on a successful launch. D must be 64
-// or 128; G = N / Nkv any group: decode_attn.cuh's warp body, one block a
+// them). Returns a cudaError_t value: 0 on a successful launch. D must be 64,
+// 80, 96, 128 or 256; G = N / Nkv any group: decode_attn.cuh's warp body, one block a
 // (kv head, row, run of up to 8 heads). The wrapper sends bf16 calls past G
 // = 8 to lia_decode_fresh_groups.
 extern "C" int lia_decode_fresh(const void* q, const void* kf, const void* vf, const void* kc,

@@ -18,7 +18,7 @@
 // offsets them; the codes 16-byte aligned). parts > 1 splits each row's keys
 // and needs ws, parts * B * N * (D + 2) floats (no memset); sms is the card's
 // SM count (the ring's depth follows the blocks an SM). Returns a cudaError_t
-// value: 0 on a successful launch. D must be 64 or 128; G = N / Nkv any group
+// value: 0 on a successful launch. D must be 64, 80, 96, 128 or 256; G = N / Nkv any group
 // (the wrapper admits 1 .. 128), a row's heads in runs of up to 8 a block.
 extern "C" int lia_decode_fresh_int8(const void* q, const void* kf, const void* vf,
                                      const void* kq, const void* ks, const void* vq,
@@ -35,7 +35,11 @@ extern "C" int lia_decode_fresh_int8(const void* q, const void* kf, const void* 
 
 // Dynamic shared memory of one block (for the build report) at head dim D
 // with a ring of `stages`.
-extern "C" int lia_dec8_smem_bytes(int D, int stages) { return lia_dec8::smem_bytes(D, stages); }
+extern "C" int lia_dec8_smem_bytes(int D, int stages) {
+  return lia_dec8::smem_bytes(lia::padded_dim(D), stages);
+}
 
 // Stages of the ring for a launch of `blocks` blocks on `sms` SMs.
-extern "C" int lia_dec8_stages(int D, int blocks, int sms) { return lia_dec8::ring_stages(D, blocks, sms); }
+extern "C" int lia_dec8_stages(int D, int blocks, int sms) {
+  return lia_dec8::ring_stages(lia::padded_dim(D), blocks, sms);
+}

@@ -80,6 +80,14 @@
 //   partials to a workspace that merge_kernel, a second launch, combines with
 //   the fresh token; every partial is written, so the workspace needs no
 //   memset and the pair of launches replays in a CUDA graph.
+// - Head dims: the ring's code rows are DP bytes (64, 128 or 256), a row in
+//   memory D (both template parameters). The producer
+//   copies each row's D bytes; the lanes' q slices past D load as zeros, so
+//   the padding's codes (never copied, whatever the ring held: int8 codes are
+//   finite) add nothing to a score, and the O^T dims past D are never
+//   stored. D = 80 and 96 so run the arithmetic of DP = 128. At DP = 256 a
+//   lane's V slice is two 16-byte chunks, read one at a time, and the blocks
+//   an SM drop to two (bf16) or one (fp32) so the doubled fragments fit.
 #pragma once
 
 #include <algorithm>
@@ -121,22 +129,23 @@ struct Keys {
 };
 
 // Bytes of one ring stage: K and V codes of UNIT keys (NWC tile slots of TILE
-// keys), then their K and V scales (f32).
-__host__ __device__ constexpr int stage_bytes(int D) { return 2 * UNIT * D + 2 * UNIT * 4; }
-// The fresh token's scores [NQ] and values [NQ][D] (fp32), after the ring.
-__host__ __device__ constexpr int fresh_bytes(int D) { return (NQ + NQ * D) * 4; }
-__host__ __device__ constexpr int smem_bytes(int D, int stages) {
-  return stages * stage_bytes(D) + fresh_bytes(D) + 16 * stages;
+// keys, rows DP bytes), then their K and V scales (f32).
+__host__ __device__ constexpr int stage_bytes(int DP) { return 2 * UNIT * DP + 2 * UNIT * 4; }
+// The fresh token's scores [NQ] and values [NQ][DP] (fp32), after the ring.
+__host__ __device__ constexpr int fresh_bytes(int DP) { return (NQ + NQ * DP) * 4; }
+__host__ __device__ constexpr int smem_bytes(int DP, int stages) {
+  return stages * stage_bytes(DP) + fresh_bytes(DP) + 16 * stages;
 }
 
 // Stages of the ring for a launch of `blocks` blocks on `sms` SMs: as many as
 // fit when the blocks an SM (at most four: the registers' limit at a plane;
-// three at the beam route) share its shared memory.
-inline int ring_stages(int D, int blocks, int sms) {
+// three at the beam route; two at DP = 256) share its shared memory.
+inline int ring_stages(int DP, int blocks, int sms) {
   const int per_sm = std::min(4, std::max(1, (blocks + sms - 1) / std::max(sms, 1)));
-  const int room = std::min(SM_SMEM / per_sm - 1024, BLOCK_SMEM) - fresh_bytes(D) - 16 * MAX_STAGES;
-  return std::max(2, std::min(MAX_STAGES, room / stage_bytes(D)));
+  const int room = std::min(SM_SMEM / per_sm - 1024, BLOCK_SMEM) - fresh_bytes(DP) - 16 * MAX_STAGES;
+  return std::max(2, std::min(MAX_STAGES, room / stage_bytes(DP)));
 }
+
 
 // One contiguous chunk of global memory into shared memory, completing on `bar`
 // (bytes a multiple of 16, both addresses 16-byte aligned).
@@ -155,13 +164,14 @@ __device__ __forceinline__ uint32_t ldg4(const void* p) {
   return v;
 }
 
-// Byte offset of 16-byte chunk `chunk` of code row `row` in a stage: at D =
-// 128 the chunks of a row are XOR-swizzled by its low 3 bits, so a phase of
-// the consumers' fragment loads (8 lanes: two rows x four 32-byte K slices,
-// or four rows x two 16-byte V slices) reads 8 distinct bank groups.
-template <int D>
+// Byte offset of 16-byte chunk `chunk` of code row `row` in a stage: from DP
+// = 128 the chunks of a row are XOR-swizzled by its low 3 bits (inside
+// aligned runs of 8 chunks), so at DP = 128 a phase of the consumers'
+// fragment loads (8 lanes: two rows x four 32-byte K slices, or four rows x
+// two 16-byte V slices) reads 8 distinct bank groups.
+template <int DP>
 __device__ __forceinline__ int code_at(int row, int chunk) {
-  return row * D + 16 * (D == 128 ? chunk ^ (row & 7) : chunk);
+  return row * DP + 16 * (DP >= 128 ? chunk ^ (row & 7) : chunk);
 }
 
 // 4 bytes from global to shared memory, asynchronously (cp.async).
@@ -239,9 +249,15 @@ __device__ __forceinline__ void split_bf16(float x, float (&p)[PIECES]) {
   }
 }
 
-// One token row of D values spread over a warp (DL per lane), replaced by its
-// int8 round trip: per-token symmetric scale, as ops/quant.py:quantize_kv then
-// dequantize_kv(x, T).
+// One token row of D values spread over a warp (DL per lane; the lanes past D
+// hold zeros, which leave the amax as it is), replaced by its int8 round
+// trip: per-token symmetric scale, as ops/quant.py:quantize_kv then
+// dequantize_kv(x, T) compute it on the card, bit for bit. Torch divides a
+// CUDA tensor by a Python scalar as a product with the scalar's fp32
+// reciprocal, so the scale is amax * fl(1/127), not fl(amax / 127): the two
+// differ in the last bit for some amax, and bf16 rows often hold a value at
+// exactly half the amax (x / scale = 63.5 +- an ulp), where that bit picks
+// the code.
 template <typename T, int DL>
 __device__ __forceinline__ void quant_dequant(float* x) {
   float amax = 0.f;
@@ -249,10 +265,10 @@ __device__ __forceinline__ void quant_dequant(float* x) {
   for (int e = 0; e < DL; ++e) amax = fmaxf(amax, fabsf(x[e]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float scale = fmaxf(amax / 127.0f, 1e-8f);
+  const float scale = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-8f);
 #pragma unroll
   for (int e = 0; e < DL; ++e) {
-    const float code = fminf(fmaxf(rintf(x[e] / scale), -128.f), 127.f);
+    const float code = fminf(fmaxf(rintf(__fdiv_rn(x[e], scale)), -128.f), 127.f);
     x[e] = lia::round_to<T>(code * scale);
   }
 }
@@ -276,11 +292,16 @@ __device__ __forceinline__ int warp_count_true(const uint8_t* mask, int n, int l
 }
 
 // The fresh key and value of one (row, kv head) over a warp, DL values a
-// lane, in q's type (with RAW, after their int8 round trip).
+// lane (zeros past D), in q's type (with RAW, after their int8 round trip).
 template <typename T, int DL, bool RAW>
-__device__ __forceinline__ void fresh_kv(const T* kf, const T* vf, float (&kx)[DL], float (&vx)[DL], int lane) {
-  lia::load_vec<DL>(kf + lane * DL, kx);
-  lia::load_vec<DL>(vf + lane * DL, vx);
+__device__ __forceinline__ void fresh_kv(const T* kf, const T* vf, float (&kx)[DL], float (&vx)[DL], int lane,
+                                         int D) {
+#pragma unroll
+  for (int e = 0; e < DL; ++e) kx[e] = vx[e] = 0.f;
+  if (lane * DL < D) {
+    lia::load_vec<DL>(kf + lane * DL, kx);
+    lia::load_vec<DL>(vf + lane * DL, vx);
+  }
   if constexpr (RAW) {
     quant_dequant<T, DL>(kx);
     quant_dequant<T, DL>(vx);
@@ -290,31 +311,32 @@ __device__ __forceinline__ void fresh_kv(const T* kf, const T* vf, float (&kx)[D
 // The fresh key's score for the query row qr (q's values, the softmax scale
 // applied to q as the plain version does), on every lane.
 template <typename T, int DL>
-__device__ __forceinline__ float fresh_score(const T* qr, const float (&kx)[DL], float sscale, int lane) {
-  float qx[DL];
-  lia::load_vec<DL>(qr + lane * DL, qx);
+__device__ __forceinline__ float fresh_score(const T* qr, const float (&kx)[DL], float sscale, int lane, int D) {
+  float qx[DL] = {};
+  if (lane * DL < D) lia::load_vec<DL>(qr + lane * DL, qx);
   float part = 0.f;
 #pragma unroll
   for (int e = 0; e < DL; ++e) part = fmaf(qx[e] * sscale, kx[e], part);
   return lia::warp_sum(part);
 }
 
-// The q slice one consumer lane loads (row r, dims c * D / 4 ..), as 16-byte
+// The q slice one consumer lane loads (row r, dims c * DP / 4 ..), as 16-byte
 // words, and the B operand it becomes (see int8_kernel).
-template <typename T, int D>
+template <typename T, int DP>
 struct QSlice {
-  static constexpr int WORDS = (D / 4) * (int)sizeof(T) / 16;
+  static constexpr int WORDS = (DP / 4) * (int)sizeof(T) / 16;
+  static constexpr int PER_WORD = 16 / (int)sizeof(T);  // dims a word
 };
 
 // Q^T as the B operand, k16 chunk kk: column r (query r), k rows 2c, 2c + 1
-// (and + 8, + 9) at dims c * D / 4 + 4 kk + {0, 2} (and {1, 3}) of the
+// (and + 8, + 9) at dims c * DP / 4 + 4 kk + {0, 2} (and {1, 3}) of the
 // lane's slice raw; zero where !valid. PIECES pieces for fp32.
-template <typename T, int D, int PIECES>
-__device__ __forceinline__ void q_frags(const uint4 (&raw)[QSlice<T, D>::WORDS], bool valid,
-                                        uint32_t (&qf)[PIECES][D / 16][2]) {
+template <typename T, int DP, int PIECES>
+__device__ __forceinline__ void q_frags(const uint4 (&raw)[QSlice<T, DP>::WORDS], bool valid,
+                                        uint32_t (&qf)[PIECES][DP / 16][2]) {
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const float x[4] = {__uint_as_float(raw[kk].x), __uint_as_float(raw[kk].y), __uint_as_float(raw[kk].z),
                           __uint_as_float(raw[kk].w)};
       float p[4][PIECES];
@@ -328,7 +350,7 @@ __device__ __forceinline__ void q_frags(const uint4 (&raw)[QSlice<T, D>::WORDS],
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < QSlice<T, D>::WORDS; ++i) {
+    for (int i = 0; i < QSlice<T, DP>::WORDS; ++i) {
       const uint4 x = valid ? raw[i] : make_uint4(0, 0, 0, 0);
       qf[0][2 * i][0] = __byte_perm(x.x, x.y, 0x5410);
       qf[0][2 * i][1] = __byte_perm(x.x, x.y, 0x7632);
@@ -344,22 +366,26 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 
 // The fresh row group `grp` of the producer warp takes first, in flight from
 // the block's start: token t0 = grp, its key, value and its first query's
-// row in the block, D / 8 dims a lane.
+// row in the block, DP / 8 dims a lane (zeros where the lane's dims lie past
+// D: !valid).
 // Held as the raw 16-byte words (the registers of the producer's other work
-// stay free); unpack turns one array into the lane's D / 8 values.
-template <typename T, int D>
+// stay free); unpack turns one array into the lane's DP / 8 values.
+template <typename T, int DP>
 struct FreshFirst {
-  static constexpr int WORDS = (D / 8) * (int)sizeof(T) / 16;
+  static constexpr int WORDS = (DP / 8) * (int)sizeof(T) / 16;
   uint4 k[WORDS], v[WORDS], q[WORDS];
-  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qr) {
+  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qr, bool valid) {
 #pragma unroll
     for (int i = 0; i < WORDS; ++i) {
-      k[i] = ldg16(reinterpret_cast<const uint4*>(kr) + i);
-      v[i] = ldg16(reinterpret_cast<const uint4*>(vr) + i);
-      q[i] = ldg16(reinterpret_cast<const uint4*>(qr) + i);
+      k[i] = v[i] = q[i] = make_uint4(0, 0, 0, 0);
+      if (valid) {
+        k[i] = ldg16(reinterpret_cast<const uint4*>(kr) + i);
+        v[i] = ldg16(reinterpret_cast<const uint4*>(vr) + i);
+        q[i] = ldg16(reinterpret_cast<const uint4*>(qr) + i);
+      }
     }
   }
-  __device__ __forceinline__ static void unpack(const uint4 (&w)[WORDS], float (&x)[D / 8]) {
+  __device__ __forceinline__ static void unpack(const uint4 (&w)[WORDS], float (&x)[DP / 8]) {
 #pragma unroll
     for (int i = 0; i < WORDS; ++i) {
       const uint32_t u[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
@@ -377,17 +403,17 @@ struct FreshFirst {
 };
 
 // A plane row's one fresh token and the block's nq queries' rows over the whole
-// producer warp (D / 32 dims a lane), held as raw 32-bit words from the
-// block's start; compute() takes the token through its int8 round trip
-// (RAW: a division a value, as quantize_kv) and writes its value and the
+// producer warp (DP / 32 dims a lane, zeros past D), held as raw 32-bit words
+// from the block's start; compute() takes the token through its int8 round
+// trip (RAW: a division a value, as quantize_kv) and writes its value and the
 // queries' scores.
-template <typename T, int D>
+template <typename T, int DP>
 struct FreshPlane {
-  static constexpr int DL = D / 32, WORDS = DL * (int)sizeof(T) / 4;
+  static constexpr int DL = DP / 32, WORDS = DL * (int)sizeof(T) / 4;
   uint32_t k[WORDS], v[WORDS], q[NQ][WORDS];
-  __device__ __forceinline__ static void load_words(const T* p, uint32_t (&w)[WORDS]) {
+  __device__ __forceinline__ static void load_words(const T* p, uint32_t (&w)[WORDS], bool valid) {
 #pragma unroll
-    for (int i = 0; i < WORDS; ++i) w[i] = ldg4(reinterpret_cast<const uint32_t*>(p) + i);
+    for (int i = 0; i < WORDS; ++i) w[i] = valid ? ldg4(reinterpret_cast<const uint32_t*>(p) + i) : 0u;
   }
   __device__ __forceinline__ static void unpack(const uint32_t (&w)[WORDS], float (&x)[DL]) {
 #pragma unroll
@@ -401,12 +427,13 @@ struct FreshPlane {
     }
   }
   template <typename QRow>
-  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qp, QRow qrow, int nq, int lane) {
-    load_words(kr + lane * DL, k);
-    load_words(vr + lane * DL, v);
+  __device__ __forceinline__ void load(const T* kr, const T* vr, const T* qp, QRow qrow, int nq, int lane, int D) {
+    const bool valid = lane * DL < D;
+    load_words(kr + lane * DL, k, valid);
+    load_words(vr + lane * DL, v, valid);
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
-      if (j < nq) load_words(qp + qrow(j) * D + lane * DL, q[j]);
+      if (j < nq) load_words(qp + qrow(j) * D + lane * DL, q[j], valid);
   }
   template <bool RAW>
   __device__ __forceinline__ void compute(int nq, float sscale, float* fresh_s, float* fresh_v, int lane) const {
@@ -441,35 +468,37 @@ __device__ __forceinline__ int first_query(int t, int q0, int j0, int nq, int G)
 }
 
 // A beam block's fresh tokens (already dequantized) over one warp, in four
-// groups of 8 lanes (each lane D / 8 dims): a group takes a token, its value
-// into fresh_v[token] and its queries' scores q * scale . k into
-// fresh_s[query] (the block's queries of that beam: first_query). `first`
-// holds each group's first token and query, loaded at the block's start.
-template <typename T, int D, typename FreshRow, typename QRow>
+// groups of 8 lanes (each lane DP / 8 dims, zeros past D): a group takes a
+// token, its value into fresh_v[token] (rows DP apart) and its queries'
+// scores q * scale . k into fresh_s[query] (the block's queries of that beam:
+// first_query). `first` holds each group's first token and query, loaded at
+// the block's start.
+template <typename T, int DP, typename FreshRow, typename QRow>
 __device__ __forceinline__ void fresh_tokens(const T* kf, const T* vf, const T* q, FreshRow fresh_row, QRow qrow,
-                                             int tokens, int q0, int j0, int nq, int G, float sscale,
+                                             int tokens, int q0, int j0, int nq, int G, int D, float sscale,
                                              float* fresh_s, float* fresh_v, int lane,
-                                             const FreshFirst<T, D>& first) {
-  constexpr int DG = D / 8;  // dims a lane
+                                             const FreshFirst<T, DP>& first) {
+  constexpr int DG = DP / 8;  // dims a lane
   const int grp = lane >> 3, gl = lane & 7;
+  const bool on = gl * DG < D;
   const unsigned gmask = 0xffu << (8 * grp);  // the group's lanes: groups run apart
   for (int t = grp; t < tokens; t += 4) {
-    float kx[DG], vx[DG];
+    float kx[DG] = {}, vx[DG] = {};
     if (t < 4) {
-      FreshFirst<T, D>::unpack(first.k, kx);
-      FreshFirst<T, D>::unpack(first.v, vx);
-    } else {
+      FreshFirst<T, DP>::unpack(first.k, kx);
+      FreshFirst<T, DP>::unpack(first.v, vx);
+    } else if (on) {
       lia::load_vec<DG>(kf + fresh_row(t) + gl * DG, kx);
       lia::load_vec<DG>(vf + fresh_row(t) + gl * DG, vx);
     }
 #pragma unroll
-    for (int e = 0; e < DG; ++e) fresh_v[t * D + gl * DG + e] = vx[e];
+    for (int e = 0; e < DG; ++e) fresh_v[t * DP + gl * DG + e] = vx[e];
     const int jl = first_query(t, q0, j0, nq, G), jh = first_query(t + 1, q0, j0, nq, G);
     for (int j = jl; j < jh; ++j) {
-      float qx[DG];
+      float qx[DG] = {};
       if (t < 4 && j == jl) {
-        FreshFirst<T, D>::unpack(first.q, qx);
-      } else {
+        FreshFirst<T, DP>::unpack(first.q, qx);
+      } else if (on) {
         lia::load_vec<DG>(q + qrow(j) * D + gl * DG, qx);
       }
       float part = 0.f;
@@ -490,9 +519,12 @@ __device__ __forceinline__ void fresh_tokens(const T* kf, const T* vf, const T* 
 // each beam's tail range; stage s holds tiles 4s .. 4s + 3, tile slot w for
 // consumer warp w, and tiles of one range in a stage come in one copy.
 // Registers: four blocks an SM for a plane (96 a thread), three for the beam
-// route, whose tail ranges and fresh tokens would spill at 96.
-template <typename T, int D, bool RAW, bool BEAM>
-__global__ void __launch_bounds__(THREADS, std::is_same<T, float>::value ? 2 : (BEAM ? 3 : 4))
+// route, whose tail ranges and fresh tokens would spill at 96; at DP = 256,
+// two for a plane and one for the beam route (fp32: one). Rows lie D bytes
+// apart in memory, DP in the ring.
+template <typename T, int DP, int D, bool RAW, bool BEAM>
+__global__ void __launch_bounds__(THREADS, std::is_same<T, float>::value ? (DP > 128 ? 1 : 2)
+                                                                         : DP > 128 ? (BEAM ? 1 : 2) : (BEAM ? 3 : 4))
 int8_kernel(const T* __restrict__ q,   // [B, N, D]
             const T* __restrict__ kf,  // [B, Nkv, D] fresh key (raw or dequantized)
             const T* __restrict__ vf,
@@ -501,10 +533,11 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
             T* __restrict__ out,        // [B, N, D] (parts == 1)
             float* __restrict__ ws,     // parts > 1: o [parts, B*N, D], m, l [parts, B*N]
             int parts, int Nkv, int G, int bpc, float sscale, int stages) {
-  constexpr int KW = D / 16;  // k16 chunks of a lane's K slice (D / 4 bytes of a key row)
-  constexpr int VW = D / 32;  // words of a lane's V slice (D / 8 bytes of a key row)
-  constexpr int MT = D / 16;  // 16-dim tiles of O^T
-  constexpr int DL = D / 32;  // dims a lane of a whole-row warp op
+  constexpr int KW = DP / 16;  // k16 chunks of a lane's K slice (DP / 4 bytes of a key row)
+  constexpr int VW = DP / 32;  // words of a lane's V slice (DP / 8 bytes of a key row)
+  constexpr int VCH = VW >= 4 ? VW / 4 : 1;  // its 16-byte chunks (half of one at DP = 64)
+  constexpr int VWC = VW >= 4 ? 4 : VW;      // words a chunk
+  constexpr int MT = DP / 16;  // 16-dim tiles of O^T
   constexpr int PIECES = std::is_same<T, float>::value ? 3 : 1;
   const int h = blockIdx.x, b = blockIdx.y;
   const int part = blockIdx.z % parts, chunk = blockIdx.z / parts;
@@ -513,11 +546,11 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   const int r = lane >> 2, c = lane & 3;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const int sbytes = stage_bytes(D);
+  const int sbytes = stage_bytes(DP);
   float* fresh_s = reinterpret_cast<float*>(smem + stages * sbytes);  // [NQ]
-  float* fresh_v = fresh_s + NQ;                                      // [NQ][D]
-  const uint32_t full0 = smem_addr(fresh_v + NQ * D), empty0 = full0 + 8 * stages;
-  float* pm = reinterpret_cast<float*>(smem);  // after the walk: m [NWC][NQ], l, o [NWC][NQ][D]
+  float* fresh_v = fresh_s + NQ;                                      // [NQ][DP]
+  const uint32_t full0 = smem_addr(fresh_v + NQ * DP), empty0 = full0 + 8 * stages;
+  float* pm = reinterpret_cast<float*>(smem);  // after the walk: m [NWC][NQ], l, o [NWC][NQ][DP]
   float* pl = pm + NWC * NQ;
   float* po = pl + NWC * NQ;
 
@@ -547,22 +580,24 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
 
   // the consumers' q slices and the producer's first fresh rows, in flight
   // under the mask's count
-  uint4 qraw[QSlice<T, D>::WORDS];
+  using QS = QSlice<T, DP>;
+  uint4 qraw[QS::WORDS];
   // the producer's fresh rows: a plane row's token over the warp, or each
   // 8-lane group's first beam token and query
-  typename std::conditional<BEAM, FreshFirst<T, D>, FreshPlane<T, D>>::type first;
+  typename std::conditional<BEAM, FreshFirst<T, DP>, FreshPlane<T, DP>>::type first;
   if (warp < NWC) {
-    const uint4* qp = reinterpret_cast<const uint4*>(q + qrow(r < nq ? r : 0) * D + c * (D / 4));
+    const int d0 = c * (DP / 4);  // the slice's first dim; its words past D load as zeros
+    const uint4* qp = reinterpret_cast<const uint4*>(q + qrow(r < nq ? r : 0) * D + d0);
 #pragma unroll
-    for (int i = 0; i < QSlice<T, D>::WORDS; ++i) qraw[i] = ldg16(qp + i);
+    for (int i = 0; i < QS::WORDS; ++i) qraw[i] = d0 + QS::PER_WORD * i < D ? ldg16(qp + i) : make_uint4(0, 0, 0, 0);
   } else if (parts == 1) {
     if constexpr (BEAM) {
       const int grp = lane >> 3, gl = lane & 7;
       const int t = min(grp, tokens - 1);
-      first.load(kf + fresh_row(t) + gl * (D / 8), vf + fresh_row(t) + gl * (D / 8),
-                 q + qrow(first_query(t, q0, j0, nq, G)) * D + gl * (D / 8));
+      first.load(kf + fresh_row(t) + gl * (DP / 8), vf + fresh_row(t) + gl * (DP / 8),
+                 q + qrow(first_query(t, q0, j0, nq, G)) * D + gl * (DP / 8), gl * (DP / 8) < D);
     } else {
-      first.load(kf + fresh_row(0), vf + fresh_row(0), q, qrow, nq, lane);
+      first.load(kf + fresh_row(0), vf + fresh_row(0), q, qrow, nq, lane, D);
     }
   }
 
@@ -616,11 +651,11 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
         const unsigned char* kq = reinterpret_cast<const unsigned char*>(sgm.kq + (size_t)k0 * D);
         const unsigned char* vq = reinterpret_cast<const unsigned char*>(sgm.vq + (size_t)k0 * D);
         for (int i = 16 * lane; i < n * D; i += 16 * 32) {
-          const int at = code_at<D>(w * TILE + i / D, (i % D) / 16);
+          const int at = code_at<DP>(w * TILE + i / D, (i % D) / 16);
           lia::cp_async16(base + at, kq + i, true);
-          lia::cp_async16(base + UNIT * D + at, vq + i, true);
+          lia::cp_async16(base + UNIT * DP + at, vq + i, true);
         }
-        float* ksc = reinterpret_cast<float*>(base + 2 * UNIT * D) + w * TILE;
+        float* ksc = reinterpret_cast<float*>(base + 2 * UNIT * DP) + w * TILE;
         for (int e = lane; e < n; e += 32) {
           cp_async4(ksc + e, sgm.ks + k0 + e);
           cp_async4(ksc + UNIT + e, sgm.vs + k0 + e);
@@ -638,8 +673,8 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     if (parts == 1) {
       if constexpr (BEAM) {
         static_assert(!RAW, "a beam block's fresh tokens come dequantized");
-        fresh_tokens<T, D>(kf, vf, q, fresh_row, qrow, tokens, q0, j0, nq, G, sscale, fresh_s, fresh_v, lane,
-                           first);
+        fresh_tokens<T, DP>(kf, vf, q, fresh_row, qrow, tokens, q0, j0, nq, G, D, sscale, fresh_s, fresh_v, lane,
+                            first);
       } else {
         first.template compute<RAW>(nq, sscale, fresh_s, fresh_v, lane);
       }
@@ -650,11 +685,11 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
 
   // ---- the consumer warps ----
   uint32_t qf[PIECES][KW][2];
-  q_frags<T, D, PIECES>(qraw, r < nq, qf);
+  q_frags<T, DP, PIECES>(qraw, r < nq, qf);
   // the beams (0 .. nbc - 1 from j0) of this lane's columns 2c and 2c + 1
   const int cb0 = BEAM ? (q0 + 2 * c) / G - j0 : 0, cb1 = BEAM ? (q0 + 2 * c + 1) / G - j0 : 0;
 
-  // per lane: O^T tile m at dims r * D / 8 + 2 m (+ 1) of queries 2c, 2c + 1;
+  // per lane: O^T tile m at dims r * DP / 8 + 2 m (+ 1) of queries 2c, 2c + 1;
   // each column's running max and this lane's part of its sum
   float o[MT][4], mcol[2] = {LIA_NEG_INF, LIA_NEG_INF}, lpart[2] = {0.f, 0.f};
 #pragma unroll
@@ -663,18 +698,20 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     for (int e = 0; e < 4; ++e) o[m][e] = 0.f;
 
   // the lane's fragment offsets in a stage (the swizzle fixed by the lane):
-  // K rows r and r + 8 at its two 16-byte chunks (one at D = 64), V rows 2c,
-  // 2c + 1, 2c + 8, 2c + 9 at its D / 8 bytes
-  int koff[2][KW / 4], voff[4];
+  // K rows r and r + 8 at its DP / 64 16-byte chunks, V rows 2c, 2c + 1, 2c +
+  // 8, 2c + 9 at its DP / 8 bytes (VCH chunks, or half of one at DP = 64)
+  int koff[2][KW / 4], voff[4][VCH];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
     for (int w4 = 0; w4 < KW / 4; ++w4)
-      koff[h2][w4] = code_at<D>(warp * TILE + r + 8 * h2, (c * (D / 4) + 16 * w4) / 16);
+      koff[h2][w4] = code_at<DP>(warp * TILE + r + 8 * h2, (c * (DP / 4) + 16 * w4) / 16);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    voff[kk] = UNIT * D + code_at<D>(warp * TILE + 2 * c + (kk & 1) + 8 * (kk >> 1), r * (D / 8) / 16) +
-               (r * (D / 8)) % 16;
+#pragma unroll
+    for (int vc = 0; vc < VCH; ++vc)
+      voff[kk][vc] = UNIT * DP + code_at<DP>(warp * TILE + 2 * c + (kk & 1) + 8 * (kk >> 1),
+                                             (r * (DP / 8) + 16 * vc) / 16) + (r * (DP / 8)) % 16;
   uint32_t hi43;  // 0x43004300 in a register (see and_or)
   asm volatile("mov.b32 %0, 0x43004300;\n" : "=r"(hi43));
 
@@ -688,7 +725,7 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
       const int k0 = sgm.lo + TILE * ti, nv = min(TILE, sgm.hi - k0);
       const unsigned char* base = smem + (size_t)st * sbytes;
 
-      const float* kscl = reinterpret_cast<const float*>(base + 2 * UNIT * D) + warp * TILE;
+      const float* kscl = reinterpret_cast<const float*>(base + 2 * UNIT * DP) + warp * TILE;
       const float* vscl = kscl + UNIT;
       // columns this range's keys reach: all, or one beam's
       const bool ok0 = sgm.beam < 0 || cb0 == sgm.beam, ok1 = sgm.beam < 0 || cb1 == sgm.beam;
@@ -761,28 +798,33 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
         }
       }
       // O^T += V^T P^T: A rows are dims, k columns the tile's keys 2c, 2c + 1
-      // (and + 8, + 9), each lane D / 8 contiguous bytes of those four keys
-      uint32_t vw[4][VW];
+      // (and + 8, + 9), each lane DP / 8 contiguous bytes of those four keys,
+      // read a 16-byte chunk (VWC words: tiles 2 VWC) at a time
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const unsigned char* row = base + voff[kk];
-        if constexpr (VW == 4) {
-          const uint4 x = *reinterpret_cast<const uint4*>(row);
-          vw[kk][0] = x.x; vw[kk][1] = x.y; vw[kk][2] = x.z; vw[kk][3] = x.w;
-        } else {
-          const uint2 x = *reinterpret_cast<const uint2*>(row);
-          vw[kk][0] = x.x; vw[kk][1] = x.y;
+      for (int vc = 0; vc < VCH; ++vc) {
+        uint32_t vw[4][VWC];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const unsigned char* row = base + voff[kk][vc];
+          if constexpr (VWC == 4) {
+            const uint4 x = *reinterpret_cast<const uint4*>(row);
+            vw[kk][0] = x.x; vw[kk][1] = x.y; vw[kk][2] = x.z; vw[kk][3] = x.w;
+          } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(row);
+            vw[kk][0] = x.x; vw[kk][1] = x.y;
+          }
         }
-      }
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const uint32_t sel = (m & 1) ? 0x7632u : 0x5410u;
-        const uint32_t xa = __byte_perm(vw[0][m >> 1], vw[1][m >> 1], sel);
-        const uint32_t xb = __byte_perm(vw[2][m >> 1], vw[3][m >> 1], sel);
-        const uint32_t a0 = codes_bf16x2(xa, hi43), a1 = codes_bf16x2(xa >> 8, hi43);
-        const uint32_t a2 = codes_bf16x2(xb, hi43), a3 = codes_bf16x2(xb >> 8, hi43);
+        for (int mm = 0; mm < 2 * VWC; ++mm) {
+          const int m = 2 * VWC * vc + mm;
+          const uint32_t sel = (mm & 1) ? 0x7632u : 0x5410u;
+          const uint32_t xa = __byte_perm(vw[0][mm >> 1], vw[1][mm >> 1], sel);
+          const uint32_t xb = __byte_perm(vw[2][mm >> 1], vw[3][mm >> 1], sel);
+          const uint32_t a0 = codes_bf16x2(xa, hi43), a1 = codes_bf16x2(xa >> 8, hi43);
+          const uint32_t a2 = codes_bf16x2(xb, hi43), a3 = codes_bf16x2(xb >> 8, hi43);
 #pragma unroll
-        for (int pc = 0; pc < PIECES; ++pc) mma_bf16(o[m], a0, a1, a2, a3, pb[pc][0], pb[pc][1]);
+          for (int pc = 0; pc < PIECES; ++pc) mma_bf16(o[m], a0, a1, a2, a3, pb[pc][0], pb[pc][1]);
+        }
       }
     }
     __syncwarp();
@@ -808,7 +850,7 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<float2*>(po + (warp * NQ + 2 * c + e) * D + r * (D / 8) + 2 * m) =
+      *reinterpret_cast<float2*>(po + (warp * NQ + 2 * c + e) * DP + r * (DP / 8) + 2 * m) =
           make_float2(o[m][e], o[m][e + 2]);
   named_sync(1, NWC * 32);
 
@@ -826,14 +868,14 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     for (int w = 0; w < NWC; ++w) {
       const float a = exp2f(pm[w * NQ + j] - M);
       L += pl[w * NQ + j] * a;
-      const float2 x = *reinterpret_cast<const float2*>(po + (w * NQ + j) * D + d);
+      const float2 x = *reinterpret_cast<const float2*>(po + (w * NQ + j) * DP + d);
       o0 = fmaf(x.x, a, o0);
       o1 = fmaf(x.y, a, o1);
     }
     const size_t row = qrow(j);
     if (parts == 1) {
       const float pf = exp2f(fresh_s[j] - M);
-      const float* v = fresh_v + (BEAM ? (q0 + j) / G - j0 : 0) * D + d;
+      const float* v = fresh_v + (BEAM ? (q0 + j) / G - j0 : 0) * DP + d;
       L = fmaxf(L + pf, 1e-30f);
       out[row * D + d] = lia::from_f32<T>(fmaf(pf, v[0], o0) / L);
       out[row * D + d + 1] = lia::from_f32<T>(fmaf(pf, v[1], o1) / L);
@@ -847,21 +889,24 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   }
 }
 
-// The parts' partials of each query row merged (one warp a row), then the
-// fresh token (with RAW, after its round trip; none where kf is null: the
-// bf16 plane route of beam_attn.cuh for B7/B8), normalised and written out.
-template <typename T, int D, bool RAW>
+// The parts' partials of each query row merged (one warp a row, DP / 32 dims
+// a lane, the lanes past D idle), then the fresh token (with RAW, after its
+// round trip; none where kf is null: the bf16 plane route of beam_attn.cuh for
+// B7/B8), normalised and written out.
+template <typename T, int DP, bool RAW>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __restrict__ kf,
-             const T* __restrict__ vf, T* __restrict__ out, int parts, int rows, int N, int G, float sscale) {
-  constexpr int DL = D / 32;
+             const T* __restrict__ vf, T* __restrict__ out, int parts, int rows, int N, int G, int D, float sscale) {
+  constexpr int DL = DP / 32;
+  if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
   const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= rows) return;
+  const bool on = DP != 128 || lane * DL < D;
   const size_t fr = ((size_t)(row / N) * (N / G) + (row % N) / G) * D;
   float kx[DL], vx[DL], sf = LIA_NEG_INF;
   if (kf) {
-    fresh_kv<T, DL, RAW>(kf + fr, vf + fr, kx, vx, lane);
-    sf = fresh_score<T, DL>(q + (size_t)row * D, kx, sscale, lane);
+    fresh_kv<T, DL, RAW>(kf + fr, vf + fr, kx, vx, lane, D);
+    sf = fresh_score<T, DL>(q + (size_t)row * D, kx, sscale, lane, D);
   }
   const float* ws_m = ws + (size_t)parts * rows * D;
   const float* ws_l = ws_m + (size_t)parts * rows;
@@ -872,9 +917,10 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
   for (int p = 0; p < parts; ++p) {
     const float a = exp2f(ws_m[(size_t)p * rows + row] - M);
     L += ws_l[(size_t)p * rows + row] * a;
-    float v[DL];
+    float v[DL] = {};
 #pragma unroll
     for (int e = 0; e < DL; e += 2) {
+      if (!on) break;
       const float2 x = *reinterpret_cast<const float2*>(ws + ((size_t)p * rows + row) * D + lane * DL + e);
       v[e] = x.x;
       v[e + 1] = x.y;
@@ -889,15 +935,16 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
     for (int e = 0; e < DL; ++e) o[e] = fmaf(pf, vx[e], o[e]);
   }
   L = fmaxf(L, 1e-30f);
+  if (!on) return;
 #pragma unroll
   for (int e = 0; e < DL; ++e) out[(size_t)row * D + lane * DL + e] = lia::from_f32<T>(o[e] / L);
 }
 
-template <typename T, int D, bool RAW, bool BEAM>
+template <typename T, int DP, int D, bool RAW, bool BEAM>
 int launch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* lengths, int length_stride,
            void* out, void* ws, int parts, int B, int Nkv, int G, int bpc, int sms, float sscale,
            cudaStream_t stream) {
-  auto kern = int8_kernel<T, D, RAW, BEAM>;
+  auto kern = int8_kernel<T, DP, D, RAW, BEAM>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
     return e != cudaSuccess ? e
@@ -908,23 +955,23 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
   const int qpc = std::min(bpc * G, NQ), chunks = ((BEAM ? keys.nb : 1) * G + qpc - 1) / qpc;
   const int units = BEAM ? B / keys.nb : B;  // plane rows, or beam groups
   const dim3 grid(Nkv, units, parts * chunks);
-  const int stages = ring_stages(D, Nkv * units * parts * chunks, sms);
-  kern<<<grid, THREADS, smem_bytes(D, stages), stream>>>(
+  const int stages = ring_stages(DP, Nkv * units * parts * chunks, sms);
+  kern<<<grid, THREADS, smem_bytes(DP, stages), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf), keys,
       static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), static_cast<float*>(ws), parts, Nkv, G,
       bpc, sscale, stages);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * Nkv * G;
-  merge_kernel<T, D, RAW><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
+  merge_kernel<T, DP, RAW><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
-      static_cast<T*>(out), parts, rows, Nkv * G, G, sscale);
+      static_cast<T*>(out), parts, rows, Nkv * G, G, D, sscale);
   return (int)cudaGetLastError();
 }
 
-// Type and head-dim dispatch, after the checks every entry shares: D 64 or
-// 128, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk
-// with bpc * G <= NQ or bpc = 1 (runs of NQ queries),
+// Type and head-dim dispatch, after the checks every entry shares: D 64, 80,
+// 96, 128 or 256, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc
+// beams a chunk with bpc * G <= NQ or bpc = 1 (runs of NQ queries),
 // parts >= 1 (a workspace of parts * B * N * (D + 2) floats when parts > 1),
 // the codes 16-byte aligned. Returns a cudaError_t value, 0 on a successful
 // launch.
@@ -934,19 +981,25 @@ int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, co
              float sscale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nkv <= 0 || N % Nkv != 0 || B < 1 || parts < 1 || (parts > 1 && !ws) || sms < 1) return (int)cudaErrorInvalidValue;
-  const int G = N / Nkv;
-  if ((D != 64 && D != 128) || bpc < 1 || (bpc > 1 && bpc * G > NQ) ||
+  const int G = N / Nkv, DP = padded_dim(D);
+  if (DP == 0 || bpc < 1 || (bpc > 1 && bpc * G > NQ) ||
       ((reinterpret_cast<uintptr_t>(keys.kq) | reinterpret_cast<uintptr_t>(keys.vq)) & 15) != 0 ||
       (BEAM && ((reinterpret_cast<uintptr_t>(keys.ktq) | reinterpret_cast<uintptr_t>(keys.vtq)) & 15) != 0))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
     return kern(q, kf, vf, keys, lengths, length_stride, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st);
   };
-  if (is_bf16) {
-    using B16 = __nv_bfloat16;
-    return D == 128 ? run(&launch<B16, 128, RAW, BEAM>) : run(&launch<B16, 64, RAW, BEAM>);
-  }
-  return D == 128 ? run(&launch<float, 128, RAW, BEAM>) : run(&launch<float, 64, RAW, BEAM>);
+  auto by_dim = [&](auto type) {
+    using T = decltype(type);
+    switch (D) {
+      case 64: return run(&launch<T, 64, 64, RAW, BEAM>);
+      case 80: return run(&launch<T, 128, 80, RAW, BEAM>);
+      case 96: return run(&launch<T, 128, 96, RAW, BEAM>);
+      case 128: return run(&launch<T, 128, 128, RAW, BEAM>);
+    }
+    return run(&launch<T, 256, 256, RAW, BEAM>);
+  };
+  return is_bf16 ? by_dim(__nv_bfloat16{}) : by_dim(0.f);
 }
 
 }  // namespace lia_dec8

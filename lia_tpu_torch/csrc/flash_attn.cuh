@@ -31,8 +31,17 @@
 //    of the walk and merge their (o, m, l) through shared memory at the end.
 //  - The producer warp streams the tile's 64-key K/V tiles by TMA into a ring
 //    of shared-memory stages (full/empty mbarriers), from a 3-D tensor map over
-//    [B * N_kv, S_kv, D] that fills rows past S_kv with zeros. Tiles land
-//    128-byte swizzled, one 64-column box per 64 head dims.
+//    [B * N_kv, S_kv, D] that fills rows past S_kv, and columns past D, with
+//    zeros. Tiles land 128-byte swizzled, one 64-column box per 64 head dims.
+//  - Head dims: the body computes over a width DP of 64, 128 or 256 (the
+//    template parameter) and reads and writes rows D apart (a runtime
+//    argument): D = 80 and 96 run at DP = 128, their Q columns past D loaded
+//    as zeros and their K/V columns past D filled with zeros by the tensor
+//    map, so the padded products add nothing; only D columns are stored. (An
+//    exact D = 80 or 96 instance would skip 3/8 or 1/4 of the QK^T steps and
+//    P.V columns.) At DP = 256 the O accumulator is 128 fp32 registers a
+//    thread: one consumer warpgroup, one block an SM (255 registers), three
+//    stages of 64 KB.
 //  - Both products are wgmma: S = Q.K^T with Q (loaded once, written in the
 //    same swizzle) and K from shared memory; O += P.V with P from registers
 //    (the fp32 S accumulator rounded to bf16 becomes the next A fragment) and
@@ -79,18 +88,19 @@ constexpr int MERGE_WARPS = 4;
 // to warpgroup i % NW), and one producer warp. Its shared memory: the Q tile,
 // the K and V tiles of each stage, the full and empty barriers, and with two
 // warpgroups the second's (o, m, l) for the merge.
-template <int D, int NW>
+template <int DP, int NW>
 struct Layout {
   static constexpr int THREADS = NW * WG + 32;
-  static constexpr int BOXES = D / BOX_COLS;
+  static constexpr int BOXES = DP / BOX_COLS;
   static constexpr int TILE = BOXES * BOX_BYTES;  // 64 rows of Q, K or V
-  // one warpgroup: ~80 / ~72 KB, two blocks an SM; two: one block an SM
-  static constexpr int STAGES = NW == 2 ? 4 : D == 128 ? 2 : 4;
+  // one warpgroup: ~80 / ~72 KB, two blocks an SM (DP = 256: ~225 KB, one);
+  // two: one block an SM
+  static constexpr int STAGES = NW == 2 ? 4 : DP == 256 ? 3 : DP == 128 ? 2 : 4;
   static constexpr int K_OFF = TILE;
   static constexpr int V_OFF = K_OFF + STAGES * TILE;
   static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
   static constexpr int MERGE_OFF = BAR_OFF + 2 * STAGES * 8;
-  static constexpr int MERGE_FLOATS = NW == 2 ? (D / 2 + 4) * WG : 0;
+  static constexpr int MERGE_FLOATS = NW == 2 ? (DP / 2 + 4) * WG : 0;
   static constexpr int BYTES = MERGE_OFF + 4 * MERGE_FLOATS + 1024;  // + slack for 1024-byte alignment
 };
 
@@ -115,16 +125,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// O (64 x D) += P (registers) * V (shared, MN-major), one 16-key step.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+// O (64 x DP) += P (registers) * V (shared, MN-major, at `v`), one 16-key
+// step; DP = 256 as two n128 products over its column halves (boxes 0-1 and
+// 2-3), accumulators o[0, 64) and o[64, 128).
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint32_t v);
 template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(o, a, db);
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint32_t v) {
+  wgmma_rs_n64(o, a, desc_sw128(v, BOX_BYTES, 1024));
 }
 template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(o, a, db);
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint32_t v) {
+  wgmma_rs_n128(o, a, desc_sw128(v, BOX_BYTES, 1024));
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4], uint32_t v) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, desc_sw128(v, BOX_BYTES, 1024));
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a, desc_sw128(v + 2 * BOX_BYTES, BOX_BYTES, 1024));
 }
 
 // ---------------------------------------------------------------------------
@@ -133,11 +150,11 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
 
 // S = Q K^T over one K tile, issued and committed (not waited): sc[4n + e]
 // holds row r0 (e < 2) or r0 + 8 of the warp, key 8n + 2t + (e & 1).
-template <int D>
+template <int DP>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_base, uint32_t k_base) {
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < DP / 16; ++ks) {
     const uint32_t off = (ks / 4) * BOX_BYTES + (ks % 4) * 32;
     wgmma_ss_n64(sc, desc_sw128(q_base + off, 16, 1024), desc_sw128(k_base + off, 16, 1024), ks);
   }
@@ -147,8 +164,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_base, uint3
 // O += P V over one V tile, issued and committed: the probabilities of keys
 // 16kk.. rounded to bf16 are the A fragment of the kk-th step; V's 16 key rows
 // sit 2048 bytes apart.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const float (&p)[32], uint32_t v_base) {
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const float (&p)[32], uint32_t v_base) {
   uint32_t pa[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -156,15 +173,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const float (&p)[32]
     for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(p[8 * kk + 2 * x], p[8 * kk + 2 * x + 1]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, pa[kk], desc_sw128(v_base + kk * 2048, BOX_BYTES, 1024));
+  for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, pa[kk], v_base + kk * 2048);
   wgmma_commit();
 }
 
 // Masks (off the interior), scales and exponentiates one tile's scores in
 // place, folding them into the running max m and sum l (a row's 64 keys are
 // spread over the 4 lanes of a quad) and rescaling o.
-template <int D>
-__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&o)[D / 2],
+template <int DP>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&o)[DP / 2],
                                              bool interior, int k0, int t, const int (&qpos)[2],
                                              const bool (&rvalid)[2], int start, int S_kv, int window,
                                              float sscale) {
@@ -203,15 +220,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
     l[i] += sc[e];
   }
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+  for (int e = 0; e < DP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 }
 
 // Grid: (row tiles * parts, N_kv, B), row tiles ceil(C / (64 / G)), or with
 // FLAT ceil(C * G / 64), the longest walks (the last row tiles) first. With
 // parts == 1 the block writes `out`; otherwise its partials. NW: consumer
-// warpgroups splitting the walk (2 where the grid is one block an SM).
-template <int D, int NW, bool FLAT>
-__global__ void __launch_bounds__(Layout<D, NW>::THREADS, NW == 1 ? 2 : 1)
+// warpgroups splitting the walk (2 where the grid is one block an SM). DP: the
+// width computed over; rows of q, out and the partials are D apart.
+template <int DP, int NW, bool FLAT>
+__global__ void __launch_bounds__(Layout<DP, NW>::THREADS, NW == 1 && DP <= 128 ? 2 : 1)
 flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
              const __grid_constant__ CUtensorMap tmv,  // v [B * Nkv, S_kv, D]
              const __nv_bfloat16* __restrict__ q,      // [B, C, N, D]
@@ -219,11 +237,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
              const int* __restrict__ bases, int base_stride,  // [B] or scalar; null: 0
              __nv_bfloat16* __restrict__ out,          // [B, C, N, D]
              float* __restrict__ ws,                   // parts > 1: o [parts, R, D], m, l [parts, R]
-             int parts, int C, int S_kv, int N, int Nkv, int G, float sscale, int window) {
-  using L = Layout<D, NW>;
+             int parts, int C, int S_kv, int N, int Nkv, int G, int D, float sscale, int window) {
+  using L = Layout<DP, NW>;
   constexpr int CONSUMERS = NW * WG;
-  constexpr int CH = D / 8;                     // 16-byte chunks per row
-  constexpr int QV = ROWS * CH / CONSUMERS;     // of Q per consumer thread
+  constexpr int CHP = DP / 8;                   // 16-byte chunks of a row of the tile
+  constexpr int QV = ROWS * CHP / CONSUMERS;    // of Q per consumer thread
+  if (DP != 128) D = DP;                        // only width 128 takes several D
+  const int CH = D / 8;                         // of a row in memory
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t sb = (raw + 1023) & ~1023u;  // swizzled boxes want 1024-byte alignment
@@ -259,10 +279,10 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   uint4 qv[QV];
 #pragma unroll
   for (int x = 0; x < QV; ++x) {
-    const int idx = tid + x * CONSUMERS, r = idx / CH, c = idx % CH;
+    const int idx = tid + x * CONSUMERS, r = idx / CHP, c = idx % CHP;
     const int pos = row_pos(r);
-    qv[x] = make_uint4(0, 0, 0, 0);
-    if (tid < CONSUMERS && r < nrows && pos < C)
+    qv[x] = make_uint4(0, 0, 0, 0);  // columns past D stay zero
+    if (tid < CONSUMERS && r < nrows && pos < C && c < CH)
       qv[x] = *reinterpret_cast<const uint4*>(q + (((size_t)b * C + pos) * N + h * G + row_head(r)) * D + c * 8);
   }
   const int base = bases ? bases[b * base_stride] : 0;
@@ -304,7 +324,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
 #pragma unroll
     for (int x = 0; x < QV; ++x) {
       const int idx = tid + x * CONSUMERS;
-      *reinterpret_cast<uint4*>(smem + swz(idx / CH, (idx % CH) * 8)) = qv[x];
+      *reinterpret_cast<uint4*>(smem + swz(idx / CHP, (idx % CHP) * 8)) = qv[x];
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
     consumers_sync<NW>();
@@ -326,22 +346,22 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   const int free_hi = min(base + pos0, S_kv - 1);
 
   float m[2] = {LIA_NEG_INF, LIA_NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 
   const uint32_t k_base = sb + L::K_OFF, v_base = sb + L::V_OFF;
   for (int it = wg, j = lo + wg; j < hi; it += NW, j += NW) {
     const int s = it % L::STAGES;
     mbar_wait(full0 + 8 * s, (it / L::STAGES) & 1);
     float sc[32];
-    issue_qk<D>(sc, sb, k_base + s * L::TILE);
+    issue_qk<DP>(sc, sb, k_base + s * L::TILE);
     wgmma_wait();
     fence_regs(sc);
     const int k0 = j * BK;
-    softmax_tile<D>(sc, m, l, o, k0 >= free_lo && k0 + BK - 1 <= free_hi, k0, t, qpos, rvalid, start, S_kv,
+    softmax_tile<DP>(sc, m, l, o, k0 >= free_lo && k0 + BK - 1 <= free_hi, k0, t, qpos, rvalid, start, S_kv,
                     window, sscale);
-    issue_pv<D>(o, sc, v_base + s * L::TILE);
+    issue_pv<DP>(o, sc, v_base + s * L::TILE);
     wgmma_wait();
     fence_regs(o);
     mbar_arrive(empty0 + 8 * s);
@@ -353,23 +373,23 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
     float* mb = reinterpret_cast<float*>(smem + L::MERGE_OFF);
     if (wg == 1) {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) mb[e * WG + wtid] = o[e];
+      for (int e = 0; e < DP / 2; ++e) mb[e * WG + wtid] = o[e];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mb[(D / 2 + i) * WG + wtid] = m[i];
-        mb[(D / 2 + 2 + i) * WG + wtid] = l[i];
+        mb[(DP / 2 + i) * WG + wtid] = m[i];
+        mb[(DP / 2 + 2 + i) * WG + wtid] = l[i];
       }
     }
     consumers_sync<NW>();
     if (wg == 1) return;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m1 = mb[(D / 2 + i) * WG + wtid], mx = fmaxf(m[i], m1);
+      const float m1 = mb[(DP / 2 + i) * WG + wtid], mx = fmaxf(m[i], m1);
       const float a0 = exp2f(m[i] - mx), a1 = exp2f(m1 - mx);
       m[i] = mx;
-      l[i] = a0 * l[i] + a1 * mb[(D / 2 + 2 + i) * WG + wtid];
+      l[i] = a0 * l[i] + a1 * mb[(DP / 2 + 2 + i) * WG + wtid];
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e)
+      for (int e = 0; e < DP / 2; ++e)
         if (((e >> 1) & 1) == i) o[e] = a0 * o[e] + a1 * mb[e * WG + wtid];
     }
   }
@@ -386,15 +406,15 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       const int r = r0 + 8 * i;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DP / 8; ++n)
         *reinterpret_cast<uint32_t*>(smem + swz(r, 8 * n + 2 * t)) =
             pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
     }
     wg0_sync();
-    for (int idx = tid; idx < ROWS * CH; idx += WG) {
-      const int r = idx / CH, c = idx % CH;
+    for (int idx = tid; idx < ROWS * CHP; idx += WG) {  // the tile's chunks; those past D stay unstored
+      const int r = idx / CHP, c = idx % CHP;
       const int pos = row_pos(r);
-      if (r < nrows && pos < C)
+      if (r < nrows && pos < C && c < CH)
         *reinterpret_cast<uint4*>(out + (((size_t)b * C + pos) * N + h * G + row_head(r)) * D + c * 8) =
             *reinterpret_cast<const uint4*>(smem + swz(r, c * 8));
     }
@@ -415,46 +435,50 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
     }
     if (hi > lo) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(ws + row * D + 8 * n + 2 * t) = make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+      for (int n = 0; n < DP / 8; ++n)
+        if (n < CH)
+          *reinterpret_cast<float2*>(ws + row * D + 8 * n + 2 * t) = make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
     }
   }
 }
 
 // out[row] = sum_i 2^(m_i - m) o_i / max(sum_i 2^(m_i - m) l_i, 1e-30), m the
-// largest m_i; parts with m_i = -inf (no tiles) are skipped. One warp a row.
-template <int D>
+// largest m_i; parts with m_i = -inf (no tiles) are skipped. One warp a row,
+// a lane columns 2 lane + 64 i, + 1 of the row's D (DP / 64 pairs at most).
+template <int DP>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
-merge_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int parts, int rows) {
-  constexpr int E = D / 32;  // columns per lane
+merge_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int parts, int rows, int D) {
+  constexpr int E = DP / 64;  // column pairs per lane
+  if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
   const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= rows) return;
   const float* ws_m = ws + (size_t)parts * rows * D;
   const float* ws_l = ws_m + (size_t)parts * rows;
   float mx = -INFINITY;
   for (int p = 0; p < parts; ++p) mx = fmaxf(mx, ws_m[(size_t)p * rows + row]);
-  float acc[E] = {}, den = 0.f;
+  float acc[E][2] = {}, den = 0.f;
   for (int p = 0; p < parts; ++p) {
     const size_t pr = (size_t)p * rows + row;
     const float mi = ws_m[pr];
     if (mi == -INFINITY) continue;
     const float w = exp2f(mi - mx);
     den += w * ws_l[pr];
-    float v[E];
-    if constexpr (E == 4) {
-      const float4 x = *reinterpret_cast<const float4*>(ws + pr * D + lane * E);
-      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-    } else {
-      const float2 x = *reinterpret_cast<const float2*>(ws + pr * D + lane * E);
-      v[0] = x.x, v[1] = x.y;
-    }
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += w * v[e];
+    for (int e = 0; e < E; ++e) {
+      const int c = 2 * lane + 64 * e;
+      if (c < D) {
+        const float2 x = *reinterpret_cast<const float2*>(ws + pr * D + c);
+        acc[e][0] += w * x.x;
+        acc[e][1] += w * x.y;
+      }
+    }
   }
   const float inv = 1.f / fmaxf(den, 1e-30f);
-  __nv_bfloat16* dst = out + (size_t)row * D + lane * E;
 #pragma unroll
-  for (int e = 0; e < E; e += 2) *reinterpret_cast<uint32_t*>(dst + e) = pack_bf16(acc[e] * inv, acc[e + 1] * inv);
+  for (int e = 0; e < E; ++e) {
+    const int c = 2 * lane + 64 * e;
+    if (c < D) *reinterpret_cast<uint32_t*>(out + (size_t)row * D + c) = pack_bf16(acc[e][0] * inv, acc[e][1] * inv);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -462,7 +486,7 @@ merge_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int 
 // ---------------------------------------------------------------------------
 
 // A plane [B * Nkv, S_kv, D] of bf16 as 64 x 64 boxes, 128-byte swizzled;
-// rows past S_kv read as zeros.
+// rows past S_kv and columns past D read as zeros.
 inline bool plane_map(CUtensorMap* map, const void* ptr, int planes, int S_kv, int D) {
   EncodeTiled encode = encoder();
   if (!encode) return false;
@@ -475,61 +499,70 @@ inline bool plane_map(CUtensorMap* map, const void* ptr, int planes, int S_kv, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int NW, bool FLAT>
+template <int DP, int NW, bool FLAT>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases, int base_stride,
-           void* out, void* ws, int parts, int B, int C, int S_kv, int N, int Nkv, float sscale, int window,
+           void* out, void* ws, int parts, int B, int C, int S_kv, int N, int Nkv, int D, float sscale, int window,
            cudaStream_t stream) {
   const int G = N / Nkv;
   CUtensorMap tmk, tmv;
   if (!plane_map(&tmk, k, B * Nkv, S_kv, D) || !plane_map(&tmv, v, B * Nkv, S_kv, D))
     return (int)cudaErrorInvalidValue;
-  const int smem = Layout<D, NW>::BYTES;
-  auto kern = flash_kernel<D, NW, FLAT>;
+  const int smem = Layout<DP, NW>::BYTES;
+  auto kern = flash_kernel<DP, NW, FLAT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = FLAT ? (C * G + ROWS - 1) / ROWS : (C + ROWS / G - 1) / (ROWS / G);
   dim3 grid(tiles * parts, Nkv, B);
-  kern<<<grid, Layout<D, NW>::THREADS, smem, stream>>>(tmk, tmv, static_cast<const __nv_bfloat16*>(q),
+  kern<<<grid, Layout<DP, NW>::THREADS, smem, stream>>>(tmk, tmv, static_cast<const __nv_bfloat16*>(q),
                                         static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(bases),
                                         base_stride, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
-                                        parts, C, S_kv, N, Nkv, G, sscale, window);
+                                        parts, C, S_kv, N, Nkv, G, D, sscale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * C * N;
-  merge_kernel<D><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), parts, rows);
+  merge_kernel<DP><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), parts, rows, D);
   return (int)cudaGetLastError();
 }
 
+
 // Head-dim and warpgroup dispatch; returns a cudaError_t value, 0 on a
 // successful launch. The wrapper chooses `parts` and `nw` (consumer
-// warpgroups a block, 1 or 2) from the grid; D must be 64 or 128, G = N / Nkv
-// any group (the wrapper admits 1 .. 128), and parts > 1 needs a workspace of
-// parts * B * C * N * (D + 2) floats.
+// warpgroups a block, 1 or 2, and 1 at D = 256) from the grid; D must be 64,
+// 80, 96, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128), and
+// parts > 1 needs a workspace of parts * B * C * N * (D + 2) floats.
 inline int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases,
                     int base_stride, void* out, void* ws, int parts, int nw, int B, int C, int S_kv, int N, int Nkv,
                     int D, float sscale, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nkv <= 0 || N % Nkv != 0 || C <= 0 || parts < 1 || (parts > 1 && !ws) ||
-      (nw != 1 && nw != 2) || (D != 64 && D != 128))
+  const int DP = padded_dim(D);
+  if (Nkv <= 0 || N % Nkv != 0 || C <= 0 || parts < 1 || (parts > 1 && !ws) || (nw != 1 && nw != 2) || DP == 0 ||
+      (DP == 256 && nw != 1))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
-    return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, sscale, window, st);
+    return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, D, sscale, window, st);
   };
   if (N / Nkv > ROWS) {  // a group that straddles tiles
-    if (D == 128) return nw == 2 ? run(&launch<128, 2, true>) : run(&launch<128, 1, true>);
+    if (DP == 256) return run(&launch<256, 1, true>);
+    if (DP == 128) return nw == 2 ? run(&launch<128, 2, true>) : run(&launch<128, 1, true>);
     return nw == 2 ? run(&launch<64, 2, true>) : run(&launch<64, 1, true>);
   }
-  if (D == 128) return nw == 2 ? run(&launch<128, 2, false>) : run(&launch<128, 1, false>);
+  if (DP == 256) return run(&launch<256, 1, false>);
+  if (DP == 128) return nw == 2 ? run(&launch<128, 2, false>) : run(&launch<128, 1, false>);
   return nw == 2 ? run(&launch<64, 2, false>) : run(&launch<64, 1, false>);
 }
 
 }  // namespace lia_flash
 
-// Dynamic shared memory of one block of the D-wide kernel, in bytes (for the
-// build report beside ptxas's registers and spills).
+// Dynamic shared memory of one block of the kernel at head dim D with NW
+// consumer warpgroups, in bytes (for the build report beside ptxas's
+// registers and spills); 0 for a pair the body does not take.
 extern "C" int lia_flash_smem_bytes(int D, int NW) {
   using namespace lia_flash;
-  return D == 128 ? (NW == 2 ? Layout<128, 2>::BYTES : Layout<128, 1>::BYTES)
-                  : (NW == 2 ? Layout<64, 2>::BYTES : Layout<64, 1>::BYTES);
+  switch (padded_dim(D)) {
+    case 64: return NW == 2 ? Layout<64, 2>::BYTES : Layout<64, 1>::BYTES;
+    case 128: return NW == 2 ? Layout<128, 2>::BYTES : Layout<128, 1>::BYTES;
+    case 256: return NW == 1 ? Layout<256, 1>::BYTES : 0;
+  }
+  return 0;
 }

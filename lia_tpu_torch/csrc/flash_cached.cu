@@ -24,8 +24,8 @@
 
 // bases: int32, [B] (base_stride 1) or one value (base_stride 0). Returns a
 // cudaError_t value: 0 on a successful launch. The wrapper chooses `parts` and
-// `nw` (consumer warpgroups a block, 1 or 2); D must be 64 or 128, G = N / Nkv
-// any group (the wrapper admits 1 .. 128), and parts > 1 needs a workspace of
+// `nw` (consumer warpgroups a block, 1 or 2, and 1 at D = 256); D must be 64,
+// 80, 96, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128), and parts > 1 needs a workspace of
 // parts * B * C * N * (D + 2) floats.
 extern "C" int lia_flash_cached(const void* q, const void* k, const void* v, const void* slot_mask,
                                 const void* bases, int base_stride, void* out, void* ws, int parts, int nw, int B,

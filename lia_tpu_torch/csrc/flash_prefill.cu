@@ -15,7 +15,8 @@
 
 // Returns a cudaError_t value: 0 on a successful launch. The wrapper checks
 // shapes, type and contiguity and chooses `parts` and `nw` (consumer
-// warpgroups a block, 1 or 2); D must be 64 or 128, G = N / Nkv any group,
+// warpgroups a block, 1 or 2, and 1 at D = 256); D must be 64, 80, 96, 128 or
+// 256, G = N / Nkv any group,
 // and parts > 1 needs a workspace of parts * B * S * N * (D + 2) floats.
 extern "C" int lia_flash_prefill(const void* q, const void* k, const void* v, const void* mask, void* out,
                                  void* ws, int parts, int nw, int B, int S, int N, int Nkv, int D, float sscale,

@@ -36,6 +36,12 @@
 //   Every partial is written, so the workspace needs no memset and the pair of
 //   launches can be captured in a CUDA graph.
 // Pages past the frontier (the null page 0 in unused entries) are never read.
+// - Head dims: a lane holds DP / 32 dims of a width DP of 64, 128 or 256 (the
+//   template parameter); rows lie D apart (a runtime argument) in the pool and
+//   in the ring, so a page copies as it is. At D = 80 and 96 (DP = 128) the
+//   lanes past D / 4 hold zeros and read and store nothing; at DP = 256 a
+//   step takes four keys (two with four queries a warp), so a lane's loads
+//   stay those of DP = 128.
 #pragma once
 
 #include "hopper.cuh"
@@ -46,7 +52,6 @@ using namespace lia;  // the PTX wrappers of hopper.cuh
 
 constexpr int NWC = 4;                   // consumer warps a block
 constexpr int THREADS = 32 * (NWC + 1);  // and one producer warp
-constexpr int KT = 8;                    // keys a consumer step
 constexpr int MAXP = 256;                // block-table entries a block stages (the wrapper's PAGED_MAX_TABLE)
 constexpr int UNIT_BYTES = 8192;         // most K bytes of one ring unit
 constexpr int RING_BYTES = 24 * 1024;    // K and V bytes of the ring (registers keep four blocks an SM)
@@ -77,11 +82,17 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
                : "memory");
 }
 
-// q . k over the warp for one key row k (D = 32 * DL elements).
+// Keys a consumer step at width DP with QPW queries a warp (at DP = 256 the
+// lane's loads stay those of DP = 128, and its four queries' registers fit).
+__host__ __device__ constexpr int keys_a_step(int DP, int QPW) { return DP > 128 ? (QPW == 4 ? 2 : 4) : 8; }
+
+
+// q . k over the warp for one key row k (DL elements a lane; the lanes past
+// the row's D (!on) add nothing).
 template <typename T, int DL>
-__device__ __forceinline__ float score(const float (&qr)[DL], const T* k, int lane) {
-  float kx[DL];
-  lia::load_vec<DL>(k + lane * DL, kx);
+__device__ __forceinline__ float score(const float (&qr)[DL], const T* k, int lane, bool on) {
+  float kx[DL] = {};
+  if (on) lia::load_vec<DL>(k + lane * DL, kx);
   float part = 0.f;
 #pragma unroll
   for (int e = 0; e < DL; ++e) part = fmaf(qr[e], kx[e], part);
@@ -93,26 +104,26 @@ __device__ __forceinline__ float score(const float (&qr)[DL], const T* k, int la
 // written to dst. qr is the row's query, already scaled.
 template <typename T, int DL>
 __device__ __forceinline__ void finish(float m, float l, float (&o)[DL], const float (&qr)[DL], const T* kf,
-                                       const T* vf, int c, T* dst, int lane) {
-  constexpr int D = 32 * DL;
+                                       const T* vf, int c, T* dst, int lane, int D, bool on) {
   float M = m;
   if (kf)
-    for (int j = 0; j <= c; ++j) M = fmaxf(M, score<T, DL>(qr, kf + (size_t)j * D, lane));
+    for (int j = 0; j <= c; ++j) M = fmaxf(M, score<T, DL>(qr, kf + (size_t)j * D, lane, on));
   const float a = exp2f(m - M);
   float L = l * a;
 #pragma unroll
   for (int e = 0; e < DL; ++e) o[e] *= a;
   if (kf) {
     for (int j = 0; j <= c; ++j) {
-      const float p = exp2f(score<T, DL>(qr, kf + (size_t)j * D, lane) - M);
-      float vx[DL];
-      lia::load_vec<DL>(vf + (size_t)j * D + lane * DL, vx);
+      const float p = exp2f(score<T, DL>(qr, kf + (size_t)j * D, lane, on) - M);
+      float vx[DL] = {};
+      if (on) lia::load_vec<DL>(vf + (size_t)j * D + lane * DL, vx);
       L += p;
 #pragma unroll
       for (int e = 0; e < DL; ++e) o[e] = fmaf(p, vx[e], o[e]);
     }
   }
   L = fmaxf(L, 1e-30f);
+  if (!on) return;
 #pragma unroll
   for (int e = 0; e < DL; ++e) dst[lane * DL + e] = lia::from_f32<T>(o[e] / L);
 }
@@ -120,8 +131,11 @@ __device__ __forceinline__ void finish(float m, float l, float (&o)[DL], const f
 // One block: kv head blockIdx.x of row blockIdx.y, part blockIdx.z % parts of
 // the row's pages, queries chunk blockIdx.z / parts (NWC * QPW queries of the
 // G * C, query j = chunk row j / G, head j % G of the kv head's group).
-template <typename T, int D, int QPW>
-__global__ void __launch_bounds__(THREADS)
+// Blocks an SM: four with one query a warp (96 registers), two with four
+// (their queries' accumulators); named, ptxas otherwise trades spills for
+// occupancy at width 64 with four queries a warp.
+template <typename T, int DP, int QPW>
+__global__ void __launch_bounds__(THREADS, QPW == 1 ? 4 : 2)
 paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
              const T* __restrict__ kf,        // [B, Nkv, C, D] fresh keys, or null
              const T* __restrict__ vf,        // [B, Nkv, C, D] fresh values, or null
@@ -131,14 +145,21 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
              const int* __restrict__ lengths, int length_stride,  // [B] or a scalar
              T* __restrict__ out,             // [B, C, N, D] (parts == 1)
              float* __restrict__ ws,          // partials (parts > 1): o [parts, B*C*N, D], m, l [parts, B*C*N]
-             int parts, int C, int G, int Nkv, int P, int bs, float sscale) {
-  constexpr int DL = D / 32;  // dims per lane
+             int parts, int C, int G, int Nkv, int P, int bs, int D, float sscale) {
+  constexpr int DL = DP / 32;  // dims per lane
+  constexpr int KT = keys_a_step(DP, QPW);
   constexpr int ES = sizeof(T);
+  if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
+
   const Geo geo(ES, D, bs, QPW);
   const int h = blockIdx.x, b = blockIdx.y;
   const int part = blockIdx.z % parts, qc = blockIdx.z / parts;
   const int N = Nkv * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool on = DP != 128 || lane * DL < D;  // the lane's dims lie inside the row
+  // the lane's K/V offset in a ring row: past D, the row's first dims (finite
+  // values that meet q = 0, and an O the lane never stores)
+  const int loff = on ? lane * DL : 0;
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);             // [stages][unit][D]
@@ -194,7 +215,7 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
 #pragma unroll
   for (int i = 0; i < QPW; ++i) {
     const int j = qb0 + qg * QPW + i;
-    if (active && j < qb0 + nq) {
+    if (active && j < qb0 + nq && on) {
       lia::load_vec<DL>(q + (((size_t)b * C + j / G) * N + h * G + j % G) * D + lane * DL, qr[i]);
     } else {
 #pragma unroll
@@ -223,8 +244,8 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
 #pragma unroll
           for (int kk = 0; kk < KT; ++kk) {
             const int key = min(k0 + kk * KS, rows - 1);  // past the unit: a valid row, masked below
-            lia::load_vec<DL>(K + key * D + lane * DL, kx[kk]);
-            lia::load_vec<DL>(V + key * D + lane * DL, vx[kk]);
+            lia::load_vec<DL>(K + key * D + loff, kx[kk]);
+            lia::load_vec<DL>(V + key * D + loff, vx[kk]);
           }
 #pragma unroll
           for (int i = 0; i < QPW; ++i) {
@@ -273,8 +294,9 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
         pm[warp * QPW + i] = m[i];
         pl[warp * QPW + i] = l[i];
       }
+      if (on)
 #pragma unroll
-      for (int e = 0; e < DL; ++e) po[(warp * QPW + i) * D + lane * DL + e] = acc[i][e];
+        for (int e = 0; e < DL; ++e) po[(warp * QPW + i) * D + lane * DL + e] = acc[i][e];
     }
   }
   named_sync(1, NWC * 32);
@@ -292,18 +314,21 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
       const int w = (qg + QG * x) * QPW + i;
       const float a = exp2f(pm[w] - M);
       L += pl[w] * a;
+      if (on)
 #pragma unroll
-      for (int e = 0; e < DL; ++e) o[e] = fmaf(po[w * D + lane * DL + e], a, o[e]);
+        for (int e = 0; e < DL; ++e) o[e] = fmaf(po[w * D + lane * DL + e], a, o[e]);
     }
     const int c = j / G;
     const size_t row = ((size_t)b * C + c) * N + h * G + j % G;
     if (parts == 1) {
       const size_t fresh = ((size_t)b * Nkv + h) * C * D;
-      finish<T, DL>(M, L, o, qr[i], kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + row * D, lane);
+      finish<T, DL>(M, L, o, qr[i], kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + row * D, lane,
+                    D, on);
     } else {
       float* wo = ws + ((size_t)part * rows_all + row) * D + lane * DL;
+      if (on)
 #pragma unroll
-      for (int e = 0; e < DL; ++e) wo[e] = o[e];
+        for (int e = 0; e < DL; ++e) wo[e] = o[e];
       if (lane == 0) {
         ws[(size_t)parts * rows_all * D + part * rows_all + row] = M;
         ws[(size_t)parts * rows_all * (D + 1) + part * rows_all + row] = L;
@@ -314,14 +339,16 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
 
 // The parts' partials of each query row merged (one warp a row), then the fresh
 // keys 0..c, normalised and written out.
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __restrict__ kf,
-             const T* __restrict__ vf, T* __restrict__ out, int parts, int rows, int C, int N, int G,
+             const T* __restrict__ vf, T* __restrict__ out, int parts, int rows, int C, int N, int G, int D,
              float sscale) {
-  constexpr int DL = D / 32;
+  constexpr int DL = DP / 32;
+  if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
   const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= rows) return;
+  const bool on = DP != 128 || lane * DL < D;
   const float* ws_m = ws + (size_t)parts * rows * D;
   const float* ws_l = ws_m + (size_t)parts * rows;
   float M = LIA_NEG_INF, L = 0.f, o[DL];
@@ -331,9 +358,10 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
   for (int p = 0; p < parts; ++p) {
     const float a = exp2f(ws_m[(size_t)p * rows + row] - M);
     L += ws_l[(size_t)p * rows + row] * a;
-    float v[DL];
+    float v[DL] = {};
 #pragma unroll
     for (int e = 0; e < DL; e += 2) {
+      if (!on) break;
       const float2 x = *reinterpret_cast<const float2*>(ws + ((size_t)p * rows + row) * D + lane * DL + e);
       v[e] = x.x;
       v[e + 1] = x.y;
@@ -341,21 +369,22 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
 #pragma unroll
     for (int e = 0; e < DL; ++e) o[e] = fmaf(v[e], a, o[e]);
   }
-  float qr[DL];
-  lia::load_vec<DL>(q + (size_t)row * D + lane * DL, qr);
+  float qr[DL] = {};
+  if (on) lia::load_vec<DL>(q + (size_t)row * D + lane * DL, qr);
 #pragma unroll
   for (int e = 0; e < DL; ++e) qr[e] *= sscale;
   const int n = row % N, c = (row / N) % C, b = row / (N * C);
   const size_t fresh = ((size_t)b * (N / G) + n / G) * C * D;
-  finish<T, DL>(M, L, o, qr, kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + (size_t)row * D, lane);
+  finish<T, DL>(M, L, o, qr, kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + (size_t)row * D, lane,
+                D, on);
 }
 
-template <typename T, int D, int QPW>
+template <typename T, int DP, int QPW>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, const void* table,
            const void* lengths, int length_stride, void* out, void* ws, int parts, int B, int C, int N, int Nkv,
-           int P, int bs, float sscale, cudaStream_t stream) {
+           int P, int bs, int D, float sscale, cudaStream_t stream) {
   const Geo geo(sizeof(T), D, bs, QPW);
-  auto kern = paged_kernel<T, D, QPW>;
+  auto kern = paged_kernel<T, DP, QPW>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path;
     // the SM keeps its largest carveout, for as many blocks as the registers allow
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 96 * 1024);
@@ -370,13 +399,13 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
   kern<<<grid, THREADS, geo.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(table), static_cast<const int*>(lengths), length_stride,
-      static_cast<T*>(out), static_cast<float*>(ws), parts, C, G, Nkv, P, bs, sscale);
+      static_cast<T*>(out), static_cast<float*>(ws), parts, C, G, Nkv, P, bs, D, sscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * C * N;
-  merge_kernel<T, D><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
+  merge_kernel<T, DP><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
-      static_cast<T*>(out), parts, rows, C, N, G, sscale);
+      static_cast<T*>(out), parts, rows, C, N, G, D, sscale);
   return (int)cudaGetLastError();
 }
 
@@ -384,7 +413,7 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
 // the warps (the warps then split each unit's keys), else 4.
 inline int queries_a_warp(int G, int C) { return G * C <= NWC ? 1 : 4; }
 
-// Type, head-dim and queries-a-warp dispatch. D must be 64 or 128, C >= 1,
+// Type, head-dim and queries-a-warp dispatch. D must be 64, 80, 96, 128 or 256, C >= 1,
 // parts >= 1 with ceil(P / parts) <= MAXP, and parts > 1 needs a workspace of
 // parts * B * C * N * (D + 2) floats. Returns a cudaError_t value, 0 on a
 // successful launch.
@@ -392,20 +421,23 @@ inline int dispatch(const void* q, const void* kf, const void* vf, const void* k
                     const void* table, const void* lengths, int length_stride, void* out, void* ws, int parts, int B,
                     int C, int N, int Nkv, int P, int bs, int D, float sscale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int DP = padded_dim(D);
   if (B < 1 || Nkv <= 0 || N % Nkv != 0 || C < 1 || P < 1 || bs < 1 || parts < 1 || (parts > 1 && !ws) ||
-      (P + parts - 1) / parts > MAXP || (D != 64 && D != 128) ||
+      (P + parts - 1) / parts > MAXP || DP == 0 ||
       reinterpret_cast<uintptr_t>(kc) % 16 != 0 || reinterpret_cast<uintptr_t>(vc) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const bool four = queries_a_warp(N / Nkv, C) == 4;
   auto run = [&](auto kern) {
-    return kern(q, kf, vf, kc, vc, table, lengths, length_stride, out, ws, parts, B, C, N, Nkv, P, bs, sscale, st);
+    return kern(q, kf, vf, kc, vc, table, lengths, length_stride, out, ws, parts, B, C, N, Nkv, P, bs, D, sscale, st);
   };
   if (is_bf16) {
     using B16 = __nv_bfloat16;
-    if (D == 128) return four ? run(&launch<B16, 128, 4>) : run(&launch<B16, 128, 1>);
+    if (DP == 256) return four ? run(&launch<B16, 256, 4>) : run(&launch<B16, 256, 1>);
+    if (DP == 128) return four ? run(&launch<B16, 128, 4>) : run(&launch<B16, 128, 1>);
     return four ? run(&launch<B16, 64, 4>) : run(&launch<B16, 64, 1>);
   }
-  if (D == 128) return four ? run(&launch<float, 128, 4>) : run(&launch<float, 128, 1>);
+  if (DP == 256) return four ? run(&launch<float, 256, 4>) : run(&launch<float, 256, 1>);
+  if (DP == 128) return four ? run(&launch<float, 128, 4>) : run(&launch<float, 128, 1>);
   return four ? run(&launch<float, 64, 4>) : run(&launch<float, 64, 1>);
 }
 

@@ -20,7 +20,8 @@
 // wrapper offsets them, 16-byte aligned); table is int32 [B, P]; kf/vf are
 // [B, Nkv, C, D] or null when has_fresh is 0. parts > 1 splits each row's
 // pages and needs ws, parts * B * C * N * (D + 2) floats (no memset). Returns
-// a cudaError_t value: 0 on a successful launch. D must be 64 or 128.
+// a cudaError_t value: 0 on a successful launch. D must be 64, 80, 96, 128 or
+// 256.
 extern "C" int lia_paged_decode(const void* q, const void* kf, const void* vf, const void* kc,
                                 const void* vc, const void* table, const void* lengths,
                                 int length_stride, void* out, void* ws, int parts, int B, int C, int N,
@@ -31,7 +32,8 @@ extern "C" int lia_paged_decode(const void* q, const void* kf, const void* vf, c
 }
 
 // Dynamic shared memory of one block (for the build report): element size,
-// D, bs and the queries a consumer warp holds (1 or 4).
+// D (any the body takes: the ring holds rows D apart), bs and the queries a
+// consumer warp holds (1 or 4).
 extern "C" int lia_paged_smem_bytes(int es, int D, int bs, int qpw) {
   return lia_paged::Geo(es, D, bs, qpw).bytes;
 }

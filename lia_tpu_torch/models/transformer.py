@@ -55,8 +55,8 @@ Params = Dict[str, Any]
 
 # families whose RoPE layouts the port's tests hold against the reference (the
 # llama layout includes StableLM's LayerNorm; ChatGLM rotates half of each head,
-# interleaved)
-ROPE_FAMILIES = ("llama", "gptj", "gpt_neox", "falcon", "chatglm", "baichuan")
+# interleaved; CodeGen runs GPT-J's layout)
+ROPE_FAMILIES = ("llama", "gptj", "gpt_neox", "falcon", "chatglm", "baichuan", "codegen")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -64,8 +64,7 @@ def check_supported(cfg: ModelConfig) -> None:
     what is missing."""
     missing = [
         name for name, on in (
-            ("the codegen family (its converter; head dims 80 and 256)", cfg.family == "codegen"),
-            (f"RoPE in the {cfg.family} layout", cfg.rope and cfg.family not in ROPE_FAMILIES + ("codegen",)),
+            (f"RoPE in the {cfg.family} layout", cfg.rope and cfg.family not in ROPE_FAMILIES),
             ("ALiBi", cfg.alibi), ("mixture of experts", cfg.num_experts),
             ("encoder-decoder", cfg.encoder_decoder), ("vision tower", cfg.vision_hidden),
         ) if on

@@ -31,7 +31,8 @@ from lia_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KERNEL_DIMS = (64, 128)  # head dims the kernels are instantiated for
+KERNEL_DIMS = (64, 80, 96, 128, 256)  # head dims the kernels take: 80 and 96 run the 128-wide bodies over
+# zero-padded dims (csrc/*.cuh: DP), rows still D apart in memory
 KERNEL_MAX_GROUP = 128  # largest GQA group G = N / N_kv the attention kernels take (any G from 1 up:
 # each splits a kv head's queries into chunks; checked on an H100 at G = 1, 2, 3, 4, 8, 16, 71 and 128)
 FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads, or past G = 64 flat (position,
@@ -45,13 +46,20 @@ INT8_QUERIES = 8  # queries one int8 decode block holds (csrc/decode_int8_attn.c
 INT8_MAX_PARTS = 8
 INT8_PART_KEYS = 1024  # keys of a unit's longest walk a part takes at least: splits of walks
 # up to 1152 keys lost or tied on an H100 (chip_smoke.py's forced-split rows)
-BEAM_QUERIES = 16  # queries one bf16 beam block holds (csrc/beam_attn.cuh: NQ)
+BEAM_QUERIES = 16  # queries one bf16 beam block holds (csrc/beam_attn.cuh: NQ); 8 at D = 256 (beam_queries)
 WARP_MAX_GROUP = 8  # bf16 plane decode (B2, B7/B8) past this group runs the bf16 beam body (csrc/decode.cu):
 # decode_attn.cuh's warp body took 0.045 ms at G = 16 and 71 on an H100 (chip_smoke.py's group rows)
 BEAM_MAX_PARTS = 8
 BEAM_PART_KEYS = 64  # keys of a group's longest walk a bf16 beam part takes at least (a ring stage):
 # on an H100 a split lost at one block an SM (4 x 4 beams, 32 heads: 128 blocks) and won at
 # Llama-3-8B's 32 blocks over 256 and 1024 prompt slots (chip_smoke.py's forced-split rows)
+
+
+def beam_queries(D: int) -> int:
+    """Queries one bf16 beam block holds at head dim D (csrc/beam_attn.cuh:
+    qn): one n8 column tile at D = 256, so its O^T fragments fit the
+    registers."""
+    return 8 if D > 128 else BEAM_QUERIES
 
 
 def _sscale(scale: Optional[float], D: int) -> float:
@@ -240,7 +248,9 @@ def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
     [B, N_kv, S]) that ``allow`` [B, S] marks, then the fresh token (values in
     q's type): scores are dots of q's values with the codes, times ``ks *
     scale``; probabilities times ``vs`` round to q's type before they meet the
-    value codes; the fresh token merges in fp32."""
+    value codes, taken against the keys' own max as the kernels' online
+    softmax (and the Pallas kernels') takes them before the fresh token is
+    seen; the fresh token then merges in fp32, rescaling the keys' sums."""
     B, _, N, D = q.shape
     Nkv = kq.shape[1]
     G = N // Nkv
@@ -250,12 +260,13 @@ def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
     s = s * (ks * sscale)[:, :, None, :]
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     sf = torch.einsum("bhgd,bhd->bhg", qt * sscale, k_fresh.float()[:, :, 0])[..., None]
-    m = torch.maximum(s.amax(dim=-1, keepdim=True), sf)
-    p = torch.exp2(s - m)
-    pf = torch.exp2(sf - m)
-    l = p.sum(dim=-1, keepdim=True) + pf
+    mk = s.amax(dim=-1, keepdim=True)  # the keys' max (NEG_INF for a row without keys)
+    m = torch.maximum(mk, sf)
+    p = torch.where(allow[:, None, None], torch.exp2(s - mk), torch.zeros_like(s))
+    alpha, pf = torch.exp2(mk - m), torch.exp2(sf - m)
+    l = p.sum(dim=-1, keepdim=True) * alpha + pf
     pw = (p * vs[:, :, None, :]).to(q.dtype).float()
-    acc = torch.einsum("bhgk,bhkd->bhgd", pw, vq.float())
+    acc = torch.einsum("bhgk,bhkd->bhgd", pw, vq.float()) * alpha
     acc = acc + pf * v_fresh.float()[:, :, 0][:, :, None, :]
     out = acc / l.clamp(min=1e-30)
     return out.reshape(B, 1, N, D).to(q.dtype)
@@ -459,11 +470,12 @@ def flash_split_parts(B: int, C: int, N: int, Nkv: int, S_kv: int, sms: int) -> 
     return max(1, min(sms // _flash_tiles(B, C, N, Nkv), -(-S_kv // FLASH_BK) // 2, FLASH_MAX_PARTS))
 
 
-def flash_warpgroups(B: int, C: int, N: int, Nkv: int, parts: int, sms: int) -> int:
+def flash_warpgroups(B: int, C: int, N: int, Nkv: int, parts: int, sms: int, D: int = 128) -> int:
     """Consumer warpgroups of a flash block: 2, splitting each block's walk
     between them, where the grid (tiles times parts) is at most one block an
-    SM; else 1, and two blocks share an SM."""
-    return 2 if _flash_tiles(B, C, N, Nkv) * parts <= sms else 1
+    SM; else 1, and two blocks share an SM. At D = 256 always 1 (its O
+    accumulator takes a warpgroup's registers at one block an SM)."""
+    return 2 if D <= 128 and _flash_tiles(B, C, N, Nkv) * parts <= sms else 1
 
 
 _SMS = {}
@@ -484,7 +496,7 @@ def _flash_grid(q, Nkv: int, S_kv: int):
     sms = _sms(q.get_device())
     parts = flash_split_parts(B, C, N, Nkv, S_kv, sms)
     ws = torch.empty(parts * B * C * N * (D + 2), dtype=torch.float32, device=q.device) if parts > 1 else None
-    return parts, flash_warpgroups(B, C, N, Nkv, parts, sms), ws
+    return parts, flash_warpgroups(B, C, N, Nkv, parts, sms, D), ws
 
 
 def paged_query_chunks(G: int, C: int) -> int:
@@ -557,12 +569,14 @@ def int8_beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms:
 
 
 @functools.lru_cache(maxsize=None)
-def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int) -> Tuple[int, int]:
+def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int,
+              D: int = 128) -> Tuple[int, int]:
     """B9's (beams a block, parts) for bf16 calls, cached by shape. A block
     holds the queries of all nb beams of a group where their nb * G fit
-    BEAM_QUERIES, else as many whole beams as fit (the group's prompt is then
-    read once for each block of its beams), and one (bpc = 1) where a beam's
-    G queries do not fit, which go to blocks in runs of BEAM_QUERIES. Its
+    :func:`beam_queries` (16, or 8 at D = 256), else as many whole beams as
+    fit (the group's prompt is then read once for each block of its beams),
+    and one (bpc = 1) where a beam's G queries do not fit, which go to blocks
+    in runs of that many. Its
     blocks are one a (kv head, group, run of queries: :func:`query_runs`);
     where they leave SMs idle, each group's keys split
     into as many parts as keep the blocks within one an SM (a block's copies
@@ -572,9 +586,9 @@ def beam_plan(B: int, nb: int, N: int, Nkv: int, S_p: int, T_max: int, sms: int)
     its merge launch and each part's fixed start only over long walks.
     chip_smoke.py times the host's choice beside the split forced the other
     way."""
-    G = N // Nkv
-    bpc = max(1, min(nb, BEAM_QUERIES // G))
-    blocks = Nkv * (B // nb) * query_runs(nb, G, bpc, BEAM_QUERIES)
+    G, nq = N // Nkv, beam_queries(D)
+    bpc = max(1, min(nb, nq // G))
+    blocks = Nkv * (B // nb) * query_runs(nb, G, bpc, nq)
     return bpc, max(1, min(sms // blocks, BEAM_MAX_PARTS, (S_p + T_max) // BEAM_PART_KEYS))
 
 
@@ -674,14 +688,14 @@ def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
         raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
 
 
-def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int) -> Tuple[int, int]:
+def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int, D: int = 128) -> Tuple[int, int]:
     """(beams a block, parts) of a plane decode call (B2, B7/B8): (1, 1) on
     decode_attn.cuh's warp body (fp32, or G up to WARP_MAX_GROUP); past that
     a bf16 call runs the bf16 beam body, each row a group of one beam with
     no tail, and takes :func:`beam_plan`'s split."""
     if not bf16 or N // Nkv <= WARP_MAX_GROUP:
         return 1, 1
-    return beam_plan(B, 1, N, Nkv, S_max, 0, sms)
+    return beam_plan(B, 1, N, Nkv, S_max, 0, sms, D)
 
 
 def _plane_groups(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream):
@@ -695,7 +709,7 @@ def _plane_groups(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, length
     _, Nkv, S_max, _ = plane_shape
     dev = q.get_device()
     sms = _sms(dev)
-    bpc, parts = plane_plan(B, N, Nkv, S_max, True, sms)
+    bpc, parts = plane_plan(B, N, Nkv, S_max, True, sms, D)
     _aligned16(q.data_ptr(), kc_ptr, vc_ptr, *(t.data_ptr() for t in fresh))
     ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
@@ -914,7 +928,7 @@ def decode_beam_attention(
     bpc, parts = 1, 1  # fp32: the warp body, which never splits
     if is_bf16:
         _aligned16(*ptrs)
-        bpc, parts = beam_plan(B, nb, N, Nkv, S_p, T_max, sms)
+        bpc, parts = beam_plan(B, nb, N, Nkv, S_p, T_max, sms, D)
     ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
     out = torch.empty_like(q)
     rc = _build.library("beam_decode").lia_beam_decode(

@@ -331,8 +331,8 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
     """Map a Hugging Face state dict (numpy arrays or tensors, e.g. the mapped
     tensors of :func:`load_hf_checkpoint`) into the stacked tree, for OPT, the
     llama layout (llama, mistral, qwen2 with its qkv biases, StableLM with
-    LayerNorm; not mixture of experts), GPT-J, GPT-NeoX, Falcon (multi-query),
-    ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
+    LayerNorm; not mixture of experts), GPT-J, CodeGen, GPT-NeoX, Falcon
+    (multi-query), ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
     [out, in]; the tree stores [in, out]. Values go through fp32 and are cast
     once to ``cfg.dtype``, as the reference's mapping does, one key (one
     layer) at a time: each stacked leaf is allocated once in ``cfg.dtype`` and
@@ -365,6 +365,8 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         return _params_llama(cfg, raw, wT, stack)
     if cfg.family == "gptj":
         return _params_gptj(raw, wT, stack)
+    if cfg.family == "codegen":
+        return _params_codegen(cfg, get, cast, raw, stack)
     if cfg.family == "gpt_neox":
         return _params_gpt_neox(cfg, get, cast, raw, wT, stack)
     if cfg.family == "falcon":
@@ -374,8 +376,8 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
     if cfg.family == "baichuan":
         return _params_baichuan(cfg, get, cast, raw, stack)
     if cfg.family != "opt":
-        raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J, GPT-NeoX, Falcon, ChatGLM and "
-                                  "Baichuan state-dict mappings are ported")
+        raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J, CodeGen, GPT-NeoX, Falcon, "
+                                  "ChatGLM and Baichuan state-dict mappings are ported")
 
     pre = "model.decoder."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -478,6 +480,41 @@ def _params_gptj(raw, wT, stack) -> Params:
                 "wv": stack(lp + "attn.v_proj.weight", True),
                 "wo": stack(lp + "attn.out_proj.weight", True),
             },
+            "mlp": {
+                "w1": stack(lp + "mlp.fc_in.weight", True),
+                "b1": stack(lp + "mlp.fc_in.bias"),
+                "w2": stack(lp + "mlp.fc_out.weight", True),
+                "b2": stack(lp + "mlp.fc_out.bias"),
+            },
+        },
+    }
+
+
+def _params_codegen(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """CodeGen (HF modeling_codegen): GPT-J's layout (one shared ln_1, a
+    biased fc_in/fc_out MLP, an untied lm_head with a bias), but one fused
+    ``qkv_proj`` [3H, H] laid out in mp_num = 4 blocks, each [q | v | k]
+    chunks of H / 4 rows, split here into wq, wk and wv (each layer read
+    once)."""
+    L, H, mp = cfg.num_layers, cfg.hidden_size, 4
+    lp = "transformer.h.{}."
+    attn = {n: None for n in ("wq", "wv", "wk")}
+    for i in range(L):
+        blocks = get(lp.format(i) + "attn.qkv_proj.weight").reshape(mp, 3, H // mp, H)  # block m: [q | v | k]
+        for j, n in enumerate(attn):
+            w = cast(blocks[:, j].reshape(H, H).T)
+            if attn[n] is None:
+                attn[n] = torch.empty((L, *w.shape), dtype=w.dtype)
+            attn[n][i] = w
+    attn["wo"] = stack(lp + "attn.out_proj.weight", True)
+    return {
+        "embed_tokens": raw("transformer.wte.weight"),
+        "final_norm": {"scale": raw("transformer.ln_f.weight"), "bias": raw("transformer.ln_f.bias")},
+        "lm_head": cast(get("lm_head.weight").T),
+        "lm_head_bias": raw("lm_head.bias"),
+        "layers": {
+            "ln1": {"scale": stack(lp + "ln_1.weight"), "bias": stack(lp + "ln_1.bias")},
+            "attn": {n: attn[n] for n in ("wq", "wk", "wv", "wo")},
             "mlp": {
                 "w1": stack(lp + "mlp.fc_in.weight", True),
                 "b1": stack(lp + "mlp.fc_in.bias"),

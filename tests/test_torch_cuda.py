@@ -1617,7 +1617,7 @@ def test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, rag
     kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=dtype), _randn(gen, L, B, Nkv, S_max, D, dtype=dtype)
     _beam_parts(monkeypatch, parts)
     used = ca.plane_plan(B, N, Nkv, S_max, dtype is torch.bfloat16,
-                         torch.cuda.get_device_properties(cuda).multi_processor_count)[1]
+                         torch.cuda.get_device_properties(cuda).multi_processor_count, D)[1]
     args = (q, kf, vf, kc, vc, 1, sm, length)
     splits = ca.decode_attention_fresh.split_launches
     torch.testing.assert_close(ca.decode_attention_fresh(*args).float(), ca.decode_attention_fresh_plain(*args).float(),
@@ -1686,3 +1686,104 @@ def test_paged_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, dtype, C, fr
     out = ca.paged_decode_attention(*args)
     torch.testing.assert_close(out.float(), ca.paged_decode_attention_plain(*args).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# head dims 80, 96 and 256 (OPT-2.7B, StableLM-3B, CodeGen-2B; GPT-NeoX-20B;
+# GPT-J-6B, CodeGen-6B): the padded bodies, rows D apart
+# ---------------------------------------------------------------------------
+
+# (N, N_kv, D): G = 1 and 4 at each new D, and G = 2, 8 and 16 (past the warp
+# body's 8 heads a block, and two bf16 beam runs at D = 256)
+HEAD_DIMS = [(4, 4, 80), (8, 2, 80), (4, 4, 96), (8, 2, 96), (4, 2, 96), (2, 2, 256), (8, 2, 256), (16, 2, 256),
+             (16, 1, 256)]
+HEAD_IDS = ["D80 G1", "D80 G4", "D96 G1", "D96 G4", "D96 G2", "D256 G1", "D256 G4", "D256 G8", "D256 G16"]
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_flash_kernels_at_head_dims(cuda, N, Nkv, D, window):
+    """B1 and B6 at the new head dims: the tensor map's columns past D read as
+    zeros, and only D columns are stored."""
+    test_flash_kernels_at_large_groups(cuda, N, Nkv, D, window)
+
+
+@pytest.mark.parametrize("parts", [2, 5])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS[::2], ids=HEAD_IDS[::2])
+def test_flash_cached_split_at_head_dims(cuda, monkeypatch, N, Nkv, D, parts):
+    """B6's split and its merge launch over rows D apart."""
+    test_flash_cached_split_at_large_groups(cuda, monkeypatch, N, Nkv, D, parts)
+
+
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_flash_prefill_main_shape_at_head_dims(cuda, N, Nkv, D):
+    """B1 at the main path's 16 rows x 256 positions with left pads."""
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    B, S, dtype = 16, 256, torch.bfloat16
+    q, k, v = _randn(gen, B, S, N, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype), _randn(gen, B, Nkv, S, D, dtype=dtype)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    for b in range(B):
+        mask[b, : 13 * b] = False
+    valid = mask[:, :, None, None]
+    out, ref = ca.flash_attention_prefill(q, k, v, mask), ca.flash_attention_prefill_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float() * valid, ref.float() * valid, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_decode_kernels_at_head_dims(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts):
+    """B2, B7 and B8 at the new head dims: the warp body's lanes past D idle
+    (and at D = 256 four heads a block), bf16 past G = 8 on the bf16 beam
+    body."""
+    test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts)
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_int8_decode_at_head_dims(cuda, monkeypatch, N, Nkv, D, dtype, parts):
+    """B3 at the new head dims: rows of D code bytes in DP-byte ring rows,
+    the q slices past D zero."""
+    test_int8_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, dtype, parts)
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_beam_decode_at_head_dims(cuda, monkeypatch, N, Nkv, D, int8, dtype, parts):
+    """B9 and B10 at the new head dims, 4 beams a group, a tail of 3 (B9's
+    bf16 blocks hold 8 queries at D = 256)."""
+    test_beam_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, int8, dtype, 4, 3, parts)
+
+
+@pytest.mark.parametrize("parts", [None, 3])
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
+def test_paged_decode_at_head_dims(cuda, monkeypatch, N, Nkv, D, dtype, C, fresh, parts):
+    """B5 at the new head dims: pages of rows D apart, copied as they are."""
+    test_paged_decode_at_large_groups(cuda, monkeypatch, N, Nkv, D, dtype, C, fresh, parts)
+
+
+def test_other_head_dims_raise_on_the_card(cuda):
+    """D = 112 (MPT-30B, with ALiBi) and 48 still raise on the card: no plain
+    version runs on a CUDA tensor."""
+    dt = torch.bfloat16
+    for D in (112, 48):
+        q = torch.zeros(2, 16, 4, D, device=cuda, dtype=dt)
+        k = torch.zeros(2, 4, 16, D, device=cuda, dtype=dt)
+        mask = torch.ones(2, 16, dtype=torch.bool, device=cuda)
+        with pytest.raises(ValueError, match="unsupported head shape"):
+            ca.flash_attention_prefill(q, k, k, mask)
+        qd = torch.zeros(2, 1, 4, D, device=cuda, dtype=dt)
+        kc = torch.zeros(2, 2, 4, 16, D, device=cuda, dtype=dt)
+        fresh = torch.zeros(2, 4, 1, D, device=cuda, dtype=dt)
+        with pytest.raises(ValueError, match="unsupported head shape"):
+            ca.decode_attention_fresh(qd, fresh, fresh, kc, kc, 1, mask, 8)
+        with pytest.raises(ValueError, match="unsupported head shape"):
+            ca.decode_attention(qd, kc[0], kc[0], mask, 8)
+
