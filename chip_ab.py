@@ -8,8 +8,11 @@ cold) taken first: ``matmul``, the quantized-matmul entry points
 ``woq4z_matmul``) at OPT-6.7B's wqkv, fc2 and head with 16 and 4096 rows;
 ``flash``, B1 (b16 s256) and B6 (a 256-row chunk at base 768); ``decode``,
 B2 (``decode_attention_fresh``), B7/B8 (``decode_attention`` and its stacked
-entry) at chip_smoke's table shapes and B9 (``decode_beam_attention``) at 4 x
-4 beams over a 256- and a 1024-slot prompt and at Llama-3-8B's heads;
+entry) at chip_smoke's table shapes, and B2 and B7 at OPT-2.7B's,
+GPT-NeoX-20B's, GPT-J-6B's and Llama-3-8B's heads, at G = 2 and at D = 256,
+G = 4, and B9 (``decode_beam_attention``) at 4 x 4 beams over a 256- and a
+1024-slot prompt, at Llama-3-8B's heads and at those heads with D = 256
+over either prompt (64 blocks);
 ``paged``, B5 (``paged_decode_attention``: b16 over lengths 272 - pad, also
 at Llama-3-8B's G = 4 and over rows of ~1000 tokens); ``mlp``, B14
 (``fused_mlp``: Llama-3-8B's SwiGLU and OPT-6.7B's relu at 16 rows, and at 1
@@ -131,8 +134,28 @@ def kernel_times(cs, ca, cm, groups) -> None:
         emit("decode_attention", "b16 273-pad", cs.B, lambda: ca.decode_attention(qd, kc[li], vc[li], sm_inc, ln_inc))
         emit("decode_attention_stacked", "b16 273-pad", cs.B,
              lambda: ca.decode_attention_stacked(qd, kc, vc, li, sm_inc, ln_inc))
+        # B2 and B7 at the other timed heads: chip_smoke's HEAD_DIM_HEADS and
+        # PLANE_HEADS shapes (a 384-slot cache, the same rows)
+        for shape, Nq, Nkv, Dh in (("opt-2.7b heads D=80", 32, 32, 80), ("gpt-neox-20b heads D=96", 64, 64, 96),
+                                   ("gpt-j-6b heads D=256", 16, 16, 256), ("G=2", 32, 16, 128),
+                                   ("llama-3-8b heads G=4", 32, 8, 128), ("D=256 G=4", 16, 4, 256)):
+            q2, kf2, vf2 = randn(cs.B, 1, Nq, Dh), randn(cs.B, Nkv, 1, Dh), randn(cs.B, Nkv, 1, Dh)
+            sm2 = torch.zeros(cs.B, 384, dtype=torch.bool, device="cuda")
+            for b, p in enumerate(dpads):
+                sm2[b, p:cs.PAST] = True
+            kc2, vc2 = randn(2, cs.B, Nkv, 384, Dh), randn(2, cs.B, Nkv, 384, Dh)
+            sm2_inc = sm2.clone()
+            sm2_inc[:, cs.PAST] = True
+            emit("decode_attention_fresh", f"b16 272-pad, {shape}", cs.B,
+                 lambda a=(q2, kf2, vf2, kc2, vc2, 1, sm2, ln): ca.decode_attention_fresh(*a))
+            emit("decode_attention", f"b16 273-pad, {shape}", cs.B,
+                 lambda a=(q2, kc2[1], vc2[1], sm2_inc, ln_inc): ca.decode_attention(*a))
+        # B9 at 128, 32 and (Llama's heads at D = 256: two blocks a group) 64
+        # blocks, where beam_plan splits and the plane route (plane_plan) does not
         for shape, kw in (("4 x 4 beams", {}), ("4 x 4 beams, 1024-slot prompt", dict(S_p=1024)),
-                          ("llama G4 4 x 4 beams", dict(Nkv=cs.N // 4))):
+                          ("llama G4 4 x 4 beams", dict(Nkv=cs.N // 4)),
+                          ("llama G4 D256 4 x 4 beams", dict(Nkv=cs.N // 4, Dh=256)),
+                          ("llama G4 D256 4 x 4 beams, 1024-slot prompt", dict(Nkv=cs.N // 4, Dh=256, S_p=1024))):
             kernel, _, args = cs.beam_case(ca, quantize_kv, randn, False, **kw)
             emit("decode_beam_attention", shape, cs.B, lambda k=kernel, a=args: k(*a))
     if "paged" in groups:

@@ -6,9 +6,10 @@ Phases, each printing one JSON line per item:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
-   the flash, quantized-matmul, paged-decode, fused-MLP, int8-decode and bf16
-   beam libraries' kernels as ptxas built them (registers, spills: none
-   allowed) and their blocks' dynamic shared memory (and ring stages);
+   the flash, quantized-matmul, paged-decode, fused-MLP, int8-decode, bf16
+   beam and plane-decode libraries' kernels as ptxas built them (registers,
+   spills: none allowed) and their blocks' dynamic shared memory (and ring
+   stages);
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
@@ -36,8 +37,11 @@ Phases, each printing one JSON line per item:
    of queries) and ChatGLM3-6B's (32 over 2, D 128: G = 16), and at the head
    dims 80, 96 and 256 (the padded bodies): OPT-2.7B's heads (32 over 32, D
    80), GPT-NeoX-20B's (64 over 64, D 96) and GPT-J-6B's (16 over 16, D 256),
-   each D also at G = 4. Each check draws its inputs from a generator of its
-   own, seeded from its name (check_randn). Quantized
+   each D also at G = 4; B2 and B7 (plane_checks) on the host's route (the
+   plane body at G = 1, the bf16 beam body past it) at OPT-6.7B's and
+   Llama-3-8B's heads, at G = 2, at D = 256, G = 4 and at G = 8, each with
+   its parts and forced to 1 and 3. Each check draws its inputs
+   from a generator of its own, seeded from its name (check_randn). Quantized
    matmuls at M = 16 (decode rows) and 4096
    (prefill rows) for the wqkv, fc2 and head (K, N) of OPT-6.7B: w4a8 with and
    without zero-points, woq int8 per-channel / int4 g128 / NF4 g128, woq4z g128;
@@ -189,7 +193,11 @@ Phases, each printing one JSON line per item:
    a chunk256 first chunk, each with its number of parts and SDPA's time; the
    every attention kernel at OPT-2.7B's, GPT-NeoX-20B's and GPT-J-6B's heads
    (D 80, 96, 256), with its parts, beside SDPA, bound from the bytes at the
-   real D; the
+   real D; B2 and B7 at G = 2, Llama-3-8B's heads, D = 256, G = 4 and G =
+   8, with the host's parts beside SDPA, at D = 256, G = 4 with the split
+   forced the other way, and at OPT-6.7B's heads on the bf16 beam body (the
+   body past PLANE_MAX_GROUP, against the plane body's row of the kernels
+   line); the
    paged body at Llama-3-8B's heads (G = 4, 8 KV heads) and over rows of ~1000
    tokens, with its parts and SDPA's time; B3 at Llama-3-8B's heads and over
    ~1000-token rows and B10 over a 1024-slot prompt, with their parts and
@@ -444,7 +452,7 @@ def device_ms(fn) -> float:
 
 
 # the port's own kernels in a trace, by their CUDA names (csrc/*.cu, *.cuh)
-OWN_KERNEL = re.compile(r"lia_(dec8?|flash|paged|qmm|beam)::|fused_mlp_kernel")
+OWN_KERNEL = re.compile(r"lia_(dec8?|flash|paged|qmm|beam|plane)::|fused_mlp_kernel")
 TRACE_TRIES = 5
 
 
@@ -722,29 +730,37 @@ def beam_build_report(_build, paths) -> None:
 
 
 def decode_build_report(_build, paths) -> None:
-    """The bf16 and fp32 plane decode libraries' kernels (decode.cu: B7/B8,
-    decode_fresh.cu: B2) as ptxas built them: the warp body (decode_attn.cuh)
-    by type, width, D and query heads a block, the bf16 beam body behind it
-    past G = 8 and its merge (registers, spill stores and loads). A spill in
-    the beam body or in a warp body at D 80, 96 or 256 fails the run (at 64
-    and 128 the G = 3 runs spill a few bytes, as before these head dims)."""
+    """The plane decode libraries' kernels (decode.cu: B7/B8, decode_fresh.cu:
+    B2) as ptxas built them: the bf16 plane body (plane_attn.cuh) by width and
+    D, the bf16 beam body behind it past
+    PLANE_MAX_GROUP and the split's merge at each width, and the fp32 warp
+    body (decode_attn.cuh) by width, D and heads (registers, spill stores and
+    loads), with a plane block's dynamic shared memory and ring stages at the
+    timed shapes on this card. A spill in the plane or beam body, or in a
+    warp body at D 80, 96 or 256, fails the run (at 64 and 128 the fp32 G =
+    3 runs spill a few bytes, as before these head dims)."""
     import re
 
+    from lia_tpu_torch.ops import cuda_attention as ca
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for lib in ("decode", "decode_fresh"):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
-            m = re.search(r"Function properties for \S*?(?:decode_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E"
-                          r"Lb\dELi\dELb(\d)E|beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16"
-                          r"Li(\d+)E)", line)
+            m = re.search(r"Function properties for \S*?(?:plane_kernelILi(\d+)ELi(\d+)ELb\dE|decode_kernelIf"
+                          r"Li(\d+)ELi(\d+)ELi(\d+)ELb\dELi\dELb(\d)E|beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|"
+                          r"merge_kernelI13__nv_bfloat16Li(\d+)E)", line)
             if m:
-                if m.group(1):
-                    t = "bf16" if m.group(1) != "f" else "fp32"
-                    name = (f"decode_kernel<{t}, width={m.group(2)}, D={m.group(3)}, heads={m.group(4)}"
-                            f"{', chunked' if m.group(5) == '1' else ''}> (warp body)")
-                elif m.group(6):
-                    name = f"beam_kernel<width={m.group(6)}, D={m.group(7)}, column tiles={m.group(8)}>"
+                g = m.groups()
+                if g[0]:
+                    name = f"plane_kernel<width={g[0]}, D={g[1]}> (plane body)"
+                elif g[2]:
+                    name = (f"decode_kernel<fp32, width={g[2]}, D={g[3]}, heads={g[4]}"
+                            f"{', chunked' if g[5] == '1' else ''}> (warp body)")
+                elif g[6]:
+                    name = f"beam_kernel<width={g[6]}, D={g[7]}, column tiles={g[8]}>"
                 else:
-                    name = f"merge_kernel<bf16, width={m.group(9)}>"
+                    name = f"merge_kernel<bf16, width={g[9]}>"
                 cur = {"kernel": name}
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -753,10 +769,22 @@ def decode_build_report(_build, paths) -> None:
             m = re.search(r"Used (\d+) registers", line)
             if m and cur is not None:
                 cur["registers"] = int(m.group(1))
-        emit({"phase": "kernel_build", "library": lib, "kernels": kernels})
+        L = _build.library(lib)
+        smem = {}
+        for label, Bq, Nq, Nkv, Dh in (("OPT-6.7B b16", B, N, N, D), ("OPT-2.7B b16", B, 32, 32, 80),
+                                       ("GPT-NeoX-20B b16", B, 64, 64, 96), ("GPT-J-6B b16", B, 16, 16, 256)):
+            plan = ca.plane_plan(Bq, Nq, Nkv, 384, True, sms, Dh)
+            smem[label] = {"parts": plan.parts, "stages": plan.stages,
+                           "bytes": L.lia_plane_smem_bytes(Dh, plan.stages)}
+        emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
+        counts = {kind: sum(kind in k["kernel"] for k in kernels) for kind in ("plane body", "warp body", "beam_kernel",
+                                                                              "merge_kernel")}
         held = [k for k in kernels if "warp body" not in k["kernel"] or re.search(r"D=(80|96|256),", k["kernel"])]
-        check(len(kernels) == 64 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in held),
-              f"{lib}: ptxas reports spills (or no report): {kernels}")
+        # the plane body at 5 head dims, the fp32 warp body's 26 instances, the
+        # beam body's 9 and its merge at 3 widths
+        check(counts == {"plane body": 5, "warp body": 26, "beam_kernel": 9, "merge_kernel": 3}
+              and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in held),
+              f"{lib}: ptxas reports spills (or another set of kernels): {counts} {kernels}")
 
 
 # ---------------------------------------------------------------------------
@@ -926,6 +954,7 @@ def kernel_checks(ca, quantize_kv):
     int8_decode_checks(ca, quantize_kv, check_randn("int8_decode_checks"))
     llama_attention_checks(ca, quantize_kv, check_randn("llama_attention_checks"))
     head_kernel_checks(ca, quantize_kv, GROUP_HEADS + HEAD_DIM_HEADS)
+    plane_checks(ca)
     verify_kernel_checks(ca, check_randn("verify_kernel_checks"))
     for name, r in rows.items():
         emit({"phase": "kernel_check", "kernel": name, "max_abs_err": r["max_abs_err"], "tol": KERNEL_TOL})
@@ -1136,6 +1165,99 @@ def split_forced(ca, parts, fn, plan: str = "flash_split_parts"):
         finally:
             setattr(ca, plan, real)
     return call
+
+
+def plane_forced(ca, fn, parts=None, beam=False):
+    """``fn`` with bf16 plane decode (B2, B7/B8) split into ``parts`` parts
+    (None: the host's choice) and, with ``beam``, on the bf16 beam body at
+    every group (as the host's route past PLANE_MAX_GROUP: a group of one
+    beam, planned by beam_plan)."""
+    def call():
+        real = ca.plane_plan
+
+        def plan(B_, N_, Nkv, S_max, bf16, sms, D_=128):
+            if beam and bf16:
+                bpc, host = ca.beam_plan(B_, 1, N_, Nkv, S_max, 0, sms, D_)
+                return ca.PlanePlan("beam", parts or host, 0, bpc)
+            return real(B_, N_, Nkv, S_max, bf16, sms, D_, parts)
+        ca.plane_plan = plan
+        try:
+            return fn()
+        finally:
+            ca.plane_plan = real
+    return call
+
+
+# the plane decode shapes beyond the table's, past PLANE_MAX_GROUP (where the
+# bf16 beam body takes them): G = 2 (N 32 over 16, D 128), Llama-3-8B's heads
+# (G 4, D 128), D = 256 at G = 4 (N 16 over 4) and G = 8 (N 32 over 4)
+PLANE_HEADS = [("G=2 (N 32, N_kv 16, D 128)", 32, 16, 128), ("llama-3-8b heads G=4 (N 32, N_kv 8, D 128)", 32, 8, 128),
+               ("D=256 G=4 (N 16, N_kv 4)", 16, 4, 256), ("G=8 (N 32, N_kv 4, D 128)", 32, 4, 128)]
+
+
+def plane_checks(ca) -> None:
+    """B2 and B7 against their plain versions on the host's route (the plane
+    body, csrc/plane_attn.cuh, at G = 1; the bf16 beam body past
+    PLANE_MAX_GROUP), each with its own parts and forced to 1 and 3: at
+    OPT-6.7B's heads (the kernels line's shape) and at PLANE_HEADS (B 16,
+    past 272 with left pads, a 384-slot cache). Then their timing variants at
+    each shape on the host's route beside SDPA over K/V repeated to the query
+    heads (the repeat not timed); at OPT-6.7B's heads also on the bf16 beam
+    body (the other side of PLANE_MAX_GROUP); at D = 256, G = 4 also with the
+    split forced to 2 parts (64 blocks, where plane_plan leaves out
+    beam_plan's split)."""
+    import torch.nn.functional as F
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dpads = [0, 3, 7, 15] * 4
+    past_keys = sum(PAST - p for p in dpads)
+    for label, Nq, Nkv, Dh in [("opt-6.7b heads (N 32, N_kv 32, D 128)", N, N, D)] + PLANE_HEADS:
+        randn, G = check_randn("plane_checks " + label), Nq // Nkv
+        qd, kf, vf = randn(B, 1, Nq, Dh), randn(B, Nkv, 1, Dh), randn(B, Nkv, 1, Dh)
+        sm = torch.zeros(B, 384, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(dpads):
+            sm[b, p:PAST] = True
+        kc, vc = randn(2, B, Nkv, 384, Dh), randn(2, B, Nkv, 384, Dh)
+        ln = torch.tensor(PAST, dtype=torch.int32, device="cuda")
+        kp, vp = kc[1].clone(), vc[1].clone()
+        kp[:, :, PAST], vp[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+        sm_inc = sm.clone()
+        sm_inc[:, PAST] = True
+        args2, args7 = (qd, kf, vf, kc, vc, 1, sm, ln), (qd, kp, vp, sm_inc, ln + 1)
+        calls = {"decode_attention_fresh": (lambda a=args2: ca.decode_attention_fresh(*a),
+                                            ca.decode_attention_fresh_plain(*args2)),
+                 "decode_attention": (lambda a=args7: ca.decode_attention(*a), ca.decode_attention_plain(*args7))}
+        host = ca.plane_plan(B, Nq, Nkv, 384, True, sms, Dh)
+        check(host.body == ("plane" if G <= ca.PLANE_MAX_GROUP else "beam"), f"{label}: plan {host}")
+        for kernel, (fn, ref) in calls.items():
+            for parts in (None, 1, 3):
+                out = plane_forced(ca, fn, parts)()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                emit({"phase": "kernel_check", "kernel": kernel, "variant": f"{label}, {host.body} body, parts "
+                      f"{parts or 'host'}", "max_abs_err": err, "tol": KERNEL_TOL})
+                check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL,
+                      f"{kernel} {label}, {host.body} body, parts {parts}: max abs err {err}")
+        nbytes = {"decode_attention_fresh": past_keys * Nkv * Dh * 4 + 4 * qd.numel() * 2 + 4 + sm.numel(),
+                  "decode_attention": (past_keys + B) * Nkv * Dh * 4 + 2 * qd.numel() * 2 + 4 + sm.numel()}
+        work = 4 * Dh * Nq * (past_keys + B)
+        qdt, dmask = qd.transpose(1, 2), sm_inc[:, None, None, :]
+        kr, vr = kp.repeat_interleave(G, 1), vp.repeat_interleave(G, 1)
+        beam_parts = ca.beam_plan(B, 1, Nq, Nkv, 384, 0, sms, Dh)[1]
+        for kernel, (fn, _) in calls.items():
+            TIME_VARIANTS.append(dict(
+                kernel_name=kernel, variant=f"{label}, host's route ({host.body} body)", parts=host.parts, kernel=fn,
+                library=lambda a=(qdt, kr, vr, dmask): F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                                                      attn_mask=a[3]),
+                bound=bound(nbytes[kernel], work)))
+            if host.body == "plane":  # the other side of PLANE_MAX_GROUP
+                TIME_VARIANTS.append(dict(
+                    kernel_name=kernel, variant=f"{label}, bf16 beam body", parts=beam_parts,
+                    kernel=plane_forced(ca, fn, beam=True), library=None, bound=bound(nbytes[kernel], work)))
+            elif Dh == 256:  # 64 blocks: beam_plan's split, which plane_plan leaves out, forced
+                TIME_VARIANTS.append(dict(
+                    kernel_name=kernel, variant=f"{label}, {host.body} body, 2 parts forced", parts=2,
+                    kernel=plane_forced(ca, fn, 2), library=None, bound=bound(nbytes[kernel], work)))
 
 
 def serving_kernel_checks(ca, randn, dpads):
@@ -3638,7 +3760,7 @@ def head_kernel_checks(ca, quantize_kv, cases) -> None:
             sm[b, p:PAST] = True
         kc, vc = randn(2, B, Nkv, 384, Dh), randn(2, B, Nkv, 384, Dh)
         args = (qd, kf, vf, kc, vc, 1, sm, ln)
-        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms, Dh)[1]  # past G = 8: B9's body, maybe split
+        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms, Dh).parts  # the plane or bf16 beam body, maybe split
         errs["decode_attention_fresh"] = (ca.decode_attention_fresh(*args).float()
                                           - ca.decode_attention_fresh_plain(*args).float()).abs().max().item()
         kp, vp = kc[1].clone(), vc[1].clone()

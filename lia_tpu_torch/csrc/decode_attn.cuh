@@ -1,9 +1,12 @@
-// Decode attention of one layer, bf16 (or fp32): the kernel body shared by
-// decode_fresh.cu (a contiguous cache plane, the fresh token merged last, the
-// cache read-only), decode.cu (the plane already holds the token, validity
-// includes it) and, for fp32 calls only, beam_decode.cu (a beam's group prompt
-// plane, then its own generated tail, then the fresh token; its bf16 calls
-// run beam_attn.cuh's body).
+// Decode attention of one layer in fp32: the warp body behind the fp32 calls
+// of decode_fresh.cu (B2: a contiguous cache plane, the fresh token merged
+// last), decode.cu (B7/B8: the plane already holds the token, validity
+// includes it) and beam_decode.cu (B9: a beam's group prompt plane, then its
+// own generated tail, then the fresh token). fp32 calls come from the tests
+// and the CPU-parity tools; no model path on the card runs fp32. Every bf16
+// call runs a Hopper body instead: plane_attn.cuh (B2, B7/B8 at one query
+// head a kv head: PLANE_MAX_GROUP) or beam_attn.cuh (B9, and B2, B7/B8 past
+// it).
 //
 // Math, all in fp32: q is scaled by scale*log2(e), the valid keys go through
 // an online softmax in exp2 units, and, with FRESH, the fresh key/value (not
@@ -21,46 +24,27 @@
 //   D] of the beam's group g = b / nb at ((g * Nkv + h) * S_p + t); key t >=
 //   plen in the beam's own tail [B0 * nb, Nkv, T_max, D] at ((b * Nkv + h) *
 //   T_max + t - plen). plen (the length pointer), tlen and the prompt mask are
-//   read on the device, pstart_g = plen - popcount(prompt_mask[g]). Blocks are
-//   launched beams innermost (blockIdx.x = b), so the nb beams of a group read
-//   the same prompt rows at about the same time and the L2 serves nb - 1 of
-//   every nb of those reads (beam_attn.cuh's bf16 body reads them once a
-//   group instead). A warp walks the prompt part of its chunk of the
-//   virtual range, then the tail part, each as a plane walk from its own base
-//   pointer, so a key's address is one offset as over a plane (choosing the
-//   plane per key held both planes' addresses live: 160 registers a thread
-//   against 96 in nvcc's sm_90a build, bf16, D = 128, G = 1).
+//   read on the device, pstart_g = plen - popcount(prompt_mask[g]). A warp
+//   walks the prompt part of its chunk of the virtual range, then the tail
+//   part, each as a plane walk from its own base pointer.
 //
-// What bounds it on an H100: bytes. Each (batch row, kv head) streams its
-// valid K and V rows once and does 4 FLOP per byte. Design: one block per
-// (kv head, batch row, chunk of query heads); the four warps split the key
-// range into contiguous chunks, each lane holds D/32 dimensions, so a warp
-// reads whole rows (256 bytes at D = 128 in bf16); eight keys are loaded per
-// step to keep loads in flight; the GC query heads of a block share every K/V
-// load; partial (m, l, acc) of the warps merge in shared memory. One query a
-// sequence (a chunk of C > 1 is the paged body's, paged_attn.cuh).
+// The design (the port's first decode body, kept for its exactness in fp32,
+// not for speed): one block per (kv head, batch row, chunk of query heads);
+// the four warps split the key range into contiguous chunks, each lane holds
+// DP / 32 dims, eight keys (four at DP = 256) are loaded into registers per
+// step, the block's query heads share every K/V load, and the warps' partial
+// (m, l, acc) merge in shared memory.
 //
 // Query-head groups: a block holds GC = 1, 2, 4 or 8 of the G query heads of
 // its kv head in registers (GC = G for G of 1, 2, 4 and 8, the next of those
-// above a smaller G, 8 above 8), and G > 8 heads go to ceil(G / 8) blocks, a
-// grid dimension of query chunks. The last chunk may be ragged (Falcon-7B's G
-// = 71 is 8 x 8 + 7): its missing heads take q = 0, so their scores stay
-// finite, and are never stored (G of 1, 2, 4 and 8 take an instantiation
-// without chunks, the group compile-time). The chunks of one (row, kv head) read the
-// same K/V rows, the first from memory and the others mostly from L2 (a
-// row's keys are ~70 KB at 272 slots, D = 64). This keeps the body's
-// registers at eight queries a thread whatever G is, and every fp32 call
-// takes it. It is slow there (0.045 ms at G = 16 and 71, b16, past 272, on
-// an H100: every key walked once per 8 heads, each score summed over the
-// warp with five shuffles), so bf16 plane calls past G = 8 run beam_attn.cuh's
-// mma body instead (decode_fresh.cu, decode.cu).
+// above a smaller G, 8 above 8; at most 4 at DP = 256), and G > 8 heads go to
+// ceil(G / 8) blocks, a grid dimension of query chunks. The last chunk may be
+// ragged (Falcon-7B's G = 71 is 8 x 8 + 7): its missing heads take q = 0, so
+// their scores stay finite, and are never stored.
 //
 // Head dims: a lane holds DP / 32 dims of a width DP of 64, 128 or 256, and
-// rows lie D apart (both template parameters: D's loads and offsets stay
-// compile-time, as they were at 64 and 128 alone): at D = 80 and 96 (DP =
-// 128) the lanes past D / 4 hold zeros, read nothing and store nothing. At DP = 256 a step loads four keys and a block holds at most four
-// query heads (G = 8 takes two blocks), so the registers stay those of DP =
-// 128.
+// rows lie D apart (both template parameters): at D = 80 and 96 (DP = 128)
+// the lanes past D / 4 hold zeros, read nothing and store nothing.
 #pragma once
 
 #include "common.cuh"
@@ -301,7 +285,7 @@ int launch_g(int G, const void* q, const void* kf, const void* vf, const void* k
         return launch<T, DP, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
       break;
   }
-  if constexpr (GMAX == 8 && D == DP) {  // at D = 80 and 96 a run of 4 spilled in bf16: G = 3 takes a run of 8
+  if constexpr (GMAX == 8 && D == DP) {  // at D = 80 and 96 G = 3 takes a run of 8 (a run of 4 spilled there)
     if (G == 3)
       return launch<T, DP, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
   }
@@ -324,20 +308,16 @@ int launch_d(int G, const void* q, const void* kf, const void* vf, const void* k
   return (int)cudaErrorInvalidValue;
 }
 
-// Type, head-dim and group dispatch. D must be 64, 80, 96, 128 or 256, G = N
-// / Nkv any group (the wrapper admits 1 .. 128); returns a cudaError_t value,
-// 0 on a successful launch.
+// Head-dim and group dispatch of an fp32 call. D must be 64, 80, 96, 128 or
+// 256, G = N / Nkv any group (the wrapper admits 1 .. 128); returns a
+// cudaError_t value, 0 on a successful launch.
 template <bool FRESH, int SRC>
-int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
-             Keys keys, const void* lengths, int length_stride, void* out, int B, int N,
-             int Nkv, int D, float sscale, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int dispatch_f32(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, Keys keys,
+                 const void* lengths, int length_stride, void* out, int B, int N, int Nkv, int D, float sscale,
+                 void* stream) {
   if (Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
-  const int G = N / Nkv;
-  if (is_bf16)
-    return launch_d<__nv_bfloat16, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D,
-                                               sscale, st);
-  return launch_d<float, FRESH, SRC>(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D, sscale, st);
+  return launch_d<float, FRESH, SRC>(N / Nkv, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D,
+                                     sscale, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace lia_dec

@@ -44,12 +44,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "lia_flash_smem_bytes": [I, I],
     },
     "decode": {
-        "lia_decode": [P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+        "lia_decode": [P] * 5 + [I, P, P] + [I] * 7 + [F, I, P],
         "lia_decode_groups": [P] * 5 + [I, P, P] + [I] * 8 + [F, P],
+        "lia_plane_smem_bytes": [I, I],
     },
     "decode_fresh": {
-        "lia_decode_fresh": [P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P],
+        "lia_decode_fresh": [P] * 7 + [I, P, P] + [I] * 7 + [F, I, P],
         "lia_decode_fresh_groups": [P] * 7 + [I, P, P] + [I] * 8 + [F, P],
+        "lia_plane_smem_bytes": [I, I],
     },
     "decode_fresh_int8": {
         "lia_decode_fresh_int8": [P] * 9 + [I, P, P] + [I] * 7 + [F, I, P],

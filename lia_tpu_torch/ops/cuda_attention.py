@@ -23,7 +23,7 @@ step or an admission never syncs with the host.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -47,8 +47,21 @@ INT8_MAX_PARTS = 8
 INT8_PART_KEYS = 1024  # keys of a unit's longest walk a part takes at least: splits of walks
 # up to 1152 keys lost or tied on an H100 (chip_smoke.py's forced-split rows)
 BEAM_QUERIES = 16  # queries one bf16 beam block holds (csrc/beam_attn.cuh: NQ); 8 at D = 256 (beam_queries)
-WARP_MAX_GROUP = 8  # bf16 plane decode (B2, B7/B8) past this group runs the bf16 beam body (csrc/decode.cu):
-# decode_attn.cuh's warp body took 0.045 ms at G = 16 and 71 on an H100 (chip_smoke.py's group rows)
+PLANE_MAX_GROUP = 1  # bf16 plane decode (B2, B7/B8) up to this group runs the plane body
+# (csrc/plane_attn.cuh), past it the bf16 beam body at one beam a block (csrc/decode.cu): in one call on
+# an H100 at b16, 272 keys (chip_smoke.py's plane_checks rows, each body forced, when the plane body was
+# built up to 8 heads; PERF.md §6), B2 / B7 ms, plane against beam: G = 2 0.01764 / 0.01758 against
+# 0.01668 / 0.01680, G = 4 0.01254 / 0.01229 against 0.01112 / 0.01119, G = 4 at D 256 0.01572 /
+# 0.01512 against 0.01361 / 0.01290, G = 8 0.01924 / 0.01634 against 0.01113 / 0.00980; at G = 1
+# plane_checks times the beam body beside the plane body's route every run
+PLANE_WARPS = 4  # consumer warps of a plane block (csrc/plane_attn.cuh: NWC)
+PLANE_BLOCKS_AN_SM = 4  # plane blocks an SM holds (the kernel's __launch_bounds__: BLOCKS_AN_SM)
+PLANE_STAGE_KEYS = 4  # keys each lane group of a plane block takes from a ring stage (KT_STAGE)
+PLANE_MAX_STAGES = 16
+PLANE_MAX_PARTS = 8
+PLANE_PART_KEYS = 64  # slots of the plane a plane part takes at least
+SM_SMEM = 228 * 1024  # shared memory of an H100 SM, and the most one block takes
+BLOCK_SMEM = 227 * 1024
 BEAM_MAX_PARTS = 8
 BEAM_PART_KEYS = 64  # keys of a group's longest walk a bf16 beam part takes at least (a ring stage):
 # on an H100 a split lost at one block an SM (4 x 4 beams, 32 heads: 128 blocks) and won at
@@ -596,8 +609,8 @@ _split_workspaces = {}
 
 
 def _split_workspace(dev: int, stream: int, floats: int) -> torch.Tensor:
-    """The decode kernels' split partials, fp32 (B3, B9 and B10; every one
-    written before it is read: no zeroing). An eager call takes its (device,
+    """The decode kernels' split partials, fp32 (B2, B3, B7/B8, B9 and B10;
+    every one written before it is read: no zeroing). An eager call takes its (device,
     stream)'s workspace, grown when a call needs more: the launches of one
     stream run in turn and never hold it at once. A call captured into a CUDA graph takes one of its own, which
     the graph holds, so a replay shares nothing with eager calls or other
@@ -688,51 +701,121 @@ def _decode_checks(q, k_fresh, v_fresh, cache, slot_mask, lengths):
         raise ValueError("fresh k/v must be [B, N_kv, 1, D]")
 
 
-def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int, D: int = 128) -> Tuple[int, int]:
-    """(beams a block, parts) of a plane decode call (B2, B7/B8): (1, 1) on
-    decode_attn.cuh's warp body (fp32, or G up to WARP_MAX_GROUP); past that
-    a bf16 call runs the bf16 beam body, each row a group of one beam with
-    no tail, and takes :func:`beam_plan`'s split."""
-    if not bf16 or N // Nkv <= WARP_MAX_GROUP:
-        return 1, 1
-    return beam_plan(B, 1, N, Nkv, S_max, 0, sms, D)
+def plane_lanes(D: int) -> int:
+    """Lanes of a plane block's warp that read one key row at head dim D (16
+    bytes each): 8 at D = 64, 16 at 80, 96 and 128 (those past D / 8 idle),
+    32 at 256."""
+    return 8 if D == 64 else 32 if D == 256 else 16
 
 
-def _plane_groups(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream):
-    """Launch ``lia_decode_groups`` (``fresh`` empty) or
-    ``lia_decode_fresh_groups`` (the fresh k/v): a bf16 plane call past G =
-    WARP_MAX_GROUP on the bf16 beam body, after the caller's checks; returns
-    (rc, out, parts)."""
-    from lia_tpu_torch.ops import _build
+def plane_unit(D: int) -> int:
+    """Keys of a plane ring stage: PLANE_STAGE_KEYS for each lane group (a key
+    row's lanes) of the block's consumer warps (64 at D = 64, 32 at 80-128,
+    16 at 256)."""
+    return PLANE_STAGE_KEYS * PLANE_WARPS * (32 // plane_lanes(D))
 
+
+def plane_stages(D: int, blocks: int, sms: int) -> int:
+    """Stages of a plane block's ring for a launch of ``blocks`` blocks on
+    ``sms`` SMs: as many as fit when the blocks an SM (at most
+    PLANE_BLOCKS_AN_SM) share its shared memory, from 2 to
+    PLANE_MAX_STAGES."""
+    per_sm = min(PLANE_BLOCKS_AN_SM, max(1, -(-blocks // sms)))
+    room = min(SM_SMEM // per_sm - 1024, BLOCK_SMEM) - 16 * PLANE_MAX_STAGES
+    return max(2, min(PLANE_MAX_STAGES, room // (2 * plane_unit(D) * D * 2)))
+
+
+def plane_split_parts(B: int, Nkv: int, S_max: int, sms: int) -> int:
+    """Parts into which the plane body splits each row's keys: as many as keep
+    its (kv head, row) blocks times the parts within one an SM (a block's
+    ring takes about an SM's share of the memory's rate), at most
+    PLANE_MAX_PARTS, each at least PLANE_PART_KEYS of the plane's S_max
+    slots: a split pays for its merge launch and each part's fixed start only
+    where the blocks leave SMs idle."""
+    return max(1, min(sms // (B * Nkv), PLANE_MAX_PARTS, S_max // PLANE_PART_KEYS))
+
+
+class PlanePlan(NamedTuple):
+    """How a plane decode call (B2, B7/B8) runs: ``body`` "plane"
+    (csrc/plane_attn.cuh: bf16 up to PLANE_MAX_GROUP), "beam" (the bf16 beam
+    body past it) or "warp" (decode_attn.cuh: fp32); its keys in ``parts``
+    parts (a merge launch when above 1); the plane body's ring ``stages``
+    (0 elsewhere); the beam body's beams a block ``bpc`` (1 elsewhere)."""
+
+    body: str
+    parts: int
+    stages: int
+    bpc: int
+
+
+@functools.lru_cache(maxsize=None)
+def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int, D: int = 128,
+               parts: Optional[int] = None) -> PlanePlan:
+    """The :class:`PlanePlan` of a plane decode call, cached by shape: bf16
+    up to G = PLANE_MAX_GROUP on the plane body split by
+    :func:`plane_split_parts`, past it on the bf16 beam body as a group of
+    one beam with :func:`beam_plan`'s beams a block and, where the blocks
+    fill at most a quarter of the SMs, its split; fp32 on the warp body,
+    which never splits. ``parts`` forces a bf16 call's split (tests and
+    chip_smoke.py)."""
+    G = N // Nkv
+    if not bf16:
+        return PlanePlan("warp", 1, 0, 1)
+    if G > PLANE_MAX_GROUP:
+        bpc, host = beam_plan(B, 1, N, Nkv, S_max, 0, sms, D)
+        blocks = Nkv * B * query_runs(1, G, bpc, beam_queries(D))
+        # beam_plan's split only where the blocks leave three quarters of the SMs
+        # idle: at 64 blocks (D = 256, G = 4) over 272-key rows its 2 parts lost
+        # to 1 on an H100 (chip_smoke.py's plane_checks rows), while B9's own 64
+        # blocks (two beams a block, Llama-3-8B's heads at D = 256) won with them
+        # (chip_ab.py's decode group); at 32 blocks its 4 parts won (B9's rows)
+        return PlanePlan("beam", parts or (host if 4 * blocks <= sms else 1), 0, bpc)
+    parts = parts or plane_split_parts(B, Nkv, S_max, sms)
+    return PlanePlan("plane", parts, plane_stages(D, B * Nkv * parts, sms), 1)
+
+
+def _plane_call(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16):
+    """Launch library ``name``'s plane decode entry (``decode``: no fresh token,
+    ``decode_fresh``: ``fresh`` the fresh k/v) over one plane of
+    ``plane_shape`` [B, N_kv, S_max, D] at kc_ptr/vc_ptr, by
+    :func:`plane_plan`, after the caller's checks; returns (rc, out,
+    parts)."""
     B, _, N, D = q.shape
     _, Nkv, S_max, _ = plane_shape
     dev = q.get_device()
     sms = _sms(dev)
-    bpc, parts = plane_plan(B, N, Nkv, S_max, True, sms, D)
-    _aligned16(q.data_ptr(), kc_ptr, vc_ptr, *(t.data_ptr() for t in fresh))
-    ws = _split_workspace(dev, stream, parts * B * N * (D + 2)) if parts > 1 else None
+    plan = plane_plan(B, N, Nkv, S_max, bool(is_bf16), sms, D)
+    if is_bf16:
+        _aligned16(q.data_ptr(), kc_ptr, vc_ptr, *(t.data_ptr() for t in fresh))
+    ws = _split_workspace(dev, stream, plan.parts * B * N * (D + 2)) if plan.parts > 1 else None
     out = torch.empty_like(q)
-    lib = _build.library(name)
-    rest = (slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, parts, bpc, B, N, Nkv, S_max, D, sms, _sscale(scale, D),
-            stream)
-    if fresh:
-        rc = lib.lia_decode_fresh_groups(q.data_ptr(), fresh[0].data_ptr(), fresh[1].data_ptr(), kc_ptr, vc_ptr,
-                                         *rest)
+    entry, groups = _PLANE_ENTRIES.get(name) or _plane_entries(name)
+    head = (q.data_ptr(), *(t.data_ptr() for t in fresh), kc_ptr, vc_ptr, slot_mask.data_ptr(), lengths.data_ptr(),
+            1 if lengths.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, plan.parts)
+    if plan.body == "beam":
+        rc = groups(*head, plan.bpc, B, N, Nkv, S_max, D, sms, _sscale(scale, D), stream)
     else:
-        rc = lib.lia_decode_groups(q.data_ptr(), kc_ptr, vc_ptr, *rest)
-    return rc, out, parts
+        rc = entry(*head, plan.stages, B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream)
+    return rc, out, plan.parts
+
+
+_PLANE_ENTRIES = {}
+
+
+def _plane_entries(name):
+    """Library ``name``'s plane entry and its beam-body entry, looked up once
+    (the decode wrappers' host time is the eager loop's)."""
+    from lia_tpu_torch.ops import _build
+
+    lib = _build.library(name)
+    _PLANE_ENTRIES[name] = (getattr(lib, f"lia_{name}"), getattr(lib, f"lia_{name}_groups"))
+    return _PLANE_ENTRIES[name]
 
 
 def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length, scale):
-    """Launch ``lia_decode`` (or, bf16 past G = WARP_MAX_GROUP,
-    ``lia_decode_groups``) over one plane of ``plane_shape`` [B, N_kv, S_max,
-    D] at kc_ptr/vc_ptr (inside k_cache/v_cache); returns (rc, out, parts)."""
-    from lia_tpu_torch.ops import _build
-
-    B, _, N, D = q.shape
-    _, Nkv, S_max, _ = plane_shape
+    """Launch B7/B8 (library ``decode``) over one plane of ``plane_shape``
+    [B, N_kv, S_max, D] at kc_ptr/vc_ptr (inside k_cache/v_cache); returns
+    (rc, out, parts)."""
     q = q.contiguous()
     lengths = _lengths(length, q.device)
     stream = _stream(q, k_cache, v_cache, slot_mask, lengths)
@@ -740,19 +823,15 @@ def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length,
     _plane_checks(q, plane_shape, slot_mask, lengths)
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v caches differ in shape")
-    if is_bf16 and N // Nkv > WARP_MAX_GROUP:
-        return _plane_groups("decode", q, (), kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream)
-    out = torch.empty_like(q)
-    rc = _build.library("decode").lia_decode(
-        q.data_ptr(), kc_ptr, vc_ptr, slot_mask.data_ptr(), lengths.data_ptr(),
-        1 if lengths.ndim else 0, out.data_ptr(), B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
-    )
-    return rc, out, 1
+    return _plane_call("decode", q, (), kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16)
 
 
 def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None):
     """Decode attention over one layer plane [B, N_kv, S_max, D] that already
-    holds this step's token; ``length`` (0-dim or [B]) includes it."""
+    holds this step's token; ``length`` (0-dim or [B]) includes it. A bf16
+    call runs the plane body up to G = PLANE_MAX_GROUP and the bf16 beam body
+    past it (:func:`plane_plan`); either may split each row's keys and merge
+    them in a second launch (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale)
     rc, out, parts = _decode(q, k_cache.data_ptr(), v_cache.data_ptr(), k_cache.shape, k_cache, v_cache,
@@ -784,17 +863,14 @@ def decode_attention_fresh(
     q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
 ):
     """Decode attention over layer ``layer_idx``'s cache plane + the fresh
-    token. Past G = WARP_MAX_GROUP a bf16 call runs the bf16 beam body
-    (:func:`plane_plan`), which may split each row's keys and merge them in a
-    second launch (``split_launches`` counts those calls)."""
+    token. A bf16 call runs the plane body up to G = PLANE_MAX_GROUP and the
+    bf16 beam body past it (:func:`plane_plan`); either may split each row's
+    keys and merge them with the fresh token in a second launch
+    (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_fresh_plain(
             q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale
         )
-    from lia_tpu_torch.ops import _build
-
-    B, _, N, D = q.shape
-    _, _, Nkv, S_max, _ = k_cache.shape
     q, k_fresh, v_fresh = q.contiguous(), k_fresh.contiguous(), v_fresh.contiguous()
     lengths = _lengths(length, q.device)
     stream = _stream(q, k_fresh, v_fresh, k_cache, v_cache, slot_mask, lengths)
@@ -802,17 +878,9 @@ def decode_attention_fresh(
     _decode_checks(q, k_fresh, v_fresh, k_cache, slot_mask, lengths)
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v caches differ in shape")
-    kc_ptr, vc_ptr = _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx)
-    if is_bf16 and N // Nkv > WARP_MAX_GROUP:
-        rc, out, parts = _plane_groups("decode_fresh", q, (k_fresh, v_fresh), kc_ptr, vc_ptr, k_cache.shape[1:],
-                                       slot_mask, lengths, scale, stream)
-    else:
-        out, parts = torch.empty_like(q), 1
-        rc = _build.library("decode_fresh").lia_decode_fresh(
-            q.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(), kc_ptr, vc_ptr,
-            slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
-            B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream,
-        )
+    rc, out, parts = _plane_call("decode_fresh", q, (k_fresh, v_fresh), _layer_ptr(k_cache, layer_idx),
+                                 _layer_ptr(v_cache, layer_idx), k_cache.shape[1:], slot_mask, lengths, scale,
+                                 stream, is_bf16)
     _raise_on(rc, "decode_attention_fresh")
     decode_attention_fresh.launches += 1
     decode_attention_fresh.split_launches += int(parts > 1)

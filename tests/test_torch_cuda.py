@@ -57,8 +57,12 @@ def test_flash_prefill_kernel_matches_plain(cuda, N, Nkv, D, window):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (2, 64), (8, 64)])
-def test_decode_kernels_match_plain(cuda, dtype, int8, G, D):
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
+def test_decode_kernels_match_plain(cuda, monkeypatch, dtype, int8, G, D):
+    """B2 (bf16 on the host's route: the plane body at G = 1, the bf16 beam
+    body past it; fp32 on the warp body) and B3 over a 128-slot cache with
+    left pads 0, 9 and 76."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     L, B, Nkv, S_max, past = 2, 3, 4, 128, 77
     N = Nkv * G
@@ -360,28 +364,119 @@ def test_quantized_model_on_the_card_matches_the_cpu(cuda, fmt):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
-def test_decode_attention_kernel_matches_plain(cuda, dtype, G, D):
-    """decode_attention over one plane (the token written, length counting it)
-    and its stacked entry at a layer offset, against their plain versions."""
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    L, B, Nkv, S_max, length = 3, 3, 2, 128, 78
-    N = Nkv * G
+_REAL_PLANE_PLAN = ca.plane_plan
+
+
+def _plane_parts(monkeypatch, parts):
+    """B2's and B7/B8's split forced to ``parts`` through plane_plan (None: the
+    host's own choice), on the host's route (the plane body up to
+    PLANE_MAX_GROUP, the bf16 beam body past it); fp32 calls (the warp body)
+    never split."""
+    monkeypatch.setattr(ca, "plane_plan", _REAL_PLANE_PLAN if parts is None else
+                        (lambda *a, **k: _REAL_PLANE_PLAN(*a, parts=parts)))
+
+
+def _plane_rows(S_max):
+    """(start, length) of the plane edge rows: left pads 0, 3, 7 and 15 under
+    one length, a row of one key, an empty row, a sliding window of 24."""
+    n = S_max - 29
+    return [(0, n), (3, n), (7, n), (15, n), (0, 1), (0, 0), (n - 24, n)]
+
+
+def _plane_case(gen, dtype, G, D, S_max, Nkv=2, L=3):
+    rows = _plane_rows(S_max)
+    B, N = len(rows), Nkv * G
     q = _randn(gen, B, 1, N, D, dtype=dtype)
+    kf, vf = _randn(gen, B, Nkv, 1, D, dtype=dtype), _randn(gen, B, Nkv, 1, D, dtype=dtype)
     kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=dtype), _randn(gen, L, B, Nkv, S_max, D, dtype=dtype)
-    sm = torch.zeros(B, S_max, dtype=torch.bool, device=cuda)
-    for b, p in enumerate((0, 9, 77)):
-        sm[b, p:length] = True
-    ln = torch.tensor(length, dtype=torch.int32, device=cuda)
-    before = (ca.decode_attention.launches, ca.decode_attention_stacked.launches)
-    out = ca.decode_attention(q, kc[1].contiguous(), vc[1].contiguous(), sm, ln)
-    ref = ca.decode_attention_plain(q, kc[1], vc[1], sm, ln)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
-    out2 = ca.decode_attention_stacked(q, kc, vc, 1, sm, ln)
-    torch.testing.assert_close(out2, out, rtol=0, atol=0)
-    assert (ca.decode_attention.launches, ca.decode_attention_stacked.launches) == (before[0] + 1, before[1] + 1)
+    sm = torch.zeros(B, S_max, dtype=torch.bool, device="cuda")
+    for b, (s0, n) in enumerate(rows):
+        sm[b, s0:n] = True
+    length = torch.tensor([n for _, n in rows], dtype=torch.int32, device="cuda")
+    return q, kf, vf, kc, vc, sm, length
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
+def test_decode_attention_kernel_matches_plain(cuda, monkeypatch, dtype, G, D):
+    """B2 (the fresh token merged), B7 (the plane holds the token) and B8 (its
+    stacked entry at a layer offset, bit for bit B7) against their plain
+    versions: bf16 on the host's route (the plane body up to PLANE_MAX_GROUP,
+    the bf16 beam body past it), fp32 on the warp body; over a 128- and
+    a 1024-slot plane whose rows carry left pads 0/3/7/15, one key, none (B7:
+    0; B2: the fresh value) and a sliding window of 24; with the host's split
+    and forced to 1 and 3 parts, one launch a call and the split counted."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    Nkv = 2
+    fns = (ca.decode_attention_fresh, ca.decode_attention, ca.decode_attention_stacked)
+    for S_max in (128, 1024):
+        q, kf, vf, kc, vc, sm, length = _plane_case(gen, dtype, G, D, S_max, Nkv)
+        B, N = q.shape[0], q.shape[2]
+        ref2 = ca.decode_attention_fresh_plain(q, kf, vf, kc, vc, 1, sm, length)
+        ref7 = ca.decode_attention_plain(q, kc[1], vc[1], sm, length)
+        for parts in (None, 1, 3):
+            _plane_parts(monkeypatch, parts)
+            plan = ca.plane_plan(B, N, Nkv, S_max, dtype is torch.bfloat16, sms, D)
+            assert plan.body == ("warp" if dtype is not torch.bfloat16 else
+                                 "plane" if G <= ca.PLANE_MAX_GROUP else "beam")
+            before = [(fn.launches, fn.split_launches) for fn in fns]
+            out2 = ca.decode_attention_fresh(q, kf, vf, kc, vc, 1, sm, length)
+            out7 = ca.decode_attention(q, kc[1].contiguous(), vc[1].contiguous(), sm, length)
+            out8 = ca.decode_attention_stacked(q, kc, vc, 1, sm, length)
+            assert [(fn.launches, fn.split_launches) for fn in fns] == [(n + 1, k + (plan.parts > 1))
+                                                                        for n, k in before]
+            torch.testing.assert_close(out2.float(), ref2.float(), rtol=TOL[dtype], atol=TOL[dtype])
+            torch.testing.assert_close(out7.float(), ref7.float(), rtol=TOL[dtype], atol=TOL[dtype])
+            torch.testing.assert_close(out8, out7, rtol=0, atol=0)
+            assert (out7[5] == 0).all()  # the empty row
+            torch.testing.assert_close(out2[5, 0].float(), vf[5, :, 0].float().repeat_interleave(G, 0),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("entry", ["B2", "B7"])
+def test_plane_decode_graph_replay_equals_eager(cuda, monkeypatch, entry, G, parts):
+    """B2 and B7 in bf16 over 8 kv heads on both bodies of the host's route
+    (G = 1: the plane body; Llama-3-8B's G = 4: the bf16 beam body), with and
+    without the split and its merge launch, captured once in a CUDA graph and
+    replayed on new queries, lengths and masks equals the eager call on them:
+    the lengths and the mask are read on the device, and the captured split
+    keeps a workspace of its own that needs no memset."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    _plane_parts(monkeypatch, parts)
+    q, kf, vf, kc, vc, sm, length = _plane_case(gen, torch.bfloat16, G, 128, 256, Nkv=8)
+
+    def fn():
+        if entry == "B2":
+            return ca.decode_attention_fresh(q, kf, vf, kc, vc, 1, sm, length)
+        return ca.decode_attention(q, kc[1], vc[1], sm, length)
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    wrapper = ca.decode_attention_fresh if entry == "B2" else ca.decode_attention
+    splits = wrapper.split_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    assert wrapper.split_launches == splits + (parts > 1)
+    q.copy_(_randn(gen, *q.shape, dtype=torch.bfloat16))
+    length.copy_(torch.tensor([200, 17, 0, 226, 1, 150, 99], dtype=torch.int32))
+    sm.zero_()
+    for b, (s0, n) in enumerate([(0, 200), (5, 17), (0, 0), (2, 226), (0, 1), (126, 150), (0, 99)]):
+        sm[b, s0:n] = True
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
+    ref = (ca.decode_attention_fresh_plain(q, kf, vf, kc, vc, 1, sm, length) if entry == "B2"
+           else ca.decode_attention_plain(q, kc[1], vc[1], sm, length))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("overlap", [True, False])
@@ -1601,10 +1696,10 @@ def test_flash_cached_split_at_large_groups(cuda, monkeypatch, N, Nkv, D, parts)
 @pytest.mark.parametrize("N,Nkv,D", LARGE_GROUPS, ids=LARGE_IDS)
 def test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts):
     """B2 (fresh token merged), B7 and B8 (the plane holds the token): fp32
-    calls and G = 3 on the warp body in runs of 8 heads (the last ragged),
-    bf16 calls past G = 8 on the bf16 beam body (a row a group of one beam,
-    runs of 16 heads), with one length for all rows or one a row (a row with
-    no key: 0 without the fresh token) and its split forced to 3 parts."""
+    calls on the warp body in runs of 8 heads (the last ragged), bf16 calls
+    up to PLANE_MAX_GROUP on the plane body and past it on the bf16 beam body (a row a group of one beam, runs of 16
+    heads), with one length for all rows or one a row (a row with no key: 0
+    without the fresh token) and its split forced to 3 parts."""
     gen = torch.Generator(device=cuda).manual_seed(42)
     L, B, S_max, past = 2, 3, 128, 77
     q = _randn(gen, B, 1, N, D, dtype=dtype)
@@ -1615,9 +1710,9 @@ def test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, rag
         sm[b, min(p, e):e] = True
     length = torch.tensor(ends if ragged else past, dtype=torch.int32, device=cuda)
     kc, vc = _randn(gen, L, B, Nkv, S_max, D, dtype=dtype), _randn(gen, L, B, Nkv, S_max, D, dtype=dtype)
-    _beam_parts(monkeypatch, parts)
+    _plane_parts(monkeypatch, parts)
     used = ca.plane_plan(B, N, Nkv, S_max, dtype is torch.bfloat16,
-                         torch.cuda.get_device_properties(cuda).multi_processor_count, D)[1]
+                         torch.cuda.get_device_properties(cuda).multi_processor_count, D).parts
     args = (q, kf, vf, kc, vc, 1, sm, length)
     splits = ca.decode_attention_fresh.split_launches
     torch.testing.assert_close(ca.decode_attention_fresh(*args).float(), ca.decode_attention_fresh_plain(*args).float(),
@@ -1734,9 +1829,9 @@ def test_flash_prefill_main_shape_at_head_dims(cuda, N, Nkv, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,Nkv,D", HEAD_DIMS, ids=HEAD_IDS)
 def test_decode_kernels_at_head_dims(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts):
-    """B2, B7 and B8 at the new head dims: the warp body's lanes past D idle
-    (and at D = 256 four heads a block), bf16 past G = 8 on the bf16 beam
-    body."""
+    """B2, B7 and B8 at the new head dims: bf16 on the plane body (exact
+    D * 2-byte rows, D / 8 lanes a row) up to PLANE_MAX_GROUP and on the bf16
+    beam body past it, fp32 on the warp body (lanes past D idle)."""
     test_decode_kernels_at_large_groups(cuda, monkeypatch, dtype, N, Nkv, D, ragged, parts)
 
 
