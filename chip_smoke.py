@@ -154,6 +154,25 @@ Phases, each printing one JSON line per item:
    plans). speculative_parity: OPT-6.7B width at 2 layers, the slab, paged
    and tiered verify passes (two chunks of 5 with an uneven accept between)
    on the card against the CPU;
+7c. serving over the tiered scheduler: ContinuousBatcher over the tiered
+   phase's host tree at OPT-6.7B width, the serving workload's first 32
+   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (full depth,
+   slab, bf16 KV), serve-tier-h50-p3-paged, serve-tier-h50-p0-p2 (host KV,
+   host attention at decode) and serve-tier-h50-p3-spec4 (prompt lookup, k
+   = 4) at 8 layers; then serve-paged-proc, resident at full depth over the
+   whole 64-request workload, every second request with repetition penalty
+   1.2 and min_new_tokens 8, every fourth a no_repeat_ngram_size of 3 (no
+   such request may repeat a 3-gram). Each line: stats() (tokens/s, TTFT and
+   TPOT percentiles, steps), wall and init time, peak memory, exact launch
+   counts (B1 per layer and admission, B2 per resident layer and step, B7 per
+   streamed layer and step where the decode plan attends on the card, B5 per
+   layer and step paged, B6 per layer and verify), no plain version on the
+   card, every request's length and vocabulary, the pool clean; over the
+   scheduler one copy of each streamed layer a pass (admission or step), the
+   bytes, copy-stream ms and host attention ms a pass. serving_tier_parity:
+   OPT-6.7B width at 4 layers, half resident, three slots (the middle one
+   inactive), insert_slot_state and 4 ragged steps under policies 3 (bf16
+   and int8 KV), 0 and 0/2, and 4 paged steps at policy 3, card against CPU;
 8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
@@ -171,7 +190,8 @@ Phases, each printing one JSON line per item:
    of llama-3-8b with bf16 KV under the
    profiler (weights made anew), device time by kernel and the idle share;
    for tier-h50-p3 and tier-h50-p0-p2-mb4, device compute, copies and host
-   attention per step; one more beam-nb4 and beam-nb4-int8kv run each (with
+   attention per step, and the same for serve-tier-h50-p3's batcher over a
+   wave of 16 more requests (per pass); one more beam-nb4 and beam-nb4-int8kv run each (with
    every launch of the port's kernels: the beam kernel's device ms a run);
 10. kernel times: each kernel's, its plain version's and a PyTorch library
    call's device time (profiler trace, mean of 20 calls, L2 flushed before
@@ -2558,31 +2578,40 @@ def host_attention_clock():
             setattr(att, n, fn)
 
 
-def tiered_breakdown(name: str, engine, prompts) -> None:
-    """Where the time of one tiered generate goes, under the profiler: device
-    time in kernels (compute) and in copies (the weight stream, KV and
-    activations crossing), host attention (policies 2/4: host clock around
-    the host tier's attention calls), and the wall time."""
+def copy_compute_split(name: str, config: str, run, passes) -> None:
+    """Where the time of ``run()`` goes, under the profiler: device time in
+    kernels (compute) and in copies (the weight stream, KV and activations
+    crossing), host attention (policies 2/4: host clock around the host
+    tier's attention calls), and the wall time, each also per pass
+    (``passes()``, read after the run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lia_tpu_torch.config import GenerationConfig
-
-    gen = GenerationConfig(max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     with host_attention_clock() as spent, profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate(prompts, gen)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    n = passes()
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     copy_s = sum(e.self_device_time_total for e in events if "Memcpy" in e.key) / 1e6
     compute_s = sum(e.self_device_time_total for e in events if "Memcpy" not in e.key) / 1e6
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    emit({"phase": "tiered_breakdown", "config": name, "wall_s": wall, "device_compute_s": compute_s,
+    emit({"phase": name, "config": config, "passes": n, "wall_s": wall, "device_compute_s": compute_s,
           "device_copy_s": copy_s, "host_attention_s": spent[0], "per_step_ms": {
-              "wall": wall / NEW_TOKENS * 1e3, "compute": compute_s / NEW_TOKENS * 1e3,
-              "copy": copy_s / NEW_TOKENS * 1e3, "host_attention": spent[0] / NEW_TOKENS * 1e3},
+              "wall": wall / n * 1e3, "compute": compute_s / n * 1e3, "copy": copy_s / n * 1e3,
+              "host_attention": spent[0] / n * 1e3},
           "top": [{"kernel": _short(e.key), "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top]})
+    check(n > 0 and compute_s > 0, f"{name} {config}: no pass ran on the card")
+
+
+def tiered_breakdown(name: str, engine, prompts) -> None:
+    """:func:`copy_compute_split` of one tiered generate (NEW_TOKENS passes:
+    the prompt and each decode step)."""
+    from lia_tpu_torch.config import GenerationConfig
+
+    copy_compute_split("tiered_breakdown", name,
+                       lambda: engine.generate(prompts, GenerationConfig(max_new_tokens=NEW_TOKENS)), lambda: NEW_TOKENS)
 
 
 def tiered_parity(model: str = "opt-6.7b", configs=TIER_PARITY) -> None:
@@ -2772,34 +2801,51 @@ def serving_expected(cfg, opts: dict, stats: dict, prompts, names, dcfg=None) ->
     return out
 
 
-def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens, draft=None):
-    """One serving configuration: SERVE_REQUESTS requests through a fresh
-    ContinuousBatcher (with ``draft``, a (config, params) draft model),
-    counters zeroed just before the run and read just after it and checked
-    exactly, every request's length and vocabulary, and (paged) the pool's
-    accounting at the end. Returns (launches, the batcher)."""
+def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens, draft=None, runtime=None,
+                 submit_kw=None):
+    """One serving configuration: the requests through a fresh
+    ContinuousBatcher (with ``draft``, a (config, params) draft model; with
+    ``runtime``, over the tiered scheduler; with ``submit_kw``, each request's
+    processors, the processors on), counters zeroed just before the run and
+    read just after it and checked exactly, no plain version on the card,
+    every request's length and vocabulary, and (paged) the pool's accounting
+    at the end. Over the scheduler also one copy of each streamed layer a pass
+    (each admission's prefill and each step stream every streamed layer
+    once), the bytes, copy-stream ms and host attention ms a pass. Returns
+    (launches, the batcher)."""
     import gc
 
     from lia_tpu_torch.config import GenerationConfig
     from lia_tpu_torch.engine.serving import ContinuousBatcher
+    from lia_tpu_torch.ops import cuda_mlp
 
     gc.collect()  # the HTTP handler class of serve_http holds the last batcher in a reference cycle
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the weights, and the kernel checks' inputs
-    cb = ContinuousBatcher(cfg, params, max_batch=SERVE_MAX_BATCH, max_len=SERVE_MAX_LEN,
-                           gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, draft=draft, **opts)
-    reset_counts(ca, cm)
     t0 = time.perf_counter()
-    ids = [cb.submit(p, max_new_tokens=n) for p, n in zip(prompts, new_tokens)]
-    done = {r.req_id: r.output for r in cb.run()}
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    cb = ContinuousBatcher(cfg, params, max_batch=SERVE_MAX_BATCH, max_len=SERVE_MAX_LEN,
+                           gen=GenerationConfig(max_new_tokens=128), block_size=SERVE_BLOCK, draft=draft,
+                           runtime=runtime, enable_processors=submit_kw is not None or None, **opts)
+    init_s = time.perf_counter() - t0
+    wm = cb.sched.wm if cb.sched is not None else None
+    if wm is not None:
+        check(all(t.is_pinned() for t in wm._packed), f"{name}: a streamed layer is not in pinned memory")
+        wm.copy_stats()
+    reset_counts(ca, cm)
+    with plain_calls(ca, cm, cuda_mlp) as plain, host_attention_clock() as host_attn:
+        t0 = time.perf_counter()
+        ids = [cb.submit(p, max_new_tokens=n, **kw)
+               for p, n, kw in zip(prompts, new_tokens, submit_kw or [{}] * len(prompts))]
+        done = {r.req_id: r.output for r in cb.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = launch_counts(ca, cm)
     splits = ca.split_counts()
     peak = torch.cuda.max_memory_allocated()
     stats = cb.stats()
+    check(not plain, f"{name}: plain versions ran on the card: {plain}")
     check(sorted(done) == sorted(ids), f"{name}: {len(done)} of {len(ids)} requests finished")
     for i, n in zip(ids, new_tokens):
         out = done[i]
@@ -2809,19 +2855,34 @@ def serving_path(ca, cm, name: str, opts: dict, cfg, params, prompts, new_tokens
         check(bool((cb.page_rc == 0).all()), f"{name}: nonzero page refcounts after the run")
         n_back = len(cb.free_blocks) + len(cb.cached_pages)
         check(n_back == cb.num_blocks - 1, f"{name}: {n_back} pages back of {cb.num_blocks - 1}")
-    expected = serving_expected(cfg, opts, stats, prompts, launches, None if draft is None else draft[0])
+    if wm is not None:
+        expected = serving_tier_expected(cfg, cb, stats, len(prompts), launches)
+    else:
+        expected = serving_expected(cfg, opts, stats, prompts, launches, None if draft is None else draft[0])
     check(launches == expected, f"{name}: launches {launches} != expected {expected}")
     if name == "serve-paged":
         check(stats["prefix_hits"] >= 1, f"{name}: no prefix-cache hit")
     keys = ("tokens_per_s", "p50_ttft_s", "p90_ttft_s", "p99_ttft_s", "p50_tpot_s", "p90_tpot_s", "p99_tpot_s",
             "decode_steps", "decode_dispatches", "steps_per_dispatch", "prefix_hits", "prefix_tokens_reused")
-    emit({"phase": "serving", "config": name, "model": cfg.name, "layers": cfg.num_layers, **opts,
-          "draft": None if draft is None else draft[0].name,
-          "requests": len(prompts), "max_batch": SERVE_MAX_BATCH,
-        "max_len": SERVE_MAX_LEN, "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts),
-        "new_tokens": sum(new_tokens), **{k: stats[k] for k in keys if k in stats}, "wall_s": wall,
-        "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches,
-        "split_launches": splits})
+    record = {"phase": "serving" if wm is None else "serving_tiered", "config": name, "model": cfg.name,
+              "layers": cfg.num_layers, **opts, "draft": None if draft is None else draft[0].name,
+              "requests": len(prompts), "max_batch": SERVE_MAX_BATCH, "max_len": SERVE_MAX_LEN,
+              "block_size": SERVE_BLOCK, "prompt_tokens": sum(len(p) for p in prompts), "new_tokens": sum(new_tokens),
+              **{k: stats[k] for k in keys if k in stats}, "wall_s": wall, "init_s": init_s,
+              "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9, "launches": launches, "split_launches": splits}
+    if wm is not None:
+        copies = wm.copy_stats()
+        passes = len(prompts) + int(stats["decode_steps"])
+        n_str = cfg.num_layers - wm.n_resident
+        check(copies["copies"] == passes * n_str, f"{name}: {copies['copies']} layer copies, "
+                                                  f"{passes} passes of {n_str} streamed layers")
+        record.update(hbm_percentage=runtime.hbm_percentage, prefill_policy=runtime.prefill_policy,
+                      decode_policy=runtime.decode_policy, resident_layers=wm.n_resident, kv_host=cb.sched.kv_host,
+                      bytes_per_pass=copies["bytes"] / passes, copy_ms_per_pass=copies["copy_ms"] / passes,
+                      copy_gb_per_s=copies["bytes"] / max(copies["copy_ms"], 1e-9) / 1e6,
+                      host_attention_ms_per_step=host_attn[0] / stats["decode_steps"] * 1e3,
+                      wall_ms_per_pass=wall / passes * 1e3)
+    emit(record)
     return launches, cb
 
 
@@ -3331,6 +3392,213 @@ def speculative_parity(ca, cm) -> None:
         check(launched == 2 * cfg.num_layers, f"speculative_parity {label}: {launched} {kernel} launches")
         check(bool(torch.isfinite(gpu).all()), f"speculative_parity {label}: non-finite logits on the card")
         check(err <= PARITY_TOL, f"speculative_parity {label}: max abs logit err {err} > {PARITY_TOL}")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: continuous-batching serving over the tiered scheduler, and the
+# per-request logits processors
+# ---------------------------------------------------------------------------
+
+SERVE_TIER_REQUESTS = 32  # the serving workload's first 32 requests
+# (name, batcher options, hbm_percentage, (prefill, decode) policy, depth: None
+# for full depth, else the first n layers of the tiered phase's host tree)
+SERVING_TIERED = [
+    ("serve-tier-h50-p3", dict(), 50, (3, 3), None),
+    ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 8),
+    ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 8),
+    ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 8),
+]
+# serve-paged-proc: every second request a repetition penalty and a minimum,
+# every fourth (from the second) a no-repeat n-gram size
+PROC_PENALTY, PROC_MIN_NEW, PROC_NGRAM = 1.2, 8, 3
+# (name, (prefill, decode) policy, KV, paged): the scheduler's serving passes
+# at 4 layers, half resident, on the card against the CPU
+SERVE_TIER_PARITY = [
+    ("serve-tier-parity-p3", (3, 3), "none", False),
+    ("serve-tier-parity-p3-int8kv", (3, 3), "int8", False),
+    ("serve-tier-parity-p0", (0, 0), "none", False),
+    ("serve-tier-parity-p0-p2", (0, 2), "none", False),
+    ("serve-tier-parity-p3-paged", (3, 3), "none", True),
+]
+
+
+def proc_kwargs(i: int) -> dict:
+    """serve-paged-proc's processors for request ``i``."""
+    kw = dict(repetition_penalty=PROC_PENALTY, min_new_tokens=PROC_MIN_NEW) if i % 2 == 0 else {}
+    if i % 4 == 1:
+        kw["no_repeat_ngram_size"] = PROC_NGRAM
+    return kw
+
+
+def repeats_ngram(prompt, output, n: int) -> bool:
+    """True where an emitted token completes an n-gram already present in the
+    prompt and the output before it (what no_repeat_ngram_size bans)."""
+    seq = list(prompt) + list(output)
+    for t in range(len(prompt), len(seq)):
+        if t - n + 1 < 0:
+            continue
+        gram = tuple(seq[t - n + 1 : t + 1])
+        if any(tuple(seq[i : i + n]) == gram for i in range(t - n + 1)):
+            return True
+    return False
+
+
+def serving_tier_expected(cfg, cb, stats: dict, admissions: int, names) -> dict:
+    """Kernel launches of one serving run over the scheduler, from its code
+    and the batcher's counters: every admission's streamed prefill runs B1 at
+    every layer (the prefill plans attend on the card); each decode step runs
+    B2 (B3 over int8 KV) at every resident layer and B7 at every streamed
+    layer whose plan attends on the card (policies 0 and 3; none for 2 and
+    4), or B5 at every layer over the paged pool; each speculative step is a
+    verify, B6 at every layer."""
+    L, steps = cfg.num_layers, int(stats["decode_steps"])
+    n_res = cb.sched.wm.n_resident
+    out = {name: 0 for name in names}
+    out["flash_attention_prefill"] = L * admissions
+    if cb.speculate_k is not None:
+        out["flash_attention_cached"] = L * steps
+    elif cb.paged:
+        out["paged_decode_attention"] = L * steps
+    else:
+        out["decode_attention_fresh"] = n_res * steps
+        out["decode_attention"] = 0 if cb.sched.decode_plan.hybrid else (L - n_res) * steps
+    return out
+
+
+def serving_tier_phase(ca, cm, cfg, tree):
+    """The serving lines over the tiered phase's host tree at OPT-6.7B width,
+    max_batch 16, max_len 1024: the workload's first SERVE_TIER_REQUESTS
+    requests under serve-tier-h50-p3 (full depth, slab, bf16 KV),
+    -paged, -p0-p2 (host KV, host attention at decode) and -spec4 (prompt
+    lookup, k = 4) at 8 layers; then serve-paged-proc, resident at full depth
+    over the whole 64-request workload with the per-request processors
+    (proc_kwargs): no n-gram request repeats a 3-gram. Returns (the launches
+    by line, serve-tier-h50-p3's batcher for the device breakdowns)."""
+    prompts, new_tokens = serving_workload(cfg.vocab_size)
+    launches, kept = {}, None
+    for name, opts, hbm, policies, depth in SERVING_TIERED:
+        n = SERVE_TIER_REQUESTS
+        tcfg, ttree = (cfg, tree) if depth is None else (cfg.replace(num_layers=depth), first_layers(tree, depth))
+        launches[name], cb = serving_path(ca, cm, name, opts, tcfg, ttree, prompts[:n], new_tokens[:n],
+                                          runtime=tiered_runtime("none", hbm, policies, 1))
+        if name == "serve-tier-h50-p3":
+            kept = cb
+        else:
+            cb.sched.wm.close()
+        del cb
+    kw = [proc_kwargs(i) for i in range(len(prompts))]
+    name = "serve-paged-proc"
+    launches[name], cb = serving_path(ca, cm, name, dict(paged=True), cfg, tree, prompts, new_tokens, submit_kw=kw)
+    ngram = [r for r in cb.done if r.no_repeat_ngram_size]
+    bad = [r.req_id for r in ngram if repeats_ngram(r.prompt, r.output, PROC_NGRAM)]
+    emit({"phase": "serving_proc", "config": name, "penalty_requests": sum(1 for k in kw if k.get("repetition_penalty")),
+          "ngram_requests": len(ngram), "ngram_violations": bad})
+    check(cb.use_processors and len(ngram) == len(prompts) // 4 and not bad,
+          f"{name}: requests {bad} of {len(ngram)} repeat a {PROC_NGRAM}-gram")
+    del cb
+    torch.cuda.empty_cache()
+    return launches, kept
+
+
+def serving_tier_breakdown(cb, prompts) -> None:
+    """:func:`copy_compute_split` of one wave of max_batch more requests (16
+    new tokens each) through serve-tier-h50-p3's batcher, per pass (each
+    admission and each decode step streams the layers once)."""
+    before = len(cb.done) + cb._steps
+
+    def run():
+        for p in prompts:
+            cb.submit(p, max_new_tokens=16)
+        cb.run()
+
+    copy_compute_split("serving_tiered_breakdown", "serve-tier-h50-p3", run,
+                       lambda: len(cb.done) + cb._steps - before)
+
+
+def serving_tier_parity(model: str = "opt-6.7b") -> None:
+    """``model``'s width at 4 layers, half resident: the scheduler's serving
+    passes on the card (bf16, kernels, streamed weights) against the CPU
+    (fp32, plain versions, the host tier's golden attention) over the same
+    tree. Three slots, the middle one empty (inactive: it computes and is
+    not compared): two prompts (100 and 37 tokens) through prefill_pass and
+    insert_slot_state into a ragged state, then 4 ragged steps, under each
+    SERVE_TIER_PARITY slab entry; the same prompts' streamed prefill at its
+    bucket committed to shuffled pages, then 4 paged steps. The active rows'
+    logits within PARITY_TOL."""
+    from lia_tpu_torch.config import QuantConfig, RuntimeConfig
+    from lia_tpu_torch.engine.engine import bucket_length, pack_prompts
+    from lia_tpu_torch.engine.serving import ContinuousBatcher
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import paged as pg
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.runtime.scheduler import StreamingScheduler
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config(model).replace(num_layers=4)
+    cfg32 = cfg.replace(dtype="float32")
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    params32 = to_device(params, "cpu", torch.float32)
+    rng = np.random.default_rng(7)
+    prompts = {0: rng.integers(2, cfg.vocab_size, 100).tolist(), 2: rng.integers(2, cfg.vocab_size, 37).tolist()}
+    steps = rng.integers(2, cfg.vocab_size, (4, 3)).astype(np.int32)
+    active = np.asarray([True, False, True])
+    bs, P = SERVE_BLOCK, 16
+    table = np.zeros((3, P), np.int32)
+    table[0, :8] = [9, 3, 14, 1, 7, 22, 5, 11]  # shuffled pages; 100 + 4 tokens need 7
+    table[2, :3] = [2, 17, 8]
+
+    def run(dev, c, p, rt, paged):
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        sched = StreamingScheduler(c, rt, p, dev)
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        out = []
+        if paged:
+            kp = torch.zeros(c.num_layers, 32, c.num_kv_heads, bs, c.head_dim, dtype=dtype, device=dev)
+            vp = torch.zeros_like(kp)
+        else:
+            state = sched.init_serving_state(3, 256)
+        for slot, prompt in prompts.items():
+            bucket = bucket_length(len(prompt))
+            toks, mask = pack_prompts([prompt], 1, bucket=bucket)
+            if paged:
+                logits, seg_state = sched.prefill_pass(toks, mask, bucket)
+                seg = ContinuousBatcher._sched_seg_to_slab(seg_state)
+                pad = bucket - len(prompt)
+                pg.write_prompt_all_layers(kp, vp, seg.k[:, 0, :, pad:], seg.v[:, 0, :, pad:], t(table[slot]),
+                                           len(prompt))
+            else:
+                logits, seg_state = sched.prefill_pass(toks, mask, 256)
+                sched.insert_slot_state(state, seg_state, slot)
+            out.append(logits.float().cpu())
+        pos = np.asarray([len(prompts[0]), 0, len(prompts[2])], np.int32)
+        for st in steps:
+            if paged:
+                logits, _, _ = sched.decode_pass_paged(t(st), t(pos), kp, vp, t(table), t(pos), t(active))
+            else:
+                logits, state = sched.decode_pass_ragged(t(st), t(pos), state, t(active))
+            out.append(logits.float().cpu()[active])
+            pos = pos + active
+        sched.wm.close()
+        return out
+
+    for label, (pf, dc), kv, paged in SERVE_TIER_PARITY:
+        rt = RuntimeConfig(hbm_percentage=50, prefill_policy=pf, decode_policy=dc,
+                           quant=QuantConfig(kv_cache_dtype=kv))
+        with torch.inference_mode():
+            gpu = run(torch.device("cuda"), cfg, params, rt, paged)
+            cpu = run(torch.device("cpu"), cfg32, params32, rt, paged)
+        errs = [(g - c_).abs().max().item() for g, c_ in zip(gpu, cpu)]
+        err = max(errs)
+        emit({"phase": "serving_tier_parity", "config": label, "model": model, "layers": 4, "hbm_percentage": 50,
+              "prefill_policy": pf, "decode_policy": dc, "kv": kv, "paged": paged, "slots": 3,
+              "prompts": [len(p) for p in prompts.values()], "decode_steps": len(steps), "max_abs_err": err,
+              "max_abs_err_by_call": errs, "max_abs_logit": max(c_.abs().max().item() for c_ in cpu),
+              "tol": PARITY_TOL,
+              "argmax_agree": float(np.mean([bool((g.argmax(-1) == c_.argmax(-1)).all()) for g, c_ in zip(gpu, cpu)]))})
+        check(all(bool(torch.isfinite(g).all()) for g in gpu), f"serving_tier_parity {label}: non-finite logits")
+        check(err <= PARITY_TOL, f"serving_tier_parity {label}: max abs logit err {err} > {PARITY_TOL}")
     del params, params32
     torch.cuda.empty_cache()
 
@@ -4170,7 +4438,15 @@ def main() -> int:
     speculative_parity(ca, cm)
     phase_time("speculative")
 
+    serve_tier_launches, serve_tier = serving_tier_phase(ca, cm, cfg, tree)
+    launches.update(serve_tier_launches)
+    serving_tier_parity()
+    phase_time("serving over the scheduler")
+
     # every profiler session comes after the timed runs
+    serving_tier_breakdown(serve_tier, serving_workload(cfg.vocab_size)[0][:SERVE_MAX_BATCH])
+    serve_tier.sched.wm.close()
+    del serve_tier
     for label, make, kv, _ in timed:
         device_breakdown(label, cfg, make, prompts, kv, walls[label])
     llama = get_config("llama-3-8b")

@@ -29,6 +29,24 @@ the device, and the host syncs once at the end of the block, as the
 reference's fused ``lax.scan`` does. Per-request sampling parameters and stop
 tokens ride every path.
 
+The logits processors (``enable_processors``, or processor defaults in
+``gen``) take per-request repetition penalty, min-new-tokens and
+no-repeat-ngram size: a [B, V] token-presence mask on the device, set at
+admission from the prompt and the first token and updated every step, and
+per-slot penalties and EOS suppression
+(:func:`lia_tpu_torch.ops.sampling.process_logits_rows`); the n-gram ban lists
+are computed on the host from each slot's un-padded prompt and output
+(:func:`lia_tpu_torch.ops.sampling.ban_tokens_rows`). Repetition penalty and
+min-new-tokens ride fused blocks (the mask updated on the device each step);
+an active slot with an n-gram size keeps the per-step path.
+
+With a tiering ``runtime`` (:func:`lia_tpu_torch.engine.engine.needs_scheduler`)
+every pass goes through the tiered scheduler
+(:class:`lia_tpu_torch.runtime.scheduler.StreamingScheduler`): admission is
+its streamed prefill, decode its ragged pass over the {resident, streamed}
+cache pair under any placement policy, or its paged pass over one pool for
+all layers (plans that keep KV on the card), one step a dispatch.
+
 The host holds the slot bookkeeping (block tables, lengths, refcounts) in numpy,
 as the reference does, and uploads what a step needs; every cache and pool
 write is in place on the device. Each decode step reads its tokens back to
@@ -51,11 +69,12 @@ engine-level warp (per-request sampling overrides are refused). Every
 admission reserves k + 1 slots of slack; the lengths advance by the accepted
 count only, and the draft's cache is rewound to the verified prefix.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-serving over the tiered scheduler (A10; speculation included), tensor-parallel
-meshes (A13), the logits processors (A3; speculation refuses them as the
-reference does), and paged pools with int8 KV (the reference keeps its pools
-in the model's dtype).
+Refused as the reference refuses them: speculation with the logits
+processors, ``prefill_chunk`` over the scheduler, paged or speculative serving
+over host-placement plans (no paged or chunk host kernel), paged over the
+scheduler with speculation, and paged pools with int8 KV (the reference keeps
+its pools in the model's dtype). Tensor-parallel meshes are not ported yet
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -90,6 +109,9 @@ class Request:
     top_k: Optional[int] = None
     top_p: Optional[float] = None
     stop_token_ids: Optional[List[int]] = None  # extra per-request stops
+    repetition_penalty: Optional[float] = None  # these three need the processors on
+    min_new_tokens: Optional[int] = None
+    no_repeat_ngram_size: Optional[int] = None
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
@@ -100,7 +122,7 @@ class Request:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous batching engine (one device, resident weights)."""
+    """Slot-based continuous batching engine (one device; resident weights or the tiered scheduler)."""
 
     def __init__(
         self,
@@ -126,25 +148,18 @@ class ContinuousBatcher:
     ):
         """``params``: a parameter tree (e.g. ``device_dummy_params`` or
         ``params_from_jax``); it is fused (unless ``runtime.fuse_projections``
-        is off) and moved to ``device``. The other arguments are the
-        reference's; see the module docstring for what each mode does."""
+        is off) and moved to ``device``, or, with a tiering ``runtime``,
+        handed to the tiered scheduler, which keeps the streamed layers in
+        host memory. The other arguments are the reference's; see the module
+        docstring for what each mode does."""
         if mesh is not None:
             raise NotImplementedError("serving over a tensor-parallel mesh is not ported yet (ROADMAP A13)")
-        if runtime is not None and needs_scheduler(runtime):
-            raise NotImplementedError("serving over the tiered scheduler is not ported yet (ROADMAP A10)")
         if draft is not None and speculate_k is None:
             raise ValueError("draft serving requires speculate_k")
         if enable_processors is None:
-            enable_processors = (
-                gen.repetition_penalty != 1.0
-                or (gen.min_new_tokens > 0 and gen.eos_token_id is not None)
-                or gen.no_repeat_ngram_size > 0
-            )
-        if enable_processors:
-            raise NotImplementedError(
-                "logits processors (repetition penalty, min_new_tokens, no_repeat_ngram) "
-                "are not ported yet (ROADMAP A3)"
-            )
+            enable_processors = sampling.needs_processors(gen)
+        if enable_processors and speculate_k is not None:
+            raise NotImplementedError("speculation does not compose with logits processors")
         if paged and kv_quantized:
             raise NotImplementedError("paged pools store the model's dtype; int8-KV paged is not a format "
                                       "of the reference")
@@ -162,9 +177,34 @@ class ContinuousBatcher:
         self.max_len = max_len
         if runtime is None or runtime.fuse_projections:
             params = fuse_projections(cfg, params)
-        self.params = to_device(params, dev)
+        self.sched = None
+        if runtime is not None and needs_scheduler(runtime):
+            from lia_tpu_torch.engine.lookahead import HOST_PLANS
+            from lia_tpu_torch.runtime.scheduler import PAGED_HOST_PLANS, StreamingScheduler
+
+            if prefill_chunk is not None:
+                raise ValueError("prefill_chunk composes with resident serving only: the scheduler's streamed "
+                                 "prefill would stream every layer's weights again for each chunk")
+            self.sched = StreamingScheduler(cfg, runtime, params, dev)
+            if paged:
+                if not self.sched.tpu_kv_plans:
+                    raise NotImplementedError(PAGED_HOST_PLANS)
+                if speculate_k is not None:
+                    raise NotImplementedError("speculative paged serving over the scheduler: the tiered verify "
+                                              "pass reads the slab segment caches, not the pool")
+                if runtime.quant.kv_cache_dtype == "int8":
+                    raise NotImplementedError("paged pools store the model's dtype; int8-KV paged is not a "
+                                              "format of the reference")
+            if speculate_k is not None and not self.sched.tpu_kv_plans:
+                raise NotImplementedError(HOST_PLANS)
+            self.params = self.sched.top  # embeddings, norms, head
+            # the paged pool replaces the slab serving state
+            self.state = None if paged else self.sched.init_serving_state(max_batch, max_len)
+        else:
+            self.params = to_device(params, dev)
         dtype = torch_dtype(cfg.dtype)
         self.paged = paged
+        self.cache = None  # the resident slab's (the scheduler keeps its own state)
         if paged:
             self.block_size = block_size
             # default pool: enough pages for every slot at max_len, + the null page
@@ -181,14 +221,15 @@ class ContinuousBatcher:
             self.prefix_map: Dict[Any, int] = {}  # token prefix -> page id
             self.page_key: Dict[int, Any] = {}  # page id -> token prefix
             self.cached_pages: Dict[int, None] = {}  # insertion-ordered (FIFO)
-            self.prefix_cache = prefix_cache
+            # an admission over the scheduler is its streamed prefill, which has
+            # no suffix-chunk form: no prefix reuse there
+            self.prefix_cache = prefix_cache and self.sched is None
             self.prefix_hits = 0
             self.prefix_tokens_reused = 0
             self.max_pages = -(-max_len // block_size)
             self.block_table = np.zeros((max_batch, self.max_pages), np.int32)
             self.kv_lengths = np.zeros(max_batch, np.int32)
-            self.cache = None
-        else:
+        elif self.sched is None:
             cache = kvc.init_cache(cfg, max_batch, max_len, dtype, quantized=kv_quantized, device=dev)
             self.cache = cache._replace(length=torch.zeros(max_batch, dtype=torch.int32, device=dev))
         self.kv_quantized = kv_quantized
@@ -200,6 +241,15 @@ class ContinuousBatcher:
         self.s_topp = np.full(max_batch, gen.top_p, np.float32)
         self.s_greedy = np.full(max_batch, not gen.do_sample, bool)
         self._s_dev = None  # device copies of the slot params, made when they change
+        # logits processors: each slot's token-presence mask on the device, and
+        # its penalty, min-new-tokens and n-gram size (engine defaults until a
+        # request lands)
+        self.use_processors = enable_processors
+        if enable_processors:
+            self.seen = torch.zeros((max_batch, cfg.vocab_size), dtype=torch.bool, device=dev)
+            self.s_rep = np.full(max_batch, gen.repetition_penalty, np.float32)
+            self.s_minnew = np.full(max_batch, gen.min_new_tokens, np.int32)
+            self.s_ngram = np.full(max_batch, gen.no_repeat_ngram_size, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.tokens = np.full(max_batch, gen.pad_token_id, np.int32)
         # speculation: k proposals a slot (prompt lookup or the draft) and one
@@ -370,10 +420,11 @@ class ContinuousBatcher:
         """Queue a request. Sampling kwargs override the engine's
         GenerationConfig for this request (greedy and sampled requests decode
         together: :func:`lia_tpu_torch.ops.sampling.sample_per_row`)."""
-        if repetition_penalty is not None or min_new_tokens is not None or no_repeat_ngram_size is not None:
+        if (repetition_penalty is not None or min_new_tokens is not None
+                or no_repeat_ngram_size is not None) and not self.use_processors:
             raise ValueError(
-                "per-request repetition_penalty/min_new_tokens/no_repeat_ngram_size need the logits "
-                "processors, which are not ported yet (ROADMAP A3)"
+                "per-request repetition_penalty/min_new_tokens/no_repeat_ngram_size need the batcher built "
+                "with enable_processors=True (or processor defaults in gen)"
             )
         if self.speculate_k is not None and any(x is not None for x in (do_sample, temperature, top_k, top_p)):
             raise ValueError(
@@ -386,6 +437,8 @@ class ContinuousBatcher:
             rid, list(prompt), max_new_tokens or self.gen.max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p,
             stop_token_ids=list(stop_token_ids) if stop_token_ids else None,
+            repetition_penalty=repetition_penalty, min_new_tokens=min_new_tokens,
+            no_repeat_ngram_size=no_repeat_ngram_size,
         ))
         return rid
 
@@ -398,7 +451,16 @@ class ContinuousBatcher:
         self.s_temp[slot] = g.temperature if req.temperature is None else req.temperature
         self.s_topk[slot] = g.top_k if req.top_k is None else req.top_k
         self.s_topp[slot] = g.top_p if req.top_p is None else req.top_p
+        if self.use_processors:
+            self.s_rep[slot], self.s_minnew[slot], self.s_ngram[slot] = self._req_processors(req)
         self._s_dev = None
+
+    def _req_processors(self, req: Request):
+        """(repetition penalty, min_new_tokens, n-gram size) of a request."""
+        g = self.gen
+        return (g.repetition_penalty if req.repetition_penalty is None else req.repetition_penalty,
+                g.min_new_tokens if req.min_new_tokens is None else req.min_new_tokens,
+                g.no_repeat_ngram_size if req.no_repeat_ngram_size is None else req.no_repeat_ngram_size)
 
     def _activate_slot(self, slot: int, req: Request, first: int) -> None:
         """Common admission tail: record the first token and bring the slot up."""
@@ -407,6 +469,8 @@ class ContinuousBatcher:
         self.slot_req[slot] = req
         self.active[slot] = True
         self._slot_sampling(slot, req)
+        if self.use_processors:
+            self.seen[slot].copy_(torch.from_numpy(self._prompt_seen(req, first)))
         self.tokens[slot] = first
         self.logical_pos[slot] = len(req.prompt)
         self._maybe_finish(slot, first)
@@ -416,13 +480,70 @@ class ContinuousBatcher:
             self._s_dev = tuple(self._dev(a) for a in (self.s_temp, self.s_topk, self.s_topp, self.s_greedy))
         return self._s_dev
 
+    def _prompt_seen(self, req: Request, first: Optional[int] = None) -> np.ndarray:
+        """A request's [V] presence row: its prompt, and ``first`` if given."""
+        row = np.zeros(self.cfg.vocab_size, bool)
+        row[np.asarray(req.prompt, np.int64)] = True
+        if first is not None:
+            row[first] = True
+        return row
+
+    @staticmethod
+    def _ngram_bans(seq: List[int], n: int) -> List[int]:
+        """HF NoRepeatNGram over one un-padded history: the tokens that would
+        complete an n-gram already present in ``seq``."""
+        if n <= 0 or len(seq) < n - 1:
+            return []
+        if n == 1:
+            return sorted(set(seq))
+        tail = tuple(seq[len(seq) - (n - 1):])
+        return sorted({seq[i + n - 1] for i in range(len(seq) - n + 1) if tuple(seq[i : i + n - 1]) == tail})
+
+    def _apply_ngram_bans(self, logits: torch.Tensor, ban_rows: List[List[int]]) -> torch.Tensor:
+        """Upload the host's ban lists (the width bucketed, as the reference
+        bounds its compiles) and ban them in one device scatter."""
+        K = max(len(b) for b in ban_rows)
+        if K == 0:
+            return logits
+        arr = np.full((len(ban_rows), bucket_length(K, minimum=8)), -1, np.int32)
+        for b, bans in enumerate(ban_rows):
+            arr[b, : len(bans)] = bans
+        return sampling.ban_tokens_rows(logits, self._dev(arr))
+
+    def _process_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """The per-step path's processors over [B, V] logits: each active
+        slot's penalty over its presence mask, EOS suppressed until its
+        min_new_tokens, and its n-gram bans."""
+        live = [b for b in range(self.B) if self.active[b] and self.slot_req[b] is not None]
+        suppress = np.zeros(self.B, bool)
+        for b in live:
+            suppress[b] = len(self.slot_req[b].output) < self.s_minnew[b]
+        logits = sampling.process_logits_rows(logits, self.seen, self._dev(self.s_rep), self._dev(suppress),
+                                              self.gen.eos_token_id)
+        if any(self.s_ngram[b] > 0 for b in live):
+            bans = [[] for _ in range(self.B)]
+            for b in live:
+                req = self.slot_req[b]
+                bans[b] = self._ngram_bans(req.prompt + req.output, int(self.s_ngram[b]))
+            logits = self._apply_ngram_bans(logits, bans)
+        return logits
+
     def _sample_rows(self, logits: torch.Tensor) -> torch.Tensor:
         if self.s_greedy.all():
             return sampling.greedy(logits)
         return sampling.sample_per_row(logits, self._rng, *self._slot_params())
 
     def _sample_one(self, logits: torch.Tensor, req: Request) -> int:
+        """An admission's first token, the request's processors applied (its
+        prompt as the presence mask, EOS suppressed if it has a minimum)."""
         g = self.gen
+        if self.use_processors:
+            rep, mn, ng = self._req_processors(req)
+            logits = sampling.process_logits_rows(
+                logits, self._dev(self._prompt_seen(req)[None]), torch.tensor([rep], device=self.device),
+                torch.tensor([mn > 0 and g.eos_token_id is not None], device=self.device), g.eos_token_id,
+            )
+            logits = self._apply_ngram_bans(logits, [self._ngram_bans(req.prompt, ng)])
         if not (g.do_sample if req.do_sample is None else req.do_sample):
             return int(torch.argmax(logits[0]))
         params = (
@@ -513,10 +634,15 @@ class ContinuousBatcher:
                 raise ValueError(f"request {req.req_id} needs {need} slots > max_len {self.max_len}")
             tokens, mask = pack_prompts([req.prompt], self.gen.pad_token_id, bucket=bucket)
             if not self.paged:
-                seg = self._new_seg(self.max_len)
-                logits, seg = T.prefill(self.cfg, self.params, self._dev(tokens), self._dev(mask), seg)
-                first = self._sample_one(logits, req)
-                kvc.insert_slot(self.cache, seg, slot)
+                if self.sched is not None:  # the streamed prefill into a one-row state
+                    logits, seg_state = self.sched.prefill_pass(tokens, mask, self.max_len)
+                    first = self._sample_one(logits, req)
+                    self.sched.insert_slot_state(self.state, seg_state, slot)
+                else:
+                    seg = self._new_seg(self.max_len)
+                    logits, seg = T.prefill(self.cfg, self.params, self._dev(tokens), self._dev(mask), seg)
+                    first = self._sample_one(logits, req)
+                    kvc.insert_slot(self.cache, seg, slot)
                 if self.draft is not None:
                     self._draft_admit(tokens, mask, slot)
                 self._activate_slot(slot, req, first)
@@ -538,6 +664,12 @@ class ContinuousBatcher:
                 logits, seg = T.prefill_chunk(self.cfg, self.params, suffix, torch.ones_like(suffix, dtype=torch.bool),
                                               seg)
                 pad = 0
+            elif self.sched is not None:
+                # the streamed prefill at the bucket's length; both segments'
+                # caches become one slab for the page commit
+                logits, seg_state = self.sched.prefill_pass(tokens, mask, bucket)
+                seg = self._sched_seg_to_slab(seg_state)
+                pad = bucket - n
             else:
                 seg = self._new_seg(bucket)
                 logits, seg = T.prefill(self.cfg, self.params, self._dev(tokens), self._dev(mask), seg)
@@ -547,6 +679,15 @@ class ContinuousBatcher:
             if self.draft is not None:
                 self._draft_admit(tokens, mask, slot)
             self._activate_slot(slot, req, first)
+
+    @staticmethod
+    def _sched_seg_to_slab(seg_state) -> kvc.KVCache:
+        """The scheduler's one-row {res, str} state as one [L, 1, N_kv, S, D]
+        cache (plans that keep KV on the card: both segments are there)."""
+        caches = [c for c in (seg_state["res"], seg_state["str"]) if c is not None]
+        if len(caches) == 1:
+            return caches[0]
+        return caches[0]._replace(k=torch.cat([c.k for c in caches]), v=torch.cat([c.v for c in caches]))
 
     def _slack(self) -> int:
         """Slots past a request's last token that a verify may write: k + 1
@@ -589,7 +730,14 @@ class ContinuousBatcher:
         active slots, so in-block writes stay inside each slot's reservation.
         A queued request has no free slot (or no pages) after ``_admit``, so a
         block delays it at most by that cap."""
-        if self.fused_steps <= 1 or self._pending is not None or self.speculate_k is not None:
+        if (self.fused_steps <= 1 or self._pending is not None or self.speculate_k is not None
+                or self.sched is not None):
+            return 1
+        if self.use_processors and (self.active & (self.s_ngram > 0)).any():
+            # the n-gram ban lists come from the host each step. Only active
+            # slots count: a finished slot keeps its request's values until
+            # the slot is reused, and the reference's unmasked test let it
+            # hold fused decode off
             return 1
         remaining = [
             self.slot_req[b].max_new_tokens - len(self.slot_req[b].output)
@@ -602,11 +750,19 @@ class ContinuousBatcher:
 
     def _decode(self, tok: torch.Tensor, pos: torch.Tensor, active: torch.Tensor, table=None, lengths=None):
         """One decode step of the whole batch on the device; the paged pool or
-        the slab cache is written in place. Returns the logits [B, V]."""
+        the slab cache is written in place; over the scheduler, its paged or
+        ragged pass. Returns the logits [B, V]."""
         if self.paged:
+            if self.sched is not None:
+                logits, _, _ = self.sched.decode_pass_paged(tok, pos, self.k_pool, self.v_pool, table, lengths,
+                                                            active)
+                return logits
             logits, _, _ = pg.decode_step_paged(
                 self.cfg, self.params, tok[:, None], pos, self.k_pool, self.v_pool, table, lengths, active
             )
+            return logits
+        if self.sched is not None:
+            logits, self.state = self.sched.decode_pass_ragged(tok, pos, self.state, active)
             return logits
         logits, self.cache = T.decode_step_ragged(self.cfg, self.params, tok[:, None], pos, self.cache, active)
         return logits
@@ -616,9 +772,15 @@ class ContinuousBatcher:
         the device, then one read of the [k, B] tokens. Slots that finish
         inside the block stop counting at their stop token; their extra writes
         land in space reserved for them and are reset when the slot is
-        reused."""
+        reused. Repetition penalty and min-new-tokens apply at every step, the
+        presence mask updated on the device; a slot's EOS suppression
+        follows its count at the block's start plus j."""
         active = self._dev(self.active)
         adv = active.to(torch.int32)
+        proc = self.use_processors
+        if proc:
+            gen0 = self._dev(np.array([0 if r is None else len(r.output) for r in self.slot_req], np.int32))
+            rep, minnew = self._dev(self.s_rep), self._dev(self.s_minnew)
         tok = self._dev(self.tokens)
         pos = self._dev(self.logical_pos.astype(np.int32))
         table = self._dev(self.block_table) if self.paged else None
@@ -626,7 +788,12 @@ class ContinuousBatcher:
         out = torch.empty((k, self.B), dtype=torch.int32, device=self.device)
         for j in range(k):
             logits = self._decode(tok, pos, active, table, lengths)
+            if proc:
+                logits = sampling.process_logits_rows(logits, self.seen, rep, active & (gen0 + j < minnew),
+                                                      self.gen.eos_token_id)
             tok = self._sample_rows(logits)
+            if proc:
+                sampling.mark_seen(self.seen, tok, active)
             out[j] = tok
             pos = pos + adv
             if self.paged:
@@ -671,7 +838,12 @@ class ContinuousBatcher:
             self.kv_lengths[self.active] += 1
         else:
             logits = self._decode(tok, pos, active)
-        toks = self._sample_rows(logits).cpu().numpy()
+        if self.use_processors:
+            logits = self._process_rows(logits)
+        toks = self._sample_rows(logits)
+        if self.use_processors:
+            sampling.mark_seen(self.seen, toks, active)
+        toks = toks.cpu().numpy()
         self._steps += 1
         self._dispatches += 1
         for slot in np.flatnonzero(self.active):
@@ -723,6 +895,10 @@ class ContinuousBatcher:
                 self.cfg, self.params, self._dev(chunk), self._dev(positions), self.k_pool, self.v_pool,
                 self._dev(self.block_table), self._dev(self.kv_lengths), active_dev,
             )
+        elif self.sched is not None:
+            # the tiered verify: each streamed layer's weights cross once for
+            # all k + 1 positions
+            logits, self.state = self.sched.verify_logits(self._dev(chunk), self._dev(positions), self.state)
         else:
             logits = T.verify_chunk(self.cfg, self.params, self._dev(chunk), self._dev(positions), self.cache)
         if sampled:
@@ -766,6 +942,8 @@ class ContinuousBatcher:
             # next verify overwrites them; a slot that finished this step has
             # released its pages and zeroed its length, and is not advanced
             self.kv_lengths = self.kv_lengths + accept * self.active
+        elif self.sched is not None:
+            self.state = self.sched.accept_state(self.state, self._dev(accept))
         else:
             self.cache = kvc.accept_ragged(self.cache, self._dev(accept))
         if self.draft is not None:

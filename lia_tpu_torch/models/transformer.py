@@ -28,7 +28,7 @@ that fits the kernel in one launch (:func:`_fused_mlp_viable`).
 
 The layer functions take ``host=True`` for the tiered scheduler's host tier
 (policies 1, 2 and 4 run layers or attention on the CPU): attention is then
-the golden model (:func:`lia_tpu_torch.ops.attention.attend_prefill_host`,
+the host tier's (:func:`lia_tpu_torch.ops.attention.attend_prefill_host`,
 :func:`~lia_tpu_torch.ops.attention.attend_decode_host`), as the reference
 runs its host functions with Pallas disabled; on CPU tensors the quantized
 linears take the plain matmuls (:func:`lia_tpu_torch.ops.quant.quantized_matmul`).

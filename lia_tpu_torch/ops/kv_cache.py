@@ -116,9 +116,10 @@ def _write_plane(plane: torch.Tensor, new: torch.Tensor, start: Offset, dim: int
     if idx.ndim == 1:
         plane.index_copy_(dim, idx, new)
         return
-    shape = [1] * new.dim()
-    shape[dim - 2], shape[dim] = idx.shape
-    plane.scatter_(dim, idx.view(shape).expand(new.shape), new)
+    # one index_put_ of rows x slots (the heads between them whole): on host
+    # tensors a scatter_ over the expanded index took ~1000x as long
+    rows = torch.arange(idx.shape[0], device=plane.device)[:, None]
+    plane[(slice(None),) * (dim - 2) + (rows, slice(None), idx)] = new.movedim((dim - 2, dim), (0, 1))
 
 
 def _write(plane: Any, new: Any, start: Offset, dim: int) -> Any:

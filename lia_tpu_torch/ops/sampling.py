@@ -6,8 +6,10 @@ Random draws take an explicit ``torch.Generator``. It gives other numbers than
 ``jax.random`` from the same seed, so the tests compare warped probabilities,
 not draws. The processors (repetition penalty, min-new-tokens, no-repeat-ngram:
 HF's LogitsProcessorList) run on the device with no host sync; their state is
-a [B, V] token-presence mask and a [B, L] token history. Serving's per-row
-processors are not ported yet.
+a [B, V] token-presence mask and a [B, L] token history. Serving applies them
+per row (:func:`process_logits_rows`, :func:`mark_seen`,
+:func:`ban_tokens_rows`): each slot its own penalty and EOS suppression, and
+no-repeat-ngram as ban lists the host computes from each slot's history.
 """
 
 from __future__ import annotations
@@ -164,6 +166,47 @@ def process_logits(
     if gen.no_repeat_ngram_size > 0 and history is not None and cur_len is not None:
         logits = ban_repeated_ngrams(logits, history, cur_len, gen.no_repeat_ngram_size)
     return logits
+
+
+def process_logits_rows(
+    logits: torch.Tensor,  # [B, V]
+    seen: torch.Tensor,  # [B, V] bool: each slot's prompt and generated tokens
+    rep_penalty: torch.Tensor,  # [B] f32 (1.0 = off)
+    suppress_eos: torch.Tensor,  # [B] bool: min_new_tokens not reached yet
+    eos_token_id: Optional[int],
+) -> torch.Tensor:
+    """Per-row processors for continuous batching: each row its own repetition
+    penalty and EOS suppression (the per-request form of
+    :func:`process_logits`)."""
+    x = logits.float()
+    rep = rep_penalty.to(x.device, torch.float32)[:, None]
+    pen = torch.where(x > 0, x / rep, x * rep)
+    x = torch.where(seen & (rep != 1.0), pen, x)
+    if eos_token_id is not None:
+        eos_col = torch.arange(x.shape[-1], device=x.device)[None, :] == eos_token_id
+        x = torch.where(eos_col & suppress_eos.to(x.device)[:, None], torch.full_like(x, NEG_INF), x)
+    return x.to(logits.dtype)
+
+
+def mark_seen(seen: torch.Tensor, toks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Record [B] emitted tokens in the presence mask, in place; inactive rows
+    keep theirs."""
+    rows = torch.arange(seen.shape[0], device=seen.device)
+    t = toks.long().to(seen.device)
+    seen[rows, t] = seen[rows, t] | active.to(seen.device)
+    return seen
+
+
+def ban_tokens_rows(logits: torch.Tensor, banned: torch.Tensor) -> torch.Tensor:
+    """Set each row's banned token ids ([B, K], -1 = none) to NEG_INF: serving's
+    no-repeat-ngram, whose ban lists the host computes from each slot's
+    un-padded history."""
+    ids = banned.long().to(logits.device)
+    V = logits.shape[-1]
+    ids = torch.where((ids >= 0) & (ids < V), ids, V)  # unused entries drop into a trash column
+    mask = torch.zeros((logits.shape[0], V + 1), dtype=torch.bool, device=logits.device)
+    mask.scatter_(1, ids, True)
+    return torch.where(mask[:, :V], torch.full_like(logits, NEG_INF), logits)
 
 
 def warp_logits(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:

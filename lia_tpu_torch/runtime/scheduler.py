@@ -35,8 +35,14 @@ card, and expanded (the whole of both caches gathered each step, the host
 cache included) under host-KV plans (policies 0, 1, 2, 4), as in the
 reference. The scoring pass is the prefill over both segments with the head
 on every position. The chunked verify pass (:meth:`StreamingScheduler.verify_pass`,
-speculative decoding) runs where both plans keep KV on the card. Ragged and
-paged serving under the scheduler are not ported yet and raise.
+speculative decoding) runs where both plans keep KV on the card.
+
+Continuous batching runs over the same segments: ragged serving
+(:meth:`StreamingScheduler.init_serving_state`, :meth:`insert_slot_state`,
+:meth:`decode_pass_ragged`) gives both caches a length per row, under every
+policy; paged serving (:meth:`decode_pass_paged`) replaces both caches by one
+``[L, num_blocks, N_kv, block_size, D]`` pool that the resident and the
+streamed layers read by layer index, where both plans keep KV on the card.
 """
 
 from __future__ import annotations
@@ -76,8 +82,8 @@ def _rows(x: Any, b0: int, b1: int) -> Any:
     return x[b0:b1]
 
 
-def _unported(what: str, waits_for: str):
-    raise NotImplementedError(f"{what} under the tiered scheduler is not ported yet (waits for {waits_for})")
+PAGED_HOST_PLANS = ("paged serving over the scheduler needs plans that keep KV on the card (policy 3 "
+                    "streaming); host-placement policies have no paged host kernel")
 
 
 class StreamingScheduler:
@@ -474,18 +480,87 @@ class StreamingScheduler:
         become valid)."""
         return {key: None if c is None else kvc.accept_ragged(c, accept) for key, c in state.items()}
 
-    # -- passes not ported yet -------------------------------------------------
+    # -- continuous batching -----------------------------------------------------
 
-    def init_serving_state(self, *args, **kwargs):
-        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
+    def init_serving_state(self, B: int, max_len: int):
+        """The {res, str} cache pair of ``B`` serving slots, each row with its
+        own length ([B], on its cache's device; the streamed cache in pinned
+        host memory under host-KV plans)."""
+        res, st = self._init_caches(B, max_len)
+        return {key: None if c is None else c._replace(length=torch.zeros(B, dtype=torch.int32,
+                                                                           device=c.mask.device))
+                for key, c in (("res", res), ("str", st))}
 
-    def insert_slot_state(self, *args, **kwargs):
-        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
+    def insert_slot_state(self, state, seg_state, slot: int):
+        """Copy a freshly prefilled one-row state (:meth:`prefill_pass`, the
+        same max_len) into batch row ``slot`` of both caches, in place."""
+        for key, c in state.items():
+            if c is not None:
+                kvc.insert_slot(c, seg_state[key], slot)
+        return state
 
-    def decode_pass_ragged(self, *args, **kwargs):
-        _unported("ragged serving", "the scheduler's serving passes, ROADMAP A10")
+    def decode_pass_ragged(self, tok: torch.Tensor, pos: torch.Tensor, state, active: torch.Tensor):
+        """One continuous-batching decode step over both segments: ``tok``,
+        ``pos`` (logical positions) and ``active`` [B] on the card, each row at
+        its own cache length. Inactive rows compute and write at their length
+        too (fixed shapes), but their slot never becomes valid and their
+        lengths do not move (:func:`lia_tpu_torch.ops.kv_cache.advance_ragged`).
+        Returns (logits [B, V] fp32, state)."""
+        cfg, dev = self.cfg, self.device
+        res, st = state["res"], state["str"]
+        c = res if res is not None else st  # the segments' lengths agree row by row
+        m, ln = c.mask.to(dev), c.length.to(dev)
+        positions = pos[:, None]
+        x = T.embed(cfg, self.top, tok[:, None], positions)
+        # as in decode_pass, but the inclusive context sets each row's own slot
+        # (at its length) to the row's active flag
+        ctx_past = att.decode_attn_ctx(m, ln, cfg.sliding_window)
+        own = ln.long().clamp(0, m.shape[1] - 1)[:, None]
+        ctx = att.decode_attn_ctx(ctx_past.slot_mask.scatter(1, own, active[:, None]), ln + 1)
+        if res is not None:
+            x, k_new, v_new = T.decode_layers_scan(cfg, self.wm.resident, x, res.k, res.v, res.length,
+                                                   ctx_past, positions, self.wm.n_resident)
+            res = kvc.advance_ragged(res._replace(k=k_new, v=v_new), active)
+        if st is not None:
+            x, st = self._run_streamed("decode", self.decode_plan, x, st, ctx, positions)
+            st = kvc.advance_ragged(st, active.to(st.mask.device))
+        return T.lm_head(cfg, self.top, x)[:, 0, :], {"res": res, "str": st}
 
-    def decode_pass_paged(self, *args, **kwargs):
-        _unported("paged serving", "the scheduler's serving passes, ROADMAP A10")
+    def decode_pass_paged(self, tok: torch.Tensor, pos: torch.Tensor, k_pool, v_pool, block_table: torch.Tensor,
+                          lengths: torch.Tensor, active: torch.Tensor):
+        """One continuous-batching decode step over a paged pool [L,
+        num_blocks, N_kv, block_size, D] that serves the resident and the
+        streamed layers alike: ``tok``/``pos``/``lengths`` (past tokens)/
+        ``active`` [B] and the block table [B, P] on the card. Every layer
+        attends over its pages with the fresh token merged
+        (``paged_decode_attention`` at its layer index); the streamed layers'
+        weights come through the prefetch ring; all layers' fresh K/V are
+        committed once, after the last layer
+        (:func:`lia_tpu_torch.ops.paged.write_token_all_layers`). Returns
+        (logits [B, V] fp32, k_pool, v_pool)."""
+        if not self.tpu_kv_plans:
+            raise NotImplementedError(PAGED_HOST_PLANS)
+        from lia_tpu_torch.ops import paged as pg
 
-
+        cfg, wm = self.cfg, self.wm
+        n_res, L = wm.n_resident, cfg.num_layers
+        positions = pos[:, None]
+        x = T.embed(cfg, self.top, tok[:, None], positions)
+        k_new, v_new = [], []
+        wm.prefetch(n_res)
+        for idx in range(L):
+            if idx < n_res:
+                lp = T.layer_params(wm.resident, idx)
+            else:
+                wm.prefetch_after(idx)
+                lp = wm.get_layer(idx)
+            q, k, v = T.attn_in(cfg, lp, x, positions)
+            attn_out = pg.attend_decode_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths)
+            x = T.attn_post_mlp(cfg, lp, x, attn_out)
+            k_new.append(k)
+            v_new.append(v)
+            if idx >= n_res:
+                self._sync()
+        pg.write_token_all_layers(k_pool, v_pool, torch.stack(k_new), torch.stack(v_new), block_table, lengths,
+                                  active)
+        return T.lm_head(cfg, self.top, x)[:, 0, :], k_pool, v_pool

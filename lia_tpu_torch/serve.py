@@ -20,7 +20,10 @@ Endpoints:
                   callable with ``decode``; the CLI gives none: the port
                   imports no ``transformers``)
                   + optional max_new_tokens, do_sample, temperature, top_k,
-                  top_p, stop_token_ids
+                  top_p, stop_token_ids, and the logits processors'
+                  repetition_penalty, min_new_tokens, no_repeat_ngram_size
+                  (these three need a batcher built with enable_processors,
+                  ``--enable-processors``; without it they answer 400)
   GET  /stats     throughput / TTFT / TPOT / prefix-cache counters + queue depth
   GET  /health
 """

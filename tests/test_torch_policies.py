@@ -147,9 +147,8 @@ def test_host_tier_reaches_no_kernel_wrapper(model, monkeypatch, policy):
 
 
 def test_unported_passes_raise(model):
-    """Ragged and paged serving and meshes under the scheduler raise, naming
-    what they wait for; the verify pass raises under a host-placement plan;
-    beams go through generate_beam."""
+    """Meshes under the scheduler raise; the verify pass and paged serving
+    raise under a host-placement plan; beams go through generate_beam."""
     _, _, tcfg, tp = model
     rt = RuntimeConfig(hbm_percentage=50, stream_weights=True)
     eng = InferenceEngine(tcfg, tp, rt, device="cpu")
@@ -157,14 +156,12 @@ def test_unported_passes_raise(model):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3, num_beams=2))
     with pytest.raises(ValueError):
         eng.generate(PROMPTS, GenerationConfig(max_new_tokens=3), on_token=print)
-    sched = eng.scheduler
-    for name in ("init_serving_state", "insert_slot_state", "decode_pass_ragged", "decode_pass_paged"):
-        with pytest.raises(NotImplementedError, match="waits for"):
-            getattr(sched, name)(None)
     host = InferenceEngine(tcfg, tp, rt.replace(prefill_policy=0, decode_policy=0), device="cpu").scheduler
     tok = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="host-placement"):
         host.verify_pass(tok, tok, {"res": None, "str": None})
+    with pytest.raises(NotImplementedError, match="paged host kernel"):
+        host.decode_pass_paged(tok[:, 0], tok[:, 0], None, None, tok, tok[:, 0], tok[:, 0].bool())
     with pytest.raises(NotImplementedError):
         InferenceEngine(tcfg, tp, rt.replace(mesh_shape=(1, 2)), device="cpu")
     from lia_tpu_torch.runtime.scheduler import StreamingScheduler

@@ -91,7 +91,7 @@ def test_http_stats_health_and_errors(server):
     status, err = _post(port, "/generate", {"prompt": "no tokenizer configured"})
     assert status == 400 and "tokenizer" in err["error"]
     status, err = _post(port, "/generate", {"prompt_ids": [1, 2], "repetition_penalty": 1.3})
-    assert status == 400 and "A3" in err["error"]  # the logits processors are not ported
+    assert status == 400 and "enable_processors" in err["error"]  # this batcher has no processors
     assert _get(port, "/nowhere")[0] == 404
 
 

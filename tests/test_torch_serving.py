@@ -20,7 +20,7 @@ from lia_tpu.engine.serving import ContinuousBatcher as JBatcher
 from lia_tpu.models.registry import get_config as j_get_config
 from lia_tpu.utils.checkpoint import init_dummy_params as j_init
 
-from lia_tpu_torch.config import GenerationConfig, RuntimeConfig
+from lia_tpu_torch.config import GenerationConfig
 from lia_tpu_torch.engine.engine import InferenceEngine
 from lia_tpu_torch.engine.serving import ContinuousBatcher
 from lia_tpu_torch.models.registry import get_config
@@ -293,23 +293,17 @@ def test_fused_steps_with_waiting_queue(model):
 
 
 def test_unported_options_raise(model):
+    """Meshes (A13), int8-KV pools and ALiBi raise; a per-request processor
+    needs the processors on, as in lia_tpu."""
     _, _, tcfg, tp = model
-    cases = {
-        "A10": [dict(runtime=RuntimeConfig(hbm_percentage=50)),
-                dict(runtime=RuntimeConfig(hbm_percentage=50), speculate_k=2)],
-        "A13": [dict(mesh=object())],
-        "A3": [dict(enable_processors=True), dict(gen=GenerationConfig(repetition_penalty=1.2))],
-    }
-    for item, kws in cases.items():
-        for kw in kws:
-            with pytest.raises(NotImplementedError, match=item):
-                ContinuousBatcher(tcfg, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A13"):
+        ContinuousBatcher(tcfg, tp, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="int8"):
         ContinuousBatcher(tcfg, tp, paged=True, kv_quantized=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ALiBi"):
         ContinuousBatcher(get_config("bloom-tiny"), tp, device="cpu")
     cb = ContinuousBatcher(tcfg, tp, device="cpu")
-    with pytest.raises(ValueError, match="A3"):
+    with pytest.raises(ValueError, match="enable_processors"):
         cb.submit([1, 2], repetition_penalty=1.3)
     with pytest.raises(ValueError):
         ContinuousBatcher(tcfg, tp, fused_steps=0, device="cpu")

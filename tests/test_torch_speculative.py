@@ -477,12 +477,12 @@ def test_spec_serving_topk1_sampled_equals_greedy(opt, drafts, draft):
 
 def test_spec_serving_guards(opt):
     """Speculation refuses what it does not compose with: the logits
-    processors (A3), the tiered scheduler (A10), meshes (A13), per-request
-    sampling overrides, and a draft without speculate_k."""
+    processors, host-placement plans of the tiered scheduler, meshes (A13),
+    per-request sampling overrides, and a draft without speculate_k."""
     _, _, tcfg, tp = opt
-    for kw, item in ((dict(enable_processors=True), "A3"),
-                     (dict(gen=GenerationConfig(repetition_penalty=1.2)), "A3"),
-                     (dict(runtime=RuntimeConfig(hbm_percentage=50)), "A10"),
+    for kw, item in ((dict(enable_processors=True), "processors"),
+                     (dict(gen=GenerationConfig(repetition_penalty=1.2)), "processors"),
+                     (dict(runtime=RuntimeConfig(decode_policy=1, stream_weights=True)), "chunk attention kernel"),
                      (dict(mesh=object()), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousBatcher(tcfg, tp, speculate_k=K, device="cpu", **kw)
