@@ -4,7 +4,9 @@
 
 Phases, each printing one JSON line per item:
 
-1. device: the card's name and power limit (nvidia-smi) and torch's view of it;
+1. device: the card's name and power limit (nvidia-smi) and torch's view of
+   it; host: the machine's MemTotal, CPU count and torch threads, and the
+   card's memory free to this process;
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
    the flash, quantized-matmul, paged-decode, fused-MLP, int8-decode, bf16
    beam and plane-decode libraries' kernels as ptxas built them (registers,
@@ -54,9 +56,11 @@ Phases, each printing one JSON line per item:
    and depth with random weights, 16 prompts x 256 tokens, 32 new tokens:
    bf16 weights with bf16 and with int8 KV; bench.py's two candidates
    (int8dyn+int8kv, w4a8+int8kv); weight-only int8, int4 g128 and NF4 g128
-   with bf16 KV; and a GPTQ checkpoint (OPT-6.7B width at 2 layers,
+   with bf16 KV; a GPTQ checkpoint (OPT-6.7B width at 2 layers,
    synthesized in AutoGPTQ's packing) as woq_int4z and retagged as
-   woq_int4z_dyn. Two gate A/Bs, each on its gate-off run's engine, the two
+   woq_int4z_dyn; and a llama-layout GPTQ checkpoint (Llama-2-7B width at 2
+   layers: q/k/v, o, gate, up and down as woq_int4z) with projections fused
+   (4 woq4z launches a layer and forward) and unfused (7). Two gate A/Bs, each on its gate-off run's engine, the two
    sides in turns: bf16 with the fused-MLP gate on (992 fused MLPs: every
    decode step's layers), w4a8+int8kv with the stacked-W4A8 gate on (3968
    stacked launches, 160 w4a8_matmul: the prefill and the heads). Then
@@ -77,8 +81,8 @@ Phases, each printing one JSON line per item:
    L * 31 decode launches each, no plain version on the card); then the
    checkpoint round trips on the card's machine, with the port's own
    safetensors module: ChatGLM3-6B's 4-layer tree through save_params and
-   load_params, Falcon-7B and CodeGen-2B (mp_num = 4 qkv_proj) at 2 layers
-   written as two Hugging Face shards and read by load_hf_checkpoint (equal
+   load_params, Falcon-7B, CodeGen-2B (mp_num = 4 qkv_proj) and
+   StarCoderBase-1B (GPTBigCode) at 2 layers written as two Hugging Face shards and read by load_hf_checkpoint (equal
    to params_from_hf_state_dict on the same dict), each giving the tokens of
    the tree it came from, with the save's and load's seconds and GB/s (the
    `checkpoint` lines). The launch
@@ -156,10 +160,10 @@ Phases, each printing one JSON line per item:
    on the card against the CPU;
 7c. serving over the tiered scheduler: ContinuousBatcher over the tiered
    phase's host tree at OPT-6.7B width, the serving workload's first 32
-   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (full depth,
-   slab, bf16 KV), serve-tier-h50-p3-paged, serve-tier-h50-p0-p2 (host KV,
-   host attention at decode) and serve-tier-h50-p3-spec4 (prompt lookup, k
-   = 4) at 8 layers; then serve-paged-proc, resident at full depth over the
+   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (16 layers,
+   slab, bf16 KV), serve-tier-h50-p3-paged and serve-tier-h50-p0-p2 (host
+   KV, host attention at decode) at 4 layers and serve-tier-h50-p3-spec4
+   (prompt lookup, k = 4) at 8 layers; then serve-paged-proc, resident at full depth over the
    whole 64-request workload, every second request with repetition penalty
    1.2 and min_new_tokens 8, every fourth a no_repeat_ngram_size of 3 (no
    such request may repeat a 3-gram). Each line: stats() (tokens/s, TTFT and
@@ -173,6 +177,23 @@ Phases, each printing one JSON line per item:
    OPT-6.7B width at 4 layers, half resident, three slots (the middle one
    inactive), insert_slot_state and 4 ragged steps under policies 3 (bf16
    and int8 KV), 0 and 0/2, and 4 paged steps at policy 3, card against CPU;
+7d. automatic placement and the CLI: calibrate, Microbench.calibrate() from
+   the detected card's profile (the pinned copy's alpha and beta with a
+   matmul in flight, beta beside the h2d phase's pinned rate; the host's fp32
+   and the card's bf16 matmul rates; the host's copy rate), every calibrated
+   field off its default; cost_model, the calibrated model's decode step (and
+   the H100 defaults') beside the measured one for every resident main-path
+   cell and every tiered cell at its depth, with their ratio (no generate
+   call); auto_placement, Hypertune at OPT-6.7B's width and 4 layers, hbm
+   50, prefill (0, 3) x decode (0, 1, 2, 3), b4, 64 in, 8 new (no candidate
+   may fail, no plain version on the card), its measured ranking beside
+   CostModel.choose on the same config with the calibrated profile's memory
+   set to hold two of the four layers (the pick's percentage must be 50);
+   cli, lia_tpu_torch.run.main in process at Llama-2-7B full width and depth
+   (dummy weights drawn on the card), b16, 256 + 32, auto on all three knobs
+   with --calibrate (the pick must be (3, 3, 100); exact B1 and B2 launches
+   over the warm-up and the timed run, no plain version, the JSON line with
+   the reference's keys), then with int8 KV (B3);
 8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
@@ -181,7 +202,8 @@ Phases, each printing one JSON line per item:
    both gates on (the fused MLP at every layer), bf16 and int8 KV;
    Falcon-7B and ChatGLM3-6B widths (bf16 and int8 KV), Baichuan2-7B's and
    StableLM-2-1.6B's (bf16 KV), OPT-2.7B's and GPT-J-6B's (both KV types),
-   GPT-NeoX-20B's, StableLM-3B's, CodeGen-2B's and CodeGen-6B's (bf16 KV);
+   GPT-NeoX-20B's, StableLM-3B's, CodeGen-2B's and CodeGen-6B's (bf16 KV),
+   Llama-2-7B's (both KV types);
    and the tiered scheduler at 4 layers (half resident) under policies 3, 0
    and 0/2 with bf16 and with int8 KV, and policy 3 over int8dyn weights and
    int8 KV, and policy 3 with both KV types at OPT-2.7B's and GPT-J-6B's
@@ -314,6 +336,8 @@ TIERED = [
 TIER_DEPTH = {"tier-h50-p0": 8, "tier-h0-p3-int8kv": 8, "tier-h50-p0-p2-mb4": 8, "tier-h50-p0-beam": 4,
               "tier-h50-p3-ring3": 8, "tier-h50-p3-beam": 8, "tier-h50-p3-int8dyn": 8}
 TIER_COPY_BYTES = {}  # the weight stream's bytes per decode step of each tiered configuration
+TIERED_MEASURED = {}  # each tiered configuration's model, residency, policies and median decode rate
+H2D = {}  # the h2d phase's copy rates
 # (name, (prefill, decode) policy, KV, weight quantization or None): the tiered
 # scheduler at 4 layers, half resident, on the card against the CPU
 TIER_PARITY = [
@@ -2256,11 +2280,14 @@ def main_path(ca, cm, label: str, cfg, make_params, prompts, kv: str, per_forwar
             record[field], record[field + "_runs"] = statistics.median(vals), vals
         emit(record)
         out[name] = (launches[name], record["total_s"])
+        MEASURED[name] = dict(cfg=cfg, kv=kv, gate=gate, runtime=runtime or {}, batch=len(prompts),
+                              prompt=len(prompts[0]), decode_tokens_per_s=record["decode_tokens_per_s"])
     del engine, cache, logits, logits2
     torch.cuda.empty_cache()
     return out
 
 
+MEASURED = {}  # each main_path cell's config and median decode rate (the cost model's anchors)
 LLAMA_CELL = "llama-3-8b, bf16 KV"
 LLAMA_WALL = {}  # median wall seconds of each Llama configuration (the device breakdown's denominator)
 
@@ -2298,12 +2325,32 @@ def llama_phase(ca, cm) -> dict:
     return {name: counts for name, (counts, _) in out.items()}
 
 
+def _gptq_pack(codes, zeros):
+    """AutoGPTQ's packing: 8 codes per int32 along K, zero - 1 along N."""
+    qweight = np.zeros((codes.shape[0] // 8, codes.shape[1]), np.uint32)
+    qzeros = np.zeros((zeros.shape[0], zeros.shape[1] // 8), np.uint32)
+    for i in range(8):
+        qweight |= codes[i::8].astype(np.uint32) << (4 * i)
+        qzeros |= (zeros[:, i::8] - 1).astype(np.uint32) << (4 * i)
+    return qweight.view(np.int32), qzeros.view(np.int32)
+
+
+def _gptq_linear(sd, rng, prefix: str, K: int, N: int) -> None:
+    """One linear in AutoGPTQ form under ``prefix``: random codes and
+    zero-points in g = GROUP, trivial g_idx, scales of 0.006/4.3205 (weights of
+    about the fp dummy's spread)."""
+    codes = rng.integers(0, 16, (K, N), dtype=np.uint8)
+    zeros = rng.integers(1, 16, (K // GROUP, N), dtype=np.uint8)
+    sd[prefix + ".qweight"], sd[prefix + ".qzeros"] = _gptq_pack(codes, zeros)
+    sd[prefix + ".scales"] = np.full((K // GROUP, N), 0.006 / 4.3205, np.float16)
+    sd[prefix + ".g_idx"] = (np.arange(K) // GROUP).astype(np.int32)
+
+
 def gptq_params(cfg, seed: int):
     """An OPT tree from a synthesized AutoGPTQ state dict (numpy): random
     codes, zero-points and scales in GPTQ's packing (g = 128, trivial g_idx),
     the rest random fp, through ``params_from_gptq_state_dict`` (lossless
-    woq_int4z records). Scales of 0.006/4.3205 give weights of about the fp
-    dummy's spread."""
+    woq_int4z records)."""
     from lia_tpu_torch.utils.gptq import params_from_gptq_state_dict
 
     rng = np.random.default_rng(seed)
@@ -2311,14 +2358,6 @@ def gptq_params(cfg, seed: int):
 
     def r(*shape):
         return (rng.standard_normal(shape, dtype=np.float32) * 0.006).astype(np.float32)
-
-    def pack(codes, zeros):  # AutoGPTQ: 8 codes per int32 along K, zero - 1 along N
-        qweight = np.zeros((codes.shape[0] // 8, codes.shape[1]), np.uint32)
-        qzeros = np.zeros((zeros.shape[0], zeros.shape[1] // 8), np.uint32)
-        for i in range(8):
-            qweight |= codes[i::8].astype(np.uint32) << (4 * i)
-            qzeros |= (zeros[:, i::8] - 1).astype(np.uint32) << (4 * i)
-        return qweight.view(np.int32), qzeros.view(np.int32)
 
     pre = "model.decoder."
     sd = {pre + "embed_tokens.weight": r(V, H), pre + "embed_positions.weight": r(cfg.max_position_embeddings + 2, H),
@@ -2328,15 +2367,39 @@ def gptq_params(cfg, seed: int):
         for name, (K, N) in (("self_attn.q_proj", (H, H)), ("self_attn.k_proj", (H, H)),
                              ("self_attn.v_proj", (H, H)), ("self_attn.out_proj", (H, H)),
                              ("fc1", (H, F)), ("fc2", (F, H))):
-            codes = rng.integers(0, 16, (K, N), dtype=np.uint8)
-            zeros = rng.integers(1, 16, (K // GROUP, N), dtype=np.uint8)
-            sd[lp + name + ".qweight"], sd[lp + name + ".qzeros"] = pack(codes, zeros)
-            sd[lp + name + ".scales"] = np.full((K // GROUP, N), 0.006 / 4.3205, np.float16)
-            sd[lp + name + ".g_idx"] = (np.arange(K) // GROUP).astype(np.int32)
+            _gptq_linear(sd, rng, lp + name, K, N)
             sd[lp + name + ".bias"] = np.zeros(N, np.float32)
         for ln in ("self_attn_layer_norm", "final_layer_norm"):
             sd[lp + ln + ".weight"], sd[lp + ln + ".bias"] = np.ones(H, np.float32), np.zeros(H, np.float32)
     return params_from_gptq_state_dict(cfg, sd, group_size=GROUP)
+
+
+def gptq_llama_params(cfg, seed: int):
+    """A llama-layout tree from a synthesized AutoGPTQ state dict in the
+    ``model.layers.*`` names (q/k/v, o, up, gate and down projections in
+    GPTQ form, g = 128, trivial g_idx; fp embeddings, norms and an untied
+    head), through ``params_from_gptq_state_dict``: every projection a
+    lossless woq_int4z record."""
+    from lia_tpu_torch.utils.gptq import params_from_gptq_state_dict
+
+    rng = np.random.default_rng(seed)
+    H, F, V = cfg.hidden_size, cfg.ffn_size, cfg.vocab_size
+    QD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    sd = {"model.embed_tokens.weight": (rng.standard_normal((V, H), dtype=np.float32) * 0.006),
+          "lm_head.weight": (rng.standard_normal((V, H), dtype=np.float32) * 0.006),
+          "model.norm.weight": np.ones(H, np.float32)}
+    for i in range(cfg.num_layers):
+        lp = f"model.layers.{i}."
+        for name, (K, N) in (("self_attn.q_proj", (H, QD)), ("self_attn.k_proj", (H, KD)),
+                             ("self_attn.v_proj", (H, KD)), ("self_attn.o_proj", (QD, H)),
+                             ("mlp.gate_proj", (H, F)), ("mlp.up_proj", (H, F)), ("mlp.down_proj", (F, H))):
+            _gptq_linear(sd, rng, lp + name, K, N)
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            sd[lp + ln + ".weight"] = np.ones(H, np.float32)
+    tree = params_from_gptq_state_dict(cfg, sd, group_size=GROUP)
+    fmts = {w.fmt for g in ("attn", "mlp") for w in tree["layers"][g].values()}
+    check(fmts == {"woq_int4z"}, f"{cfg.name} GPTQ: projections in {fmts}, not all woq_int4z")
+    return tree
 
 
 def _short(kernel: str) -> str:
@@ -2427,11 +2490,12 @@ def h2d_bandwidth(nbytes: int) -> None:
         torch.cuda.synchronize()
         return nbytes * reps / (time.perf_counter() - t0) / 1e9
 
-    emit({"phase": "h2d", "bytes": nbytes,
-          "h2d_pinned_gb_s": gbps(lambda: dev.copy_(pinned, non_blocking=True)),
-          "h2d_pageable_gb_s": gbps(lambda: dev.copy_(pageable)),
-          "d2h_pinned_gb_s": gbps(lambda: pinned.copy_(dev, non_blocking=True)),
-          "d2h_pageable_gb_s": gbps(lambda: pageable.copy_(dev))})
+    H2D.update({"bytes": nbytes,
+                "h2d_pinned_gb_s": gbps(lambda: dev.copy_(pinned, non_blocking=True)),
+                "h2d_pageable_gb_s": gbps(lambda: dev.copy_(pageable)),
+                "d2h_pinned_gb_s": gbps(lambda: pinned.copy_(dev, non_blocking=True)),
+                "d2h_pageable_gb_s": gbps(lambda: pageable.copy_(dev))})
+    emit({"phase": "h2d", **H2D})
 
 
 def tiered_expected(cfg, n_res: int, kv: str, policies, nm: int, batch: int) -> dict:
@@ -2523,6 +2587,8 @@ def tiered_path(ca, cm, name: str, cfg, tree, prompts, kv: str, hbm: int, polici
                                 ("decode_tokens_per_s", "decode_tokens_per_s", 1.0)):
         vals = [r[key] * scale for r in runs]
         med[out_key], med[out_key + "_runs"] = statistics.median(vals), vals
+    TIERED_MEASURED[name] = dict(cfg=cfg, n_res=wm.n_resident, kv=kv, policies=policies, batch=B,
+                                 prompt=len(prompts[0]), decode_tokens_per_s=med["decode_tokens_per_s"])
     emit({"phase": "tiered", "config": name, "model": cfg.name, "layers": cfg.num_layers, "kv": kv,
           "hbm_percentage": hbm, "resident_layers": wm.n_resident, "prefill_policy": policies[0],
           "decode_policy": policies[1], "num_minibatch": nm, "max_inflight_layers": inflight, "batch": B, "prompt": len(prompts[0]),
@@ -3403,11 +3469,12 @@ def speculative_parity(ca, cm) -> None:
 
 SERVE_TIER_REQUESTS = 32  # the serving workload's first 32 requests
 # (name, batcher options, hbm_percentage, (prefill, decode) policy, depth: None
-# for full depth, else the first n layers of the tiered phase's host tree)
+# for full depth, else the first n layers of the tiered phase's host tree; cut
+# from 32, 8 and 8 layers to make room for the automatic-placement phases)
 SERVING_TIERED = [
-    ("serve-tier-h50-p3", dict(), 50, (3, 3), None),
-    ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 8),
-    ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 8),
+    ("serve-tier-h50-p3", dict(), 50, (3, 3), 16),
+    ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 4),
+    ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 4),
     ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 8),
 ]
 # serve-paged-proc: every second request a repetition penalty and a minimum,
@@ -3470,9 +3537,9 @@ def serving_tier_expected(cfg, cb, stats: dict, admissions: int, names) -> dict:
 def serving_tier_phase(ca, cm, cfg, tree):
     """The serving lines over the tiered phase's host tree at OPT-6.7B width,
     max_batch 16, max_len 1024: the workload's first SERVE_TIER_REQUESTS
-    requests under serve-tier-h50-p3 (full depth, slab, bf16 KV),
-    -paged, -p0-p2 (host KV, host attention at decode) and -spec4 (prompt
-    lookup, k = 4) at 8 layers; then serve-paged-proc, resident at full depth
+    requests under serve-tier-h50-p3 (16 layers, slab, bf16 KV), -paged and
+    -p0-p2 (host KV, host attention at decode) at 4 layers and -spec4 (prompt
+    lookup, k = 4) at 8 (SERVING_TIERED); then serve-paged-proc, resident at full depth
     over the whole 64-request workload with the per-request processors
     (proc_kwargs): no n-gram request repeats a 3-gram. Returns (the launches
     by line, serve-tier-h50-p3's batcher for the device breakdowns)."""
@@ -3963,7 +4030,8 @@ FAMILY_CELLS = [("falcon-7b", None, ("none", "int8"), ("none",)), ("chatglm3-6b"
 FAMILY_PARITY = [("falcon-7b", "none"), ("falcon-7b", "int8"), ("chatglm3-6b", "none"), ("chatglm3-6b", "int8"),
                  ("baichuan2-7b", "none"), ("stablelm-2-1.6b", "none"),
                  ("opt-2.7b", "none"), ("opt-2.7b", "int8"), ("gpt-j-6b", "none"), ("gpt-j-6b", "int8"),
-                 ("gpt-neox-20b", "none"), ("stablelm-3b", "none"), ("codegen-2b", "none"), ("codegen-6b", "none")]
+                 ("gpt-neox-20b", "none"), ("stablelm-3b", "none"), ("codegen-2b", "none"), ("codegen-6b", "none"),
+                 ("llama-2-7b", "none"), ("llama-2-7b", "int8")]
 # the models whose widths the serving, beam and tiered parities also run at
 # (D 80 and 256): B5, B6, B7, B9 and B10 inside a model at the new head dims
 HEAD_DIM_PARITY = ("opt-2.7b", "gpt-j-6b")
@@ -4230,6 +4298,28 @@ def codegen_hf_state_dict(cfg, tree) -> dict:
     return {k: v.contiguous().cpu() for k, v in sd.items()}
 
 
+def gptbigcode_hf_state_dict(cfg, tree) -> dict:
+    """A GPTBigCode tree in the Hugging Face key layout, as CPU tensors: the
+    fused c_attn [H + 2D, H] = [q heads | k | v] with its bias, [out, in]
+    linears, learned positions, tied embeddings (the inverse of the port's
+    converter)."""
+    sd = {"transformer.wte.weight": tree["embed_tokens"], "transformer.wpe.weight": tree["embed_positions"],
+          "transformer.ln_f.weight": tree["final_norm"]["scale"], "transformer.ln_f.bias": tree["final_norm"]["bias"]}
+    lay = tree["layers"]
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        for ln in ("ln1", "ln2"):
+            sd[f"{p}ln_{ln[-1]}.weight"], sd[f"{p}ln_{ln[-1]}.bias"] = lay[ln]["scale"][i], lay[ln]["bias"][i]
+        a = lay["attn"]
+        sd[p + "attn.c_attn.weight"] = torch.cat([a[w][i].T for w in ("wq", "wk", "wv")], dim=0)
+        sd[p + "attn.c_attn.bias"] = torch.cat([a[b][i] for b in ("bq", "bk", "bv")])
+        sd[p + "attn.c_proj.weight"], sd[p + "attn.c_proj.bias"] = a["wo"][i].T, a["bo"][i]
+        m = lay["mlp"]
+        sd[p + "mlp.c_fc.weight"], sd[p + "mlp.c_fc.bias"] = m["w1"][i].T, m["b1"][i]
+        sd[p + "mlp.c_proj.weight"], sd[p + "mlp.c_proj.bias"] = m["w2"][i].T, m["b2"][i]
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
 def hf_round_trip(d, case: str, cfg, tree, sd, tokens) -> None:
     """``sd`` (``tree`` in the Hugging Face layout) written to directory ``d``
     as two safetensors shards (layer 1 and the final norm in the second), read
@@ -4270,7 +4360,8 @@ def checkpoint_phase() -> None:
     reader and writer (that machine has neither the safetensors package nor
     transformers): ChatGLM3-6B's tree at full width and 4 layers through
     save_params and load_params, the same leaves and the same tokens; then
-    Falcon-7B and CodeGen-2B (its mp_num = 4 qkv_proj) at 2 layers written in
+    Falcon-7B, CodeGen-2B (its mp_num = 4 qkv_proj) and StarCoderBase-1B
+    (GPTBigCode: multi-query c_attn, learned positions) at 2 layers written in
     the Hugging Face layout as two shards and read by load_hf_checkpoint
     (:func:`hf_round_trip`), equal to params_from_hf_state_dict on the same
     dict and giving the tokens of the tree it was written from. Seconds and
@@ -4314,7 +4405,8 @@ def checkpoint_phase() -> None:
         os.remove(path)
         torch.cuda.empty_cache()
 
-        for name, to_hf, seed in (("falcon-7b", falcon_hf_state_dict, 2), ("codegen-2b", codegen_hf_state_dict, 3)):
+        for name, to_hf, seed in (("falcon-7b", falcon_hf_state_dict, 2), ("codegen-2b", codegen_hf_state_dict, 3),
+                                  ("starcoderbase-1b", gptbigcode_hf_state_dict, 4)):
             cfg = get_config(name).replace(num_layers=2)
             tree = device_dummy_params(cfg, seed=seed)
             prompts = np.random.default_rng(seed).integers(2, cfg.vocab_size, (4, 128)).tolist()
@@ -4322,6 +4414,246 @@ def checkpoint_phase() -> None:
                           lambda c, p, prompts=prompts: tokens(c, p, prompts))
             del tree
             torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# automatic placement: calibration, the cost model against the measured
+# cells, hypertune beside the cost model's pick, and the run CLI
+# ---------------------------------------------------------------------------
+
+ANCHOR_CTX = PROMPT + NEW_TOKENS // 2  # the cost model's decode context: 256 + 16
+# hypertune (the reference's probe: b4, 64 tokens in, 8 new) over OPT-6.7B's
+# width at 4 layers, half resident
+AUTO_MODEL, AUTO_LAYERS, AUTO_HBM = "opt-6.7b", 4, 50
+AUTO_PREFILL, AUTO_DECODE = (0, 3), (0, 1, 2, 3)
+AUTO_BATCH, AUTO_IN, AUTO_NEW = 4, 64, 8
+CLI_MODEL = "llama-2-7b"  # F 11008: the fused-MLP route's F % 512 fails, the unfused route at full depth
+CALIBRATED = ("h2d_bw", "h2d_latency_s", "host_flops", "tpu_flops")
+
+
+def host_info() -> None:
+    """The machine's host: MemTotal, CPU count, torch's thread count (the host
+    tier's), and the card's memory free to this fresh process."""
+    import os
+
+    with open("/proc/meminfo") as f:
+        mem_kb = next(int(line.split()[1]) for line in f if line.startswith("MemTotal:"))
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "host", "mem_total_gb": mem_kb * 1024 / 1e9, "cpu_count": os.cpu_count(),
+          "torch_threads": torch.get_num_threads(), "card_free_gb": free / 1e9, "card_total_gb": total / 1e9,
+          "card_free_fraction": free / total})
+
+
+def host_copy_gb_s(nbytes: int = 1 << 30, reps: int = 3) -> float:
+    """Host DRAM bytes moved a second (read and write) by a copy of ``nbytes``."""
+    src = torch.ones(nbytes // 4, dtype=torch.float32)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dst.copy_(src)
+    return 2 * nbytes * reps / (time.perf_counter() - t0) / 1e9
+
+
+def calibrate_phase():
+    """Microbench.calibrate() on the card from the detected card's profile: the
+    pinned copy's α and β with a matmul in flight, the host's fp32 and the
+    card's bf16 matmul rates; β beside the h2d phase's pinned rate of the same
+    run; every calibrated field must move off its default. Returns the
+    calibrated profile."""
+    import dataclasses
+
+    from lia_tpu_torch.runtime.cost_model import Microbench
+    from lia_tpu_torch.utils import device_caps
+
+    caps = device_caps.detect()
+    check(caps is not None, f"calibrate: {torch.cuda.get_device_name(0)} is not in the capability registry")
+    base = device_caps.system_profile_defaults()
+    t0 = time.perf_counter()
+    prof = Microbench.calibrate(base)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "calibrate", "seconds": seconds, "caps": dataclasses.asdict(caps),
+          "alpha_s": prof.h2d_latency_s, "beta_gb_s": prof.h2d_bw / 1e9,
+          "h2d_pinned_gb_s": H2D.get("h2d_pinned_gb_s"), "host_flops": prof.host_flops, "card_flops": prof.tpu_flops,
+          "card_flops_fraction_of_spec": prof.tpu_flops / caps.bf16_flops, "host_threads": torch.get_num_threads(),
+          "host_copy_gb_s": host_copy_gb_s(), "defaults": {f: getattr(base, f) for f in CALIBRATED}})
+    moved = [f for f in CALIBRATED if getattr(prof, f) != getattr(base, f)]
+    check(moved == list(CALIBRATED), f"calibrate: only {moved} moved off their defaults")
+    return prof
+
+
+def cell_quant(label: str, kv: str):
+    """The QuantConfig of a main-path cell, from its label."""
+    from lia_tpu_torch.config import QuantConfig
+
+    if label in CANDIDATES:
+        return QuantConfig(**CANDIDATES[label][0])
+    return QuantConfig(**WEIGHT_ONLY.get(label, {}), kv_cache_dtype=kv)
+
+
+def tiered_prediction(cm, n_res: int, policy: int, B: int, ctx: int) -> float:
+    """A tiered decode step composed from the cost model's terms: resident
+    layers x tpu_layer_time, streamed layers x the decode plan's layer time,
+    plus the head and the step's own launches."""
+    L = cm.cfg.num_layers
+    streamed = {0: lambda: cm.policy0_decode_layer_time(B, ctx),
+                1: lambda: cm.host_layer_time(B, 1, ctx),
+                2: lambda: cm.hybrid_decode_layer_time(B, ctx, False),
+                3: lambda: cm.tpu_layer_time(B, 1, ctx, False),
+                4: lambda: cm.hybrid_decode_layer_time(B, ctx, False)}[policy]()
+    head = cm.predict_decode_step(B, ctx) - L * cm.tpu_layer_time(B, 1, ctx, True)
+    return n_res * cm.tpu_layer_time(B, 1, ctx, True) + (L - n_res) * streamed + head
+
+
+def cost_model_phase(profile) -> None:
+    """The calibrated cost model's decode step (and the H100 defaults') beside
+    the measured one for every cell this run timed: the resident main-path
+    cells (no gate on; predict_decode_step) and the tiered cells at their
+    depth (tiered_prediction). No generate call."""
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.runtime.cost_model import CostModel, SystemProfile
+
+    smi = nvidia_smi()
+    rows = []
+    for name, m in MEASURED.items():
+        if m["gate"] or m["runtime"] or name.startswith("gptq"):
+            continue
+        qc = cell_quant(name, m["kv"])
+        meas = m["batch"] / m["decode_tokens_per_s"]
+        pred = CostModel(m["cfg"], profile, qc).predict_decode_step(m["batch"], ANCHOR_CTX)
+        pred0 = CostModel(m["cfg"], SystemProfile(), qc).predict_decode_step(m["batch"], ANCHOR_CTX)
+        rows.append({"cell": name, "layers": m["cfg"].num_layers, "measured_ms": meas * 1e3,
+                     "predicted_ms": pred * 1e3, "ratio": meas / pred, "defaults_ms": pred0 * 1e3,
+                     "defaults_ratio": meas / pred0})
+    for name, m in TIERED_MEASURED.items():
+        qc = QuantConfig(kv_cache_dtype=m["kv"]) if "int8dyn" not in name else cell_quant("int8dyn+int8kv", "int8")
+        meas = m["batch"] / m["decode_tokens_per_s"]
+        pred = tiered_prediction(CostModel(m["cfg"], profile, qc), m["n_res"], m["policies"][1], m["batch"],
+                                 ANCHOR_CTX)
+        rows.append({"cell": name, "layers": m["cfg"].num_layers, "resident": m["n_res"],
+                     "decode_policy": m["policies"][1], "measured_ms": meas * 1e3, "predicted_ms": pred * 1e3,
+                     "ratio": meas / pred})
+    for r in rows:
+        emit({"phase": "cost_model", **r, "card": smi})
+    check(rows and all(np.isfinite(r["ratio"]) and r["ratio"] > 0 for r in rows), "cost_model: no finite ratio")
+
+
+def auto_placement_phase(ca, cm, profile) -> dict:
+    """Hypertune at OPT-6.7B's width, 4 layers (weights in pageable host
+    memory), hbm 50, prefill (0, 3) x decode (0, 1, 2, 3), b4, 64 in, 8 new:
+    every candidate must run, with no plain version on the card; beside it
+    CostModel.choose on the same config with the calibrated profile's
+    hbm_bytes set to hold two of the four layers (its pick's percentage must
+    be 50), the measured ranking and how much the pick lost to the best."""
+    import dataclasses
+
+    from lia_tpu_torch.config import GenerationConfig
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import cuda_mlp
+    from lia_tpu_torch.runtime.cost_model import CostModel
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_host
+    from lia_tpu_torch.utils.hypertune import Hypertune
+
+    cfg = get_config(AUTO_MODEL).replace(num_layers=AUTO_LAYERS)
+    tree = to_host(device_dummy_params(cfg, seed=0), "cuda")
+    torch.cuda.empty_cache()
+    ht = Hypertune(cfg, tree, gen=GenerationConfig(max_new_tokens=AUTO_NEW), batch=AUTO_BATCH,
+                   input_tokens=AUTO_IN, prefill_policies=AUTO_PREFILL, decode_policies=AUTO_DECODE,
+                   hbm_percentages=(AUTO_HBM,), num_minibatches=(1,))
+    t0 = time.perf_counter()
+    with plain_calls(ca, cm, cuda_mlp) as plain:
+        results = ht.run(verbose=False)
+    seconds = time.perf_counter() - t0
+    check(not ht.failures, f"auto_placement: candidates failed: {ht.failures}")
+    check(len(results) == len(AUTO_PREFILL) * len(AUTO_DECODE), f"auto_placement: {len(results)} results")
+    check(not plain, f"auto_placement: plain versions ran on the card: {plain}")
+
+    probe = CostModel(cfg, profile)
+    max_len = AUTO_IN + AUTO_NEW
+    embed = cfg.vocab_size * cfg.embed_dim * 2 * (1 if cfg.tie_embeddings else 2)
+    slack = 2 * AUTO_BATCH * max_len * cfg.hidden_size * 2
+    per_layer = probe.weight_bytes_per_layer() + probe.kv_bytes_per_layer(AUTO_BATCH, max_len)
+    model = CostModel(cfg, dataclasses.replace(profile, hbm_bytes=embed + slack + 2.5 * per_layer))
+    pick = model.choose(AUTO_BATCH, AUTO_IN, AUTO_NEW)
+    check(pick[2] == AUTO_HBM, f"auto_placement: the cost model's pick {pick} is not at hbm {AUTO_HBM}")
+    ranking = [{"prefill_policy": r.runtime.prefill_policy, "decode_policy": r.runtime.decode_policy,
+                "tokens_per_s": r.tokens_per_s, "total_s": r.total_s} for r in results]
+    got = [r for r in results if (r.runtime.prefill_policy, r.runtime.decode_policy) == pick[:2]]
+    check(len(got) == 1, f"auto_placement: the pick {pick} is not among the candidates")
+    rank = results.index(got[0])
+    emit({"phase": "auto_placement", "model": cfg.name, "layers": cfg.num_layers, "hbm_percentage": AUTO_HBM,
+          "batch": AUTO_BATCH, "input_tokens": AUTO_IN, "new_tokens": AUTO_NEW, "seconds": seconds,
+          "ranking": ranking, "pick": pick, "pick_rank": rank, "best": ranking[0],
+          "best_over_pick": results[0].tokens_per_s / got[0].tokens_per_s,
+          "model_report": model.report(AUTO_BATCH, AUTO_IN, AUTO_NEW), "card": nvidia_smi()})
+    del tree
+    return {"pick": pick, "rank": rank}
+
+
+def cli_call(ca, cm, label: str, argv, expected: dict) -> dict:
+    """``lia_tpu_torch.run.main(argv)`` in this process, its standard output
+    captured: the counters zeroed just before and read just after must equal
+    ``expected``, no plain version may run on the card, and the last line must
+    be the JSON summary with the reference's keys. Returns the parsed line and
+    the auto placement line."""
+    import io
+
+    from lia_tpu_torch import run
+    from lia_tpu_torch.ops import cuda_mlp
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ca, cm)
+    t0 = time.perf_counter()
+    with plain_calls(ca, cm, cuda_mlp) as plain, contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(ca, cm)
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"cli {label}: exit code {rc}")
+    check(launches == expected, f"cli {label}: launches {launches} != expected {expected}")
+    check(not plain, f"cli {label}: plain versions ran on the card: {plain}")
+    summary = json.loads(lines[-1])
+    keys = {"model", "total_latency_s", "first_token_latency_s", "avg_2nd_token_latency_s", "p50_2nd_token_latency_s",
+            "p90_2nd_token_latency_s", "p99_2nd_token_latency_s", "decode_tokens_per_s", "total_tokens_per_s"}
+    check(set(summary) == keys, f"cli {label}: JSON keys {sorted(summary)}")
+    auto = [line for line in lines if "auto placement:" in line]
+    emit({"phase": "cli", "config": label, "argv": argv, "seconds": seconds, "launches": launches,
+          "plain_calls_on_card": 0, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "auto_placement": auto[0] if auto else None, "timing_lines": [ln for ln in lines if ln.startswith("[")],
+          "summary": summary})
+    torch.cuda.empty_cache()
+    return {"summary": summary, "auto": auto}
+
+
+def cli_phase(ca, cm) -> dict:
+    """The run CLI in process at Llama-2-7B full width and depth, dummy
+    weights drawn on the card, b16, 256 + 32: auto on all three knobs with
+    --calibrate (the pick must be (3, 3, 100); 32 flash prefills and 992
+    decode-attention launches a generate, warm-up and timed), then with int8
+    KV (B3), one generate."""
+    from lia_tpu_torch.models.registry import get_config
+
+    cfg = get_config(CLI_MODEL)
+    L, steps = cfg.num_layers, NEW_TOKENS - 1
+    base = ["--benchmark", "-m", CLI_MODEL, "--dummy-weights", "--batch-size", "16", "--input-tokens", str(PROMPT),
+            "--max-new-tokens", str(NEW_TOKENS), "--prefill-policy", "auto", "--decoding-policy", "auto",
+            "--hbm-percentage", "auto"]
+    zero = {name: 0 for name in launch_counts(ca, cm)}
+    out = {}
+    for label, extra, kernel, runs in ((f"{CLI_MODEL} auto --calibrate", ["--calibrate", "--num-warmup", "1",
+                                                                           "--num-iter", "1"],
+                                        "decode_attention_fresh", 2),
+                                       (f"{CLI_MODEL} auto int8 KV", ["--kv-cache-dtype", "int8", "--num-warmup", "0",
+                                                                      "--num-iter", "1"],
+                                        "decode_attention_fresh_int8", 1)):
+        want = {**zero, "flash_attention_prefill": L * runs, kernel: L * steps * runs}
+        auto = cli_call(ca, cm, label, base + extra, want)["auto"]
+        check(auto and auto[0].endswith("prefill=3 decode=3 hbm%=100"), f"cli {label}: auto placement {auto}, "
+                                                                         "not (3, 3, 100)")
+        out[label] = want
+    return out
 
 
 def main() -> int:
@@ -4342,6 +4674,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch_name": kind, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+    host_info()
 
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -4392,6 +4725,16 @@ def main() -> int:
     runs.update(main_path(ca, cm, "gptq woq_int4z_dyn", cfg2, lambda: retag_dynamic_act(gptq), prompts, "none",
                           {"w4a8_matmul": 4 * cfg2.num_layers}, timed=False))
     del gptq
+    # the llama layout's GPTQ tree at Llama-2-7B's width, 2 layers: q/k/v, o,
+    # gate, up and down as woq_int4z, fused (wqkv, wo, wg1, w2) and unfused
+    lcfg2 = get_config(CLI_MODEL).replace(num_layers=2)
+    lgptq = gptq_llama_params(lcfg2, seed=0)
+    lprompts = llama_prompts(lcfg2)
+    for label, n, runtime in (("gptq llama woq_int4z", 4, None),
+                              ("gptq llama woq_int4z, unfused", 7, {"fuse_projections": False})):
+        runs.update(main_path(ca, cm, label, lcfg2, lambda: lgptq, lprompts, "none",
+                              {"woq4z_matmul": n * lcfg2.num_layers}, timed=False, runtime=runtime))
+    del lgptq
     launches = {name: counts for name, (counts, _) in runs.items()}
     walls = {name: wall for name, (_, wall) in runs.items()}
     launches.update(llama_phase(ca, cm))
@@ -4442,6 +4785,12 @@ def main() -> int:
     launches.update(serve_tier_launches)
     serving_tier_parity()
     phase_time("serving over the scheduler")
+
+    profile = calibrate_phase()
+    cost_model_phase(profile)
+    auto_placement_phase(ca, cm, profile)
+    launches.update(cli_phase(ca, cm))
+    phase_time("automatic placement and the CLI")
 
     # every profiler session comes after the timed runs
     serving_tier_breakdown(serve_tier, serving_workload(cfg.vocab_size)[0][:SERVE_MAX_BATCH])

@@ -3,8 +3,9 @@
 A copy of ``lia_tpu/config.py`` with the same fields and defaults, so that a
 configuration converts one-to-one between the two packages (the port must not
 import ``lia_tpu``: that pulls in jax). Fields the port does not act on yet
-(tiering policies, meshes) are kept for parity; the engine raises when one is
-set away from its default. As in the reference, the weight fields of
+(meshes) are kept for parity; the engine raises when one is set away from
+its default. A policy or ``hbm_percentage`` of -1 asks for ``auto``, which
+the cost model resolves before the engine is built. As in the reference, the weight fields of
 :class:`QuantConfig` are read where a tree is quantized or drawn
 (``quantize_params``, ``init_dummy_params``); the engine runs whatever tree it
 is given.
@@ -207,9 +208,9 @@ class RuntimeConfig:
     ``prefill_policy``/``decode_policy``.
     """
 
-    prefill_policy: int = 3
-    decode_policy: int = 3
-    hbm_percentage: int = 100
+    prefill_policy: int = 3  # -1 = auto: resolved by runtime.cost_model.resolve_auto_policies
+    decode_policy: int = 3  # -1 = auto, as prefill_policy
+    hbm_percentage: int = 100  # -1 = auto, as prefill_policy
     num_minibatch: int = 1
     stream_weights: bool = False  # force host-resident weights + per-layer streaming
     overlap: bool = True  # --no-overlap kill-switch analog (serialize transfers)

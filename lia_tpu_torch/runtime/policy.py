@@ -13,9 +13,11 @@ LIA's policies (lia/modeling_opt.py:1167-1176) over the device pair
 | 4      | streamed → card | host      | host     | decode variant of 2              |
 
 The first ``hbm_percentage``% of layers always run policy 3; the rest follow
-the phase's policy. The reference's ``auto`` policies need its cost model,
-which is not ported: :class:`~lia_tpu_torch.config.RuntimeConfig` takes
-integer policies here.
+the phase's policy. ``auto`` (-1 in :class:`~lia_tpu_torch.config.RuntimeConfig`)
+is resolved by the cost model
+(:func:`lia_tpu_torch.runtime.cost_model.resolve_auto_policies`, which
+``load_engine(auto_placement=True)`` and the ``run`` CLI call) before the
+engine is built; an unresolved -1 raises in :func:`plan_for`.
 """
 
 from __future__ import annotations

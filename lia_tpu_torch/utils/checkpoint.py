@@ -20,8 +20,8 @@ quantized weight is a :class:`~lia_tpu_torch.ops.quant.QuantizedWeight` record.
   bf16 leaves convert through their 16-bit pattern, so ``ml_dtypes`` is never
   imported.
 - :func:`params_from_hf_state_dict`: a Hugging Face OPT, llama-layout (with
-  StableLM's LayerNorm), GPT-J, GPT-NeoX, Falcon, ChatGLM2/3 or Baichuan(-2)
-  state dict to the tree; :func:`load_hf_checkpoint` reads a directory of
+  StableLM's LayerNorm), GPT-J, CodeGen, GPT-NeoX, Falcon, GPTBigCode,
+  ChatGLM2/3 or Baichuan(-2) state dict to the tree; :func:`load_hf_checkpoint` reads a directory of
   ``*.safetensors`` shards into it, layer by layer from the mapped files.
 - :func:`save_params` / :func:`load_params`: a tree (quantized records and
   int8 KV included) to one safetensors file and back, in the JAX package's key
@@ -332,7 +332,7 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
     tensors of :func:`load_hf_checkpoint`) into the stacked tree, for OPT, the
     llama layout (llama, mistral, qwen2 with its qkv biases, StableLM with
     LayerNorm; not mixture of experts), GPT-J, CodeGen, GPT-NeoX, Falcon
-    (multi-query), ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
+    (multi-query), GPTBigCode (multi-query), ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
     [out, in]; the tree stores [in, out]. Values go through fp32 and are cast
     once to ``cfg.dtype``, as the reference's mapping does, one key (one
     layer) at a time: each stacked leaf is allocated once in ``cfg.dtype`` and
@@ -371,13 +371,15 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         return _params_gpt_neox(cfg, get, cast, raw, wT, stack)
     if cfg.family == "falcon":
         return _params_falcon(cfg, get, cast, raw, stack)
+    if cfg.family == "gptbigcode":
+        return _params_gptbigcode(cfg, get, cast, raw, stack)
     if cfg.family == "chatglm":
         return _params_chatglm(cfg, get, cast, raw, stack)
     if cfg.family == "baichuan":
         return _params_baichuan(cfg, get, cast, raw, stack)
     if cfg.family != "opt":
         raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J, CodeGen, GPT-NeoX, Falcon, "
-                                  "ChatGLM and Baichuan state-dict mappings are ported")
+                                  "GPTBigCode, ChatGLM and Baichuan state-dict mappings are ported")
 
     pre = "model.decoder."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -598,6 +600,31 @@ def _params_falcon(cfg: ModelConfig, get, cast, raw, stack) -> Params:
             "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": stack(lp + "self_attention.dense.weight", True)},
             "mlp": {"w1": stack(lp + "mlp.dense_h_to_4h.weight", True),
                     "w2": stack(lp + "mlp.dense_4h_to_h.weight", True)},
+        },
+    }
+
+
+def _params_gptbigcode(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """GPTBigCode / StarCoder (HF modeling_gpt_bigcode, multi_query=True):
+    learned positions with no OPT offset, a fused ``c_attn`` laid out [all q
+    heads | k | v] along the out-dim (K and V one head each, so the cuts are
+    at H and H + D), a biased gelu-tanh MLP, tied embeddings."""
+    D, L, H = cfg.head_dim, cfg.num_layers, cfg.hidden_size
+    lp = "transformer.h.{}."
+    qkv = [(0, H), (H, H + D), (H + D, H + 2 * D)]
+    wq, wk, wv = _split_rows(L, get, cast, lp + "attn.c_attn.weight", qkv)
+    bq, bk, bv = _split_rows(L, get, cast, lp + "attn.c_attn.bias", qkv, transpose=False)
+    return {
+        "embed_tokens": raw("transformer.wte.weight"),
+        "embed_positions": raw("transformer.wpe.weight"),
+        "final_norm": {"scale": raw("transformer.ln_f.weight"), "bias": raw("transformer.ln_f.bias")},
+        "layers": {
+            "ln1": {"scale": stack(lp + "ln_1.weight"), "bias": stack(lp + "ln_1.bias")},
+            "attn": {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv,
+                     "wo": stack(lp + "attn.c_proj.weight", True), "bo": stack(lp + "attn.c_proj.bias")},
+            "ln2": {"scale": stack(lp + "ln_2.weight"), "bias": stack(lp + "ln_2.bias")},
+            "mlp": {"w1": stack(lp + "mlp.c_fc.weight", True), "b1": stack(lp + "mlp.c_fc.bias"),
+                    "w2": stack(lp + "mlp.c_proj.weight", True), "b2": stack(lp + "mlp.c_proj.bias")},
         },
     }
 

@@ -1,4 +1,4 @@
-"""GPTQ checkpoint ingestion (port of ``lia_tpu/utils/gptq.py``, OPT only).
+"""GPTQ checkpoint ingestion (port of ``lia_tpu/utils/gptq.py``: the OPT and llama layouts).
 
 AutoGPTQ stores each linear as
 
@@ -72,17 +72,17 @@ def _pack_half_split(codes: np.ndarray) -> np.ndarray:
 def params_from_gptq_state_dict(
     cfg: ModelConfig, sd: Dict[str, np.ndarray], group_size: int = 128, keep_fp: bool = False
 ):
-    """Map an AutoGPTQ OPT state dict into the stacked tree.
+    """Map an AutoGPTQ OPT or llama-layout state dict into the stacked tree.
 
     Linears arrive as (qweight, qzeros, scales[, g_idx]) keyed like
-    ``model.decoder.layers.N.self_attn.q_proj.qweight``; embeddings, norms and
-    biases go through :func:`params_from_hf_state_dict`. GPTQ's [K, N]
+    ``model.decoder.layers.N.self_attn.q_proj.qweight`` (OPT) or
+    ``model.layers.N.mlp.gate_proj.qweight`` (the RoPE families); embeddings,
+    norms and biases go through :func:`params_from_hf_state_dict`. GPTQ's [K, N]
     orientation already matches ``x @ w``. A projection whose every layer has a
     trivial ``g_idx`` and whole groups per packed half becomes one stacked
-    ``woq_int4z`` record; any other is re-quantized to symmetric int4 in groups
-    of ``group_size``."""
-    if cfg.family != "opt":
-        raise NotImplementedError(f"{cfg.family}: only OPT GPTQ checkpoints are ported")
+    ``woq_int4z`` record; any other (and every projection of a RoPE family whose
+    names are not llama's, as in the reference) is re-quantized to symmetric
+    int4 in groups of ``group_size``. A projection the tree lacks is skipped."""
     fp_sd = dict(sd)
     native: Dict[str, tuple] = {}
     for p in sorted({k[: -len(".qweight")] for k in sd if k.endswith(".qweight")}):
@@ -101,13 +101,18 @@ def params_from_gptq_state_dict(
     if keep_fp:
         return params
 
+    is_opt = not cfg.rope
+    lp = "model.decoder.layers.{}." if is_opt else "model.layers.{}."
     names = {("attn", "wq"): "self_attn.q_proj", ("attn", "wk"): "self_attn.k_proj",
-             ("attn", "wv"): "self_attn.v_proj", ("attn", "wo"): "self_attn.out_proj",
-             ("mlp", "w1"): "fc1", ("mlp", "w2"): "fc2"}
+             ("attn", "wv"): "self_attn.v_proj", ("attn", "wo"): "self_attn.out_proj" if is_opt else "self_attn.o_proj",
+             ("mlp", "w1"): "fc1" if is_opt else "mlp.up_proj", ("mlp", "w2"): "fc2" if is_opt else "mlp.down_proj",
+             ("mlp", "wg"): None if is_opt else "mlp.gate_proj"}
     qc = QuantConfig(weight_dtype="int4", group_size=group_size)
     layers = params["layers"]
     for (grp, wname), hf_name in names.items():
-        prefixes = [f"model.decoder.layers.{i}.{hf_name}" for i in range(cfg.num_layers)]
+        if hf_name is None or wname not in layers.get(grp, {}):
+            continue
+        prefixes = [lp.format(i) + hf_name for i in range(cfg.num_layers)]
         if all(px in native for px in prefixes):
             q, s, z = (torch.from_numpy(np.stack([native[px][j] for px in prefixes])) for j in range(3))
             layers[grp][wname] = QuantizedWeight(q, s, "woq_int4z", z)

@@ -162,5 +162,7 @@ def test_gptq_generate_tokens_exact_vs_lia_tpu(gptq_models, retag, kv):
 
 
 def test_gptq_rejects_other_families(rng):
-    with pytest.raises(NotImplementedError):
-        gptq.params_from_gptq_state_dict(get_config("llama-tiny"), {})
+    """The OPT and llama layouts map (tests/test_torch_converters.py); a family
+    without a Hugging Face mapping raises, as in lia_tpu."""
+    with pytest.raises(NotImplementedError, match="ALiBi"):
+        gptq.params_from_gptq_state_dict(get_config("bloom-tiny"), {})
