@@ -34,7 +34,8 @@ cells serve-paged-chunk256 and serve-paged (64 requests through a
 ContinuousBatcher, as chip_smoke's serving phase, each ``--serving-repeats``
 times in turns; ``--serving-repeats 0`` skips them). Every line chip_smoke prints carries
 ``"tree": <label>``. Each tree builds its kernels into its own
-``lia_tpu_torch/_build``. Run the trees in turns (A, B, B, A), one process
+``lia_tpu_torch/_build`` (a ``build`` line gives the seconds: the libraries'
+compile time in the tree's first process). Run the trees in turns (A, B, B, A), one process
 each, so that both see the same card and host::
 
     git archive <parent> | tar -x -C tmp/ab/parent
@@ -55,6 +56,7 @@ import itertools
 import json
 import statistics
 import sys
+import time
 from pathlib import Path
 
 KERNEL_GROUPS = ("matmul", "flash", "decode", "paged", "mlp", "int8", "host")
@@ -306,7 +308,9 @@ def main() -> int:
         ca.split_counts = lambda: {"flash_attention_prefill": 0, "flash_attention_cached": 0}
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi(), "package": str(Path(lia_tpu_torch.__file__).parent)})
-    _build.build_all()
+    t0 = time.perf_counter()
+    _build.build_all()  # the tree's first process builds every library; later ones load them
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     kernel_times(cs, ca, cm, args.kernels)
     cfg = get_config("opt-6.7b")

@@ -10,8 +10,10 @@ Phases, each printing one JSON line per item:
 2. build: every CUDA kernel of lia_tpu_torch/csrc, built with nvcc in parallel;
    the flash, quantized-matmul, paged-decode, fused-MLP, int8-decode, bf16
    beam and plane-decode libraries' kernels as ptxas built them (registers,
-   spills: none allowed) and their blocks' dynamic shared memory (and ring
-   stages);
+   spills: none allowed; the attention bodies with and without their ALiBi
+   template flag) and their blocks' dynamic shared memory (and ring stages);
+   then MPT-30B (the slice's widest model, ALiBi, D 112) through
+   alibi_phase before any check holds the card's memory;
 3. kernel checks: each kernel against its plain PyTorch version on the card at
    the main path's shapes. Attention (OPT-6.7B: B=16, N=N_kv=32, D=128;
    prefill S=256 with left pads; decode past length 272 in a 320-slot bf16 /
@@ -51,7 +53,10 @@ Phases, each printing one JSON line per item:
    bit for bit against w4a8_matmul on its view. The fused MLP at OPT-6.7B's
    relu, gelu and gelu_new arms (LayerNorm, biases) and Llama-3-8B's SwiGLU
    (RMSNorm), at 1, 16, 17 and 256 rows, twice (the same bits: its sums run in
-   a fixed order), its grid barrier's counters left zero;
+   a fixed order), its grid barrier's counters left zero. ALiBi
+   (alibi_kernel_checks): every attention kernel with slopes at MPT-7B's,
+   MPT-30B's (D 112) and Baichuan-13B's (N 40) heads, on left-padded rows,
+   the splits forced both ways, timed with and without slopes;
 4. main path: InferenceEngine.generate(fused=True) for opt-6.7b at full width
    and depth with random weights, 16 prompts x 256 tokens, 32 new tokens:
    bf16 weights with bf16 and with int8 KV; bench.py's two candidates
@@ -69,16 +74,19 @@ Phases, each printing one JSON line per item:
    the default engine with bf16 and with int8 KV, and with projections
    unfused, the fused-MLP gate off and on in turns (32 flash prefills, 992 decode
    attention launches, 992 fused MLPs with the gate on). Then Falcon-7B at
-   full width and depth (H 4544, 71 heads over one KV head, F 18176, vocab
-   65024, 32 layers; bf16 weights drawn on the card) with bf16 and int8 KV
-   (median of 3), and ChatGLM3-6B, Baichuan2-7B and StableLM-2-1.6B at full
-   width and 4 layers with bf16 KV (32 flash prefills and 992 decode
-   launches for Falcon-7B, 4 and 124 for the others, no fused MLP); the head
-   dims 80, 96 and 256: OPT-2.7B at full width and depth (D 80) with bf16
-   and int8 KV (median of 3), GPT-J-6B (D 256, 28 layers) with both and
-   GPT-NeoX-20B (D 96, 44 layers, ~40 GB) with bf16 KV, one run each, and
+   full width (H 4544, 71 heads over one KV head, F 18176, vocab 65024; 16
+   of its 32 layers (FAMILY_CELLS); bf16 weights drawn on the card) with
+   bf16 and int8 KV (median of 3), and ChatGLM3-6B, Baichuan2-7B and
+   StableLM-2-1.6B at full width and 4 layers with bf16 KV (L flash
+   prefills and L * 31 decode launches, no fused MLP); the head
+   dims 80, 96 and 256: OPT-2.7B at full width and 16 layers (D 80) with bf16
+   and int8 KV (median of 3), GPT-J-6B (D 256, 14 of 28 layers) with both and
+   GPT-NeoX-20B (D 96, 22 of its 44 layers) with bf16 KV, one run each, and
    StableLM-3B, CodeGen-2B and CodeGen-6B at 4 layers (L flash prefills and
-   L * 31 decode launches each, no plain version on the card); then the
+   L * 31 decode launches each, no plain version on the card); the ALiBi
+   families (alibi_phase): MPT-7B at full width and depth with bf16 KV, the
+   fused-MLP gate off and on in turns (B14's exact gelu), and int8 KV; the
+   ALiBi parities (alibi_parity) at 4 layers; then the
    checkpoint round trips on the card's machine, with the port's own
    safetensors module: ChatGLM3-6B's 4-layer tree through save_params and
    load_params, Falcon-7B, CodeGen-2B (mp_num = 4 qkv_proj) and
@@ -95,11 +103,11 @@ Phases, each printing one JSON line per item:
    RuntimeConfig at OPT-6.7B full width and depth, same prompts, from one
    host tree (bf16) made once on the card from the seed and copied out: h2d
    (copy rates of one streamed layer's bytes), then tier-h50-p3 (half
-   resident, the rest streamed), tier-h50-p3-ring3 (the same with
+   resident, the rest streamed; 8 layers), tier-h50-p3-ring3 (the same with
    max_inflight_layers=3: a ring of 3, two layers in flight ahead),
    tier-h0-p3-int8kv (all streamed, int8 KV),
    tier-h50-p0 (KV on the host), tier-h50-p0-p2-mb4 (prefill policy 0 in 4
-   minibatches, decode policy 2: host attention), the last four at 8 layers
+   minibatches, decode policy 2: host attention), the last four at 4 layers
    of the same tree (TIER_DEPTH), tier-p1-2layer (policy 1,
    2 layers, 2 prompts of 64 tokens, all on the CPU) and, over an int8dyn
    tree, tier-h50-p3-int8dyn (8 layers) against the resident engine on the
@@ -107,7 +115,7 @@ Phases, each printing one JSON line per item:
    Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
    bytes streamed and copy-stream ms per step, peak device memory under a
    residency limit, exact launch counts;
-6. serving: ContinuousBatcher at OPT-6.7B full width and depth (bf16 weights
+6. serving: ContinuousBatcher at OPT-6.7B full width, SERVING_LAYERS layers (bf16 weights
    made once), one seeded workload of 64 requests submitted together (32
    share a 256-token prefix and add 16-256 tokens, 32 have 64-512 unique
    tokens; 16-128 new tokens each, no EOS), max_batch 16, max_len 1024, pages
@@ -138,7 +146,7 @@ Phases, each printing one JSON line per item:
    2 layers, a grouped beam cache and 4 beam_decode_step calls (the CPU run's
    tokens and shuffles forced on both sides) and score_logprobs, card against
    CPU, bf16 and int8 KV, also at OPT-2.7B's and GPT-J-6B's widths;
-7b. speculative: OPT-6.7B at full width and depth, 16 prompts of 256
+7b. speculative: OPT-6.7B at full width and SPEC_LAYERS layers, 16 prompts of 256
    tokens (each a seeded 32-token pattern repeated), 32 new tokens, k = 4:
    spec-lookup over bf16 and int8 KV (generate_speculative, ngram 3),
    spec-draft with opt-125m (full width and depth) drafting greedy,
@@ -149,8 +157,9 @@ Phases, each printing one JSON line per item:
    of the top one) and beside plain greedy generate's tokens;
    serve-slab-spec4, serve-paged-spec4 and serve-paged-draft (the serving
    workload with speculate_k 4, the last with the opt-125m draft);
-   tier-h50-p3-spec4 (prompt lookup under tier-h50-p3, the weight stream's
-   bytes per emitted token beside tier-h50-p3's plain decode in this run).
+   tier-h50-p3-spec4 (prompt lookup under tier-h50-p3 at its 8 layers, the
+   weight stream's bytes per emitted token beside tier-h50-p3's plain decode
+   in this run).
    Each line: verify steps, tokens emitted and per step, prefill ms and
    tokens/s (serving: TTFT and TPOT percentiles), exact launch counts (B1
    once per model and layer, B6 per verify layer, B5 per paged verify
@@ -160,10 +169,10 @@ Phases, each printing one JSON line per item:
    on the card against the CPU;
 7c. serving over the tiered scheduler: ContinuousBatcher over the tiered
    phase's host tree at OPT-6.7B width, the serving workload's first 32
-   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (16 layers,
-   slab, bf16 KV), serve-tier-h50-p3-paged and serve-tier-h50-p0-p2 (host
-   KV, host attention at decode) at 4 layers and serve-tier-h50-p3-spec4
-   (prompt lookup, k = 4) at 8 layers; then serve-paged-proc, resident at full depth over the
+   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (4 layers,
+   slab, bf16 KV), serve-tier-h50-p3-paged at 4 layers, serve-tier-h50-p0-p2
+   (host KV, host attention at decode) at 2 and serve-tier-h50-p3-spec4
+   (prompt lookup, k = 4) at 4 (SERVING_TIERED); then serve-paged-proc, resident at full depth over the
    whole 64-request workload, every second request with repetition penalty
    1.2 and min_new_tokens 8, every fourth a no_repeat_ngram_size of 3 (no
    such request may repeat a 3-gram). Each line: stats() (tokens/s, TTFT and
@@ -332,9 +341,12 @@ TIERED = [
 # speculative phase (the host-KV and host-attention cells decode at 15-84
 # tokens/s and the fully streamed one at 56) and for the head-dim phases
 # (tier-h50-p3-ring3, tier-h50-p3's ring of 3, tier-h50-p3-beam,
-# tier-h50-p3-int8dyn and tier-h50-p0-beam at 4)
-TIER_DEPTH = {"tier-h50-p0": 8, "tier-h0-p3-int8kv": 8, "tier-h50-p0-p2-mb4": 8, "tier-h50-p0-beam": 4,
-              "tier-h50-p3-ring3": 8, "tier-h50-p3-beam": 8, "tier-h50-p3-int8dyn": 8}
+# tier-h50-p3-int8dyn and tier-h50-p0-beam at 4), and, for the ALiBi
+# families' phases, tier-h50-p3 (with its breakdown and tier-h50-p3-spec4)
+# from 32 to 8 layers and tier-h50-p0, tier-h0-p3-int8kv,
+# tier-h50-p0-p2-mb4 and tier-h50-p3-ring3 from 8 to 4
+TIER_DEPTH = {"tier-h50-p3": 8, "tier-h50-p0": 4, "tier-h0-p3-int8kv": 4, "tier-h50-p0-p2-mb4": 4,
+              "tier-h50-p0-beam": 4, "tier-h50-p3-ring3": 4, "tier-h50-p3-beam": 8, "tier-h50-p3-int8dyn": 8}
 TIER_COPY_BYTES = {}  # the weight stream's bytes per decode step of each tiered configuration
 TIERED_MEASURED = {}  # each tiered configuration's model, residency, policies and median decode rate
 H2D = {}  # the h2d phase's copy rates
@@ -372,6 +384,9 @@ BEAM_GROUPS, BEAM_NB, BEAM_RUNS = 4, 4, 3
 BEAM_PROMPT_LENS = (256, 240, 200, 160)
 BEAM_PROMPT, BEAM_PADS, BEAM_TLEN = 256, (0, 7, 31, 100), 16  # the beam kernels' check shape
 SCORE_CONT = 32  # scoring: 16 records of a 256-token context and a 32-token continuation
+# the serving and speculative phases' depth: the first layers of OPT-6.7B
+# (32 before the ALiBi families' phases came)
+SERVING_LAYERS = SPEC_LAYERS = 16
 SERVING = [
     ("serve-slab", dict()),
     ("serve-slab-int8kv", dict(kv_quantized=True)),
@@ -571,7 +586,7 @@ def flash_build_report(_build, paths) -> None:
     """Each flash library's kernels as ptxas built them (registers, spill stores
     and loads: widths 64 and 128 with one and two consumer warpgroups, 256
     with one, each with whole positions a tile and, for groups past 64, flat
-    rows; the merge at each width) and the body's dynamic shared memory a
+    rows, each with and without the ALiBi term; the merge at each width) and the body's dynamic shared memory a
     block at each head dim; a spill fails the run."""
     import re
 
@@ -580,10 +595,11 @@ def flash_build_report(_build, paths) -> None:
     for lib in ("flash_prefill", "flash_cached"):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
-            m = re.search(r"Function properties for \S*?(flash_kernel|merge_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?",
-                          line)
-            if m:  # flash_kernel<D, warpgroups, flat rows>, merge_kernel<D>
-                args = [m.group(2)] + ([m.group(3)] if m.group(3) else []) + (["flat"] if m.group(4) == "1" else [])
+            m = re.search(r"Function properties for \S*?(flash_kernel|merge_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?"
+                          r"(?:Lb(\d)E)?", line)
+            if m:  # flash_kernel<D, warpgroups, flat rows, alibi>, merge_kernel<D>
+                args = ([m.group(2)] + ([m.group(3)] if m.group(3) else []) + (["flat"] if m.group(4) == "1" else [])
+                        + (["alibi"] if m.group(5) == "1" else []))
                 cur = {"kernel": f"{m.group(1)}<{', '.join(args)}>"}
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -595,7 +611,7 @@ def flash_build_report(_build, paths) -> None:
         smem = {f"D={dh}, {nw} warpgroups": _build.library(lib).lia_flash_smem_bytes(dh, nw)
                 for dh in KERNEL_DIMS for nw in (1, 2) if dh <= 128 or nw == 1}
         emit({"phase": "flash_build", "library": lib, "kernels": kernels, "dynamic_smem_bytes": smem})
-        check(len(kernels) == 13 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+        check(len(kernels) == 23 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
@@ -647,7 +663,8 @@ def paged_mlp_build_report(_build, paths) -> None:
     """The paged-decode and fused-MLP libraries' kernels as ptxas built them
     (registers, spill stores and loads; a spill fails the run), each block's
     dynamic shared memory and the ring stages it holds: the paged body at bs
-    16 (bf16 and fp32, widths 64, 128 and 256 (D 64, 80, 96, 128, 256), one or four queries a consumer warp), the
+    16 (bf16 and fp32, widths 64, 128 and 256 (D 64, 80, 96, 112, 128, 256), one or four queries a consumer warp,
+    with and without the ALiBi term: 24 instances, and the merge at each type and width), the
     fused MLP at H 4096 (with the rows one phase-1 pass normalizes, and the
     persistent grid's blocks at Llama-3-8B's F on this card)."""
     import re
@@ -655,16 +672,17 @@ def paged_mlp_build_report(_build, paths) -> None:
     from lia_tpu_torch.ops.cuda_attention import KERNEL_DIMS
 
     patterns = {"paged_decode": r"Function properties for \S*?(paged_kernel|merge_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
-                                r"(?:Li(\d+)E)?",
+                                r"(?:Li(\d+)ELb(\d)E)?",
                 "fused_mlp": r"Function properties for \S*?(fused_mlp_kernel)ILb(\d)ELb(\d)E"}
-    for lib, expect in (("paged_decode", 18), ("fused_mlp", 4)):
+    for lib, expect in (("paged_decode", 30), ("fused_mlp", 4)):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
             m = re.search(patterns[lib], line)
             if m:
                 if lib == "paged_decode":
                     t = "bf16" if m.group(2) != "f" else "fp32"
-                    name = f"{m.group(1)}<{t}, width={m.group(3)}" + (f", qpw={m.group(4)}>" if m.group(4) else ">")
+                    name = f"{m.group(1)}<{t}, width={m.group(3)}" + (
+                        f", qpw={m.group(4)}{', alibi' if m.group(5) == '1' else ''}>" if m.group(4) else ">")
                 else:
                     name = f"fused_mlp_kernel<rms={m.group(2)}, gated={m.group(3)}>"
                 cur = {"kernel": name}
@@ -724,15 +742,15 @@ def int8_build_report(_build, paths) -> None:
                                      "bytes": L.lia_dec8_smem_bytes(dh, L.lia_dec8_stages(dh, blocks, sms))}
                 for label, blocks in grids for dh in KERNEL_DIMS}
         emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
-        # the body at bf16 / fp32 and each D, the merge launch at each width
-        check(len(kernels) == 16 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
+        # the body at bf16 / fp32 and each D (64, 80, 96, 112, 128, 256), the merge launch at each width
+        check(len(kernels) == 18 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in kernels),
               f"{lib}: ptxas reports spills (or no report): {kernels}")
 
 
 def beam_build_report(_build, paths) -> None:
     """The bf16 beam body's kernels (beam_decode.cu, beam_attn.cuh) as ptxas
-    built them: beam_kernel at D 64, 80, 96 and 128 with one and two column
-    tiles and at 256 with one, and its split's merge launch at each width
+    built them: beam_kernel at D 64, 80, 96, 112 and 128 with one and two
+    column tiles and at 256 with one, each with and without the ALiBi term, and its split's merge launch at each width
     (registers, spill stores and loads; a spill fails the run); the fp32 warp
     body's instantiations are listed with their registers. A block's dynamic
     shared memory and ring stages at the main path's grids on this card, at
@@ -744,15 +762,17 @@ def beam_build_report(_build, paths) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels, cur = [], None
     for line in open(f"{paths['beam_decode']}.log").read().splitlines():
-        m = re.search(r"Function properties for \S*?(?:beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|merge_kernelI13__nv_bfloat16"
-                      r"Li(\d+)E|decode_kernelIfLi(\d+)ELi(\d+)ELi(\d+)E)", line)
+        m = re.search(r"Function properties for \S*?(?:beam_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E|merge_kernelI"
+                      r"13__nv_bfloat16Li(\d+)E|decode_kernelIfLi(\d+)ELi(\d+)ELi(\d+)E)", line)
         if m:
-            if m.group(1):
-                name = f"beam_kernel<width={m.group(1)}, D={m.group(2)}, column tiles={m.group(3)}>"
-            elif m.group(4):
-                name = f"merge_kernel<bf16, width={m.group(4)}>"
+            g = m.groups()
+            if g[0]:
+                name = (f"beam_kernel<width={g[0]}, D={g[1]}, column tiles={g[2]}"
+                        f"{', alibi' if g[3] == '1' else ''}>")
+            elif g[4]:
+                name = f"merge_kernel<bf16, width={g[4]}>"
             else:
-                name = f"decode_kernel<fp32, width={m.group(5)}, D={m.group(6)}, G={m.group(7)}> (warp body)"
+                name = f"decode_kernel<fp32, width={g[5]}, D={g[6]}, G={g[7]}> (warp body)"
             cur = {"kernel": name}
             kernels.append(cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -769,7 +789,7 @@ def beam_build_report(_build, paths) -> None:
             for label, blocks in grids for dh in KERNEL_DIMS}
     emit({"phase": "kernel_build", "library": "beam_decode", "kernels": kernels, "dynamic_smem": smem})
     body = [k for k in kernels if "warp body" not in k["kernel"]]
-    check(len(body) == 12 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in body),
+    check(len(body) == 25 and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in body),
           f"beam_decode: ptxas reports spills (or no report): {body}")
 
 
@@ -781,8 +801,8 @@ def decode_build_report(_build, paths) -> None:
     body (decode_attn.cuh) by width, D and heads (registers, spill stores and
     loads), with a plane block's dynamic shared memory and ring stages at the
     timed shapes on this card. A spill in the plane or beam body, or in a
-    warp body at D 80, 96 or 256, fails the run (at 64 and 128 the fp32 G =
-    3 runs spill a few bytes, as before these head dims)."""
+    warp body at D 80, 96, 112 or 256, fails the run (at 64 and 128 the fp32
+    G = 3 runs spill a few bytes, as before these head dims)."""
     import re
 
     from lia_tpu_torch.ops import cuda_attention as ca
@@ -791,20 +811,21 @@ def decode_build_report(_build, paths) -> None:
     for lib in ("decode", "decode_fresh"):
         kernels, cur = [], None
         for line in open(f"{paths[lib]}.log").read().splitlines():
-            m = re.search(r"Function properties for \S*?(?:plane_kernelILi(\d+)ELi(\d+)ELb\dE|decode_kernelIf"
-                          r"Li(\d+)ELi(\d+)ELi(\d+)ELb\dELi\dELb(\d)E|beam_kernelILi(\d+)ELi(\d+)ELi(\d+)E|"
+            m = re.search(r"Function properties for \S*?(?:plane_kernelILi(\d+)ELi(\d+)ELb\dELb(\d)E|decode_kernelIf"
+                          r"Li(\d+)ELi(\d+)ELi(\d+)ELb\dELi\dELb(\d)E|beam_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E|"
                           r"merge_kernelI13__nv_bfloat16Li(\d+)E)", line)
             if m:
                 g = m.groups()
+                alibi = ", alibi" if g[2] == "1" or g[10] == "1" else ""
                 if g[0]:
-                    name = f"plane_kernel<width={g[0]}, D={g[1]}> (plane body)"
-                elif g[2]:
-                    name = (f"decode_kernel<fp32, width={g[2]}, D={g[3]}, heads={g[4]}"
-                            f"{', chunked' if g[5] == '1' else ''}> (warp body)")
-                elif g[6]:
-                    name = f"beam_kernel<width={g[6]}, D={g[7]}, column tiles={g[8]}>"
+                    name = f"plane_kernel<width={g[0]}, D={g[1]}{alibi}> (plane body)"
+                elif g[3]:
+                    name = (f"decode_kernel<fp32, width={g[3]}, D={g[4]}, heads={g[5]}"
+                            f"{', chunked' if g[6] == '1' else ''}> (warp body)")
+                elif g[7]:
+                    name = f"beam_kernel<width={g[7]}, D={g[8]}, column tiles={g[9]}{alibi}>"
                 else:
-                    name = f"merge_kernel<bf16, width={g[9]}>"
+                    name = f"merge_kernel<bf16, width={g[11]}>"
                 cur = {"kernel": name}
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -816,17 +837,19 @@ def decode_build_report(_build, paths) -> None:
         L = _build.library(lib)
         smem = {}
         for label, Bq, Nq, Nkv, Dh in (("OPT-6.7B b16", B, N, N, D), ("OPT-2.7B b16", B, 32, 32, 80),
-                                       ("GPT-NeoX-20B b16", B, 64, 64, 96), ("GPT-J-6B b16", B, 16, 16, 256)):
+                                       ("GPT-NeoX-20B b16", B, 64, 64, 96), ("MPT-30B b16", B, 64, 64, 112),
+                                       ("GPT-J-6B b16", B, 16, 16, 256)):
             plan = ca.plane_plan(Bq, Nq, Nkv, 384, True, sms, Dh)
             smem[label] = {"parts": plan.parts, "stages": plan.stages,
                            "bytes": L.lia_plane_smem_bytes(Dh, plan.stages)}
         emit({"phase": "kernel_build", "library": lib, "kernels": kernels, "dynamic_smem": smem})
         counts = {kind: sum(kind in k["kernel"] for k in kernels) for kind in ("plane body", "warp body", "beam_kernel",
                                                                               "merge_kernel")}
-        held = [k for k in kernels if "warp body" not in k["kernel"] or re.search(r"D=(80|96|256),", k["kernel"])]
-        # the plane body at 5 head dims, the fp32 warp body's 26 instances, the
-        # beam body's 9 and its merge at 3 widths
-        check(counts == {"plane body": 5, "warp body": 26, "beam_kernel": 9, "merge_kernel": 3}
+        held = [k for k in kernels if "warp body" not in k["kernel"] or re.search(r"D=(80|96|112|256),", k["kernel"])]
+        # the plane body at 6 head dims, the fp32 warp body's 31 instances, the
+        # beam body's 11 (each plane and beam instance with and without the
+        # ALiBi term) and its merge at 3 widths
+        check(counts == {"plane body": 12, "warp body": 31, "beam_kernel": 22, "merge_kernel": 3}
               and all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in held),
               f"{lib}: ptxas reports spills (or another set of kernels): {counts} {kernels}")
 
@@ -998,6 +1021,7 @@ def kernel_checks(ca, quantize_kv):
     int8_decode_checks(ca, quantize_kv, check_randn("int8_decode_checks"))
     llama_attention_checks(ca, quantize_kv, check_randn("llama_attention_checks"))
     head_kernel_checks(ca, quantize_kv, GROUP_HEADS + HEAD_DIM_HEADS)
+    alibi_kernel_checks(ca, quantize_kv, ALIBI_HEADS)
     plane_checks(ca)
     verify_kernel_checks(ca, check_randn("verify_kernel_checks"))
     for name, r in rows.items():
@@ -2680,13 +2704,14 @@ def tiered_breakdown(name: str, engine, prompts) -> None:
                        lambda: engine.generate(prompts, GenerationConfig(max_new_tokens=NEW_TOKENS)), lambda: NEW_TOKENS)
 
 
-def tiered_parity(model: str = "opt-6.7b", configs=TIER_PARITY) -> None:
+def tiered_parity(model: str = "opt-6.7b", configs=TIER_PARITY, tree=None) -> None:
     """``model``'s width (OPT-6.7B by default) at 4 layers, half resident:
     prefill and 4 decode steps of the scheduler on the card (bf16, kernels,
     streamed weights) against the CPU (fp32, plain versions and the host
     tier's golden attention) over the same tree, for each of ``configs``
     (TIER_PARITY entries; int8 KV: the streamed layers dequantize each plane
-    and run decode_attention on the card)."""
+    and run decode_attention on the card). ``tree``: the bf16 configs' (card,
+    CPU fp32) pair, already made (:func:`parity_tree`)."""
     from lia_tpu_torch.config import QuantConfig, RuntimeConfig
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops.fuse import fuse_projections
@@ -2716,6 +2741,9 @@ def tiered_parity(model: str = "opt-6.7b", configs=TIER_PARITY) -> None:
     trees = {}
     for label, (p, d), kv, quant in configs:
         key = json.dumps(quant)
+        if key not in trees and quant is None and tree is not None:
+            trees.clear()
+            trees[key] = tree
         if key not in trees:
             trees.clear()
             qc = None if quant is None else QuantConfig(**quant)
@@ -3036,26 +3064,25 @@ def serving_phase(ca, cm, cfg):
     return launches
 
 
-def serving_parity(model: str = "opt-6.7b") -> None:
-    """``model``'s width (OPT-6.7B by default) at 2 layers, the functions the batcher calls in its order,
+def serving_parity(model: str = "opt-6.7b", layers: int = 2, tree=None, only=None) -> None:
+    """``model``'s width (OPT-6.7B by default) at ``layers`` layers, the functions the batcher calls in its order,
     on the card (bf16, kernels) against the CPU (fp32, plain versions) over the
     same tree: a prompt's prefill into a one-row cache, its commit to pages,
     a second prompt sharing its first 64 tokens admitted from the prefix
     cache (seed_prefix_cache + prefill_chunk + commit), then 4 paged decode
     steps of both; and both prompts through insert_slot into a slab, then 4
-    ragged decode steps, over bf16 and over int8 KV. Logits within PARITY_TOL."""
+    ragged decode steps, over bf16 and over int8 KV. Logits within PARITY_TOL.
+    ``tree``: the (card, CPU fp32) pair, already made (:func:`parity_tree`);
+    ``only``: the runs to make, by label (all by default)."""
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops import kv_cache as kvc
     from lia_tpu_torch.ops import paged as pg
-    from lia_tpu_torch.ops.fuse import fuse_projections
-    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
     from lia_tpu_torch.engine.engine import bucket_length, pack_prompts
 
-    cfg = get_config(model).replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=layers)
     cfg32 = cfg.replace(dtype="float32")
-    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
-    params32 = to_device(params, "cpu", torch.float32)
+    params, params32 = tree or parity_tree(model, layers)
     rng = np.random.default_rng(6)
     a = rng.integers(2, cfg.vocab_size, 100).tolist()
     b = a[:64] + rng.integers(2, cfg.vocab_size, 37).tolist()
@@ -3117,11 +3144,13 @@ def serving_parity(model: str = "opt-6.7b") -> None:
             ("slab, bf16 KV", lambda d, c, p, dt: slab(d, c, p, dt, False)),
             ("slab, int8 KV", lambda d, c, p, dt: slab(d, c, p, dt, True))]
     for label, fn in runs:
+        if only is not None and label not in only:
+            continue
         gpu = fn("cuda", cfg, params, torch.bfloat16)
         cpu = fn("cpu", cfg32, params32, torch.float32)
         errs = [(g - c_).abs().max().item() for g, c_ in zip(gpu, cpu)]
         err = max(errs)
-        emit({"phase": "serving_parity", "config": label, "model": model, "layers": 2, "prompts": [len(a), len(b)],
+        emit({"phase": "serving_parity", "config": label, "model": model, "layers": layers, "prompts": [len(a), len(b)],
               "shared_prefix": 64, "decode_steps": len(steps), "max_abs_err": err, "max_abs_err_by_call": errs,
               "max_abs_logit": max(c_.abs().max().item() for c_ in cpu), "tol": PARITY_TOL,
               "argmax_agree": float(np.mean([bool((g.argmax(-1) == c_.argmax(-1)).all()) for g, c_ in zip(gpu, cpu)]))})
@@ -3275,7 +3304,7 @@ def prefill_ms(engine, prompts) -> float:
 
 
 def speculative_phase(ca, cm, cfg, tree) -> dict:
-    """The speculative cells at OPT-6.7B full width and depth, b16, 256-token
+    """The speculative cells at OPT-6.7B full width (``cfg``'s depth), b16, 256-token
     repetitive prompts, 32 new tokens, k = 4: prompt lookup over bf16 and int8
     KV, the opt-125m draft greedy, sampled (temperature 0.8, top_p 0.95) and
     sampled at top_k = 1 (whose tokens must equal greedy's), the three
@@ -3344,6 +3373,7 @@ def speculative_phase(ca, cm, cfg, tree) -> dict:
     torch.cuda.empty_cache()
 
     name = "tier-h50-p3-spec4"
+    cfg, tree = tier_model("tier-h50-p3", cfg, tree)  # the depth of the plain tiered cell it is held against
     engine = InferenceEngine(cfg, tree, tiered_runtime("none", 50, (3, 3), 1))
     pre = {"prefill_ms": prefill_ms(engine, prompts)}
     wm = engine.scheduler.wm
@@ -3364,27 +3394,26 @@ def speculative_phase(ca, cm, cfg, tree) -> dict:
     return launches
 
 
-def speculative_parity(ca, cm) -> None:
-    """OPT-6.7B width at 2 layers, the verify passes on the card (bf16,
+def speculative_parity(ca, cm, model: str = "opt-6.7b", layers: int = 2, tree=None, only=None) -> None:
+    """``model``'s width (OPT-6.7B by default) at ``layers`` layers, the verify passes on the card (bf16,
     kernels) against the CPU (fp32, plain versions) over the same tree and
     prompts (row 1 left-padded): the slab verify (B6), the paged verify (B5,
     the prompts written to shuffled pages) and the tiered verify (half
     resident, B6 over both segments), each from the same prefilled cache and
     the same two C = 5 chunks with an uneven accept between them, so the
-    second pass runs at per-row bases. Logits within PARITY_TOL."""
+    second pass runs at per-row bases. Logits within PARITY_TOL. ``tree``:
+    the (card, CPU fp32) pair, already made (:func:`parity_tree`); ``only``:
+    the passes to run, by label (all by default)."""
     from lia_tpu_torch.config import RuntimeConfig
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops import kv_cache as kvc
     from lia_tpu_torch.ops import paged as pg
-    from lia_tpu_torch.ops.fuse import fuse_projections
     from lia_tpu_torch.runtime.scheduler import StreamingScheduler
-    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=layers)
     cfg32 = cfg.replace(dtype="float32")
-    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
-    params32 = to_device(params, "cpu", torch.float32)
+    params, params32 = tree or parity_tree(model, layers)
     rng = np.random.default_rng(9)
     C = SPEC_K + 1
     tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
@@ -3445,13 +3474,16 @@ def speculative_parity(ca, cm) -> None:
     for label, fn, kernel in (("slab verify", slab, "flash_attention_cached"),
                               ("paged verify", paged, "paged_decode_attention"),
                               ("tiered verify", tiered, "flash_attention_cached")):
+        if only is not None and label not in only:
+            continue
         with torch.inference_mode():
             reset_counts(ca, cm)
             gpu = fn(torch.device("cuda"), cfg, params, torch.bfloat16)
             launched = launch_counts(ca, cm)[kernel]
             cpu = fn(torch.device("cpu"), cfg32, params32, torch.float32)
         err = (gpu - cpu).abs().max().item()
-        emit({"phase": "speculative_parity", "config": label, "layers": 2, "batch": 2, "prompt": 64, "chunk": C,
+        emit({"phase": "speculative_parity", "config": label, "model": model, "layers": layers, "batch": 2,
+              "prompt": 64, "chunk": C,
               "passes": 2, "accept": accept.tolist(), "kernel": kernel, "launches": launched,
               "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(), "tol": PARITY_TOL,
               "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
@@ -3470,12 +3502,13 @@ def speculative_parity(ca, cm) -> None:
 SERVE_TIER_REQUESTS = 32  # the serving workload's first 32 requests
 # (name, batcher options, hbm_percentage, (prefill, decode) policy, depth: None
 # for full depth, else the first n layers of the tiered phase's host tree; cut
-# from 32, 8 and 8 layers to make room for the automatic-placement phases)
+# from 32, 8 and 8 layers to make room for the automatic-placement phases,
+# then from 16, 4 and 8 to 4, 2 and 4 for the ALiBi families' phases)
 SERVING_TIERED = [
-    ("serve-tier-h50-p3", dict(), 50, (3, 3), 16),
+    ("serve-tier-h50-p3", dict(), 50, (3, 3), 4),
     ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 4),
-    ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 4),
-    ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 8),
+    ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 2),
+    ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 4),
 ]
 # serve-paged-proc: every second request a repetition penalty and a minimum,
 # every fourth (from the second) a no-repeat n-gram size
@@ -3828,24 +3861,22 @@ def beam_phase(ca, cm, cfg, prompts, tree):
     return launches, {name: walls[name] for name in ("beam-nb4", "beam-nb4-int8kv")}, bprompts
 
 
-def beam_parity(model: str = "opt-6.7b") -> None:
-    """``model``'s width (OPT-6.7B by default) at 2 layers, one tree on both sides: a grouped beam cache
+def beam_parity(model: str = "opt-6.7b", layers: int = 2, tree=None) -> None:
+    """``model``'s width (OPT-6.7B by default) at ``layers`` layers, one tree on both sides: a grouped beam cache
     of 2 prompts × 4 beams, the prompt and 4 beam_decode_step calls on the card
     (bf16, kernels) against the CPU (fp32, plain versions), every step's
     tokens and tail shuffle (flat_src) the CPU run's, over bf16 and int8 KV;
-    then score_logprobs at the prompt's valid positions. Within PARITY_TOL."""
+    then score_logprobs at the prompt's valid positions. Within PARITY_TOL.
+    ``tree``: the (card, CPU fp32) pair, already made (:func:`parity_tree`)."""
     from lia_tpu_torch.config import GenerationConfig
     from lia_tpu_torch.engine import beam as beam_mod
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
     from lia_tpu_torch.ops import kv_cache as kvc
-    from lia_tpu_torch.ops.fuse import fuse_projections
-    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config(model).replace(num_layers=2)
+    cfg = get_config(model).replace(num_layers=layers)
     cfg32 = cfg.replace(dtype="float32")
-    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
-    params32 = to_device(params, "cpu", torch.float32)
+    params, params32 = tree or parity_tree(model, layers)
     rng = np.random.default_rng(8)
     tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
     mask = np.ones((2, 64), bool)
@@ -3888,7 +3919,8 @@ def beam_parity(model: str = "opt-6.7b") -> None:
         err = (gpu - cpu).abs().max().item()
         valid = torch.from_numpy(mask)[:, :, None]
         lp_err = ((lp_gpu - lp_cpu).abs() * valid).max().item()
-        emit({"phase": "beam_parity", "model": model, "kv": kv, "layers": 2, "groups": 2, "num_beams": nb, "prompt": 64,
+        emit({"phase": "beam_parity", "model": model, "kv": kv, "layers": layers, "groups": 2, "num_beams": nb,
+              "prompt": 64,
               "decode_steps": n_steps, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
               "score_logprobs_max_abs_err": lp_err, "tol": PARITY_TOL,
               "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
@@ -3935,15 +3967,50 @@ def beam_breakdown(ca, cfg, prompts, name: str, kv: str, wall_s: float) -> None:
 # ---------------------------------------------------------------------------
 
 
+def parity_tree(model: str, layers: int):
+    """The parities' tree of ``model``'s width at ``layers`` layers: bf16
+    dummy weights (seed 1) drawn on the card with projections fused, and its
+    fp32 copy on the CPU."""
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops.fuse import fuse_projections
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config(model).replace(num_layers=layers)
+    params = fuse_projections(cfg, device_dummy_params(cfg, seed=1))
+    return params, to_device(params, "cpu", torch.float32)
+
+
+def alibi_parity(ca, cm) -> None:
+    """The ALiBi families at 4 layers, card (bf16, kernels with slopes)
+    against CPU (fp32, plain versions with the reference's biases), today's
+    tolerances: MPT-7B's width over one tree on every path (resident
+    prefill and decode; beams and scoring over bf16 and int8 KV; serving's
+    paged pool with a prompt admitted from the prefix cache, the chunk over
+    the cache; the slab and paged verify at C = 5; the tiered scheduler
+    under policy 3 and the host-attention tier 0/2), then BLOOM-7B1's,
+    Baichuan-13B's and Baichuan2-13B's resident prefill and decode."""
+    tree = parity_tree("mpt-7b", 4)
+    parity("mpt-7b, none KV", "none", model="mpt-7b", layers=4, tree=tree)
+    beam_parity("mpt-7b", 4, tree=tree)
+    serving_parity("mpt-7b", 4, tree=tree, only=("paged + prefix cache",))
+    speculative_parity(ca, cm, "mpt-7b", 4, tree=tree, only=("slab verify", "paged verify"))
+    tiered_parity("mpt-7b", ALIBI_TIER_PARITY, tree=tree)
+    del tree
+    for model in ALIBI_PARITY:
+        parity(f"{model}, none KV", "none", model=model, layers=4)
+    torch.cuda.empty_cache()
+
+
 def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool = True, gate=None,
-           stacked_per_layer: int = 0):
-    """``model``'s width (OPT-6.7B by default) at 2 layers, one tree on both
+           stacked_per_layer: int = 0, layers: int = 2, tree=None):
+    """``model``'s width (OPT-6.7B by default) at ``layers`` layers, one tree on both
     sides: the card (bf16 model, kernels) against the CPU (fp32 model, plain
     versions; quantized records move as they are), projections fused unless
     ``fuse`` is off, the routes of ``gate`` on for both runs (with the fused
     MLP on, the card runs it at every layer of the prefill's 2 x 64 rows and
     of each step; with the stacked W4A8 route on, ``stacked_per_layer`` linears
-    of each layer run the stacked entry at each decode step)."""
+    of each layer run the stacked entry at each decode step). ``tree``: the
+    (card, CPU fp32) pair of a bf16 tree already made (:func:`parity_tree`)."""
     from lia_tpu_torch.config import QuantConfig
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
@@ -3953,13 +4020,16 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
     from lia_tpu_torch.ops.fuse import fuse_projections
     from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
 
-    cfg = get_config(model).replace(num_layers=2)
-    qc = None if quant is None else QuantConfig(**quant)
-    params = device_dummy_params(cfg, seed=1, quant=qc)
-    if fuse:
-        params = fuse_projections(cfg, params)
+    cfg = get_config(model).replace(num_layers=layers)
     cfg32 = cfg.replace(dtype="float32")
-    params32 = to_device(params, "cpu", torch.float32)
+    if tree is not None:
+        params, params32 = tree
+    else:
+        qc = None if quant is None else QuantConfig(**quant)
+        params = device_dummy_params(cfg, seed=1, quant=qc)
+        if fuse:
+            params = fuse_projections(cfg, params)
+        params32 = to_device(params, "cpu", torch.float32)
     rng = np.random.default_rng(1)
     tokens = rng.integers(2, cfg.vocab_size, (2, 64)).astype(np.int32)
     mask = np.ones((2, 64), bool)
@@ -3992,7 +4062,7 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
     check(stacked == stacked_per_layer * cfg.num_layers * len(steps), f"parity {label}: {stacked} stacked launches")
     err = (gpu - cpu).abs().max().item()
     tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
-    emit({"phase": "parity", "config": label, "model": model, "kv": kv, "layers": 2, "batch": 2, "prompt": 64,
+    emit({"phase": "parity", "config": label, "model": model, "kv": kv, "layers": layers, "batch": 2, "prompt": 64,
           "gates": gate or {}, "fused_mlp_launches": fused, "w4a8_matmul_stacked_launches": stacked,
           "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
           "tol": tol, "argmax_agree": float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())})
@@ -4020,11 +4090,13 @@ HEAD_DIM_HEADS = [("opt-2.7b heads D=80 (N 32, N_kv 32)", 32, 32, 80, True),
                   ("D=256 G=4 (N 16, N_kv 4)", 16, 4, 256, False)]
 # (model, layers or None for full depth, KV types, the KV types timed): the
 # families run through generate(fused=True) at full width (Falcon-7B's int8-KV
-# run untimed since the head-dim cells came)
-FAMILY_CELLS = [("falcon-7b", None, ("none", "int8"), ("none",)), ("chatglm3-6b", 4, ("none",), ()),
+# run untimed since the head-dim cells came; since the ALiBi families' phases
+# Falcon-7B and OPT-2.7B at 16 of their 32 layers, GPT-J-6B at 14 of 28 and
+# GPT-NeoX-20B at 22 of 44)
+FAMILY_CELLS = [("falcon-7b", 16, ("none", "int8"), ("none",)), ("chatglm3-6b", 4, ("none",), ()),
                 ("baichuan2-7b", 4, ("none",), ()), ("stablelm-2-1.6b", 4, ("none",), ()),
-                ("opt-2.7b", None, ("none", "int8"), ("none", "int8")), ("gpt-j-6b", None, ("none", "int8"), ()),
-                ("gpt-neox-20b", None, ("none",), ()), ("stablelm-3b", 4, ("none",), ()),
+                ("opt-2.7b", 16, ("none", "int8"), ("none", "int8")), ("gpt-j-6b", 14, ("none", "int8"), ()),
+                ("gpt-neox-20b", 22, ("none",), ()), ("stablelm-3b", 4, ("none",), ()),
                 ("codegen-2b", 4, ("none",), ()), ("codegen-6b", 4, ("none",), ())]
 # (model, KV): the families at 2 layers, card against CPU (parity)
 FAMILY_PARITY = [("falcon-7b", "none"), ("falcon-7b", "int8"), ("chatglm3-6b", "none"), ("chatglm3-6b", "int8"),
@@ -4218,6 +4290,233 @@ def head_kernel_checks(ca, quantize_kv, cases) -> None:
             check(err == err and err <= KERNEL_TOL, f"{kernel} {label}: max abs err {err} > {KERNEL_TOL}")
 
 
+# (label, N, N_kv, D, timed): the ALiBi families' heads: MPT-7B's (timed with
+# and without slopes), MPT-30B's at D = 112 (timed) and Baichuan-13B's 40
+# (the odd-tail slopes)
+ALIBI_HEADS = [("mpt-7b heads (N 32, N_kv 32, D 128)", 32, 32, 128, True),
+               ("mpt-30b heads D=112 (N 64, N_kv 64)", 64, 64, 112, True),
+               ("baichuan-13b heads (N 40, N_kv 40, D 128)", 40, 40, 128, False)]
+
+
+def alibi_kernel_checks(ca, quantize_kv, cases) -> None:
+    """Every attention kernel with ALiBi slopes against its plain version
+    (the reference's [B, N, S] bias: each slot's rank, the beam tail's
+    real_len + t, the paged keys' logical index) at each case's heads, on
+    left-padded rows (row 0 starts at slot 0, the others later): B1 over the
+    prompt (B 16, S 256), B6 over a 256-row chunk at base 768 of 1024 slots
+    (two rows, one padded by 100), B2 and B7/B8 (past 272 in a 384-slot
+    plane) on the host's route and forced to 1 and 3 parts, B3 with its
+    split forced to 1 and 3, B5 at C = 1 and 5 (16 rows of 256-272 tokens,
+    pages of 16), B9 and B10 (4 groups of 4 beams over a 256-slot prompt,
+    tail 16 of a 32-slot bf16 / 128-slot int8 tail). An output agrees where
+    |kernel - plain| <= KERNEL_TOL * max(1, |plain|): the bias puts most of a
+    head's weight on its last keys, so outputs reach the V rows' own
+    magnitude (several units), where one bf16 rounding step exceeds
+    KERNEL_TOL. A timed case adds a timing variant of each kernel with slopes
+    (and, at MPT-7B's heads, the same call without them), beside SDPA with
+    the bias as an additive float mask over K/V repeated to the N heads (the
+    mask and the repeat not timed), and the bound from the bytes at the real
+    D plus the slopes."""
+    import torch.nn.functional as F
+
+    from lia_tpu_torch.ops.attention import alibi_slopes
+    from lia_tpu_torch.ops.quant import QuantizedKV, dequantize_kv
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dpads = [0, 3, 7, 15] * 4
+    n_keys = [PAST - p for p in dpads]
+    past_keys = sum(n_keys)
+    for label, Nq, Nkv, Dh, timed in cases:
+        G = Nq // Nkv
+        sl = alibi_slopes(Nq, "cuda")
+        errs = {}
+        randn = check_randn(f"alibi {label}")
+        both = timed and Nq == 32
+
+        def rel_err(name, out, ref, valid=None):
+            d = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)
+            if valid is not None:
+                d = d * valid
+            a = (out.float() - ref.float()).abs()
+            errs[name] = (d.max().item(), (a if valid is None else a * valid).max().item())
+
+        def variant(kernel_name, fn, unbiased, library, nbytes, ops, parts=1):
+            """fn: the kernel with slopes; unbiased: the same call without them."""
+            if timed:
+                TIME_VARIANTS.append(dict(kernel_name=kernel_name, variant=f"{label}, ALiBi", parts=parts, kernel=fn,
+                                          library=library, bound=bound(nbytes + Nq * 4, ops)))
+            if both:
+                TIME_VARIANTS.append(dict(kernel_name=kernel_name, variant=f"{label}, no slopes", parts=parts,
+                                          kernel=unbiased, library=None,
+                                          bound=bound(nbytes, ops - 2 * ops / (4 * Dh + 2))))
+
+        def rep(x):  # K/V repeated to the query heads (SDPA's yardstick, not timed)
+            return x.repeat_interleave(G, 1)
+
+        def bias_mask(allow, key_pos):
+            """SDPA's additive float mask [B, N, Sq, Sk]: the bias at the
+            allowed keys (allow [B, Sq, Sk]), -inf elsewhere (bf16)."""
+            b = (sl[None, :, None, None] * key_pos.float()[:, None, None, :]).expand(-1, -1, allow.shape[1], -1)
+            return b.masked_fill(~allow[:, None], float("-inf")).to(torch.bfloat16)
+
+        # B1: the prompt
+        q, k, v = randn(B, PROMPT, Nq, Dh), randn(B, Nkv, PROMPT, Dh), randn(B, Nkv, PROMPT, Dh)
+        mask = torch.ones(B, PROMPT, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(PADS):
+            mask[b, :p] = False
+        rel_err("flash_attention_prefill", ca.flash_attention_prefill(q, k, v, mask, slopes=sl),
+                ca.flash_attention_prefill_plain(q, k, v, mask, slopes=sl), mask[:, :, None, None])
+        causal = torch.tril(torch.ones(PROMPT, PROMPT, dtype=torch.bool, device="cuda"))
+        rank = (mask.cumsum(1) - 1).clamp(min=0)
+        n_valid = [PROMPT - p for p in PADS]
+        variant("flash_attention_prefill", lambda a=(q, k, v, mask), sl=sl: ca.flash_attention_prefill(*a, slopes=sl),
+                lambda a=(q, k, v, mask): ca.flash_attention_prefill(*a),
+                lambda qt=q.transpose(1, 2), kr=rep(k), vr=rep(v), am=bias_mask(causal[None] & mask[:, None, :], rank):
+                F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                sum(n_valid) * (Nq + 2 * Nkv) * Dh * 2 + q.numel() * 2 + mask.numel(),
+                (4 * Dh + 2) * Nq * sum(n * (n + 1) / 2 for n in n_valid),
+                ca.flash_split_parts(B, PROMPT, Nq, Nkv, PROMPT, sms))
+
+        # B6: a 256-row chunk at base 768 of a 1024-slot plane, row 1 padded by 100
+        C, base = 256, 768
+        qc, kcc, vcc = randn(2, C, Nq, Dh), randn(2, Nkv, 1024, Dh), randn(2, Nkv, 1024, Dh)
+        smc = torch.zeros(2, 1024, dtype=torch.bool, device="cuda")
+        smc[0, : base + C], smc[1, 100: base + C] = True, True
+        bt = torch.tensor(base, dtype=torch.int32, device="cuda")
+        rel_err("flash_attention_cached", ca.flash_attention_cached(qc, kcc, vcc, bt, smc, slopes=sl),
+                ca.flash_attention_cached_plain(qc, kcc, vcc, bt, smc, slopes=sl))
+        kpos = torch.arange(1024, device="cuda")
+        callow = (kpos[None, :] <= base + torch.arange(C, device="cuda")[:, None])[None] & smc[:, None, :]
+        variant("flash_attention_cached",
+                lambda a=(qc, kcc, vcc, bt, smc), sl=sl: ca.flash_attention_cached(*a, slopes=sl),
+                lambda a=(qc, kcc, vcc, bt, smc): ca.flash_attention_cached(*a),
+                lambda qt=qc.transpose(1, 2), kr=rep(kcc), vr=rep(vcc),
+                am=bias_mask(callow, (smc.cumsum(1) - 1).clamp(min=0)):
+                F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                (2 * (base + C) - 100) * Nkv * Dh * 2 * 2 + 2 * qc.numel() * 2 + smc.numel(),
+                (4 * Dh + 2) * Nq * sum(base + t + 1 - p for t in range(C) for p in (0, 100)),
+                ca.flash_split_parts(2, C, Nq, Nkv, 1024, sms))
+
+        # B2, B7/B8 and B3: decode over layer 1 of a 2-layer 384-slot cache
+        ln = torch.tensor(PAST, dtype=torch.int32, device="cuda")
+        qd, kf, vf = randn(B, 1, Nq, Dh), randn(B, Nkv, 1, Dh), randn(B, Nkv, 1, Dh)
+        sm = torch.zeros(B, 384, dtype=torch.bool, device="cuda")
+        for b, p in enumerate(dpads):
+            sm[b, p:PAST] = True
+        kc, vc = randn(2, B, Nkv, 384, Dh), randn(2, B, Nkv, 384, Dh)
+        args = (qd, kf, vf, kc, vc, 1, sm, ln)
+        kp, vp = kc[1].clone(), vc[1].clone()
+        kp[:, :, PAST], vp[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+        sm_inc = sm.clone()
+        sm_inc[:, PAST] = True
+        ln_inc = torch.tensor(PAST + 1, dtype=torch.int32, device="cuda")
+        kc_inc, vc_inc = kc.clone(), vc.clone()
+        kc_inc[1], vc_inc[1] = kp, vp
+        ref2 = ca.decode_attention_fresh_plain(*args, slopes=sl)
+        ref7 = ca.decode_attention_plain(qd, kp, vp, sm_inc, ln_inc, slopes=sl)
+        for parts in (None, 1, 3):
+            tag = "" if parts is None else f" parts={parts}"
+            rel_err(f"decode_attention_fresh{tag}", plane_forced(ca, lambda: ca.decode_attention_fresh(
+                *args, slopes=sl), parts)(), ref2)
+            rel_err(f"decode_attention{tag}", plane_forced(ca, lambda: ca.decode_attention(
+                qd, kp, vp, sm_inc, ln_inc, slopes=sl), parts)(), ref7)
+        rel_err("decode_attention_stacked", ca.decode_attention_stacked(qd, kc_inc, vc_inc, 1, sm_inc, ln_inc,
+                                                                        slopes=sl), ref7)
+        plane_parts = ca.plane_plan(B, Nq, Nkv, 384, True, sms, Dh).parts
+        qdt = qd.transpose(1, 2)
+        dam = bias_mask(sm_inc[:, None, :], (sm_inc.cumsum(1) - 1).clamp(min=0))
+        io = 2 * qd.numel() * 2 + 2 * kf.numel() * 2 + 4
+        variant("decode_attention_fresh", lambda a=args, sl=sl: ca.decode_attention_fresh(*a, slopes=sl),
+                lambda a=args: ca.decode_attention_fresh(*a),
+                lambda qt=qdt, kr=rep(kp), vr=rep(vp), am=dam: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                past_keys * Nkv * Dh * 2 * 2 + io + sm.numel(), (4 * Dh + 2) * Nq * (past_keys + B), plane_parts)
+        plane_keys = past_keys + B
+        variant("decode_attention", lambda a=(qd, kp, vp, sm_inc, ln_inc), sl=sl: ca.decode_attention(*a, slopes=sl),
+                lambda a=(qd, kp, vp, sm_inc, ln_inc): ca.decode_attention(*a),
+                lambda qt=qdt, kr=rep(kp), vr=rep(vp), am=dam: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                plane_keys * Nkv * Dh * 2 * 2 + 2 * qd.numel() * 2 + 4 + sm.numel(), (4 * Dh + 2) * Nq * plane_keys,
+                plane_parts)
+        kq = quantize_kv(randn(2, B, Nkv, 384, Dh, dtype=torch.float32))
+        vq = quantize_kv(randn(2, B, Nkv, 384, Dh, dtype=torch.float32))
+        args8 = (qd, kf, vf, kq.q, kq.s, vq.q, vq.s, 1, sm, ln)
+        ref3 = ca.decode_attention_fresh_int8_plain(*args8, slopes=sl)
+        for parts in (None, 1, 3):
+            tag = "" if parts is None else f" parts={parts}"
+            rel_err(f"decode_attention_fresh_int8{tag}", split_forced(ca, parts, lambda: ca.decode_attention_fresh_int8(
+                *args8, slopes=sl), "int8_split_parts")(), ref3)
+        kd, vd = (dequantize_kv(QuantizedKV(c.q[1], c.s[1])) for c in (kq, vq))
+        kd[:, :, PAST], vd[:, :, PAST] = kf[:, :, 0], vf[:, :, 0]
+        variant("decode_attention_fresh_int8", lambda a=args8, sl=sl: ca.decode_attention_fresh_int8(*a, slopes=sl),
+                lambda a=args8: ca.decode_attention_fresh_int8(*a),
+                lambda qt=qdt, kr=rep(kd), vr=rep(vd), am=dam: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                past_keys * Nkv * (Dh + 4) * 2 + io + sm.numel(), (4 * Dh + 2) * Nq * (past_keys + B),
+                ca.int8_decode_parts(B, Nq, Nkv, 384, sms))
+
+        # B5: paged decode at C = 1 and 5 with the fresh chunk merged
+        for Cp in (1, 5):
+            pq, pk, pv, table, lens, pkf, pvf = paged_case(randn, n_keys, Cp, Nkv, G, Dh)
+            pargs = (pq, pk, pv, 1, table, lens, pkf, pvf)
+            rel_err(f"paged_decode_attention C={Cp}", ca.paged_decode_attention(*pargs, slopes=sl),
+                    ca.paged_decode_attention_plain(*pargs, slopes=sl))
+            if Cp == 1:
+                keys = past_keys + B
+                S = table.shape[1] * SERVE_BLOCK  # SDPA over each row's pages gathered, then the fresh token
+                kg = torch.cat([pk[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, Dh), pkf], 2)
+                vg = torch.cat([pv[1][table.long()].permute(0, 2, 1, 3, 4).reshape(B, Nkv, S, Dh), pvf], 2)
+                allow = torch.cat([torch.arange(S, device="cuda")[None, :] < lens[:, None],
+                                   torch.ones(B, 1, dtype=torch.bool, device="cuda")], 1)
+                lpos = torch.cat([torch.arange(S, device="cuda")[None, :].expand(B, S), lens[:, None]], 1)
+                variant("paged_decode_attention", lambda a=pargs, sl=sl: ca.paged_decode_attention(*a, slopes=sl),
+                        lambda a=pargs: ca.paged_decode_attention(*a),
+                        lambda qt=pq.transpose(1, 2), kr=rep(kg), vr=rep(vg), am=bias_mask(allow[:, None, :], lpos):
+                        F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                        keys * Nkv * Dh * 2 * 2 + 2 * pq.numel() * 2 + table.numel() * 4,
+                        (4 * Dh + 2) * Nq * keys, ca.paged_split_parts(B, 1, Nq, Nkv, table.shape[1], sms))
+
+        # B9 and B10: 4 groups of 4 beams over a 256-slot prompt, tail 16
+        Bb = BEAM_GROUPS * BEAM_NB
+        bq, bkf, bvf = randn(Bb, 1, Nq, Dh), randn(Bb, Nkv, 1, Dh), randn(Bb, Nkv, 1, Dh)
+        pm = torch.zeros(BEAM_GROUPS, BEAM_PROMPT, dtype=torch.bool, device="cuda")
+        for g, p in enumerate(BEAM_PADS):
+            pm[g, p:] = True
+        lens_b = (pm, torch.tensor(BEAM_PROMPT, dtype=torch.int32, device="cuda"),
+                  torch.tensor(BEAM_TLEN, dtype=torch.int32, device="cuda"), BEAM_NB)
+        prompt_keys = sum(BEAM_PROMPT - p for p in BEAM_PADS)
+        beam_keys = BEAM_NB * prompt_keys + Bb * BEAM_TLEN
+        group = torch.arange(Bb, device="cuda") // BEAM_NB
+        for int8 in (False, True):
+            T_max = 128 if int8 else 32
+            if int8:
+                planes = [x for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (Bb, T_max)) for _ in range(2)
+                          for x in quantize_kv(randn(2, rows, Nkv, S, Dh, dtype=torch.float32))]
+                kernel, plain, row_bytes = ca.decode_beam_attention_int8, ca.decode_beam_attention_int8_plain, Dh + 4
+                kpp, vpp, ktt, vtt = (dequantize_kv(QuantizedKV(c[1], s_[1])) for c, s_ in zip(planes[0::2],
+                                                                                             planes[1::2]))
+            else:
+                planes = [randn(2, rows, Nkv, S, Dh) for rows, S in ((BEAM_GROUPS, BEAM_PROMPT), (Bb, T_max))
+                          for _ in range(2)]
+                kernel, plain, row_bytes = ca.decode_beam_attention, ca.decode_beam_attention_plain, 2 * Dh
+                kpp, vpp, ktt, vtt = (x[1] for x in planes)
+            bargs = (bq, bkf, bvf, *planes, 1, *lens_b)
+            rel_err(kernel.__name__, kernel(*bargs, slopes=sl), plain(*bargs, slopes=sl))
+            tail_ok = (torch.arange(T_max, device="cuda") < BEAM_TLEN)[None].expand(Bb, T_max)
+            ballow = torch.cat([pm[group], tail_ok, torch.ones(Bb, 1, dtype=torch.bool, device="cuda")], 1)
+            bpos = ca._beam_positions(ballow[:, :-1], BEAM_PROMPT, T_max)
+            variant(kernel.__name__, lambda kernel=kernel, a=bargs, sl=sl: kernel(*a, slopes=sl),
+                    lambda kernel=kernel, a=bargs: kernel(*a),
+                    lambda qt=bq.transpose(1, 2), kr=rep(torch.cat([kpp[group], ktt, bkf], 2)),
+                    vr=rep(torch.cat([vpp[group], vtt, bvf], 2)), am=bias_mask(ballow[:, None, :], bpos):
+                    F.scaled_dot_product_attention(qt, kr, vr, attn_mask=am),
+                    (prompt_keys + Bb * BEAM_TLEN) * Nkv * row_bytes * 2 + 2 * bq.numel() * 2 + 2 * bkf.numel() * 2
+                    + pm.numel() + 8, (4 * Dh + 2) * Nq * (beam_keys + Bb))
+        torch.cuda.synchronize()
+        for kernel, (rel, err) in errs.items():
+            emit({"phase": "kernel_check", "kernel": kernel, "variant": f"{label}, ALiBi", "max_abs_err": err,
+                  "max_err_over_max_1_abs_plain": rel, "tol": KERNEL_TOL})
+            check(rel == rel and rel <= KERNEL_TOL,
+                  f"{kernel} {label} ALiBi: err {rel} > {KERNEL_TOL} x max(1, |plain|)")
+
+
 def families_phase(ca, cm) -> dict:
     """FAMILY_CELLS through generate(fused=True) over 16 prompts x 256 tokens,
     32 new tokens, bf16 weights drawn on the card: Falcon-7B at full width and
@@ -4249,6 +4548,54 @@ def families_phase(ca, cm) -> dict:
             make = held.pop if i == len(kvs) - 1 else (lambda: held[0])
             out.update(main_path(ca, cm, label, cfg, make, prompts, kv, {}, timed=kv in timed))
         torch.cuda.empty_cache()
+    return {name: counts for name, (counts, _) in out.items()}
+
+
+# the ALiBi families' parity models at 4 layers, card against CPU (MPT-7B's
+# on every path besides)
+ALIBI_PARITY = ("bloom-7b1", "baichuan-13b", "baichuan2-13b")
+ALIBI_TIER_PARITY = TIER_PARITY[0:1] + TIER_PARITY[2:3]  # policy 3 and the host-attention tier 0/2
+MPT30_INT8_LAYERS = 8  # MPT-30B over int8 KV at a cut depth (the bf16 run is the full model)
+
+
+def alibi_phase(ca, cm, models=("mpt-7b",)) -> dict:
+    """The slice's main path, the ALiBi families at full width through
+    generate(fused=True) over 16 prompts x 256 tokens, 32 new tokens, bf16
+    weights drawn on the card. ``mpt-7b``: full depth (H 4096, 32 heads of
+    D 128, F 16384, vocab 50368, 32 layers) with bf16 KV, timed, the
+    fused-MLP gate off and on in turns (B14 with exact gelu at every decode
+    step's layers: 992 launches), and with int8 KV. ``mpt-30b``: full depth
+    (H 7168, 64 heads of D 112, F 28672, 48 layers, ~59.9 GB of weights)
+    with bf16 KV, then over int8 KV at MPT30_INT8_LAYERS layers; it runs
+    first in the script, before the kernel checks' inputs (held for the
+    timing phase) take the card's memory: fusing its projections holds
+    ~75 GB for a moment. Exact launches (L flash prefills, L * 31 decode
+    launches), no plain version on the card. Returns each run's launches."""
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    smi = nvidia_smi()
+    out = {}
+    steps = NEW_TOKENS - 1
+    for name in models:
+        cfg = get_config(name)
+        kvs = ("none", "int8") if name == "mpt-7b" else ("none",)
+        held = [device_dummy_params(cfg, seed=0)]  # the last run's engine takes the only reference
+        emit({"phase": "family_weights", "model": name, "layers": cfg.num_layers, "gb": tree_bytes(held[0]) / 1e9,
+              "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], "alibi": cfg.alibi, "card": smi})
+        prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (16, PROMPT)).tolist()
+        for i, kv in enumerate(kvs):
+            make = held.pop if i == len(kvs) - 1 else (lambda: held[0])
+            timed = name == "mpt-7b" and kv == "none"
+            ab = ("fused_mlp", {"fused_mlp": cfg.num_layers * steps}) if timed else None
+            out.update(main_path(ca, cm, f"{name}, {'bf16' if kv == 'none' else kv} KV", cfg, make, prompts, kv, {},
+                                 timed=timed, ab=ab))
+        torch.cuda.empty_cache()
+        if name == "mpt-30b":
+            cut = cfg.replace(num_layers=MPT30_INT8_LAYERS)
+            out.update(main_path(ca, cm, f"mpt-30b {MPT30_INT8_LAYERS} layers, int8 KV", cut,
+                                 lambda: device_dummy_params(cut, seed=0), prompts, "int8", {}, timed=False))
+            torch.cuda.empty_cache()
     return {name: counts for name, (counts, _) in out.items()}
 
 
@@ -4685,6 +5032,8 @@ def main() -> int:
     int8_build_report(_build, paths)
     beam_build_report(_build, paths)
     decode_build_report(_build, paths)
+    large = alibi_phase(ca, cm, ("mpt-30b",))  # before the kernel checks' inputs take the card's memory
+    phase_time("mpt-30b")
 
     rows = kernel_checks(ca, quantize_kv)
     mm_rows = matmul_kernel_checks(cm, quantize_act)
@@ -4739,6 +5088,8 @@ def main() -> int:
     walls = {name: wall for name, (_, wall) in runs.items()}
     launches.update(llama_phase(ca, cm))
     launches.update(families_phase(ca, cm))
+    launches.update(alibi_phase(ca, cm))
+    launches.update(large)
     checkpoint_phase()
     phase_time("families and checkpoints")
 
@@ -4756,6 +5107,8 @@ def main() -> int:
     for model, kv in FAMILY_PARITY:  # the large groups' kernels inside the model
         parity(f"{model}, {kv} KV", kv, model=model)
     phase_time("main path and parity")
+    alibi_parity(ca, cm)  # every kernel with slopes inside the models, 4 layers
+    phase_time("alibi parity")
 
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
     launches.update(tier_launches)
@@ -4764,7 +5117,7 @@ def main() -> int:
         tiered_parity(model, TIER_PARITY_HEAD_DIMS)
     phase_time("tiered")
 
-    launches.update(serving_phase(ca, cm, cfg))
+    launches.update(serving_phase(ca, cm, cfg.replace(num_layers=SERVING_LAYERS)))
     serving_parity()
     for model in HEAD_DIM_PARITY:
         serving_parity(model)
@@ -4777,7 +5130,7 @@ def main() -> int:
         beam_parity(model)
     phase_time("beam and score")
 
-    launches.update(speculative_phase(ca, cm, cfg, tree))
+    launches.update(speculative_phase(ca, cm, cfg.replace(num_layers=SPEC_LAYERS), first_layers(tree, SPEC_LAYERS)))
     speculative_parity(ca, cm)
     phase_time("speculative")
 

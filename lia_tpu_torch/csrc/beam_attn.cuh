@@ -9,7 +9,13 @@
 // probabilities; the fresh token merges in fp32 last; out = acc / max(l,
 // 1e-30). plen, tlen and the prompt mask (pstart_g = plen -
 // popcount(prompt_mask[g])) are read on the device, so a call never syncs
-// and can be captured in a CUDA graph.
+// and can be captured in a CUDA graph. With ALiBi slopes (common.cuh:
+// alibi_slope) a key scores slope * log2(e) * (pos - plen - tlen) more, pos
+// its slot in the prompt (its tail index t plus plen for a tail key): the
+// reference's positions (a prompt slot's rank, real_len + t, the fresh token
+// at real_len + tlen) less the query's, so the fresh token's term is 0. The
+// term is a template flag (ALIBI); the instances without it are those before
+// the port of ALiBi (a runtime branch cost them 1-5% on an H100).
 //
 // What bounds it on an H100: bytes, each group's prompt rows read once plus
 // each beam's tail rows (~18.7 MB a launch at OPT-6.7B's heads with 4 groups
@@ -76,7 +82,7 @@
 //   permutes a row's chunks within aligned runs of 8), while a row in memory
 //   is D wide (both template parameters). The producer
 //   copies a row's D / 8 chunks only, and the consumers' products step over
-//   the D / 16 dims a tile that hold data, so D = 80 and 96 (DP = 128) do the
+//   the D / 16 dims a tile that hold data, so D = 80, 96 and 112 (DP = 128) do the
 //   arithmetic of their own width and never read the padding. At DP = 256 a
 //   block holds up to QN = 8 queries (one column tile), so its O^T and q
 //   fragments stay at 96 registers.
@@ -189,7 +195,7 @@ struct Seg {
 // queries (NT = 2 past 8 queries). Rows lie D apart in memory, DP apart in the
 // ring. Two blocks an SM, one at DP = 256 (its 16 O^T tiles and q fragments
 // spill at the 168 registers of two).
-template <int DP, int D, int NT>
+template <int DP, int D, int NT, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, DP > 128 ? 1 : 2)
 beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
             const bf16* __restrict__ kf,  // [B, Nkv, D] fresh key, or null
@@ -198,7 +204,8 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
             const int* __restrict__ prompt_len,
             bf16* __restrict__ out,       // [B, N, D] (parts == 1)
             float* __restrict__ ws,       // parts > 1: o [parts, B*N, D], m, l [parts, B*N]
-            int parts, int Nkv, int G, int bpc, float sscale, int stages) {
+            int parts, int Nkv, int G, int bpc, float sscale, int stages,
+            const float* __restrict__ slopes) {  // ALiBi [N] (ALIBI only)
   constexpr int KK = DP / 16;  // k16 chunks of a K row; 16-dim tiles of O^T (those below D / 16 hold data)
   constexpr int QN = qn(DP);   // queries a block at most
   constexpr int PO = DP + PO_PAD;
@@ -348,12 +355,14 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   // the beams (0 .. nbc - 1 from j0) of this lane's columns 8 nt + 2c, + 1;
   // -1 past the run's queries
   int cbeam[NT][2];
+  float csl[NT][2];  // the columns' ALiBi slopes in exp2 units
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * nt + 2 * c + e;
       cbeam[nt][e] = col < nq ? (off + col) / G : -1;
+      csl[nt][e] = ALIBI && col < nq ? alibi_slope(slopes, h * G + (off + col) % G) : 0.f;
     }
 
   // per lane: O^T tile m, column tile nt at dims 16 m + r (and + 8) of
@@ -419,6 +428,12 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
         float sc[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[e] = in[e] ? (sacc[nt][0][e] + sacc[nt][1][e]) * sscale : LIA_NEG_INF;
+        if constexpr (ALIBI) {  // key r (r + 8) of the tile against the query after the prompt and tail
+          const int kb = sgm.lo + TILE * ti + r - (sgm.beam < 0 ? plen + tl : tl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (in[e]) sc[e] = fmaf(csl[nt][e & 1], (float)(kb + 8 * (e >> 1)), sc[e]);
+        }
         float pw[4], alpha[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -549,10 +564,11 @@ beam_kernel(const bf16* __restrict__ q,   // [B, N, D]
   }
 }
 
-template <int DP, int D, int NT>
+template <int DP, int D, int NT, bool ALIBI>
 int launch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* prompt_len, void* out,
-           void* ws, int parts, int B, int Nkv, int G, int bpc, int sms, float sscale, cudaStream_t stream) {
-  auto kern = beam_kernel<DP, D, NT>;
+           void* ws, int parts, int B, int Nkv, int G, int bpc, int sms, float sscale, const float* slopes,
+           cudaStream_t stream) {
+  auto kern = beam_kernel<DP, D, NT, ALIBI>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
     return e != cudaSuccess ? e
@@ -566,7 +582,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
   kern<<<grid, THREADS, smem_bytes(DP, stages), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kf), static_cast<const bf16*>(vf), keys,
       static_cast<const int*>(prompt_len), static_cast<bf16*>(out), static_cast<float*>(ws), parts, Nkv, G, bpc,
-      sscale, stages);
+      sscale, stages, slopes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * Nkv * G;
@@ -577,8 +593,9 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
   return (int)cudaGetLastError();
 }
 
-// Head-dim and column-tile dispatch, after the checks: D 64, 80, 96, 128 or
-// 256, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc beams a chunk
+// Head-dim and column-tile dispatch, after the checks: D 64, 80, 96, 112, 128
+// or 256, any group G = N / Nkv (the wrapper admits 1 .. 128), slopes ALiBi's
+// (fp32 [N]) or null, bpc beams a chunk
 // with bpc * G <= qn or bpc = 1 (runs of qn queries: 16, or 8 at D = 256),
 // parts >= 1 (a
 // workspace of parts * B * N * (D + 2) floats when parts > 1), q, the fresh
@@ -586,7 +603,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
 // successful launch.
 inline int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* prompt_len,
                     void* out, void* ws, int parts, int B, int N, int Nkv, int D, int bpc, int sms, float sscale,
-                    void* stream) {
+                    const void* slopes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nkv <= 0 || N % Nkv != 0 || B < 1 || parts < 1 || (parts > 1 && !ws) || sms < 1) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv;
@@ -597,16 +614,22 @@ inline int dispatch(const void* q, const void* kf, const void* vf, const Keys& k
   const int DP = padded_dim(D);
   if (DP == 0 || bpc < 1 || (bpc > 1 && bpc * G > qn(DP)) || (addr & 15) != 0) return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
-    return kern(q, kf, vf, keys, prompt_len, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st);
+    return kern(q, kf, vf, keys, prompt_len, out, ws, parts, B, Nkv, G, bpc, sms, sscale,
+                static_cast<const float*>(slopes), st);
   };
-  if (D == 256) return run(&launch<256, 256, 1>);
   const bool one = std::min(bpc * G, NQ) <= 8;  // one column tile of 8 queries
-  switch (D) {
-    case 64: return one ? run(&launch<64, 64, 1>) : run(&launch<64, 64, 2>);
-    case 80: return one ? run(&launch<128, 80, 1>) : run(&launch<128, 80, 2>);
-    case 96: return one ? run(&launch<128, 96, 1>) : run(&launch<128, 96, 2>);
-  }
-  return one ? run(&launch<128, 128, 1>) : run(&launch<128, 128, 2>);
+  auto by_dim = [&](auto alibi) {
+    constexpr bool A = decltype(alibi)::value;
+    if (D == 256) return run(&launch<256, 256, 1, A>);
+    switch (D) {
+      case 64: return one ? run(&launch<64, 64, 1, A>) : run(&launch<64, 64, 2, A>);
+      case 80: return one ? run(&launch<128, 80, 1, A>) : run(&launch<128, 80, 2, A>);
+      case 96: return one ? run(&launch<128, 96, 1, A>) : run(&launch<128, 96, 2, A>);
+      case 112: return one ? run(&launch<128, 112, 1, A>) : run(&launch<128, 112, 2, A>);
+    }
+    return one ? run(&launch<128, 128, 1, A>) : run(&launch<128, 128, 2, A>);
+  };
+  return slopes ? by_dim(std::true_type{}) : by_dim(std::false_type{});
 }
 
 }  // namespace

@@ -32,21 +32,22 @@
 // each group's keys and needs ws, parts * B * N * (D + 2) floats (no memset);
 // sms is the card's SM count; q, kf/vf and the caches 16-byte aligned. fp32:
 // parts must be 1 (bpc and sms are not read). Returns a cudaError_t value: 0
-// on a successful launch. D must be 64, 80, 96, 128 or 256 (bf16 blocks hold
+// on a successful launch. D must be 64, 80, 96, 112, 128 or 256 (slopes:
+// ALiBi's, fp32 [N], or null) (bf16 blocks hold
 // up to 8 queries at 256); G = N / Nkv any group (the wrapper admits 1 .. 128).
 extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, const void* kp,
                                const void* vp, const void* kt, const void* vt,
                                const void* prompt_mask, const void* prompt_len,
                                const void* tail_len, void* out, void* ws, int parts, int bpc, int B,
                                int nb, int N, int Nkv, int S_p, int T_max, int D, int sms,
-                               float sscale, int is_bf16, void* stream) {
+                               float sscale, int is_bf16, const void* slopes, void* stream) {
   if (nb <= 0 || B % nb != 0 || S_p <= 0 || T_max <= 0) return (int)cudaErrorInvalidValue;
   if (!is_bf16) {  // the fp32 instantiations of the warp body only
     if (parts != 1 || Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
     const lia_dec::Keys keys{static_cast<const uint8_t*>(prompt_mask), S_p, kt, vt,
                              T_max, nb, static_cast<const int*>(tail_len)};
     return lia_dec::launch_d<float, true, lia_dec::kBeam>(N / Nkv, q, kf, vf, kp, vp, keys, prompt_len, 0, out, B,
-                                                          Nkv, D, sscale, static_cast<cudaStream_t>(stream));
+                                                          Nkv, D, sscale, slopes, static_cast<cudaStream_t>(stream));
   }
   using lia_beam::bf16;
   const lia_beam::Keys keys{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
@@ -54,7 +55,7 @@ extern "C" int lia_beam_decode(const void* q, const void* kf, const void* vf, co
                             static_cast<const bf16*>(kt), static_cast<const bf16*>(vt),
                             T_max, nb, static_cast<const int*>(tail_len)};
   return lia_beam::dispatch(q, kf, vf, keys, prompt_len, out, ws, parts, B, N, Nkv, D, bpc, sms, sscale,
-                            stream);
+                            slopes, stream);
 }
 
 // Dynamic shared memory of one bf16 block (for the build report) at head dim

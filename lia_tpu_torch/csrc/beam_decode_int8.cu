@@ -26,15 +26,16 @@
 // run of 8 of the group's flat queries (G > 8). parts > 1 splits each
 // group's keys and needs ws, parts * B * N * (D + 2) floats (no memset); sms
 // is the card's SM count. Returns a cudaError_t value: 0 on a successful
-// launch. D must be 64, 80, 96, 128 or 256; G = N / Nkv any group (the wrapper admits 1 ..
-// 128).
+// launch. D must be 64, 80, 96, 112, 128 or 256 (slopes: ALiBi's, fp32 [N], or
+// null); G = N / Nkv any group (the wrapper admits 1 .. 128).
 extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* vf,
                                     const void* kpq, const void* kps, const void* vpq,
                                     const void* vps, const void* ktq, const void* kts,
                                     const void* vtq, const void* vts, const void* prompt_mask,
                                     const void* prompt_len, const void* tail_len, void* out, void* ws,
                                     int parts, int bpc, int B, int nb, int N, int Nkv, int S_p,
-                                    int T_max, int D, int sms, float sscale, int is_bf16, void* stream) {
+                                    int T_max, int D, int sms, float sscale, int is_bf16, const void* slopes,
+                                    void* stream) {
   if (nb <= 0 || B % nb != 0 || S_p <= 0 || T_max <= 0) return (int)cudaErrorInvalidValue;
   const lia_dec8::Keys keys{static_cast<const int8_t*>(kpq), static_cast<const float*>(kps),
                             static_cast<const int8_t*>(vpq), static_cast<const float*>(vps),
@@ -43,7 +44,7 @@ extern "C" int lia_beam_decode_int8(const void* q, const void* kf, const void* v
                             static_cast<const int8_t*>(vtq), static_cast<const float*>(vts),
                             T_max, nb, static_cast<const int*>(tail_len)};
   return lia_dec8::dispatch<false, true>(q, kf, vf, keys, prompt_len, 0, out, ws, parts, B, N, Nkv, D,
-                                         bpc, sms, sscale, is_bf16, stream);
+                                         bpc, sms, sscale, is_bf16, slopes, stream);
 }
 
 // Dynamic shared memory of one block (for the build report) at head dim D

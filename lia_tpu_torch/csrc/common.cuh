@@ -15,6 +15,17 @@
 
 namespace lia {
 
+// ALiBi: a kernel given per-query-head slopes (fp32 [N], or null) adds
+// slope * log2(e) * (key_pos - query_pos) to each score after the scaled dot
+// product, in fp32, its positions taken from the layout it walks. The
+// softmax is invariant to a per-query constant, so this is the reference's
+// key-only bias slope * key_pos; it keeps each biased score at or below its
+// dot product, and the fresh token's term is 0. Returns the head's slope in
+// exp2 units, 0 without slopes.
+__device__ __forceinline__ float alibi_slope(const float* slopes, int head) {
+  return slopes ? slopes[head] * 1.4426950408889634f : 0.f;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -80,10 +91,11 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// The width the attention bodies compute over for head dim D (64, 80, 96, 128
-// or 256: 80 and 96 over the 128-wide bodies, zero-padded), 0 for any other.
+// The width the attention bodies compute over for head dim D (64, 80, 96,
+// 112, 128 or 256: 80, 96 and 112 over the 128-wide bodies, zero-padded), 0
+// for any other.
 inline int padded_dim(int D) {
-  return D == 64 ? 64 : (D == 80 || D == 96 || D == 128) ? 128 : D == 256 ? 256 : 0;
+  return D == 64 ? 64 : (D == 80 || D == 96 || D == 112 || D == 128) ? 128 : D == 256 ? 256 : 0;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -27,21 +27,23 @@
 
 // kc/vc point at one [B, Nkv, S_max, D] plane (for the stacked entry the
 // wrapper offsets them to layer layer_idx). Returns a cudaError_t value: 0 on
-// a successful launch. D must be 64, 80, 96, 128 or 256. bf16: N == Nkv (one
+// a successful launch. D must be 64, 80, 96, 112, 128 or 256; slopes are
+// ALiBi's (fp32 [N]) or null. bf16: N == Nkv (one
 // query head a kv head) on plane_attn.cuh's body with a ring of `stages`, its
 // keys split into `parts` (a workspace of parts * B * N * (D + 2) floats when
 // parts > 1); every pointer 16-byte aligned. fp32: any group on the warp
 // body, parts 1 (ws and stages are not read).
 extern "C" int lia_decode(const void* q, const void* kc, const void* vc, const void* slot_mask,
                           const void* lengths, int length_stride, void* out, void* ws, int parts, int stages,
-                          int B, int N, int Nkv, int S_max, int D, float sscale, int is_bf16, void* stream) {
+                          int B, int N, int Nkv, int S_max, int D, float sscale, int is_bf16, const void* slopes,
+                          void* stream) {
   if (is_bf16)
     return lia_plane::dispatch<false>(q, nullptr, nullptr, kc, vc, slot_mask, S_max, lengths, length_stride, out,
-                                      ws, parts, stages, B, N, Nkv, D, sscale, stream);
+                                      ws, parts, stages, B, N, Nkv, D, sscale, slopes, stream);
   if (parts != 1) return (int)cudaErrorInvalidValue;
   const lia_dec::Keys keys{static_cast<const uint8_t*>(slot_mask), S_max};
   return lia_dec::dispatch_f32<false, lia_dec::kPlane>(q, nullptr, nullptr, kc, vc, keys, lengths, length_stride,
-                                                       out, B, N, Nkv, D, sscale, stream);
+                                                       out, B, N, Nkv, D, sscale, slopes, stream);
 }
 
 // The same function for bf16 past PLANE_MAX_GROUP on beam_attn.cuh's mma
@@ -51,13 +53,14 @@ extern "C" int lia_decode(const void* q, const void* kc, const void* vc, const v
 // the card's SM count.
 extern "C" int lia_decode_groups(const void* q, const void* kc, const void* vc, const void* slot_mask,
                                  const void* lengths, int length_stride, void* out, void* ws, int parts, int bpc,
-                                 int B, int N, int Nkv, int S_max, int D, int sms, float sscale, void* stream) {
+                                 int B, int N, int Nkv, int S_max, int D, int sms, float sscale, const void* slopes,
+                                 void* stream) {
   using lia_beam::bf16;
   const lia_beam::Keys keys{static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
                             static_cast<const uint8_t*>(slot_mask), S_max, nullptr, nullptr, 0, 1, nullptr,
                             length_stride};
   return lia_beam::dispatch(q, nullptr, nullptr, keys, lengths, out, ws, parts, B, N, Nkv, D, bpc, sms, sscale,
-                            stream);
+                            slopes, stream);
 }
 
 // Dynamic shared memory of one plane block (for the build report) at head dim

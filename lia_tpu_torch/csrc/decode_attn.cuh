@@ -12,7 +12,9 @@
 // an online softmax in exp2 units, and, with FRESH, the fresh key/value (not
 // in the cache) merges last; out = acc / max(l, 1e-30),
 // so a row with no valid key and no fresh token comes out 0. Lengths are read
-// from device memory, so the caller never syncs with the host.
+// from device memory, so the caller never syncs with the host. With ALiBi
+// slopes (common.cuh: alibi_slope) virtual key t scores slope * log2(e) * (t -
+// length) more; the fresh token, at the length, 0.
 //
 // Where the keys live is a template parameter (SRC), and only the key address
 // differs between the two:
@@ -43,7 +45,7 @@
 // their scores stay finite, and are never stored.
 //
 // Head dims: a lane holds DP / 32 dims of a width DP of 64, 128 or 256, and
-// rows lie D apart (both template parameters): at D = 80 and 96 (DP = 128)
+// rows lie D apart (both template parameters): at D = 80, 96 and 112 (DP = 128)
 // the lanes past D / 4 hold zeros, read nothing and store nothing.
 #pragma once
 
@@ -81,7 +83,8 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
               Keys keys,
               const int* __restrict__ lengths, int length_stride,  // [B] or scalar
               T* __restrict__ out,           // [B, N, D]
-              int Nkv, int G, int chunks, float sscale) {
+              int Nkv, int G, int chunks, float sscale,
+              const float* __restrict__ slopes) {  // ALiBi [N], or null
   constexpr int DL = DP / 32;  // dims per lane
   constexpr int KT = keys_a_step(DP);
   // CHUNKED: kv head * chunks + query chunk, heads g0 .. g0 + GC - 1 of the
@@ -103,9 +106,10 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     length = min(max(lengths[b * length_stride], 0), keys.S_max);
     start = max(length - lia::block_count_true(keys.slot_mask + (size_t)b * keys.S_max, keys.S_max), 0);
   }
-  float qr[GC][DL];
+  float qr[GC][DL], sl[GC];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
+    sl[g] = !CHUNKED || g0 + g < G ? lia::alibi_slope(slopes, h * G + g0 + g) : 0.f;
     if ((!CHUNKED || g0 + g < G) && on) {
       lia::load_vec<DL>(q + ((size_t)b * N + h * G + g0 + g) * D + lane * DL, qr[g]);
     } else {  // a ragged last chunk's missing head, or dims past D
@@ -126,8 +130,8 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
   }
 
   // the online softmax over keys [lo, hi), key t's K and V rows at kb/vb +
-  // row(t) (an element offset)
-  auto walk = [&](const T* __restrict__ kb, const T* __restrict__ vb, int lo, int hi, auto row) {
+  // row(t) (an element offset), its ALiBi position against the query t + kpos
+  auto walk = [&](const T* __restrict__ kb, const T* __restrict__ vb, int lo, int hi, int kpos, auto row) {
     for (int t0 = lo; t0 < hi; t0 += KT) {
       float kx[KT][DL], vx[KT][DL];
 #pragma unroll
@@ -149,7 +153,7 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
           float part = 0.f;
 #pragma unroll
           for (int e = 0; e < DL; ++e) part = fmaf(qr[g][e], kx[kk][e], part);
-          s[g][kk] = lia::warp_sum(part);
+          s[g][kk] = fmaf(sl[g], (float)(t0 + kk + kpos), lia::warp_sum(part));
         }
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
@@ -187,12 +191,12 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
     // keys, tail slot t - plen of the beam's own plane
     const size_t pb = ((size_t)(b / keys.nb) * Nkv + h) * keys.S_max * D;
     const size_t tb = ((size_t)b * Nkv + h) * keys.T_max * D;
-    walk(kc + pb, vc + pb, k0, min(k1, plen), plane_row);
+    walk(kc + pb, vc + pb, k0, min(k1, plen), -length, plane_row);
     walk(static_cast<const T*>(keys.kt) + tb, static_cast<const T*>(keys.vt) + tb, max(k0, plen) - plen,
-         k1 - plen, plane_row);
+         k1 - plen, plen - length, plane_row);
   } else {
     const size_t pb = ((size_t)b * Nkv + h) * keys.S_max * D;
-    walk(kc + pb, vc + pb, k0, k1, plane_row);
+    walk(kc + pb, vc + pb, k0, k1, -length, plane_row);
   }
 
   __shared__ float sm_m[NW][GC], sm_l[NW][GC];
@@ -257,13 +261,13 @@ decode_kernel(const T* __restrict__ q,       // [B, N, D]
 template <typename T, int DP, int D, int GC, bool FRESH, int SRC, bool CHUNKED>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
            Keys keys, const void* lengths, int length_stride, void* out, int B, int Nkv, int G,
-           float sscale, cudaStream_t stream) {
+           float sscale, const float* slopes, cudaStream_t stream) {
   const int chunks = (G + GC - 1) / GC;
   const dim3 grid = SRC == kBeam ? dim3(B, Nkv * chunks) : dim3(Nkv * chunks, B);
   decode_kernel<T, DP, D, GC, FRESH, SRC, CHUNKED><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
       static_cast<const T*>(kc), static_cast<const T*>(vc), keys,
-      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, G, chunks, sscale);
+      static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), Nkv, G, chunks, sscale, slopes);
   return (int)cudaGetLastError();
 }
 
@@ -273,51 +277,56 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
 template <typename T, int DP, int D, bool FRESH, int SRC>
 int launch_g(int G, const void* q, const void* kf, const void* vf, const void* kc,
              const void* vc, Keys keys, const void* lengths, int length_stride, void* out, int B,
-             int Nkv, float sscale, cudaStream_t st) {
+             int Nkv, float sscale, const float* slopes, cudaStream_t st) {
   constexpr int GMAX = max_cols(DP);
   if (G < 1) return (int)cudaErrorInvalidValue;
   switch (G) {  // a whole group a block, the group compile-time
-    case 1: return launch<T, DP, D, 1, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-    case 2: return launch<T, DP, D, 2, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
-    case 4: return launch<T, DP, D, 4, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+    case 1: return launch<T, DP, D, 1, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
+    case 2: return launch<T, DP, D, 2, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
+    case 4: return launch<T, DP, D, 4, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
     case 8:
       if constexpr (GMAX == 8)
-        return launch<T, DP, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+        return launch<T, DP, D, 8, FRESH, SRC, false>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
       break;
   }
-  if constexpr (GMAX == 8 && D == DP) {  // at D = 80 and 96 G = 3 takes a run of 8 (a run of 4 spilled there)
+  if constexpr (GMAX == 8 && D == DP) {  // at D = 80, 96 and 112 G = 3 takes a run of 8 (a run of 4 spilled there)
     if (G == 3)
-      return launch<T, DP, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+      return launch<T, DP, D, 4, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
   }
-  return launch<T, DP, D, GMAX, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, st);
+  return launch<T, DP, D, GMAX, FRESH, SRC, true>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, G, sscale, slopes, st);
 }
 
-// Head-dim dispatch of one type: D 64 (DP 64), 80, 96 or 128 (DP 128) or 256.
+// Head-dim dispatch of one type: D 64 (DP 64), 80, 96, 112 or 128 (DP 128) or
+// 256; slopes ALiBi's (fp32 [N]) or null.
 template <typename T, bool FRESH, int SRC>
 int launch_d(int G, const void* q, const void* kf, const void* vf, const void* kc, const void* vc, Keys keys,
              const void* lengths, int length_stride, void* out, int B, int Nkv, int D, float sscale,
-             cudaStream_t st) {
-  auto run = [&](auto kern) { return kern(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale, st); };
+             const void* slopes, cudaStream_t st) {
+  auto run = [&](auto kern) {
+    return kern(G, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, sscale,
+                static_cast<const float*>(slopes), st);
+  };
   switch (D) {
     case 64: return run(&launch_g<T, 64, 64, FRESH, SRC>);
     case 80: return run(&launch_g<T, 128, 80, FRESH, SRC>);
     case 96: return run(&launch_g<T, 128, 96, FRESH, SRC>);
+    case 112: return run(&launch_g<T, 128, 112, FRESH, SRC>);
     case 128: return run(&launch_g<T, 128, 128, FRESH, SRC>);
     case 256: return run(&launch_g<T, 256, 256, FRESH, SRC>);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Head-dim and group dispatch of an fp32 call. D must be 64, 80, 96, 128 or
-// 256, G = N / Nkv any group (the wrapper admits 1 .. 128); returns a
+// Head-dim and group dispatch of an fp32 call. D must be 64, 80, 96, 112, 128
+// or 256, G = N / Nkv any group (the wrapper admits 1 .. 128); returns a
 // cudaError_t value, 0 on a successful launch.
 template <bool FRESH, int SRC>
 int dispatch_f32(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, Keys keys,
                  const void* lengths, int length_stride, void* out, int B, int N, int Nkv, int D, float sscale,
-                 void* stream) {
+                 const void* slopes, void* stream) {
   if (Nkv <= 0 || N % Nkv != 0) return (int)cudaErrorInvalidValue;
   return launch_d<float, FRESH, SRC>(N / Nkv, q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, Nkv, D,
-                                     sscale, static_cast<cudaStream_t>(stream));
+                                     sscale, slopes, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace lia_dec

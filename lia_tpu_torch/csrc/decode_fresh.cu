@@ -25,7 +25,7 @@
 
 // kc/vc point at layer layer_idx of the stacked cache (the wrapper offsets
 // them). Returns a cudaError_t value: 0 on a successful launch. D must be 64,
-// 80, 96, 128 or 256. bf16: N == Nkv (one query head a kv head) on
+// 80, 96, 112, 128 or 256 (slopes: ALiBi's, fp32 [N], or null). bf16: N == Nkv (one query head a kv head) on
 // plane_attn.cuh's body with a ring of `stages`, its keys split into `parts`
 // (a workspace of parts * B * N * (D + 2) floats when parts > 1); every
 // pointer 16-byte aligned. fp32: any group on the warp body, parts 1 (ws and
@@ -33,14 +33,15 @@
 extern "C" int lia_decode_fresh(const void* q, const void* kf, const void* vf, const void* kc,
                                 const void* vc, const void* slot_mask, const void* lengths,
                                 int length_stride, void* out, void* ws, int parts, int stages, int B, int N,
-                                int Nkv, int S_max, int D, float sscale, int is_bf16, void* stream) {
+                                int Nkv, int S_max, int D, float sscale, int is_bf16, const void* slopes,
+                                void* stream) {
   if (is_bf16)
     return lia_plane::dispatch<true>(q, kf, vf, kc, vc, slot_mask, S_max, lengths, length_stride, out, ws, parts,
-                                     stages, B, N, Nkv, D, sscale, stream);
+                                     stages, B, N, Nkv, D, sscale, slopes, stream);
   if (parts != 1) return (int)cudaErrorInvalidValue;
   const lia_dec::Keys keys{static_cast<const uint8_t*>(slot_mask), S_max};
   return lia_dec::dispatch_f32<true, lia_dec::kPlane>(q, kf, vf, kc, vc, keys, lengths, length_stride, out, B, N,
-                                                      Nkv, D, sscale, stream);
+                                                      Nkv, D, sscale, slopes, stream);
 }
 
 // The same function for bf16 past PLANE_MAX_GROUP on beam_attn.cuh's mma
@@ -51,12 +52,14 @@ extern "C" int lia_decode_fresh(const void* q, const void* kf, const void* vf, c
 extern "C" int lia_decode_fresh_groups(const void* q, const void* kf, const void* vf, const void* kc,
                                        const void* vc, const void* slot_mask, const void* lengths,
                                        int length_stride, void* out, void* ws, int parts, int bpc, int B,
-                                       int N, int Nkv, int S_max, int D, int sms, float sscale, void* stream) {
+                                       int N, int Nkv, int S_max, int D, int sms, float sscale, const void* slopes,
+                                       void* stream) {
   using lia_beam::bf16;
   const lia_beam::Keys keys{static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
                             static_cast<const uint8_t*>(slot_mask), S_max, nullptr, nullptr, 0, 1, nullptr,
                             length_stride};
-  return lia_beam::dispatch(q, kf, vf, keys, lengths, out, ws, parts, B, N, Nkv, D, bpc, sms, sscale, stream);
+  return lia_beam::dispatch(q, kf, vf, keys, lengths, out, ws, parts, B, N, Nkv, D, bpc, sms, sscale, slopes,
+                            stream);
 }
 
 // Dynamic shared memory of one plane block (for the build report) at head dim

@@ -18,19 +18,20 @@
 // offsets them; the codes 16-byte aligned). parts > 1 splits each row's keys
 // and needs ws, parts * B * N * (D + 2) floats (no memset); sms is the card's
 // SM count (the ring's depth follows the blocks an SM). Returns a cudaError_t
-// value: 0 on a successful launch. D must be 64, 80, 96, 128 or 256; G = N / Nkv any group
+// value: 0 on a successful launch. D must be 64, 80, 96, 112, 128 or 256 (slopes:
+// ALiBi's, fp32 [N], or null); G = N / Nkv any group
 // (the wrapper admits 1 .. 128), a row's heads in runs of up to 8 a block.
 extern "C" int lia_decode_fresh_int8(const void* q, const void* kf, const void* vf,
                                      const void* kq, const void* ks, const void* vq,
                                      const void* vs, const void* slot_mask,
                                      const void* lengths, int length_stride, void* out, void* ws,
                                      int parts, int B, int N, int Nkv, int S_max, int D, int sms,
-                                     float sscale, int is_bf16, void* stream) {
+                                     float sscale, int is_bf16, const void* slopes, void* stream) {
   const lia_dec8::Keys keys{static_cast<const int8_t*>(kq), static_cast<const float*>(ks),
                             static_cast<const int8_t*>(vq), static_cast<const float*>(vs),
                             static_cast<const uint8_t*>(slot_mask), S_max};
   return lia_dec8::dispatch<true, false>(q, kf, vf, keys, lengths, length_stride, out, ws, parts, B, N,
-                                         Nkv, D, 1, sms, sscale, is_bf16, stream);
+                                         Nkv, D, 1, sms, sscale, is_bf16, slopes, stream);
 }
 
 // Dynamic shared memory of one block (for the build report) at head dim D

@@ -10,7 +10,10 @@
 // probability, and p * vs is rounded to q's type before it meets the value
 // codes, as the TPU kernel feeds bf16 probs to its P.V dot. The fresh token
 // merges in fp32 last; out = acc / max(l, 1e-30). A row with no valid key
-// gives the fresh token's value.
+// gives the fresh token's value. With ALiBi slopes (common.cuh: alibi_slope)
+// a key scores slope * log2(e) * (its position - the query's) more: a plane
+// slot s at s - length; over the beam cache a prompt slot s at s - plen -
+// tlen, tail slot t at t - tlen; the fresh token at 0.
 //
 // How the fresh token arrives is a template flag (RAW):
 // - raw (decode_fresh_int8.cu): unquantized, in q's type. The reference
@@ -85,7 +88,7 @@
 //   copies each row's D bytes; the lanes' q slices past D load as zeros, so
 //   the padding's codes (never copied, whatever the ring held: int8 codes are
 //   finite) add nothing to a score, and the O^T dims past D are never
-//   stored. D = 80 and 96 so run the arithmetic of DP = 128. At DP = 256 a
+//   stored. D = 80, 96 and 112 so run the arithmetic of DP = 128. At DP = 256 a
 //   lane's V slice is two 16-byte chunks, read one at a time, and the blocks
 //   an SM drop to two (bf16) or one (fp32) so the doubled fragments fit.
 #pragma once
@@ -532,7 +535,8 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
             const int* __restrict__ lengths, int length_stride,  // plane: [B] or scalar; beam: plen
             T* __restrict__ out,        // [B, N, D] (parts == 1)
             float* __restrict__ ws,     // parts > 1: o [parts, B*N, D], m, l [parts, B*N]
-            int parts, int Nkv, int G, int bpc, float sscale, int stages) {
+            int parts, int Nkv, int G, int bpc, float sscale, int stages,
+            const float* __restrict__ slopes) {  // ALiBi [N], or null
   constexpr int KW = DP / 16;  // k16 chunks of a lane's K slice (DP / 4 bytes of a key row)
   constexpr int VW = DP / 32;  // words of a lane's V slice (DP / 8 bytes of a key row)
   constexpr int VCH = VW >= 4 ? VW / 4 : 1;  // its 16-byte chunks (half of one at DP = 64)
@@ -601,11 +605,15 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
     }
   }
 
-  // this block's keys, cut on the device by each warp from the lengths and the mask
-  int lo, hi, t_lo = 0, t_hi = 0;
+  // this block's keys, cut on the device by each warp from the lengths and the
+  // mask; the query's ALiBi position against the prompt's (plane's) slots and
+  // against the tail's
+  int lo, hi, t_lo = 0, t_hi = 0, qpos_p, qpos_t = 0;
   if constexpr (BEAM) {
     const int plen = min(max(lengths[0], 0), keys.S);
     const int tl = min(max(*keys.tail_len, 0), keys.T);
+    qpos_p = plen + tl;
+    qpos_t = tl;
     const int pstart = max(plen - warp_count_true(keys.mask + (size_t)b * keys.S, keys.S, lane), 0);
     // units: a prompt key counts 1, a tail key nbc (one row for each beam)
     const long long pn = plen - pstart, units = pn + (long long)nbc * tl;
@@ -617,6 +625,7 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   } else {
     const int length = min(max(lengths[b * length_stride], 0), keys.S);
     const int start = max(length - warp_count_true(keys.mask + (size_t)b * keys.S, keys.S, lane), 0);
+    qpos_p = length;
     const long long n = length - start;
     lo = start + (int)(n * part / parts);
     hi = start + (int)(n * (part + 1) / parts);
@@ -688,6 +697,12 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
   q_frags<T, DP, PIECES>(qraw, r < nq, qf);
   // the beams (0 .. nbc - 1 from j0) of this lane's columns 2c and 2c + 1
   const int cb0 = BEAM ? (q0 + 2 * c) / G - j0 : 0, cb1 = BEAM ? (q0 + 2 * c + 1) / G - j0 : 0;
+  float csl[2];  // their ALiBi slopes in exp2 units
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int f = q0 + 2 * c + e;
+    csl[e] = 2 * c + e < nq ? alibi_slope(slopes, h * G + (BEAM ? f % G : f)) : 0.f;
+  }
 
   // per lane: O^T tile m at dims r * DP / 8 + 2 m (+ 1) of queries 2c, 2c + 1;
   // each column's running max and this lane's part of its sum
@@ -758,6 +773,12 @@ int8_kernel(const T* __restrict__ q,   // [B, N, D]
       float sc[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[e] = in[e] ? (s0[e] + s1[e]) * (e < 2 ? ks0 : ks1) : LIA_NEG_INF;
+      if (slopes) {  // ALiBi: keys r and r + 8 of the tile
+        const int kb = k0 + r - (sgm.beam < 0 ? qpos_p : qpos_t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (in[e]) sc[e] = fmaf(csl[e & 1], (float)(kb + 8 * (e >> 1)), sc[e]);
+      }
       float pw[4], alpha[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -943,7 +964,7 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
 template <typename T, int DP, int D, bool RAW, bool BEAM>
 int launch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* lengths, int length_stride,
            void* out, void* ws, int parts, int B, int Nkv, int G, int bpc, int sms, float sscale,
-           cudaStream_t stream) {
+           const float* slopes, cudaStream_t stream) {
   auto kern = int8_kernel<T, DP, D, RAW, BEAM>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
@@ -959,7 +980,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
   kern<<<grid, THREADS, smem_bytes(DP, stages), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf), keys,
       static_cast<const int*>(lengths), length_stride, static_cast<T*>(out), static_cast<float*>(ws), parts, Nkv, G,
-      bpc, sscale, stages);
+      bpc, sscale, stages, slopes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * Nkv * G;
@@ -970,7 +991,8 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
 }
 
 // Type and head-dim dispatch, after the checks every entry shares: D 64, 80,
-// 96, 128 or 256, any group G = N / Nkv (the wrapper admits 1 .. 128), bpc
+// 96, 112, 128 or 256, any group G = N / Nkv (the wrapper admits 1 .. 128),
+// slopes ALiBi's (fp32 [N]) or null, bpc
 // beams a chunk with bpc * G <= NQ or bpc = 1 (runs of NQ queries),
 // parts >= 1 (a workspace of parts * B * N * (D + 2) floats when parts > 1),
 // the codes 16-byte aligned. Returns a cudaError_t value, 0 on a successful
@@ -978,7 +1000,7 @@ int launch(const void* q, const void* kf, const void* vf, const Keys& keys, cons
 template <bool RAW, bool BEAM>
 int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, const void* lengths,
              int length_stride, void* out, void* ws, int parts, int B, int N, int Nkv, int D, int bpc, int sms,
-             float sscale, int is_bf16, void* stream) {
+             float sscale, int is_bf16, const void* slopes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nkv <= 0 || N % Nkv != 0 || B < 1 || parts < 1 || (parts > 1 && !ws) || sms < 1) return (int)cudaErrorInvalidValue;
   const int G = N / Nkv, DP = padded_dim(D);
@@ -987,7 +1009,8 @@ int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, co
       (BEAM && ((reinterpret_cast<uintptr_t>(keys.ktq) | reinterpret_cast<uintptr_t>(keys.vtq)) & 15) != 0))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
-    return kern(q, kf, vf, keys, lengths, length_stride, out, ws, parts, B, Nkv, G, bpc, sms, sscale, st);
+    return kern(q, kf, vf, keys, lengths, length_stride, out, ws, parts, B, Nkv, G, bpc, sms, sscale,
+                static_cast<const float*>(slopes), st);
   };
   auto by_dim = [&](auto type) {
     using T = decltype(type);
@@ -995,6 +1018,7 @@ int dispatch(const void* q, const void* kf, const void* vf, const Keys& keys, co
       case 64: return run(&launch<T, 64, 64, RAW, BEAM>);
       case 80: return run(&launch<T, 128, 80, RAW, BEAM>);
       case 96: return run(&launch<T, 128, 96, RAW, BEAM>);
+      case 112: return run(&launch<T, 128, 112, RAW, BEAM>);
       case 128: return run(&launch<T, 128, 128, RAW, BEAM>);
     }
     return run(&launch<T, 256, 256, RAW, BEAM>);

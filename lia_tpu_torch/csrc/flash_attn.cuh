@@ -12,7 +12,13 @@
 // softmax runs in exp2 units; the probabilities are rounded to bf16 before
 // P.V, as the TPU kernels cast them to V's dtype; out = acc / max(l, 1e-30).
 // Fully masked rows (a left-padded chunk's pad rows) come out finite and
-// meaningless.
+// meaningless. With ALiBi slopes (common.cuh: alibi_slope), row t's score of
+// key kp takes slope * log2(e) * (kp - (base_b + t)) in fp32 after the scale;
+// the reference's bias is slope * (kp - start_b), which differs by a constant
+// a row. The term is a template flag (ALIBI): its instances send every tile
+// down the masked path (the interior shortcut skips the per-key positions),
+// and the instances without it are those before the port of ALiBi (a
+// runtime branch cost them 1-2% on an H100, chip_ab.py).
 //
 // What bounds it on an H100: bytes, at both entry points' timed shapes (the
 // notes in flash_prefill.cu and flash_cached.cu give the figures). The design
@@ -35,7 +41,7 @@
 //    zeros. Tiles land 128-byte swizzled, one 64-column box per 64 head dims.
 //  - Head dims: the body computes over a width DP of 64, 128 or 256 (the
 //    template parameter) and reads and writes rows D apart (a runtime
-//    argument): D = 80 and 96 run at DP = 128, their Q columns past D loaded
+//    argument): D = 80, 96 and 112 run at DP = 128, their Q columns past D loaded
 //    as zeros and their K/V columns past D filled with zeros by the tensor
 //    map, so the padded products add nothing; only D columns are stored. (An
 //    exact D = 80 or 96 instance would skip 3/8 or 1/4 of the QK^T steps and
@@ -66,6 +72,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -177,16 +185,17 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const float (&p)[32
   wgmma_commit();
 }
 
-// Masks (off the interior), scales and exponentiates one tile's scores in
-// place, folding them into the running max m and sum l (a row's 64 keys are
-// spread over the 4 lanes of a quad) and rescaling o.
-template <int DP>
+// Masks (off the interior), scales, adds the ALiBi term (off the interior:
+// sl, each row's slope in exp2 units, 0 without ALiBi) and exponentiates one
+// tile's scores in place, folding them into the running max m and sum l (a
+// row's 64 keys are spread over the 4 lanes of a quad) and rescaling o.
+template <int DP, bool ALIBI>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&o)[DP / 2],
                                              bool interior, int k0, int t, const int (&qpos)[2],
                                              const bool (&rvalid)[2], int start, int S_kv, int window,
-                                             float sscale) {
+                                             float sscale, const float (&sl)[2]) {
   float mt[2] = {LIA_NEG_INF, LIA_NEG_INF};
-  if (interior) {
+  if (!ALIBI && interior) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       sc[e] *= sscale;
@@ -199,7 +208,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
       const int kp = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
       const bool masked = !rvalid[i] || kp > qpos[i] || kp < start || kp >= S_kv ||
                           (window > 0 && kp <= qpos[i] - window);
-      sc[e] = masked ? LIA_NEG_INF : sc[e] * sscale;
+      sc[e] = masked ? LIA_NEG_INF : ALIBI ? fmaf(sl[i], (float)(kp - qpos[i]), sc[e] * sscale) : sc[e] * sscale;
       mt[i] = fmaxf(mt[i], sc[e]);
     }
   }
@@ -228,7 +237,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
 // parts == 1 the block writes `out`; otherwise its partials. NW: consumer
 // warpgroups splitting the walk (2 where the grid is one block an SM). DP: the
 // width computed over; rows of q, out and the partials are D apart.
-template <int DP, int NW, bool FLAT>
+template <int DP, int NW, bool FLAT, bool ALIBI>
 __global__ void __launch_bounds__(Layout<DP, NW>::THREADS, NW == 1 && DP <= 128 ? 2 : 1)
 flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
              const __grid_constant__ CUtensorMap tmv,  // v [B * Nkv, S_kv, D]
@@ -237,7 +246,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
              const int* __restrict__ bases, int base_stride,  // [B] or scalar; null: 0
              __nv_bfloat16* __restrict__ out,          // [B, C, N, D]
              float* __restrict__ ws,                   // parts > 1: o [parts, R, D], m, l [parts, R]
-             int parts, int C, int S_kv, int N, int Nkv, int G, int D, float sscale, int window) {
+             int parts, int C, int S_kv, int N, int Nkv, int G, int D, float sscale, int window,
+             const float* __restrict__ slopes) {      // ALiBi [N] (ALIBI only)
   using L = Layout<DP, NW>;
   constexpr int CONSUMERS = NW * WG;
   constexpr int CHP = DP / 8;                   // 16-byte chunks of a row of the tile
@@ -334,11 +344,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
   const int r0 = 16 * warp + g;
   int qrow[2], qpos[2];  // chunk row, and the key slot it sits at
   bool rvalid[2];
+  float sl[2];  // the rows' ALiBi slopes in exp2 units (0 without)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     qrow[i] = row_pos(r0 + 8 * i);
     qpos[i] = base + qrow[i];
     rvalid[i] = r0 + 8 * i < nrows;
+    sl[i] = ALIBI ? alibi_slope(slopes, h * G + row_head(r0 + 8 * i)) : 0.f;
   }
   // keys every row of the tile may see without a mask: [start, base + pos0],
   // inside S_kv and the window of the tile's last row
@@ -359,8 +371,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tmk,  // k [B * Nkv, S_kv, D]
     wgmma_wait();
     fence_regs(sc);
     const int k0 = j * BK;
-    softmax_tile<DP>(sc, m, l, o, k0 >= free_lo && k0 + BK - 1 <= free_hi, k0, t, qpos, rvalid, start, S_kv,
-                    window, sscale);
+    softmax_tile<DP, ALIBI>(sc, m, l, o, k0 >= free_lo && k0 + BK - 1 <= free_hi, k0, t, qpos, rvalid, start,
+                            S_kv, window, sscale, sl);
     issue_pv<DP>(o, sc, v_base + s * L::TILE);
     wgmma_wait();
     fence_regs(o);
@@ -499,16 +511,16 @@ inline bool plane_map(CUtensorMap* map, const void* ptr, int planes, int S_kv, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, int NW, bool FLAT>
+template <int DP, int NW, bool FLAT, bool ALIBI>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases, int base_stride,
            void* out, void* ws, int parts, int B, int C, int S_kv, int N, int Nkv, int D, float sscale, int window,
-           cudaStream_t stream) {
+           const float* slopes, cudaStream_t stream) {
   const int G = N / Nkv;
   CUtensorMap tmk, tmv;
   if (!plane_map(&tmk, k, B * Nkv, S_kv, D) || !plane_map(&tmv, v, B * Nkv, S_kv, D))
     return (int)cudaErrorInvalidValue;
   const int smem = Layout<DP, NW>::BYTES;
-  auto kern = flash_kernel<DP, NW, FLAT>;
+  auto kern = flash_kernel<DP, NW, FLAT, ALIBI>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = FLAT ? (C * G + ROWS - 1) / ROWS : (C + ROWS / G - 1) / (ROWS / G);
@@ -516,7 +528,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, con
   kern<<<grid, Layout<DP, NW>::THREADS, smem, stream>>>(tmk, tmv, static_cast<const __nv_bfloat16*>(q),
                                         static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(bases),
                                         base_stride, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
-                                        parts, C, S_kv, N, Nkv, G, D, sscale, window);
+                                        parts, C, S_kv, N, Nkv, G, D, sscale, window, slopes);
   err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * C * N;
@@ -529,27 +541,33 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, con
 // Head-dim and warpgroup dispatch; returns a cudaError_t value, 0 on a
 // successful launch. The wrapper chooses `parts` and `nw` (consumer
 // warpgroups a block, 1 or 2, and 1 at D = 256) from the grid; D must be 64,
-// 80, 96, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128), and
-// parts > 1 needs a workspace of parts * B * C * N * (D + 2) floats.
+// 80, 96, 112, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128),
+// parts > 1 needs a workspace of parts * B * C * N * (D + 2) floats, and
+// slopes are ALiBi's (fp32 [N]) or null.
 inline int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, const void* bases,
                     int base_stride, void* out, void* ws, int parts, int nw, int B, int C, int S_kv, int N, int Nkv,
-                    int D, float sscale, int window, void* stream) {
+                    int D, float sscale, int window, const void* slopes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int DP = padded_dim(D);
   if (Nkv <= 0 || N % Nkv != 0 || C <= 0 || parts < 1 || (parts > 1 && !ws) || (nw != 1 && nw != 2) || DP == 0 ||
       (DP == 256 && nw != 1))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
-    return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, D, sscale, window, st);
+    return kern(q, k, v, kv_mask, bases, base_stride, out, ws, parts, B, C, S_kv, N, Nkv, D, sscale, window,
+                static_cast<const float*>(slopes), st);
   };
-  if (N / Nkv > ROWS) {  // a group that straddles tiles
-    if (DP == 256) return run(&launch<256, 1, true>);
-    if (DP == 128) return nw == 2 ? run(&launch<128, 2, true>) : run(&launch<128, 1, true>);
-    return nw == 2 ? run(&launch<64, 2, true>) : run(&launch<64, 1, true>);
-  }
-  if (DP == 256) return run(&launch<256, 1, false>);
-  if (DP == 128) return nw == 2 ? run(&launch<128, 2, false>) : run(&launch<128, 1, false>);
-  return nw == 2 ? run(&launch<64, 2, false>) : run(&launch<64, 1, false>);
+  auto by_shape = [&](auto alibi) {
+    constexpr bool A = decltype(alibi)::value;
+    if (N / Nkv > ROWS) {  // a group that straddles tiles
+      if (DP == 256) return run(&launch<256, 1, true, A>);
+      if (DP == 128) return nw == 2 ? run(&launch<128, 2, true, A>) : run(&launch<128, 1, true, A>);
+      return nw == 2 ? run(&launch<64, 2, true, A>) : run(&launch<64, 1, true, A>);
+    }
+    if (DP == 256) return run(&launch<256, 1, false, A>);
+    if (DP == 128) return nw == 2 ? run(&launch<128, 2, false, A>) : run(&launch<128, 1, false, A>);
+    return nw == 2 ? run(&launch<64, 2, false, A>) : run(&launch<64, 1, false, A>);
+  };
+  return slopes ? by_shape(std::true_type{}) : by_shape(std::false_type{});
 }
 
 }  // namespace lia_flash

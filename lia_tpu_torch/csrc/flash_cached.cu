@@ -25,11 +25,12 @@
 // bases: int32, [B] (base_stride 1) or one value (base_stride 0). Returns a
 // cudaError_t value: 0 on a successful launch. The wrapper chooses `parts` and
 // `nw` (consumer warpgroups a block, 1 or 2, and 1 at D = 256); D must be 64,
-// 80, 96, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128), and parts > 1 needs a workspace of
-// parts * B * C * N * (D + 2) floats.
+// 80, 96, 112, 128 or 256, G = N / Nkv any group (the wrapper admits 1 .. 128), parts > 1 needs a workspace of
+// parts * B * C * N * (D + 2) floats, and slopes are ALiBi's (fp32 [N]) or null.
 extern "C" int lia_flash_cached(const void* q, const void* k, const void* v, const void* slot_mask,
                                 const void* bases, int base_stride, void* out, void* ws, int parts, int nw, int B,
-                                int C, int S_max, int N, int Nkv, int D, float sscale, int window, void* stream) {
+                                int C, int S_max, int N, int Nkv, int D, float sscale, int window,
+                                const void* slopes, void* stream) {
   return lia_flash::dispatch(q, k, v, slot_mask, bases, base_stride, out, ws, parts, nw, B, C, S_max, N, Nkv, D,
-                             sscale, window, stream);
+                             sscale, window, slopes, stream);
 }

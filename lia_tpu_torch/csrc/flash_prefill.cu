@@ -15,12 +15,12 @@
 
 // Returns a cudaError_t value: 0 on a successful launch. The wrapper checks
 // shapes, type and contiguity and chooses `parts` and `nw` (consumer
-// warpgroups a block, 1 or 2, and 1 at D = 256); D must be 64, 80, 96, 128 or
-// 256, G = N / Nkv any group,
-// and parts > 1 needs a workspace of parts * B * S * N * (D + 2) floats.
+// warpgroups a block, 1 or 2, and 1 at D = 256); D must be 64, 80, 96, 112, 128
+// or 256, G = N / Nkv any group, parts > 1 needs a workspace of parts * B * S *
+// N * (D + 2) floats, and slopes are ALiBi's (fp32 [N]) or null.
 extern "C" int lia_flash_prefill(const void* q, const void* k, const void* v, const void* mask, void* out,
                                  void* ws, int parts, int nw, int B, int S, int N, int Nkv, int D, float sscale,
-                                 int window, void* stream) {
+                                 int window, const void* slopes, void* stream) {
   return lia_flash::dispatch(q, k, v, mask, nullptr, 0, out, ws, parts, nw, B, S, S, N, Nkv, D, sscale, window,
-                             stream);
+                             slopes, stream);
 }

@@ -7,7 +7,19 @@
 //
 // Math, all in fp32 as decode_attn.cuh's: q is scaled by scale*log2(e), the
 // valid keys go through an online softmax in exp2 units, out = acc / max(l,
-// 1e-30), so a row with no valid key and no fresh chunk comes out 0.
+// 1e-30), so a row with no valid key and no fresh chunk comes out 0. With
+// ALiBi slopes (common.cuh: alibi_slope), page key j scores slope * log2(e) *
+// (j - length_b) more and fresh key c' slope * log2(e) * c': the reference's
+// logical positions (lia_tpu/ops/paged.py: attend_chunk_paged) less length_b,
+// the same for every chunk row of the block (a chunk row's own position would
+// cost registers the kernel spills). The term is a template flag (ALIBI): at
+// one query a warp the body holds 8 keys' K and V rows in registers (4 at
+// width 256) and sits at the 96 registers of four blocks an SM, where the
+// term made ptxas spill 16 bytes, and at three blocks an SM the ALiBi
+// instance took 1.48x the time of the plain one on an H100 (chip_smoke.py's
+// timing rows); so its one-query instances take half the keys a step and
+// keep four blocks an SM. The instances without the flag are those before
+// the port of ALiBi.
 //
 // What bounds it on an H100: bytes; each (batch row, kv head) streams its
 // valid K and V rows once (~71 MB a launch at OPT-6.7B b16 with ~272 cached
@@ -38,11 +50,13 @@
 // Pages past the frontier (the null page 0 in unused entries) are never read.
 // - Head dims: a lane holds DP / 32 dims of a width DP of 64, 128 or 256 (the
 //   template parameter); rows lie D apart (a runtime argument) in the pool and
-//   in the ring, so a page copies as it is. At D = 80 and 96 (DP = 128) the
+//   in the ring, so a page copies as it is. At D = 80, 96 and 112 (DP = 128) the
 //   lanes past D / 4 hold zeros and read and store nothing; at DP = 256 a
 //   step takes four keys (two with four queries a warp), so a lane's loads
 //   stay those of DP = 128.
 #pragma once
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -101,20 +115,25 @@ __device__ __forceinline__ float score(const float (&qr)[DL], const T* k, int la
 
 // The walk's merged (m, l, o) of one query row, with the fresh keys 0..c of
 // kf / vf ([C, D] of this (row, kv head), or null) merged last, normalised and
-// written to dst. qr is the row's query, already scaled.
-template <typename T, int DL>
+// written to dst. qr is the row's query, already scaled; sl its ALiBi slope in
+// exp2 units (0 without), fresh key j scoring sl * j more.
+template <typename T, int DL, bool ALIBI>
 __device__ __forceinline__ void finish(float m, float l, float (&o)[DL], const float (&qr)[DL], const T* kf,
-                                       const T* vf, int c, T* dst, int lane, int D, bool on) {
+                                       const T* vf, int c, T* dst, int lane, int D, bool on, float sl) {
+  auto fresh = [&](int j) {  // fresh key j's score
+    const float sc = score<T, DL>(qr, kf + (size_t)j * D, lane, on);
+    return ALIBI ? fmaf(sl, (float)j, sc) : sc;
+  };
   float M = m;
   if (kf)
-    for (int j = 0; j <= c; ++j) M = fmaxf(M, score<T, DL>(qr, kf + (size_t)j * D, lane, on));
+    for (int j = 0; j <= c; ++j) M = fmaxf(M, fresh(j));
   const float a = exp2f(m - M);
   float L = l * a;
 #pragma unroll
   for (int e = 0; e < DL; ++e) o[e] *= a;
   if (kf) {
     for (int j = 0; j <= c; ++j) {
-      const float p = exp2f(score<T, DL>(qr, kf + (size_t)j * D, lane, on) - M);
+      const float p = exp2f(fresh(j) - M);
       float vx[DL] = {};
       if (on) lia::load_vec<DL>(vf + (size_t)j * D + lane * DL, vx);
       L += p;
@@ -134,7 +153,7 @@ __device__ __forceinline__ void finish(float m, float l, float (&o)[DL], const f
 // Blocks an SM: four with one query a warp (96 registers), two with four
 // (their queries' accumulators); named, ptxas otherwise trades spills for
 // occupancy at width 64 with four queries a warp.
-template <typename T, int DP, int QPW>
+template <typename T, int DP, int QPW, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, QPW == 1 ? 4 : 2)
 paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
              const T* __restrict__ kf,        // [B, Nkv, C, D] fresh keys, or null
@@ -145,9 +164,10 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
              const int* __restrict__ lengths, int length_stride,  // [B] or a scalar
              T* __restrict__ out,             // [B, C, N, D] (parts == 1)
              float* __restrict__ ws,          // partials (parts > 1): o [parts, B*C*N, D], m, l [parts, B*C*N]
-             int parts, int C, int G, int Nkv, int P, int bs, int D, float sscale) {
+             int parts, int C, int G, int Nkv, int P, int bs, int D, float sscale,
+             const float* __restrict__ slopes) {  // ALiBi [N] (ALIBI only)
   constexpr int DL = DP / 32;  // dims per lane
-  constexpr int KT = keys_a_step(DP, QPW);
+  constexpr int KT = keys_a_step(DP, QPW) / (ALIBI && QPW == 1 ? 2 : 1);
   constexpr int ES = sizeof(T);
   if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
 
@@ -212,9 +232,11 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
   const int qg = warp % QG, kslice = warp / QG;
   const bool active = kslice < KS;
   float qr[QPW][DL], m[QPW], l[QPW], acc[QPW][DL];
+  float sl[QPW];  // the queries' ALiBi slopes in exp2 units
 #pragma unroll
   for (int i = 0; i < QPW; ++i) {
     const int j = qb0 + qg * QPW + i;
+    sl[i] = ALIBI && j < qb0 + nq ? alibi_slope(slopes, h * G + j % G) : 0.f;
     if (active && j < qb0 + nq && on) {
       lia::load_vec<DL>(q + (((size_t)b * C + j / G) * N + h * G + j % G) * D + lane * DL, qr[i]);
     } else {
@@ -257,6 +279,7 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
 #pragma unroll
               for (int e = 0; e < DL; ++e) dot = fmaf(qr[i][e], kx[kk][e], dot);
               sc[kk] = lia::warp_sum(dot);
+              if constexpr (ALIBI) sc[kk] = fmaf(sl[i], (float)(pi * bs + r0 + k0 + kk * KS - len), sc[kk]);
               if (k0 + kk * KS < rows) mt = fmaxf(mt, sc[kk]);
             }
             const float m_new = fmaxf(m[i], mt);
@@ -322,8 +345,8 @@ paged_kernel(const T* __restrict__ q,         // [B, C, N, D]
     const size_t row = ((size_t)b * C + c) * N + h * G + j % G;
     if (parts == 1) {
       const size_t fresh = ((size_t)b * Nkv + h) * C * D;
-      finish<T, DL>(M, L, o, qr[i], kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + row * D, lane,
-                    D, on);
+      finish<T, DL, ALIBI>(M, L, o, qr[i], kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + row * D,
+                           lane, D, on, sl[i]);
     } else {
       float* wo = ws + ((size_t)part * rows_all + row) * D + lane * DL;
       if (on)
@@ -343,7 +366,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __restrict__ kf,
              const T* __restrict__ vf, T* __restrict__ out, int parts, int rows, int C, int N, int G, int D,
-             float sscale) {
+             float sscale, const float* __restrict__ slopes) {
   constexpr int DL = DP / 32;
   if (DP != 128) D = DP;  // only width 128 takes several D: the others' D is known at compile time
   const int row = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -375,16 +398,20 @@ merge_kernel(const float* __restrict__ ws, const T* __restrict__ q, const T* __r
   for (int e = 0; e < DL; ++e) qr[e] *= sscale;
   const int n = row % N, c = (row / N) % C, b = row / (N * C);
   const size_t fresh = ((size_t)b * (N / G) + n / G) * C * D;
-  finish<T, DL>(M, L, o, qr, kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + (size_t)row * D, lane,
-                D, on);
+  if (slopes)
+    finish<T, DL, true>(M, L, o, qr, kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + (size_t)row * D,
+                        lane, D, on, alibi_slope(slopes, n));
+  else
+    finish<T, DL, false>(M, L, o, qr, kf ? kf + fresh : nullptr, vf ? vf + fresh : nullptr, c, out + (size_t)row * D,
+                         lane, D, on, 0.f);
 }
 
-template <typename T, int DP, int QPW>
+template <typename T, int DP, int QPW, bool ALIBI>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, const void* table,
            const void* lengths, int length_stride, void* out, void* ws, int parts, int B, int C, int N, int Nkv,
-           int P, int bs, int D, float sscale, cudaStream_t stream) {
+           int P, int bs, int D, float sscale, const float* slopes, cudaStream_t stream) {
   const Geo geo(sizeof(T), D, bs, QPW);
-  auto kern = paged_kernel<T, DP, QPW>;
+  auto kern = paged_kernel<T, DP, QPW, ALIBI>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path;
     // the SM keeps its largest carveout, for as many blocks as the registers allow
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 96 * 1024);
@@ -399,13 +426,13 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
   kern<<<grid, THREADS, geo.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(table), static_cast<const int*>(lengths), length_stride,
-      static_cast<T*>(out), static_cast<float*>(ws), parts, C, G, Nkv, P, bs, D, sscale);
+      static_cast<T*>(out), static_cast<float*>(ws), parts, C, G, Nkv, P, bs, D, sscale, slopes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * C * N;
   merge_kernel<T, DP><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const T*>(q), static_cast<const T*>(kf), static_cast<const T*>(vf),
-      static_cast<T*>(out), parts, rows, C, N, G, D, sscale);
+      static_cast<T*>(out), parts, rows, C, N, G, D, sscale, slopes);
   return (int)cudaGetLastError();
 }
 
@@ -413,13 +440,15 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
 // the warps (the warps then split each unit's keys), else 4.
 inline int queries_a_warp(int G, int C) { return G * C <= NWC ? 1 : 4; }
 
-// Type, head-dim and queries-a-warp dispatch. D must be 64, 80, 96, 128 or 256, C >= 1,
+// Type, head-dim and queries-a-warp dispatch. D must be 64, 80, 96, 112, 128 or 256, C >= 1,
+// slopes ALiBi's (fp32 [N]) or null,
 // parts >= 1 with ceil(P / parts) <= MAXP, and parts > 1 needs a workspace of
 // parts * B * C * N * (D + 2) floats. Returns a cudaError_t value, 0 on a
 // successful launch.
 inline int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc,
                     const void* table, const void* lengths, int length_stride, void* out, void* ws, int parts, int B,
-                    int C, int N, int Nkv, int P, int bs, int D, float sscale, int is_bf16, void* stream) {
+                    int C, int N, int Nkv, int P, int bs, int D, float sscale, int is_bf16, const void* slopes,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int DP = padded_dim(D);
   if (B < 1 || Nkv <= 0 || N % Nkv != 0 || C < 1 || P < 1 || bs < 1 || parts < 1 || (parts > 1 && !ws) ||
@@ -428,17 +457,19 @@ inline int dispatch(const void* q, const void* kf, const void* vf, const void* k
     return (int)cudaErrorInvalidValue;
   const bool four = queries_a_warp(N / Nkv, C) == 4;
   auto run = [&](auto kern) {
-    return kern(q, kf, vf, kc, vc, table, lengths, length_stride, out, ws, parts, B, C, N, Nkv, P, bs, D, sscale, st);
+    return kern(q, kf, vf, kc, vc, table, lengths, length_stride, out, ws, parts, B, C, N, Nkv, P, bs, D, sscale,
+                static_cast<const float*>(slopes), st);
   };
-  if (is_bf16) {
-    using B16 = __nv_bfloat16;
-    if (DP == 256) return four ? run(&launch<B16, 256, 4>) : run(&launch<B16, 256, 1>);
-    if (DP == 128) return four ? run(&launch<B16, 128, 4>) : run(&launch<B16, 128, 1>);
-    return four ? run(&launch<B16, 64, 4>) : run(&launch<B16, 64, 1>);
-  }
-  if (DP == 256) return four ? run(&launch<float, 256, 4>) : run(&launch<float, 256, 1>);
-  if (DP == 128) return four ? run(&launch<float, 128, 4>) : run(&launch<float, 128, 1>);
-  return four ? run(&launch<float, 64, 4>) : run(&launch<float, 64, 1>);
+  auto by_width = [&](auto type, auto alibi) {
+    using T = decltype(type);
+    constexpr bool A = decltype(alibi)::value;
+    if (DP == 256) return four ? run(&launch<T, 256, 4, A>) : run(&launch<T, 256, 1, A>);
+    if (DP == 128) return four ? run(&launch<T, 128, 4, A>) : run(&launch<T, 128, 1, A>);
+    return four ? run(&launch<T, 64, 4, A>) : run(&launch<T, 64, 1, A>);
+  };
+  if (is_bf16)
+    return slopes ? by_width(__nv_bfloat16{}, std::true_type{}) : by_width(__nv_bfloat16{}, std::false_type{});
+  return slopes ? by_width(0.f, std::true_type{}) : by_width(0.f, std::false_type{});
 }
 
 }  // namespace lia_paged

@@ -20,15 +20,15 @@
 // wrapper offsets them, 16-byte aligned); table is int32 [B, P]; kf/vf are
 // [B, Nkv, C, D] or null when has_fresh is 0. parts > 1 splits each row's
 // pages and needs ws, parts * B * C * N * (D + 2) floats (no memset). Returns
-// a cudaError_t value: 0 on a successful launch. D must be 64, 80, 96, 128 or
-// 256.
+// a cudaError_t value: 0 on a successful launch. D must be 64, 80, 96, 112, 128
+// or 256; slopes are ALiBi's (fp32 [N]) or null.
 extern "C" int lia_paged_decode(const void* q, const void* kf, const void* vf, const void* kc,
                                 const void* vc, const void* table, const void* lengths,
                                 int length_stride, void* out, void* ws, int parts, int B, int C, int N,
                                 int Nkv, int P, int bs, int D, float sscale, int is_bf16, int has_fresh,
-                                void* stream) {
+                                const void* slopes, void* stream) {
   return lia_paged::dispatch(q, has_fresh ? kf : nullptr, has_fresh ? vf : nullptr, kc, vc, table, lengths,
-                             length_stride, out, ws, parts, B, C, N, Nkv, P, bs, D, sscale, is_bf16, stream);
+                             length_stride, out, ws, parts, B, C, N, Nkv, P, bs, D, sscale, is_bf16, slopes, stream);
 }
 
 // Dynamic shared memory of one block (for the build report): element size,

@@ -14,6 +14,10 @@
 // token comes out 0. Lengths stay in device memory: a call never syncs and
 // replays in a CUDA graph. The sums run in another order than the plain
 // version's, so the outputs differ by their bf16 rounding and that order.
+// With ALiBi slopes, key slot s scores slope * log2(e) * (s - length) more
+// (common.cuh: alibi_slope), the fresh token 0: the query sits at the length.
+// The term is a template flag (ALIBI); the instances without it are those
+// before the port of ALiBi (a runtime branch cost them ~1% on an H100).
 //
 // What bounds it on an H100: bytes, each (row, kv head)'s valid K and V rows
 // read once (~70 MB a launch at OPT-6.7B b16 with ~265 valid keys a row, ~21
@@ -26,7 +30,7 @@
 //   the plane, so a producer warp copies each ring stage of UNIT keys as one
 //   1-D cp.async.bulk for K and one for V into an mbarrier ring in dynamic
 //   shared memory, up to `stages` ahead of the consumers. Copies move D * 2
-//   bytes a row, so D = 80 and 96 read no padding. The host sizes the ring
+//   bytes a row, so D = 80, 96 and 112 read no padding. The host sizes the ring
 //   from the blocks an SM (plane_plan), so that tens of KB an SM stay in
 //   flight while the consumers compute.
 // - Four consumer warps read the stage with 16-byte shared loads: a key row
@@ -132,7 +136,7 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // One block: kv head blockIdx.x of row blockIdx.y, whose one query head is
 // row b * N + h of q and out (N = Nkv), part blockIdx.z of the row's keys.
-template <int DP, int D, bool FRESH>
+template <int DP, int D, bool FRESH, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, BLOCKS_AN_SM)
 plane_kernel(const bf16* __restrict__ q,       // [B, N, D]
              const bf16* __restrict__ kf,      // [B, N, D] fresh keys (FRESH only)
@@ -143,7 +147,8 @@ plane_kernel(const bf16* __restrict__ q,       // [B, N, D]
              const int* __restrict__ lengths, int length_stride,     // [B] or a scalar
              bf16* __restrict__ out,           // [B, N, D] (parts == 1)
              float* __restrict__ ws,           // partials (parts > 1): o [parts, B*N, D], m, l [parts, B*N]
-             int parts, int N, float sscale, int stages) {
+             int parts, int N, float sscale, int stages,
+             const float* __restrict__ slopes) {  // ALiBi [N] (ALIBI only)
   constexpr int LPR = row_lanes(DP), KPW = 32 / LPR, GROUPS = NWC * KPW, U = unit_keys(DP);
   const int h = blockIdx.x, b = blockIdx.y, part = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -211,6 +216,7 @@ plane_kernel(const bf16* __restrict__ q,       // [B, N, D]
   // ---- the consumer warps ----
 #pragma unroll
   for (int e = 0; e < 8; ++e) qr[e] *= sscale;
+  const float sl = ALIBI ? alibi_slope(slopes, h) : 0.f;
   float m = LIA_NEG_INF, l = 0.f, acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.f;
@@ -259,6 +265,11 @@ plane_kernel(const bf16* __restrict__ q,       // [B, N, D]
     }
 #pragma unroll
     for (int kk = 0; kk < KT_STAGE; ++kk) sc[kk] = row_sum<LPR>(sc[kk]);
+    if (ALIBI) {  // key slot lo + i U + r against the query at the length
+      const int k0 = lo + i * U + grp - length;
+#pragma unroll
+      for (int kk = 0; kk < KT_STAGE; ++kk) sc[kk] = fmaf(sl, (float)(k0 + kk * GROUPS), sc[kk]);
+    }
     float mt = LIA_NEG_INF;
 #pragma unroll
     for (int kk = 0; kk < KT_STAGE; ++kk)
@@ -342,11 +353,11 @@ plane_kernel(const bf16* __restrict__ q,       // [B, N, D]
   }
 }
 
-template <int DP, int D, bool FRESH>
+template <int DP, int D, bool FRESH, bool ALIBI>
 int launch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, const void* mask, int S,
            const void* lengths, int length_stride, void* out, void* ws, int parts, int stages, int B, int N,
-           float sscale, cudaStream_t stream) {
-  auto kern = plane_kernel<DP, D, FRESH>;
+           float sscale, const float* slopes, cudaStream_t stream) {
+  auto kern = plane_kernel<DP, D, FRESH, ALIBI>;
   static const cudaError_t attr = [&] {  // once an instantiation: the launch sits on the decode path
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
     return e != cudaSuccess ? e
@@ -360,7 +371,7 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
       static_cast<const bf16*>(q), static_cast<const bf16*>(kf), static_cast<const bf16*>(vf),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc), static_cast<const uint8_t*>(mask), S,
       static_cast<const int*>(lengths), length_stride, static_cast<bf16*>(out), static_cast<float*>(ws), parts, N,
-      sscale, stages);
+      sscale, stages, slopes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return (int)err;
   const int rows = B * N;
@@ -371,15 +382,16 @@ int launch(const void* q, const void* kf, const void* vf, const void* kc, const 
   return (int)cudaGetLastError();
 }
 
-// Head-dim dispatch, after the checks: D 64, 80, 96, 128 or 256, one query
-// head a kv head (N == Nkv), parts >= 1 (a workspace of parts * B * N * (D +
-// 2) floats when parts > 1), stages >= 1 with the block's shared memory within
-// BLOCK_SMEM, q, the fresh k/v and the plane 16-byte aligned. Returns a
-// cudaError_t value, 0 on a successful launch.
+// Head-dim dispatch, after the checks: D 64, 80, 96, 112, 128 or 256, one
+// query head a kv head (N == Nkv), parts >= 1 (a workspace of parts * B * N *
+// (D + 2) floats when parts > 1), stages >= 1 with the block's shared memory
+// within BLOCK_SMEM, q, the fresh k/v and the plane 16-byte aligned, slopes
+// ALiBi's (fp32 [N]) or null. Returns a cudaError_t value, 0 on a successful
+// launch.
 template <bool FRESH>
 int dispatch(const void* q, const void* kf, const void* vf, const void* kc, const void* vc, const void* mask,
              int S, const void* lengths, int length_stride, void* out, void* ws, int parts, int stages, int B,
-             int N, int Nkv, int D, float sscale, void* stream) {
+             int N, int Nkv, int D, float sscale, const void* slopes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kf) |
                          reinterpret_cast<uintptr_t>(vf) | reinterpret_cast<uintptr_t>(kc) |
@@ -388,15 +400,21 @@ int dispatch(const void* q, const void* kf, const void* vf, const void* kc, cons
       stages > MAX_STAGES || padded_dim(D) == 0 || (addr & 15) != 0 || (FRESH && (!kf || !vf)))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto kern) {
-    return kern(q, kf, vf, kc, vc, mask, S, lengths, length_stride, out, ws, parts, stages, B, N, sscale, st);
+    return kern(q, kf, vf, kc, vc, mask, S, lengths, length_stride, out, ws, parts, stages, B, N, sscale,
+                static_cast<const float*>(slopes), st);
   };
-  switch (D) {
-    case 64: return run(&launch<64, 64, FRESH>);
-    case 80: return run(&launch<128, 80, FRESH>);
-    case 96: return run(&launch<128, 96, FRESH>);
-    case 128: return run(&launch<128, 128, FRESH>);
-  }
-  return run(&launch<256, 256, FRESH>);
+  auto by_dim = [&](auto alibi) {
+    constexpr bool A = decltype(alibi)::value;
+    switch (D) {
+      case 64: return run(&launch<64, 64, FRESH, A>);
+      case 80: return run(&launch<128, 80, FRESH, A>);
+      case 96: return run(&launch<128, 96, FRESH, A>);
+      case 112: return run(&launch<128, 112, FRESH, A>);
+      case 128: return run(&launch<128, 128, FRESH, A>);
+    }
+    return run(&launch<256, 256, FRESH, A>);
+  };
+  return slopes ? by_dim(std::true_type{}) : by_dim(std::false_type{});
 }
 
 }  // namespace

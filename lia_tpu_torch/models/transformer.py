@@ -16,8 +16,11 @@ record, :func:`lia_tpu_torch.ops.quant.quantized_matmul` (the quantized-matmul
 kernels); attention goes through the front doors of
 :mod:`lia_tpu_torch.ops.attention`. RoPE (:mod:`lia_tpu_torch.ops.rope`)
 rotates Q and K before the head-major transpose for the families the port
-holds against the reference (:func:`check_supported`); ALiBi and mixture of
-experts are not ported yet and raise.
+holds against the reference (:func:`check_supported`). ALiBi families (BLOOM,
+MPT, Baichuan-13B) hand their per-head slopes (:func:`alibi_slopes`) to every
+attention call, and the kernels add the key-positional bias themselves;
+mixture of experts, encoder-decoder models and vision towers are not ported
+yet and raise.
 
 Two gated routes, off by default (:mod:`lia_tpu_torch.ops.dispatch`), as in
 the reference: with the stacked-W4A8 gate, :func:`decode_layers_scan` hands
@@ -65,12 +68,39 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = [
         name for name, on in (
             (f"RoPE in the {cfg.family} layout", cfg.rope and cfg.family not in ROPE_FAMILIES),
-            ("ALiBi", cfg.alibi), ("mixture of experts", cfg.num_experts),
+            ("mixture of experts (ROADMAP A12)", cfg.num_experts),
             ("encoder-decoder", cfg.encoder_decoder), ("vision tower", cfg.vision_hidden),
         ) if on
     ]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
+
+
+def alibi_slopes(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
+    """The model's ALiBi slopes (fp32 [N] on ``device``, made once a device),
+    or None for a model without ALiBi."""
+    return att.alibi_slopes(cfg.num_heads, device) if cfg.alibi else None
+
+
+def _alibi_decode_bias(cfg: ModelConfig, cache: kvc.KVCache, positions: torch.Tensor):
+    """The reference's ALiBi bias over cache slots for one decode step [B, N,
+    S_max], the fresh token's slot (at ``cache.length``) pre-filled with its
+    logical position ``positions`` [B, 1]; None without ALiBi. The plain
+    path's form: the kernels take the slopes and count positions
+    themselves."""
+    if not cfg.alibi:
+        return None
+    return att.alibi_slot_bias(cfg.num_heads, cache.mask, cache.length, positions)
+
+
+def _alibi_beam_bias(cfg: ModelConfig, cache: kvc.BeamKVCache, positions: torch.Tensor):
+    """The reference's ALiBi bias over the beam cache's [prompt | tail | fresh]
+    layout [B0 * nb, N, S_p + T_max + 1]; None without ALiBi (the plain
+    path's form, as :func:`_alibi_decode_bias`)."""
+    if not cfg.alibi:
+        return None
+    T_max = (cache.tail_k.q if is_quantized_kv(cache.tail_k) else cache.tail_k).shape[3]
+    return att.alibi_beam_bias(cfg.num_heads, cache.prompt_mask, cache.nb, T_max, positions)
 
 
 def _layer(v: Any, idx: int, stack_index: Optional[torch.Tensor]) -> Any:
@@ -346,7 +376,7 @@ def run_prefill_layers(cfg, params, tokens, input_mask, cache: kvc.KVCache):
     check_supported(cfg)
     positions = prefill_positions(input_mask)
     x = embed(cfg, params, tokens, positions)
-    ctx = att.prefill_attn_ctx(input_mask, cfg.sliding_window)
+    ctx = att.prefill_attn_ctx(input_mask, cfg.sliding_window, alibi_slopes(cfg, x.device))
     x = prefill_layers(cfg, params["layers"], x, cache, ctx, positions, cfg.num_layers)
     return x, kvc.advance(cache, input_mask, tokens.shape[1])
 
@@ -388,10 +418,11 @@ def decoder_layer_chunk(cfg, lp, x, k_layer, v_layer, base, slot_mask, positions
     """One decoder layer over a C-token chunk against its cache plane: the
     chunk's K/V are written at ``base`` (int, 0-dim or [B]; in place), then
     row t attends the slots of ``slot_mask`` up to ``base + t``
-    (``flash_attention_cached``)."""
+    (``flash_attention_cached``; ALiBi at each slot's rank)."""
     q, k, v = attn_in(cfg, lp, x, positions)
     kvc.update_layer(k_layer, v_layer, k, v, base)
-    attn_out = att.attend_prefill_cached(q, k_layer, v_layer, base, slot_mask, cfg.sliding_window)
+    attn_out = att.attend_prefill_cached(q, k_layer, v_layer, base, slot_mask, cfg.sliding_window,
+                                         alibi_slopes(cfg, x.device))
     return attn_post_mlp(cfg, lp, x, attn_out)
 
 
@@ -449,7 +480,7 @@ def decode_step(cfg, params, tokens, positions, cache: kvc.KVCache) -> Tuple[tor
     """One decode step: tokens/positions [B, 1] → (logits [B, V] fp32, cache)."""
     check_supported(cfg)
     x = embed(cfg, params, tokens, positions)
-    ctx = att.decode_attn_ctx(cache.mask, cache.length, cfg.sliding_window)
+    ctx = att.decode_attn_ctx(cache.mask, cache.length, cfg.sliding_window, alibi_slopes(cfg, x.device))
     x, k_new, v_new = decode_layers_scan(
         cfg, params["layers"], x, cache.k, cache.v, cache.length, ctx, positions, cfg.num_layers
     )
@@ -469,7 +500,7 @@ def decode_step_ragged(cfg, params, tokens, logical_pos, cache: kvc.KVCache, act
     check_supported(cfg)
     positions = logical_pos[:, None]
     x = embed(cfg, params, tokens, positions)
-    ctx = att.decode_attn_ctx(cache.mask, cache.length, cfg.sliding_window)
+    ctx = att.decode_attn_ctx(cache.mask, cache.length, cfg.sliding_window, alibi_slopes(cfg, x.device))
     x, k_new, v_new = decode_layers_scan(
         cfg, params["layers"], x, cache.k, cache.v, cache.length, ctx, positions, cfg.num_layers
     )
@@ -504,13 +535,14 @@ def beam_decode_layers_scan(cfg, layers: Params, x, cache: kvc.BeamKVCache, posi
     advances ``tail_len`` (:func:`lia_tpu_torch.ops.kv_cache.beam_commit_token`).
     Returns (hidden, cache)."""
     quantized = is_quantized_kv(cache.tail_k)
+    slopes = alibi_slopes(cfg, x.device)
     k_new, v_new = [], []
     for idx in range(n_layers):
         lp = layer_params(layers, idx)
         residual = x
         q, k, v = attn_in(cfg, lp, x, positions)
         ks, vs, kf, vf = beam_fresh_kv(k, v, quantized, x.dtype)
-        attn_out = att.attend_decode_beam(q, kf, vf, cache, idx)
+        attn_out = att.attend_decode_beam(q, kf, vf, cache, idx, slopes)
         x = attn_post_mlp(cfg, lp, residual, attn_out)
         k_new.append(ks)
         v_new.append(vs)

@@ -34,42 +34,44 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C entry point and argument types of each library. Every pointer, and the
 # stream, is a c_void_p: ctypes would pass a bare Python int as a 32-bit int.
+# The attention entries take the ALiBi slopes (fp32 [N], or null) last before
+# the stream.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_prefill": {
-        "lia_flash_prefill": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        "lia_flash_prefill": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P, P],
         "lia_flash_smem_bytes": [I, I],
     },
     "flash_cached": {
-        "lia_flash_cached": [P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        "lia_flash_cached": [P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, F, I, P, P],
         "lia_flash_smem_bytes": [I, I],
     },
     "decode": {
-        "lia_decode": [P] * 5 + [I, P, P] + [I] * 7 + [F, I, P],
-        "lia_decode_groups": [P] * 5 + [I, P, P] + [I] * 8 + [F, P],
+        "lia_decode": [P] * 5 + [I, P, P] + [I] * 7 + [F, I, P, P],
+        "lia_decode_groups": [P] * 5 + [I, P, P] + [I] * 8 + [F, P, P],
         "lia_plane_smem_bytes": [I, I],
     },
     "decode_fresh": {
-        "lia_decode_fresh": [P] * 7 + [I, P, P] + [I] * 7 + [F, I, P],
-        "lia_decode_fresh_groups": [P] * 7 + [I, P, P] + [I] * 8 + [F, P],
+        "lia_decode_fresh": [P] * 7 + [I, P, P] + [I] * 7 + [F, I, P, P],
+        "lia_decode_fresh_groups": [P] * 7 + [I, P, P] + [I] * 8 + [F, P, P],
         "lia_plane_smem_bytes": [I, I],
     },
     "decode_fresh_int8": {
-        "lia_decode_fresh_int8": [P] * 9 + [I, P, P] + [I] * 7 + [F, I, P],
+        "lia_decode_fresh_int8": [P] * 9 + [I, P, P] + [I] * 7 + [F, I, P, P],
         "lia_dec8_smem_bytes": [I, I],
         "lia_dec8_stages": [I, I, I],
     },
     "paged_decode": {
-        "lia_paged_decode": [P] * 7 + [I, P, P] + [I] * 8 + [F, I, I, P],
+        "lia_paged_decode": [P] * 7 + [I, P, P] + [I] * 8 + [F, I, I, P, P],
         "lia_paged_smem_bytes": [I] * 4,
         "lia_paged_stages": [I] * 4,
     },
     "beam_decode": {
-        "lia_beam_decode": [P] * 12 + [I] * 10 + [F, I, P],
+        "lia_beam_decode": [P] * 12 + [I] * 10 + [F, I, P, P],
         "lia_beam_smem_bytes": [I, I],
         "lia_beam_stages": [I, I, I],
     },
     "beam_decode_int8": {
-        "lia_beam_decode_int8": [P] * 16 + [I] * 10 + [F, I, P],
+        "lia_beam_decode_int8": [P] * 16 + [I] * 10 + [F, I, P, P],
         "lia_dec8_smem_bytes": [I, I],
         "lia_dec8_stages": [I, I, I],
     },

@@ -18,6 +18,19 @@ group's prompt slots ``[pstart_g, plen)`` and then the beam's tail slots ``[0,
 tlen)``, with ``pstart_g = plen - popcount(prompt_mask[g])``. The kernels count it on the device and
 read ``length``, ``base`` and the block table from device memory, so a decode
 step or an admission never syncs with the host.
+
+ALiBi: every wrapper and plain version takes ``slopes`` (fp32 [N], one a query
+head; None without ALiBi). A kernel adds ``slope * (key_pos - query_pos) *
+log2(e)`` in fp32 to each score after the scaled dot product, with both
+positions taken from the layout it walks (a slot's place in its valid range,
+a tail slot's index after the prompt, a paged key's logical index, the fresh
+token or chunk row after the keys): no [B, N, S] bias is built or read, and
+the fresh token's own term is 0. Softmax is invariant to a per-query
+constant, so this is the reference's key-only ``slope * key_pos``
+(``alibi_slot_bias`` and its kin) shifted by ``slope * query_pos``; it keeps
+every biased score at or below its dot product, so no running max sees the
+bias's thousands. A plain version adds the reference's own bias
+(:func:`lia_tpu_torch.ops.attention.alibi_bias` over the slots' ranks).
 """
 
 from __future__ import annotations
@@ -31,8 +44,8 @@ from lia_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KERNEL_DIMS = (64, 80, 96, 128, 256)  # head dims the kernels take: 80 and 96 run the 128-wide bodies over
-# zero-padded dims (csrc/*.cuh: DP), rows still D apart in memory
+KERNEL_DIMS = (64, 80, 96, 112, 128, 256)  # head dims the kernels take: 80, 96 and 112 run the 128-wide
+# bodies over zero-padded dims (csrc/*.cuh: DP), rows still D apart in memory
 KERNEL_MAX_GROUP = 128  # largest GQA group G = N / N_kv the attention kernels take (any G from 1 up:
 # each splits a kv head's queries into chunks; checked on an H100 at G = 1, 2, 3, 4, 8, 16, 71 and 128)
 FLASH_ROWS = 64  # query rows of one flash tile: 64 / G positions x G heads, or past G = 64 flat (position,
@@ -94,12 +107,31 @@ def _lengths(length: Union[int, torch.Tensor], device) -> torch.Tensor:
     return torch.as_tensor(length, device=device).to(torch.int32)
 
 
+def _alibi_exp2(slopes, key_pos: torch.Tensor, Nkv: int) -> torch.Tensor:
+    """The reference's ALiBi bias over logical key positions [B, S] in exp2
+    units, [B, N_kv, G, S]; 0 without slopes."""
+    if slopes is None:
+        return torch.zeros((), device=key_pos.device)
+    from lia_tpu_torch.ops.attention import alibi_bias
+
+    bias = alibi_bias(slopes.to(key_pos.device), key_pos) * LOG2E
+    return bias.reshape(bias.shape[0], Nkv, -1, bias.shape[2])
+
+
+def _ranks(allow: torch.Tensor) -> torch.Tensor:
+    """Each allowed slot's rank among the allowed slots of its row [B, S]
+    (the reference's ``alibi_slot_bias`` positions)."""
+    from lia_tpu_torch.ops.attention import slot_positions
+
+    return slot_positions(allow)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=None, window=None):
+def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=None, window=None, slopes=None):
     """Chunk-over-cache causal attention with the kernel's precision: dots of
     input-type values summed in fp32, the scale applied after the dot in exp2
     units, probabilities rounded to V's type before P.V. q [B, C, N, D]; k/v
@@ -107,7 +139,10 @@ def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=Non
     slot_mask [B, S_max] bool → [B, C, N, D]. Chunk row t sits at slot
     base_b + t and attends [start_b, base_b + t] (with ``window``, only keys
     > base_b + t - window), start_b = base_b + C - popcount(slot_mask[b]).
-    Fully masked (pad) rows are finite but meaningless, as in the kernel."""
+    Fully masked (pad) rows are finite but meaningless, as in the kernel.
+    With ``slopes``, the scores take the reference's ALiBi bias at each
+    slot's rank among the valid slots (``alibi_slot_bias``; for a prompt,
+    ``alibi_prefill_bias``)."""
     B, C, N, D = q.shape
     _, Nkv, S_max, _ = k_cache.shape
     G = N // Nkv
@@ -115,6 +150,8 @@ def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=Non
     starts = bases + C - slot_mask.to(torch.int32).sum(dim=1)
     qf = q.float().reshape(B, C, Nkv, G, D)
     s = torch.einsum("bqhgd,bhkd->bhgqk", qf, k_cache.float()) * _sscale(scale, D)
+    if slopes is not None:
+        s = s + _alibi_exp2(slopes, _ranks(slot_mask), Nkv)[:, :, :, None, :]
     qpos = (bases[:, None] + torch.arange(C, device=q.device))[:, :, None]  # [B, C, 1]
     kpos = torch.arange(S_max, device=q.device)[None, None, :]
     masked = (kpos > qpos) | (kpos < starts[:, None, None])
@@ -129,11 +166,11 @@ def flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale=Non
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, N, D).to(q.dtype)
 
 
-def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None):
+def flash_attention_prefill_plain(q, k, v, input_mask, scale=None, window=None, slopes=None):
     """Causal attention over a left-padded prompt: :func:`flash_attention_cached_plain`
     with base 0 over the prompt's own plane (the kernel's precision).
     q [B, S, N, D]; k/v [B, N_kv, S, D]; input_mask [B, S] bool → [B, S, N, D]."""
-    return flash_attention_cached_plain(q, k, v, 0, input_mask, scale, window)
+    return flash_attention_cached_plain(q, k, v, 0, input_mask, scale, window, slopes)
 
 
 def flash_tile_rows(C: int, G: int, device=None):
@@ -212,17 +249,20 @@ def _cache_allow(slot_mask, length, S_max, device):
     return (pos < lengths[:, None]) & (pos >= starts[:, None])  # [B, S_max]
 
 
-def decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale=None):
+def decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale=None, slopes=None):
     """One query per sequence over one layer plane's [start, length), all in
     fp32; the plane already holds this step's token and ``length`` counts it.
     q [B, 1, N, D]; k/v [B, N_kv, S_max, D]; slot_mask [B, S_max]; length int,
-    0-dim or [B]."""
+    0-dim or [B]. With ``slopes``, the reference's ALiBi bias at each valid
+    slot's rank."""
     B, _, N, D = q.shape
     _, Nkv, S_max, _ = k_cache.shape
     G = N // Nkv
     qs = q.float().reshape(B, Nkv, G, D) * _sscale(scale, D)
     s = torch.einsum("bhgd,bhkd->bhgk", qs, k_cache.float())
     allow = _cache_allow(slot_mask, length, S_max, q.device)
+    if slopes is not None:
+        s = s + _alibi_exp2(slopes, _ranks(allow), Nkv)
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allow[:, None, None], torch.exp2(s - m), torch.zeros_like(s))
@@ -231,15 +271,17 @@ def decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale=None):
     return out.reshape(B, 1, N, D).to(q.dtype)
 
 
-def decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None):
+def decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None, slopes=None):
     """:func:`decode_attention_plain` over layer ``layer_idx`` of the stacked
     cache [L, B, N_kv, S_max, D]."""
-    return decode_attention_plain(q, k_cache[layer_idx], v_cache[layer_idx], slot_mask, length, scale)
+    return decode_attention_plain(q, k_cache[layer_idx], v_cache[layer_idx], slot_mask, length, scale, slopes)
 
 
-def _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale):
+def _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale, slopes=None, key_pos=None):
     """One query per sequence over the keys of k/v [B, N_kv, S, D] that
-    ``allow`` [B, S] marks, then the fresh token [B, N_kv, 1, D], all in fp32."""
+    ``allow`` [B, S] marks, then the fresh token [B, N_kv, 1, D], all in fp32;
+    with ``slopes``, the ALiBi bias at ``key_pos`` [B, S + 1] (the fresh
+    token's last)."""
     B, _, N, D = q.shape
     Nkv = k.shape[1]
     G = N // Nkv
@@ -247,6 +289,8 @@ def _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale):
     kc = torch.cat([k.float(), k_fresh.float()], dim=2)  # [B, Nkv, S+1, D]
     vc = torch.cat([v.float(), v_fresh.float()], dim=2)
     s = torch.einsum("bhgd,bhkd->bhgk", qs, kc)
+    if slopes is not None:
+        s = s + _alibi_exp2(slopes, key_pos, Nkv)
     allow = torch.cat([allow, torch.ones_like(allow[:, :1])], dim=1)
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -256,14 +300,16 @@ def _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale):
     return out.reshape(B, 1, N, D).to(q.dtype)
 
 
-def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
+def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale, slopes=None, key_pos=None):
     """One query per sequence over the int8 keys (codes [B, N_kv, S, D], scales
     [B, N_kv, S]) that ``allow`` [B, S] marks, then the fresh token (values in
     q's type): scores are dots of q's values with the codes, times ``ks *
     scale``; probabilities times ``vs`` round to q's type before they meet the
     value codes, taken against the keys' own max as the kernels' online
     softmax (and the Pallas kernels') takes them before the fresh token is
-    seen; the fresh token then merges in fp32, rescaling the keys' sums."""
+    seen; the fresh token then merges in fp32, rescaling the keys' sums.
+    With ``slopes``, the ALiBi bias at ``key_pos`` [B, S + 1] (the fresh
+    token's last)."""
     B, _, N, D = q.shape
     Nkv = kq.shape[1]
     G = N // Nkv
@@ -271,8 +317,11 @@ def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
     qt = q.float().reshape(B, Nkv, G, D)
     s = torch.einsum("bhgd,bhkd->bhgk", qt, kq.float())
     s = s * (ks * sscale)[:, :, None, :]
-    s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     sf = torch.einsum("bhgd,bhd->bhg", qt * sscale, k_fresh.float()[:, :, 0])[..., None]
+    if slopes is not None:
+        bias = _alibi_exp2(slopes, key_pos, Nkv)
+        s, sf = s + bias[..., :-1], sf + bias[..., -1:]
+    s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     mk = s.amax(dim=-1, keepdim=True)  # the keys' max (NEG_INF for a row without keys)
     m = torch.maximum(mk, sf)
     p = torch.where(allow[:, None, None], torch.exp2(s - mk), torch.zeros_like(s))
@@ -285,18 +334,27 @@ def _int8_merge_plain(q, k_fresh, v_fresh, kq, ks, vq, vs, allow, scale):
     return out.reshape(B, 1, N, D).to(q.dtype)
 
 
+def _fresh_positions(allow: torch.Tensor) -> torch.Tensor:
+    """Logical positions [B, S + 1] of a plane's valid slots (their ranks) and
+    of the fresh token after them (the reference's ``alibi_slot_bias`` with
+    the fresh slot pre-filled)."""
+    return torch.cat([_ranks(allow), allow.to(torch.int32).sum(dim=1, keepdim=True)], dim=1)
+
+
 def decode_attention_fresh_plain(
-    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
+    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None, slopes=None
 ):
     """One query per sequence over cache[layer_idx][start, length) ∪ {fresh token},
     all in fp32. q [B, 1, N, D]; fresh k/v [B, N_kv, 1, D];
     cache [L, B, N_kv, S_max, D]; slot_mask [B, S_max]; length int, 0-dim or [B]."""
     allow = _cache_allow(slot_mask, length, k_cache.shape[3], q.device)
-    return _fresh_merge_plain(q, k_fresh, v_fresh, k_cache[layer_idx], v_cache[layer_idx], allow, scale)
+    key_pos = _fresh_positions(allow) if slopes is not None else None
+    return _fresh_merge_plain(q, k_fresh, v_fresh, k_cache[layer_idx], v_cache[layer_idx], allow, scale, slopes,
+                              key_pos)
 
 
 def decode_attention_fresh_int8_plain(
-    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None
+    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None, slopes=None
 ):
     """:func:`decode_attention_fresh_plain` over an INT8 cache with per-token
     scales (the arithmetic of :func:`_int8_merge_plain`). The fresh k/v arrive
@@ -305,8 +363,9 @@ def decode_attention_fresh_int8_plain(
     k_fresh = dequantize_kv(quantize_kv(k_fresh), q.dtype)
     v_fresh = dequantize_kv(quantize_kv(v_fresh), q.dtype)
     allow = _cache_allow(slot_mask, length, kq.shape[3], q.device)
+    key_pos = _fresh_positions(allow) if slopes is not None else None
     return _int8_merge_plain(q, k_fresh, v_fresh, kq[layer_idx], ks[layer_idx], vq[layer_idx], vs[layer_idx],
-                             allow, scale)
+                             allow, scale, slopes, key_pos)
 
 
 def _check_beams(B: int, B0: int, nb: int) -> None:
@@ -328,8 +387,19 @@ def _beam_allow(prompt_mask, prompt_len, tail_len, nb: int, T_max: int, device):
     return torch.cat([allow_p, allow_t], dim=1)
 
 
+def _beam_positions(allow: torch.Tensor, S_p: int, T_max: int) -> torch.Tensor:
+    """Logical positions [B, S_p + T_max + 1] over a beam's [prompt | tail |
+    fresh] layout (:func:`_beam_allow`'s): a valid prompt slot's rank, tail
+    slot t at real_len + t, the fresh token at real_len + tlen (the
+    reference's ``_alibi_beam_bias``)."""
+    real = allow[:, :S_p].to(torch.int32).sum(dim=1, keepdim=True)
+    tail = real + torch.arange(T_max, dtype=torch.int32, device=allow.device)[None, :]
+    fresh = real + allow[:, S_p:].to(torch.int32).sum(dim=1, keepdim=True)
+    return torch.cat([_ranks(allow[:, :S_p]).to(torch.int32), tail, fresh], dim=1)
+
+
 def decode_beam_attention_plain(
-    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None
+    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None, slopes=None
 ):
     """Grouped-beam decode attention, all in fp32: beam b's query [B, 1, N, D]
     over layer ``layer_idx`` of its group's prompt plane (kp/vp [L, B0, N_kv,
@@ -341,12 +411,13 @@ def decode_beam_attention_plain(
     allow = _beam_allow(prompt_mask, prompt_len, tail_len, nb, kt.shape[3], q.device)
     k = torch.cat([kp[layer_idx].repeat_interleave(nb, dim=0), kt[layer_idx]], dim=2)
     v = torch.cat([vp[layer_idx].repeat_interleave(nb, dim=0), vt[layer_idx]], dim=2)
-    return _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale)
+    key_pos = _beam_positions(allow, kp.shape[3], kt.shape[3]) if slopes is not None else None
+    return _fresh_merge_plain(q, k_fresh, v_fresh, k, v, allow, scale, slopes, key_pos)
 
 
 def decode_beam_attention_int8_plain(
     q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len, tail_len,
-    nb, scale=None,
+    nb, scale=None, slopes=None,
 ):
     """:func:`decode_beam_attention_plain` over INT8 prompt and tail planes
     (codes [L, ·, N_kv, S, D], per-token scales [L, ·, N_kv, S]) with the
@@ -358,18 +429,22 @@ def decode_beam_attention_int8_plain(
     def keys(prompt, tail):
         return torch.cat([prompt[layer_idx].repeat_interleave(nb, dim=0), tail[layer_idx]], dim=2)
 
+    key_pos = _beam_positions(allow, kpq.shape[3], ktq.shape[3]) if slopes is not None else None
     return _int8_merge_plain(q, k_fresh, v_fresh, keys(kpq, ktq), keys(kps, kts), keys(vpq, vtq),
-                             keys(vps, vts), allow, scale)
+                             keys(vps, vts), allow, scale, slopes, key_pos)
 
 
 def paged_decode_attention_plain(
-    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None
+    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None, slopes=None
 ):
     """C queries per sequence over layer ``layer_idx`` of a paged pool [L, nb,
     N_kv, bs, D], all in fp32: keys [0, length_b) of the pages
     ``block_table[b]`` in order, then (with the fresh chunk [B, N_kv, C, D])
     chunk row c merges fresh keys 0..c. q [B, C, N, D]; block_table int [B, P];
-    lengths int, 0-dim or [B]. A row with nothing to attend gives 0."""
+    lengths int, 0-dim or [B]. A row with nothing to attend gives 0. With
+    ``slopes``, the ALiBi bias at each key's logical index (a page key's
+    place in the row, fresh key c at length_b + c), as the reference's
+    ``attend_chunk_paged``."""
     B, C, N, D = q.shape
     _, _, Nkv, bs, _ = k_pool.shape
     P = block_table.shape[1]
@@ -390,6 +465,11 @@ def paged_decode_attention_plain(
         allow = torch.cat([allow, tri.expand(B, C, C)], dim=2)
     qs = q.float().reshape(B, C, Nkv, G, D) * _sscale(scale, D)
     s = torch.einsum("bchgd,bhkd->bhgck", qs, k)
+    if slopes is not None:
+        key_pos = torch.arange(S, device=q.device)[None, :].expand(B, S)
+        if k_fresh is not None:
+            key_pos = torch.cat([key_pos, lens[:, None] + torch.arange(C, device=q.device)[None, :]], dim=1)
+        s = s + _alibi_exp2(slopes, key_pos, Nkv)[:, :, :, None, :]
     s = torch.where(allow[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allow[:, None, None], torch.exp2(s - m), torch.zeros_like(s))
@@ -433,6 +513,18 @@ def _float_kind(*tensors) -> int:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+
+
+def _slopes_ptr(slopes: Optional[torch.Tensor], N: int, q: torch.Tensor) -> Optional[int]:
+    """The address of the ALiBi slopes (fp32 [N], contiguous, on q's device)
+    the kernel reads, or None without them."""
+    if slopes is None:
+        return None
+    if (slopes.dtype is not torch.float32 or slopes.shape != (N,) or not slopes.is_contiguous()
+            or slopes.get_device() != q.get_device()):
+        raise ValueError(f"slopes must be contiguous float32 [N = {N}] on {q.device}, got {slopes.dtype} "
+                         f"{tuple(slopes.shape)} on {slopes.device}")
+    return slopes.data_ptr()
 
 
 def _layer_ptr(t: torch.Tensor, layer_idx: int) -> int:
@@ -624,10 +716,11 @@ def _split_workspace(dev: int, stream: int, floats: int) -> torch.Tensor:
     return ws
 
 
-def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
-    """Causal GQA flash attention over a left-padded prompt → [B, S, N, D]."""
+def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None, slopes=None):
+    """Causal GQA flash attention over a left-padded prompt → [B, S, N, D]
+    (with ``slopes``, ALiBi)."""
     if q.device.type == "cpu":
-        return flash_attention_prefill_plain(q, k, v, input_mask, scale, window)
+        return flash_attention_prefill_plain(q, k, v, input_mask, scale, window, slopes)
     from lia_tpu_torch.ops import _build
 
     B, S, N, D = q.shape
@@ -642,7 +735,7 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     rc = _build.library("flash_prefill").lia_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), input_mask.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, parts, nw, B, S, N, Nkv, D, _sscale(scale, D),
-        int(window or 0), stream,
+        int(window or 0), _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "flash_attention_prefill")
     flash_attention_prefill.launches += 1
@@ -650,13 +743,13 @@ def flash_attention_prefill(q, k, v, input_mask, scale=None, window=None):
     return out
 
 
-def flash_attention_cached(q, k_cache, v_cache, base, slot_mask, scale=None, window=None):
+def flash_attention_cached(q, k_cache, v_cache, base, slot_mask, scale=None, window=None, slopes=None):
     """Chunk-over-cache causal attention: the chunk's queries [B, C, N, D] over
     the cache plane [B, N_kv, S_max, D] that already holds the chunk at
     [base_b, base_b + C) → [B, C, N, D]. ``base`` (int, 0-dim or [B]) and the
-    slot mask are read on the device."""
+    slot mask are read on the device; with ``slopes``, ALiBi."""
     if q.device.type == "cpu":
-        return flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale, window)
+        return flash_attention_cached_plain(q, k_cache, v_cache, base, slot_mask, scale, window, slopes)
     from lia_tpu_torch.ops import _build
 
     B, C, N, D = q.shape
@@ -670,7 +763,7 @@ def flash_attention_cached(q, k_cache, v_cache, base, slot_mask, scale=None, win
     rc = _build.library("flash_cached").lia_flash_cached(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), slot_mask.data_ptr(), bases.data_ptr(),
         1 if bases.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, parts, nw, B, C, S_max,
-        N, Nkv, D, _sscale(scale, D), int(window or 0), stream,
+        N, Nkv, D, _sscale(scale, D), int(window or 0), _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "flash_attention_cached")
     flash_attention_cached.launches += 1
@@ -774,12 +867,12 @@ def plane_plan(B: int, N: int, Nkv: int, S_max: int, bf16: bool, sms: int, D: in
     return PlanePlan("plane", parts, plane_stages(D, B * Nkv * parts, sms), 1)
 
 
-def _plane_call(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16):
+def _plane_call(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16, slopes):
     """Launch library ``name``'s plane decode entry (``decode``: no fresh token,
     ``decode_fresh``: ``fresh`` the fresh k/v) over one plane of
     ``plane_shape`` [B, N_kv, S_max, D] at kc_ptr/vc_ptr, by
-    :func:`plane_plan`, after the caller's checks; returns (rc, out,
-    parts)."""
+    :func:`plane_plan`, after the caller's checks (``slopes``: ALiBi's, or
+    None); returns (rc, out, parts)."""
     B, _, N, D = q.shape
     _, Nkv, S_max, _ = plane_shape
     dev = q.get_device()
@@ -792,10 +885,11 @@ def _plane_call(name, q, fresh, kc_ptr, vc_ptr, plane_shape, slot_mask, lengths,
     entry, groups = _PLANE_ENTRIES.get(name) or _plane_entries(name)
     head = (q.data_ptr(), *(t.data_ptr() for t in fresh), kc_ptr, vc_ptr, slot_mask.data_ptr(), lengths.data_ptr(),
             1 if lengths.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, plan.parts)
+    sl = _slopes_ptr(slopes, N, q)
     if plan.body == "beam":
-        rc = groups(*head, plan.bpc, B, N, Nkv, S_max, D, sms, _sscale(scale, D), stream)
+        rc = groups(*head, plan.bpc, B, N, Nkv, S_max, D, sms, _sscale(scale, D), sl, stream)
     else:
-        rc = entry(*head, plan.stages, B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, stream)
+        rc = entry(*head, plan.stages, B, N, Nkv, S_max, D, _sscale(scale, D), is_bf16, sl, stream)
     return rc, out, plan.parts
 
 
@@ -812,7 +906,7 @@ def _plane_entries(name):
     return _PLANE_ENTRIES[name]
 
 
-def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length, scale):
+def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length, scale, slopes):
     """Launch B7/B8 (library ``decode``) over one plane of ``plane_shape``
     [B, N_kv, S_max, D] at kc_ptr/vc_ptr (inside k_cache/v_cache); returns
     (rc, out, parts)."""
@@ -823,36 +917,37 @@ def _decode(q, kc_ptr, vc_ptr, plane_shape, k_cache, v_cache, slot_mask, length,
     _plane_checks(q, plane_shape, slot_mask, lengths)
     if v_cache.shape != k_cache.shape:
         raise ValueError("k/v caches differ in shape")
-    return _plane_call("decode", q, (), kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16)
+    return _plane_call("decode", q, (), kc_ptr, vc_ptr, plane_shape, slot_mask, lengths, scale, stream, is_bf16,
+                       slopes)
 
 
-def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None):
+def decode_attention(q, k_cache, v_cache, slot_mask, length, scale=None, slopes=None):
     """Decode attention over one layer plane [B, N_kv, S_max, D] that already
     holds this step's token; ``length`` (0-dim or [B]) includes it. A bf16
     call runs the plane body up to G = PLANE_MAX_GROUP and the bf16 beam body
     past it (:func:`plane_plan`); either may split each row's keys and merge
     them in a second launch (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale)
+        return decode_attention_plain(q, k_cache, v_cache, slot_mask, length, scale, slopes)
     rc, out, parts = _decode(q, k_cache.data_ptr(), v_cache.data_ptr(), k_cache.shape, k_cache, v_cache,
-                             slot_mask, length, scale)
+                             slot_mask, length, scale, slopes)
     _raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     decode_attention.split_launches += int(parts > 1)
     return out
 
 
-def decode_attention_stacked(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None):
+def decode_attention_stacked(q, k_cache, v_cache, layer_idx, slot_mask, length, scale=None, slopes=None):
     """:func:`decode_attention` over layer ``layer_idx`` of the stacked cache
     [L, B, N_kv, S_max, D], read in place (the kernel starts at the layer's
     offset). Backs both of the reference's stacked entry points
     (``decode_attention_stacked`` and ``decode_attention_stacked_dma``)."""
     if q.device.type == "cpu":
-        return decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale)
+        return decode_attention_stacked_plain(q, k_cache, v_cache, layer_idx, slot_mask, length, scale, slopes)
     if k_cache.dim() != 5:
         raise ValueError(f"the cache must be [L, B, N_kv, S_max, D], got {tuple(k_cache.shape)}")
     rc, out, parts = _decode(q, _layer_ptr(k_cache, layer_idx), _layer_ptr(v_cache, layer_idx), k_cache.shape[1:],
-                             k_cache, v_cache, slot_mask, length, scale)
+                             k_cache, v_cache, slot_mask, length, scale, slopes)
     _raise_on(rc, "decode_attention_stacked")
     decode_attention_stacked.launches += 1
     decode_attention_stacked.split_launches += int(parts > 1)
@@ -860,7 +955,7 @@ def decode_attention_stacked(q, k_cache, v_cache, layer_idx, slot_mask, length, 
 
 
 def decode_attention_fresh(
-    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None
+    q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale=None, slopes=None
 ):
     """Decode attention over layer ``layer_idx``'s cache plane + the fresh
     token. A bf16 call runs the plane body up to G = PLANE_MAX_GROUP and the
@@ -869,7 +964,7 @@ def decode_attention_fresh(
     (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_fresh_plain(
-            q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale
+            q, k_fresh, v_fresh, k_cache, v_cache, layer_idx, slot_mask, length, scale, slopes
         )
     q, k_fresh, v_fresh = q.contiguous(), k_fresh.contiguous(), v_fresh.contiguous()
     lengths = _lengths(length, q.device)
@@ -880,7 +975,7 @@ def decode_attention_fresh(
         raise ValueError("k/v caches differ in shape")
     rc, out, parts = _plane_call("decode_fresh", q, (k_fresh, v_fresh), _layer_ptr(k_cache, layer_idx),
                                  _layer_ptr(v_cache, layer_idx), k_cache.shape[1:], slot_mask, lengths, scale,
-                                 stream, is_bf16)
+                                 stream, is_bf16, slopes)
     _raise_on(rc, "decode_attention_fresh")
     decode_attention_fresh.launches += 1
     decode_attention_fresh.split_launches += int(parts > 1)
@@ -888,7 +983,7 @@ def decode_attention_fresh(
 
 
 def decode_attention_fresh_int8(
-    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None
+    q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale=None, slopes=None
 ):
     """Fresh-merge decode attention over an INT8 stacked cache (codes [L, B, N_kv,
     S_max, D] int8, scales [L, B, N_kv, S_max] f32). The fresh k/v come
@@ -898,7 +993,7 @@ def decode_attention_fresh_int8(
     merges them (``split_launches`` counts those calls)."""
     if q.device.type == "cpu":
         return decode_attention_fresh_int8_plain(
-            q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale
+            q, k_fresh, v_fresh, kq, ks, vq, vs, layer_idx, slot_mask, length, scale, slopes
         )
     from lia_tpu_torch.ops import _build
 
@@ -925,7 +1020,7 @@ def decode_attention_fresh_int8(
     rc = _build.library("decode_fresh_int8").lia_decode_fresh_int8(
         *vecs, *planes, slot_mask.data_ptr(), lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(),
         ws.data_ptr() if ws is not None else None, parts, B, N, Nkv, S_max, D, sms, _sscale(scale, D), is_bf16,
-        stream,
+        _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "decode_attention_fresh_int8")
     decode_attention_fresh_int8.launches += 1
@@ -962,7 +1057,7 @@ def _beam_checks(q, k_fresh, v_fresh, prompt_shape, tail_shape, prompt_mask, len
 
 
 def decode_beam_attention(
-    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None
+    q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale=None, slopes=None
 ):
     """Grouped-beam decode attention (B = B0 * nb beams): beam b's query over
     layer ``layer_idx`` of its group's prompt plane, its own tail and the fresh
@@ -975,7 +1070,7 @@ def decode_beam_attention(
     body, one block a (beam, kv head)."""
     if q.device.type == "cpu":
         return decode_beam_attention_plain(
-            q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale
+            q, k_fresh, v_fresh, kp, vp, kt, vt, layer_idx, prompt_mask, prompt_len, tail_len, nb, scale, slopes
         )
     from lia_tpu_torch.ops import _build
 
@@ -1002,7 +1097,7 @@ def decode_beam_attention(
     rc = _build.library("beam_decode").lia_beam_decode(
         *ptrs, prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, parts, bpc, B, nb, N, Nkv, S_p, T_max, D, sms,
-        _sscale(scale, D), is_bf16, stream,
+        _sscale(scale, D), is_bf16, _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "decode_beam_attention")
     decode_beam_attention.launches += 1
@@ -1012,7 +1107,7 @@ def decode_beam_attention(
 
 def decode_beam_attention_int8(
     q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len, tail_len,
-    nb, scale=None,
+    nb, scale=None, slopes=None,
 ):
     """Grouped-beam decode attention over INT8 prompt and tail caches (codes
     int8 [L, ·, N_kv, S, D], scales f32 [L, ·, N_kv, S]). The fresh k/v come
@@ -1024,7 +1119,7 @@ def decode_beam_attention_int8(
     if q.device.type == "cpu":
         return decode_beam_attention_int8_plain(
             q, k_fresh, v_fresh, kpq, kps, vpq, vps, ktq, kts, vtq, vts, layer_idx, prompt_mask, prompt_len,
-            tail_len, nb, scale,
+            tail_len, nb, scale, slopes,
         )
     from lia_tpu_torch.ops import _build
 
@@ -1051,7 +1146,7 @@ def decode_beam_attention_int8(
     rc = _build.library("beam_decode_int8").lia_beam_decode_int8(
         *vecs, *planes, prompt_mask.data_ptr(), plen.data_ptr(), tlen.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, parts, bpc,
-        B, nb, N, Nkv, S_p, T_max, D, sms, _sscale(scale, D), is_bf16, stream,
+        B, nb, N, Nkv, S_p, T_max, D, sms, _sscale(scale, D), is_bf16, _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "decode_beam_attention_int8")
     decode_beam_attention_int8.launches += 1
@@ -1060,7 +1155,7 @@ def decode_beam_attention_int8(
 
 
 def paged_decode_attention(
-    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None
+    q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh=None, v_fresh=None, scale=None, slopes=None
 ):
     """C queries per sequence [B, C, N, D] over layer ``layer_idx`` of a paged
     pool [L, nb, N_kv, bs, D], read in place through the block table (int32
@@ -1073,7 +1168,7 @@ def paged_decode_attention(
     so the call can be captured in a CUDA graph."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh, v_fresh, scale
+            q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh, v_fresh, scale, slopes
         )
     from lia_tpu_torch.ops import _build
 
@@ -1103,7 +1198,7 @@ def paged_decode_attention(
     rc = _build.library("paged_decode").lia_paged_decode(
         q.data_ptr(), kf_ptr, vf_ptr, _layer_ptr(k_pool, layer_idx), _layer_ptr(v_pool, layer_idx), block_table.data_ptr(),
         lengths.data_ptr(), 1 if lengths.ndim else 0, out.data_ptr(), ws.data_ptr() if ws is not None else None, parts,
-        B, C, N, Nkv, P, bs, D, _sscale(scale, D), is_bf16, int(bool(fresh)), stream,
+        B, C, N, Nkv, P, bs, D, _sscale(scale, D), is_bf16, int(bool(fresh)), _slopes_ptr(slopes, N, q), stream,
     )
     _raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -192,20 +192,25 @@ def attend_chunk_paged(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, bloc
     ``layer_idx`` of the stacked pool, ``lengths`` [B] past tokens, with the
     chunk's own keys (k/v [B, N_kv, C, D], not yet in the pool) merged
     causally in the kernel: row c sees the pages and chunk keys 0..c. C = 1
-    is a decode step's fresh token; C = k + 1 a speculative verify."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi attention biases are not ported yet (ROADMAP A3)")
+    is a decode step's fresh token; C = k + 1 a speculative verify. ALiBi
+    families pass their slopes: a key's position is its logical index in the
+    row, chunk key c at ``lengths + c`` (paged storage holds only real
+    tokens), as in the reference."""
     return ca.paged_decode_attention(
-        q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh.to(q.dtype), v_fresh.to(q.dtype)
+        q, k_pool, v_pool, layer_idx, block_table, lengths, k_fresh.to(q.dtype), v_fresh.to(q.dtype),
+        slopes=alibi_slopes,
     )
 
 
 attend_decode_paged = attend_chunk_paged  # the reference's name for C = 1
 
 
-def attend_decode_paged_gather(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, block_table, lengths):
+def attend_decode_paged_gather(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: int, block_table, lengths,
+                               alibi_slopes=None):
     """The reference's golden path of :func:`attend_decode_paged`: gather the
-    layer's pages, append the fresh token, masked golden attention."""
+    layer's pages, append the fresh token, masked golden attention (with
+    ``alibi_slopes``, the bias at each key's logical index, the fresh token
+    at ``lengths``)."""
     cache = PagedKVCache(k_pool[layer_idx], v_pool[layer_idx])
     ks, vs = zip(*(gather_sequence(cache, row) for row in block_table))
     ks = torch.cat([torch.stack(ks), k_fresh.to(k_pool.dtype)], dim=2)
@@ -213,7 +218,10 @@ def attend_decode_paged_gather(q, k_fresh, v_fresh, k_pool, v_pool, layer_idx: i
     B, S = block_table.shape[0], ks.shape[2] - 1
     pos = torch.arange(S, device=q.device)
     mask = torch.cat([pos[None, :] < lengths[:, None], torch.ones(B, 1, dtype=torch.bool, device=q.device)], 1)
-    return att.attend(q, ks, vs, mask[:, None, :])
+    bias = None
+    if alibi_slopes is not None:
+        bias = att.alibi_bias(alibi_slopes, torch.cat([pos[None, :].expand(B, S), lengths[:, None]], dim=1))
+    return att.attend(q, ks, vs, mask[:, None, :], bias=bias)
 
 
 def decode_step_paged(cfg: ModelConfig, params, tokens, logical_pos, k_pool, v_pool, block_table, lengths,
@@ -241,11 +249,12 @@ def verify_step_paged(cfg: ModelConfig, params, tokens, positions, k_pool, v_poo
 
     T.check_supported(cfg)
     x = T.embed(cfg, params, tokens, positions)
+    slopes = T.alibi_slopes(cfg, x.device)
     k_new, v_new = [], []
     for idx in range(cfg.num_layers):
         lp = T.layer_params(params["layers"], idx)
         q, k, v = T.attn_in(cfg, lp, x, positions)
-        attn_out = attend_chunk_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths)
+        attn_out = attend_chunk_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths, slopes)
         x = T.attn_post_mlp(cfg, lp, x, attn_out)
         k_new.append(k)
         v_new.append(v)

@@ -77,8 +77,9 @@ def _rows(x: Any, b0: int, b1: int) -> Any:
     context, as views (writes go through)."""
     if is_quantized_kv(x):
         return QuantizedKV(x.q[b0:b1], x.s[b0:b1])
-    if isinstance(x, tuple):  # PrefillAttn / DecodeAttn: per-sequence tensors have a batch dim
-        return type(x)(*[a[b0:b1] if isinstance(a, torch.Tensor) and a.dim() else a for a in x])
+    if isinstance(x, tuple):  # PrefillAttn / DecodeAttn: per-sequence tensors have a batch dim (not the slopes)
+        return type(x)(*[a[b0:b1] if isinstance(a, torch.Tensor) and a.dim() and f != "slopes" else a
+                         for f, a in zip(x._fields, x)])
     return x[b0:b1]
 
 
@@ -254,7 +255,7 @@ class StreamingScheduler:
         tok, m = torch.from_numpy(tokens).to(dev), torch.from_numpy(mask).to(dev)
         positions = T.prefill_positions(m)
         x = T.embed(cfg, self.top, tok, positions)
-        ctx = att.prefill_attn_ctx(m, cfg.sliding_window)
+        ctx = att.prefill_attn_ctx(m, cfg.sliding_window, T.alibi_slopes(cfg, dev))
         if res is not None:
             x = T.prefill_layers(cfg, self.wm.resident, x, res, ctx, positions, self.wm.n_resident)
         if st is not None:
@@ -292,8 +293,10 @@ class StreamingScheduler:
         # and attend with a context that includes it
         # (a sliding window applies to the past-only context, whose slot mask
         # the inclusive one extends by the token's slot)
-        ctx_past = att.decode_attn_ctx(m, ln, cfg.sliding_window)
-        ctx = att.decode_attn_ctx(ctx_past.slot_mask.index_fill(1, ln.long().reshape(1), True), ln + 1)
+        slopes = T.alibi_slopes(cfg, dev)
+        ctx_past = att.decode_attn_ctx(m, ln, cfg.sliding_window, slopes)
+        ctx = att.decode_attn_ctx(ctx_past.slot_mask.index_fill(1, ln.long().reshape(1), True), ln + 1,
+                                  slopes=slopes)
         B = tok.shape[0]
         if res is not None:
             x, k_new, v_new = T.decode_layers_scan(cfg, self.wm.resident, x, res.k, res.v, res.length,
@@ -406,7 +409,7 @@ class StreamingScheduler:
                 li = idx - n_res
                 q, k, v = T.attn_in(cfg, lp, x, positions)
                 ks, vs, kf, vf = T.beam_fresh_kv(k, v, quantized, x.dtype)
-                attn_out = att.attend_decode_beam(q, kf, vf, st, li)
+                attn_out = att.attend_decode_beam(q, kf, vf, st, li, T.alibi_slopes(cfg, x.device))
                 x = T.attn_post_mlp(cfg, lp, x, attn_out)
                 kvc.write_token(st.tail_k, ks, li, st.tail_len)
                 kvc.write_token(st.tail_v, vs, li, st.tail_len)
@@ -514,9 +517,10 @@ class StreamingScheduler:
         x = T.embed(cfg, self.top, tok[:, None], positions)
         # as in decode_pass, but the inclusive context sets each row's own slot
         # (at its length) to the row's active flag
-        ctx_past = att.decode_attn_ctx(m, ln, cfg.sliding_window)
+        slopes = T.alibi_slopes(cfg, dev)
+        ctx_past = att.decode_attn_ctx(m, ln, cfg.sliding_window, slopes)
         own = ln.long().clamp(0, m.shape[1] - 1)[:, None]
-        ctx = att.decode_attn_ctx(ctx_past.slot_mask.scatter(1, own, active[:, None]), ln + 1)
+        ctx = att.decode_attn_ctx(ctx_past.slot_mask.scatter(1, own, active[:, None]), ln + 1, slopes=slopes)
         if res is not None:
             x, k_new, v_new = T.decode_layers_scan(cfg, self.wm.resident, x, res.k, res.v, res.length,
                                                    ctx_past, positions, self.wm.n_resident)
@@ -546,6 +550,7 @@ class StreamingScheduler:
         n_res, L = wm.n_resident, cfg.num_layers
         positions = pos[:, None]
         x = T.embed(cfg, self.top, tok[:, None], positions)
+        slopes = T.alibi_slopes(cfg, x.device)
         k_new, v_new = [], []
         wm.prefetch(n_res)
         for idx in range(L):
@@ -555,7 +560,7 @@ class StreamingScheduler:
                 wm.prefetch_after(idx)
                 lp = wm.get_layer(idx)
             q, k, v = T.attn_in(cfg, lp, x, positions)
-            attn_out = pg.attend_decode_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths)
+            attn_out = pg.attend_decode_paged(q, k, v, k_pool, v_pool, idx, block_table, lengths, slopes)
             x = T.attn_post_mlp(cfg, lp, x, attn_out)
             k_new.append(k)
             v_new.append(v)

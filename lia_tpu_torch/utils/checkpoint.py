@@ -332,7 +332,8 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
     tensors of :func:`load_hf_checkpoint`) into the stacked tree, for OPT, the
     llama layout (llama, mistral, qwen2 with its qkv biases, StableLM with
     LayerNorm; not mixture of experts), GPT-J, CodeGen, GPT-NeoX, Falcon
-    (multi-query), GPTBigCode (multi-query), ChatGLM2/3 and Baichuan(-2) with RoPE. HF linears store ``weight`` as
+    (multi-query), GPTBigCode (multi-query), ChatGLM2/3, Baichuan(-2) (7B with
+    RoPE, 13B with ALiBi), BLOOM and MPT. HF linears store ``weight`` as
     [out, in]; the tree stores [in, out]. Values go through fp32 and are cast
     once to ``cfg.dtype``, as the reference's mapping does, one key (one
     layer) at a time: each stacked leaf is allocated once in ``cfg.dtype`` and
@@ -358,9 +359,9 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         f = wT if transpose else raw
         return stack_layers(L, lambda i: f(fmt.format(i)))
 
-    if cfg.alibi or cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: the {'ALiBi' if cfg.alibi else 'mixture-of-experts'} "
-                                  "state-dict mappings are not ported yet")
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: the mixture-of-experts state-dict mappings are not ported yet "
+                                  "(ROADMAP A12)")
     if cfg.family == "llama":
         return _params_llama(cfg, raw, wT, stack)
     if cfg.family == "gptj":
@@ -377,9 +378,13 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any]) -> Params:
         return _params_chatglm(cfg, get, cast, raw, stack)
     if cfg.family == "baichuan":
         return _params_baichuan(cfg, get, cast, raw, stack)
+    if cfg.family == "bloom":
+        return _params_bloom(cfg, get, cast, raw, stack)
+    if cfg.family == "mpt":
+        return _params_mpt(cfg, get, cast, raw, stack)
     if cfg.family != "opt":
         raise NotImplementedError(f"{cfg.family}: only the OPT, llama-layout, GPT-J, CodeGen, GPT-NeoX, Falcon, "
-                                  "GPTBigCode, ChatGLM and Baichuan state-dict mappings are ported")
+                                  "GPTBigCode, ChatGLM, Baichuan, BLOOM and MPT state-dict mappings are ported")
 
     pre = "model.decoder."
     params: Params = {"embed_tokens": raw(pre + "embed_tokens.weight"),
@@ -655,8 +660,66 @@ def _params_chatglm(cfg: ModelConfig, get, cast, raw, stack) -> Params:
     }
 
 
+def _params_bloom(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """BLOOM (HF modeling_bloom): ALiBi attention (no positional embedding), a
+    LayerNorm right after the token embedding (``word_embeddings_layernorm``),
+    a fused ``query_key_value`` whose out-dim runs head by head as [q | k |
+    v] (de-interleaved into wq/wk/wv and their biases), a biased gelu-tanh
+    MLP, tied embeddings."""
+    N, D, L = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    lp = "transformer.h.{}."
+    qkv = {n: ([], []) for n in "qkv"}
+    for i in range(L):
+        w = get(lp.format(i) + "self_attention.query_key_value.weight").reshape(N, 3, D, -1)
+        b = get(lp.format(i) + "self_attention.query_key_value.bias").reshape(N, 3, D)
+        for j, n in enumerate("qkv"):
+            qkv[n][0].append(cast(w[:, j].reshape(N * D, -1).T))
+            qkv[n][1].append(cast(b[:, j].reshape(N * D)))
+    attn = {}
+    for n, (ws, bs) in qkv.items():
+        attn[f"w{n}"], attn[f"b{n}"] = torch.stack(ws), torch.stack(bs)
+    attn["wo"] = stack(lp + "self_attention.dense.weight", True)
+    attn["bo"] = stack(lp + "self_attention.dense.bias")
+    return {
+        "embed_tokens": raw("transformer.word_embeddings.weight"),
+        "embed_norm": {"scale": raw("transformer.word_embeddings_layernorm.weight"),
+                       "bias": raw("transformer.word_embeddings_layernorm.bias")},
+        "final_norm": {"scale": raw("transformer.ln_f.weight"), "bias": raw("transformer.ln_f.bias")},
+        "layers": {
+            "ln1": {"scale": stack(lp + "input_layernorm.weight"), "bias": stack(lp + "input_layernorm.bias")},
+            "attn": attn,
+            "ln2": {"scale": stack(lp + "post_attention_layernorm.weight"),
+                    "bias": stack(lp + "post_attention_layernorm.bias")},
+            "mlp": {"w1": stack(lp + "mlp.dense_h_to_4h.weight", True), "b1": stack(lp + "mlp.dense_h_to_4h.bias"),
+                    "w2": stack(lp + "mlp.dense_4h_to_h.weight", True), "b2": stack(lp + "mlp.dense_4h_to_h.bias")},
+        },
+    }
+
+
+def _params_mpt(cfg: ModelConfig, get, cast, raw, stack) -> Params:
+    """MPT (HF modeling_mpt, no_bias=True): ALiBi attention, a fused ``Wqkv``
+    [3H, H] split in sequence as [q; k; v], linears and LayerNorms without
+    biases (zero LayerNorm biases are synthesized, so the shared LayerNorm
+    applies), an exact-gelu MLP, tied embeddings."""
+    L, H = cfg.num_layers, cfg.hidden_size
+    lp = "transformer.blocks.{}."
+    wq, wk, wv = _split_rows(L, get, cast, lp + "attn.Wqkv.weight", [(0, H), (H, 2 * H), (2 * H, 3 * H)])
+    zeros = torch.zeros((L, H), dtype=wq.dtype)
+    return {
+        "embed_tokens": raw("transformer.wte.weight"),
+        "final_norm": {"scale": raw("transformer.norm_f.weight"), "bias": torch.zeros((H,), dtype=wq.dtype)},
+        "layers": {
+            "ln1": {"scale": stack(lp + "norm_1.weight"), "bias": zeros},
+            "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": stack(lp + "attn.out_proj.weight", True)},
+            "ln2": {"scale": stack(lp + "norm_2.weight"), "bias": zeros.clone()},
+            "mlp": {"w1": stack(lp + "ffn.up_proj.weight", True), "w2": stack(lp + "ffn.down_proj.weight", True)},
+        },
+    }
+
+
 def _params_baichuan(cfg: ModelConfig, get, cast, raw, stack) -> Params:
-    """Baichuan(-2) with RoPE (baichuan-inc modeling_baichuan): the llama key
+    """Baichuan(-2) (baichuan-inc modeling_baichuan; 7B with RoPE, 13B with
+    ALiBi, the same keys): the llama key
     layout with one packed ``W_pack`` [3H, H] (no biases). Baichuan2's NormHead
     L2-normalizes each lm_head row at inference; the mapping bakes it into the
     weight (in fp32, rows of norm at least 1e-12), as the reference does."""

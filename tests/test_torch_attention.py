@@ -238,11 +238,20 @@ def test_attend_decode_fresh_front_door_matches_lia_tpu(rng, kv, gqa):
 
 
 def test_front_doors_reject_alibi_bias(rng):
-    q = torch.zeros(1, 4, 2, 8)
-    k = torch.zeros(1, 2, 4, 8)
-    ctx = att.prefill_attn_ctx(torch.ones(1, 4, dtype=torch.bool), bias=torch.zeros(1, 2, 4))
-    with pytest.raises(NotImplementedError):
-        att.attend_prefill(q, k, k, ctx)
+    """ALiBi is ported: the prefill front door (the flash kernel's plain
+    version) and the host tier's take the context's slopes and give lia_tpu's
+    biased attention over a left-padded prompt."""
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((2, 6, 4, 8), (2, 2, 6, 8), (2, 2, 6, 8)))
+    m = np.ones((2, 6), bool)
+    m[1, :2] = False
+    ctx = att.prefill_attn_ctx(torch.from_numpy(m), slopes=att.alibi_slopes(4))
+    pos = np.cumsum(m, 1) - 1
+    ref = jatt.attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jatt.causal_mask(jnp.asarray(m)),
+                      bias=jatt.alibi_prefill_bias(4, jnp.asarray(pos), jnp.asarray(m)))
+    valid = m[:, :, None, None]
+    for fn in (att.attend_prefill, att.attend_prefill_host):
+        out = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), ctx)
+        np.testing.assert_allclose(f32(out) * valid, f32(ref) * valid, rtol=2e-5, atol=2e-5)
 
 
 def test_plain_path_counts_no_launch(rng):
@@ -417,12 +426,21 @@ def test_host_prefill_attention_matches_lia_tpu(rng):
 
 
 def test_decode_front_doors_reject_alibi_bias():
-    q = torch.zeros(1, 1, 2, 8)
-    k = torch.zeros(1, 2, 4, 8)
-    ctx = att.decode_attn_ctx(torch.ones(1, 4, dtype=torch.bool), torch.tensor(4), bias=torch.zeros(1, 2, 4))
+    """ALiBi is ported: the write-then-attend decode front door (the kernel's
+    plain version) and the host tier's (the CPU's SDPA with the bias as its
+    additive mask, masked slots at NEG_INF) give lia_tpu's biased attention
+    over rows that start at different slots."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((2, 1, 4, 8), (2, 2, 12, 8), (2, 2, 12, 8)))
+    sm = np.zeros((2, 12), bool)
+    sm[0, :9], sm[1, 4:9] = True, True
+    ctx = att.decode_attn_ctx(torch.from_numpy(sm), torch.tensor(9), slopes=att.alibi_slopes(4))
+    jctx = jatt.decode_attn_ctx(jnp.asarray(sm), jnp.asarray(9, jnp.int32),
+                                bias=jatt.alibi_slot_bias(4, jnp.asarray(sm)))
+    ref = jatt.attend_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jctx)
     for fn in (att.attend_decode, att.attend_decode_host):
-        with pytest.raises(NotImplementedError):
-            fn(q, k, k, ctx)
+        out = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), ctx)
+        np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +514,12 @@ def test_attend_prefill_cached_front_door_matches_lia_tpu(rng, kv, gqa):
     out = att.attend_prefill_cached(torch.from_numpy(q), tk, tv, torch.tensor(base, dtype=torch.int32),
                                     torch.from_numpy(sm))
     np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError):
-        att.attend_prefill_cached(torch.from_numpy(q), tk, tv, base, torch.from_numpy(sm), bias=torch.zeros(1))
+    # ALiBi (it raised before its port): each valid slot's rank as its position
+    ref = jatt.attend_prefill_cached(jnp.asarray(q), jk, jv, jnp.asarray(base, jnp.int32), jnp.asarray(sm),
+                                     bias=jatt.alibi_slot_bias(N, jnp.asarray(sm)))
+    out = att.attend_prefill_cached(torch.from_numpy(q), tk, tv, base, torch.from_numpy(sm),
+                                    slopes=att.alibi_slopes(N))
+    np.testing.assert_allclose(f32(out), f32(ref), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("window", [None, 6])

@@ -241,11 +241,25 @@ def test_attend_decode_beam_matches_lia_tpu_golden(kv, tail):
 
 
 def test_alibi_bias_raises_naming_a3():
-    _, tc = _prefilled("fp32")
-    tb = kvc.beam_cache_from_prefill(tc, 2, 4)
-    q, kf = torch.zeros(4, 1, 4, 8), torch.zeros(4, 2, 1, 8)
-    with pytest.raises(NotImplementedError, match="A3"):
-        att.attend_decode_beam(q, kf, kf, tb, 0, bias=torch.zeros(4, 4, 49))
+    """ALiBi is ported (it raised, naming ROADMAP A3, before): the beam front
+    door with slopes gives lia_tpu's attend_decode_beam under its
+    _alibi_beam_bias (prompt ranks, real_len + t on the tail, the fresh token
+    at real_len + tail_len)."""
+    jc, tc = _prefilled("fp32")
+    jb, tb = jkvc.beam_cache_from_prefill(jc, 2, 4), kvc.beam_cache_from_prefill(tc, 2, 4)
+    rng = np.random.default_rng(6)
+    k, v = (rng.standard_normal((2, 4, 2, 1, 8)).astype(np.float32) for _ in range(2))
+    jb, tb = jkvc.beam_commit_token(jb, jnp.asarray(k), jnp.asarray(v)), kvc.beam_commit_token(tb, t(k), t(v))
+    q = rng.standard_normal((4, 1, 4, 8)).astype(np.float32)
+    kf, vf = (rng.standard_normal((4, 2, 1, 8)).astype(np.float32) for _ in range(2))
+    positions = np.repeat(np.asarray(jc.mask).sum(1), 2)[:, None].astype(np.int32) + 1
+    jcfg = j_get_config("opt-tiny").replace(num_heads=4, alibi=True)
+    from lia_tpu.models import transformer as JT
+
+    ref = jatt.attend_decode_beam(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf), jb, jnp.asarray(0, jnp.int32),
+                                  bias=JT._alibi_beam_bias(jcfg, jb, jnp.asarray(positions)))
+    out = att.attend_decode_beam(t(q), t(kf), t(vf), tb, 0, att.alibi_slopes(4))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

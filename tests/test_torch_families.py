@@ -89,14 +89,14 @@ def test_rope_families_admitted_and_others_raise():
     """Every RoPE family the port holds against the reference is admitted
     (falcon, chatglm, baichuan and stablelm since they have converters and
     token tests, tests/test_torch_new_families.py; codegen since it has its
-    converter and token tests, tests/test_torch_head_dims.py); ALiBi still
-    raises, naming what is missing."""
+    converter and token tests, tests/test_torch_head_dims.py), and so are
+    the ALiBi families (tests/test_torch_alibi.py); mixture of experts still
+    raises, naming what is missing and its ROADMAP item."""
     for name in FAMILIES + ["falcon-tiny", "stablelm-tiny", "baichuan-tiny", "chatglm-tiny", "falcon-7b",
                             "chatglm3-6b", "baichuan2-7b", "stablelm-2-1.6b", "codegen-tiny", "codegen-2b",
-                            "codegen-6b"]:
+                            "codegen-6b", "baichuan2-tiny", "baichuan-13b", "bloom-tiny", "mpt-30b"]:
         T.check_supported(get_config(name))
-    for name, what in (("baichuan2-tiny", "ALiBi"), ("baichuan-13b", "ALiBi"), ("bloom-tiny", "ALiBi"),
-                       ("mpt-30b", "ALiBi")):
+    for name, what in (("mixtral-tiny", "mixture of experts"), ("mixtral-tiny", "A12")):
         with pytest.raises(NotImplementedError, match=what):
             T.check_supported(get_config(name))
 

@@ -115,8 +115,10 @@ def test_hf_opt_state_dict_bit_equal_to_lia_tpu(rng, dtype):
     sd = hf_opt_state_dict(jcfg, rng)
     j = jckpt.params_from_hf_state_dict(jcfg, sd)
     assert_tree_equal(ckpt.params_from_hf_state_dict(get_config("opt-tiny").replace(dtype=dtype), sd), j)
-    with pytest.raises(NotImplementedError, match="bloom"):
-        ckpt.params_from_hf_state_dict(get_config("bloom-tiny"), sd)
+    # a family without a mapping raises, naming itself (BLOOM's and MPT's map
+    # since ALiBi's port: tests/test_torch_alibi.py)
+    with pytest.raises(NotImplementedError, match="t5"):
+        ckpt.params_from_hf_state_dict(get_config("t5-tiny"), sd)
 
 
 @pytest.mark.parametrize("g,act_order,keep_fp", [(16, False, False), (32, False, False), (64, False, False),
@@ -163,6 +165,10 @@ def test_gptq_generate_tokens_exact_vs_lia_tpu(gptq_models, retag, kv):
 
 def test_gptq_rejects_other_families(rng):
     """The OPT and llama layouts map (tests/test_torch_converters.py); a family
-    without a Hugging Face mapping raises, as in lia_tpu."""
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        gptq.params_from_gptq_state_dict(get_config("bloom-tiny"), {})
+    without a Hugging Face mapping raises (T5; mixture of experts, naming
+    ROADMAP A12), as in lia_tpu. BLOOM, which raised before ALiBi's port, has
+    a mapping now."""
+    with pytest.raises(NotImplementedError, match="t5"):
+        gptq.params_from_gptq_state_dict(get_config("t5-tiny"), {})
+    with pytest.raises(NotImplementedError, match="A12"):
+        gptq.params_from_gptq_state_dict(get_config("mixtral-tiny"), {})

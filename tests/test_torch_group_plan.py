@@ -170,11 +170,11 @@ def test_paged_query_chunks_at_large_groups(G, C, chunks):
 
 
 def test_head_gate():
-    """Any group from 1 to KERNEL_MAX_GROUP at D 64, 80, 96, 128 and 256;
-    nothing else (D = 112 waits for MPT's ALiBi)."""
+    """Any group from 1 to KERNEL_MAX_GROUP at D 64, 80, 96, 112 (MPT-30B's,
+    since ALiBi's port) 128 and 256; nothing else."""
     for N, Nkv, D in ((71, 1, 64), (32, 2, 128), (128, 1, 128), (6, 2, 64), (8, 8, 128), (32, 2, 80),
-                      (64, 64, 96), (16, 16, 256), (16, 4, 256)):
+                      (64, 64, 96), (16, 16, 256), (16, 4, 256), (64, 64, 112), (32, 2, 112)):
         ca._check_heads(N, Nkv, D)
-    for N, Nkv, D in ((129, 1, 64), (32, 3, 128), (32, 2, 112), (32, 32, 48), (32, 0, 64)):
+    for N, Nkv, D in ((129, 1, 64), (32, 3, 128), (32, 2, 120), (32, 32, 48), (32, 0, 64)):
         with pytest.raises(ValueError, match="unsupported head shape"):
             ca._check_heads(N, Nkv, D)

@@ -212,12 +212,14 @@ def test_beam_decode(D, G, int8):
 
 
 def test_head_dims_admitted_and_planned():
-    """The wrappers admit exactly KERNEL_DIMS; D = 256 takes one consumer
-    warpgroup a flash block and 8 queries a bf16 beam block."""
-    assert ca.KERNEL_DIMS == (64, 80, 96, 128, 256)
+    """The wrappers admit exactly KERNEL_DIMS (112, MPT-30B's, since ALiBi's
+    port); D = 256 takes one consumer warpgroup a flash block and 8 queries a
+    bf16 beam block, 112 the 128-wide bodies' 16."""
+    assert ca.KERNEL_DIMS == (64, 80, 96, 112, 128, 256)
     for D in ca.KERNEL_DIMS:
         ca._check_heads(32, 32, D)
-    for D in (48, 112, 160, 512):
+    assert ca.beam_queries(112) == ca.beam_queries(128) == 16
+    for D in (48, 120, 160, 512):
         with pytest.raises(ValueError, match="unsupported head shape"):
             ca._check_heads(32, 32, D)
     assert ca.flash_warpgroups(1, 64, 16, 16, 1, 132, D=256) == 1

@@ -32,7 +32,7 @@ from lia_tpu_torch.models import transformer as T
 from lia_tpu_torch.models.registry import get_config
 from lia_tpu_torch.ops import kv_cache as kvc
 from lia_tpu_torch.ops.fuse import fuse_projections
-from lia_tpu_torch.utils.checkpoint import params_from_jax
+from lia_tpu_torch.utils.checkpoint import init_dummy_params, params_from_jax
 
 PROMPTS = [[5, 6, 7, 8, 9, 10, 11, 12, 13], [3, 4], [100, 200, 300, 400, 17, 18]]
 
@@ -152,8 +152,11 @@ def test_unported_features_raise(model):
     for rt in (RuntimeConfig(mesh_shape=(1, 2)), RuntimeConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tcfg, tp, rt, device="cpu")
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        InferenceEngine(get_config("bloom-tiny"), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):  # ALiBi runs since its port; MoE still raises
+        InferenceEngine(get_config("mixtral-tiny"), tp, device="cpu")
+    bloom = get_config("bloom-tiny").replace(dtype="float32")
+    eng = InferenceEngine(bloom, init_dummy_params(bloom, seed=0), device="cpu")
+    assert eng.generate(PROMPTS, GenerationConfig(max_new_tokens=2)).sequences.shape[0] == len(PROMPTS)
 
 
 def test_engine_defaults_to_cuda():

@@ -19,6 +19,7 @@ from lia_tpu.ops import paged as jpg
 from lia_tpu.utils.checkpoint import init_dummy_params as j_init
 
 from lia_tpu_torch.models.registry import get_config
+from lia_tpu_torch.ops import attention as att
 from lia_tpu_torch.ops import cuda_attention as ca
 from lia_tpu_torch.ops import paged as pg
 from lia_tpu_torch.utils.checkpoint import params_from_jax
@@ -133,7 +134,8 @@ def test_paged_kernel_plain_matches_pallas(rng, L, nb, Nkv, bs, D, B, C, G, P, l
 def test_paged_front_doors_match_the_gather_golden(rng):
     """paged_attention and attend_decode_paged (the kernel's plain version on
     the CPU) against the gather-then-attend golden paths, the port's and
-    lia_tpu's, over a stacked pool."""
+    lia_tpu's, over a stacked pool; attend_decode_paged also with ALiBi
+    slopes (it raised, naming ROADMAP A3, before their port)."""
     x = _kernel_inputs(rng, 2, 10, 2, 8, 16, 2, 1, 2, 4)
     lengths = np.asarray([13, 30], np.int32)
     q, kp, vp, table = (t(x[n]) for n in ("q", "kp", "vp", "table"))
@@ -150,8 +152,17 @@ def test_paged_front_doors_match_the_gather_golden(rng):
         jnp.asarray(x["vp"]), jnp.asarray(1, jnp.int32), jnp.asarray(x["table"]), jnp.asarray(lengths),
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="A3"):
-        pg.attend_decode_paged(q, kf, vf, kp, vp, 1, table, t(lengths), alibi_slopes=torch.ones(4))
+    # ALiBi: a key's logical index in the row, the fresh token at the length
+    slopes = att.alibi_slopes(q.shape[2])
+    out = pg.attend_decode_paged(q, kf, vf, kp, vp, 1, table, t(lengths), alibi_slopes=slopes)
+    gold = pg.attend_decode_paged_gather(q, kf, vf, kp, vp, 1, table, t(lengths), alibi_slopes=slopes)
+    np.testing.assert_allclose(out.numpy(), gold.numpy(), rtol=TOL, atol=TOL)
+    ref = jpg.attend_decode_paged(
+        jnp.asarray(x["q"]), jnp.asarray(x["kf"]), jnp.asarray(x["vf"]), jnp.asarray(x["kp"]),
+        jnp.asarray(x["vp"]), jnp.asarray(1, jnp.int32), jnp.asarray(x["table"]), jnp.asarray(lengths),
+        alibi_slopes=jatt.alibi_slopes(q.shape[2]),
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
 
 
 def test_reshape_and_cache_vectorized_matches(cfg, rng):

@@ -25,7 +25,7 @@ from lia_tpu_torch.engine.engine import InferenceEngine
 from lia_tpu_torch.engine.serving import ContinuousBatcher
 from lia_tpu_torch.models.registry import get_config
 from lia_tpu_torch.ops import sampling
-from lia_tpu_torch.utils.checkpoint import params_from_jax
+from lia_tpu_torch.utils.checkpoint import init_dummy_params, params_from_jax
 
 SYS = [((11 * i) % 300) + 2 for i in range(40)]  # a shared 40-token system prompt
 PROMPTS = [[5, 9, 23, 41], SYS + [401, 402, 403], [8, 8, 8, 8, 8, 12, 13], SYS + [404, 405, 406, 407],
@@ -293,15 +293,18 @@ def test_fused_steps_with_waiting_queue(model):
 
 
 def test_unported_options_raise(model):
-    """Meshes (A13), int8-KV pools and ALiBi raise; a per-request processor
-    needs the processors on, as in lia_tpu."""
+    """Meshes (A13), int8-KV pools and mixture of experts (A12) raise (an
+    ALiBi model, which raised before its port, now builds); a per-request
+    processor needs the processors on, as in lia_tpu."""
     _, _, tcfg, tp = model
     with pytest.raises(NotImplementedError, match="A13"):
         ContinuousBatcher(tcfg, tp, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="int8"):
         ContinuousBatcher(tcfg, tp, paged=True, kv_quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        ContinuousBatcher(get_config("bloom-tiny"), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):  # ALiBi runs since its port; MoE still raises
+        ContinuousBatcher(get_config("mixtral-tiny"), tp, device="cpu")
+    bloom = get_config("bloom-tiny").replace(dtype="float32")
+    ContinuousBatcher(bloom, init_dummy_params(bloom, seed=0), device="cpu")
     cb = ContinuousBatcher(tcfg, tp, device="cpu")
     with pytest.raises(ValueError, match="enable_processors"):
         cb.submit([1, 2], repetition_penalty=1.3)
