@@ -74,14 +74,14 @@ Phases, each printing one JSON line per item:
    the default engine with bf16 and with int8 KV, and with projections
    unfused, the fused-MLP gate off and on in turns (32 flash prefills, 992 decode
    attention launches, 992 fused MLPs with the gate on). Then Falcon-7B at
-   full width (H 4544, 71 heads over one KV head, F 18176, vocab 65024; 16
+   full width (H 4544, 71 heads over one KV head, F 18176, vocab 65024; 8
    of its 32 layers (FAMILY_CELLS); bf16 weights drawn on the card) with
    bf16 and int8 KV (median of 3), and ChatGLM3-6B, Baichuan2-7B and
    StableLM-2-1.6B at full width and 4 layers with bf16 KV (L flash
    prefills and L * 31 decode launches, no fused MLP); the head
-   dims 80, 96 and 256: OPT-2.7B at full width and 16 layers (D 80) with bf16
-   and int8 KV (median of 3), GPT-J-6B (D 256, 14 of 28 layers) with both and
-   GPT-NeoX-20B (D 96, 22 of its 44 layers) with bf16 KV, one run each, and
+   dims 80, 96 and 256: OPT-2.7B at full width and 8 layers (D 80) with bf16
+   and int8 KV (median of 3), GPT-J-6B (D 256, 7 of 28 layers) with both and
+   GPT-NeoX-20B (D 96, 11 of its 44 layers) with bf16 KV, one run each, and
    StableLM-3B, CodeGen-2B and CodeGen-6B at 4 layers (L flash prefills and
    L * 31 decode launches each, no plain version on the card); the ALiBi
    families (alibi_phase): MPT-7B at full width and depth with bf16 KV, the
@@ -103,14 +103,14 @@ Phases, each printing one JSON line per item:
    RuntimeConfig at OPT-6.7B full width and depth, same prompts, from one
    host tree (bf16) made once on the card from the seed and copied out: h2d
    (copy rates of one streamed layer's bytes), then tier-h50-p3 (half
-   resident, the rest streamed; 8 layers), tier-h50-p3-ring3 (the same with
+   resident, the rest streamed; 4 layers), tier-h50-p3-ring3 (the same with
    max_inflight_layers=3: a ring of 3, two layers in flight ahead),
    tier-h0-p3-int8kv (all streamed, int8 KV),
    tier-h50-p0 (KV on the host), tier-h50-p0-p2-mb4 (prefill policy 0 in 4
    minibatches, decode policy 2: host attention), the last four at 4 layers
    of the same tree (TIER_DEPTH), tier-p1-2layer (policy 1,
    2 layers, 2 prompts of 64 tokens, all on the CPU) and, over an int8dyn
-   tree, tier-h50-p3-int8dyn (8 layers) against the resident engine on the
+   tree, tier-h50-p3-int8dyn (4 layers) against the resident engine on the
    same tree.
    Each line: prefill ms and decode tokens/s (median of 3 runs where timed),
    bytes streamed and copy-stream ms per step, peak device memory under a
@@ -138,7 +138,7 @@ Phases, each printing one JSON line per item:
    tokens, no EOS: beam-nb4 (grouped, bf16 KV) and beam-nb4-int8kv (median of
    3), beam-nb4-expanded, beam-nb4-proc (repetition penalty 1.2,
    no_repeat_ngram_size 3), tier-h50-p3-beam (grouped under the scheduler)
-   and tier-h50-p0-beam (expanded, host KV), at 8 and 4 layers, one run each. Each line: prefill
+   and tier-h50-p0-beam (expanded, host KV), at 4 layers, one run each. Each line: prefill
    ms, decode row-tokens/s (16 rows x 31 steps over the decode seconds), the
    bytes a step's beam shuffle rewrites, peak memory, exact launch counts.
    score: loglikelihood of 16 records of 256 + 32 tokens, resident and
@@ -157,7 +157,7 @@ Phases, each printing one JSON line per item:
    of the top one) and beside plain greedy generate's tokens;
    serve-slab-spec4, serve-paged-spec4 and serve-paged-draft (the serving
    workload with speculate_k 4, the last with the opt-125m draft);
-   tier-h50-p3-spec4 (prompt lookup under tier-h50-p3 at its 8 layers, the
+   tier-h50-p3-spec4 (prompt lookup under tier-h50-p3 at its 4 layers, the
    weight stream's bytes per emitted token beside tier-h50-p3's plain decode
    in this run).
    Each line: verify steps, tokens emitted and per step, prefill ms and
@@ -169,10 +169,10 @@ Phases, each printing one JSON line per item:
    on the card against the CPU;
 7c. serving over the tiered scheduler: ContinuousBatcher over the tiered
    phase's host tree at OPT-6.7B width, the serving workload's first 32
-   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (4 layers,
-   slab, bf16 KV), serve-tier-h50-p3-paged at 4 layers, serve-tier-h50-p0-p2
-   (host KV, host attention at decode) at 2 and serve-tier-h50-p3-spec4
-   (prompt lookup, k = 4) at 4 (SERVING_TIERED); then serve-paged-proc, resident at full depth over the
+   requests, max_batch 16, max_len 1024: serve-tier-h50-p3 (2 layers,
+   slab, bf16 KV), serve-tier-h50-p3-paged, serve-tier-h50-p0-p2 (host KV,
+   host attention at decode) and serve-tier-h50-p3-spec4 (prompt lookup,
+   k = 4), each at 2 (SERVING_TIERED); then serve-paged-proc, resident at full depth over the
    whole 64-request workload, every second request with repetition penalty
    1.2 and min_new_tokens 8, every fourth a no_repeat_ngram_size of 3 (no
    such request may repeat a 3-gram). Each line: stats() (tokens/s, TTFT and
@@ -203,6 +203,25 @@ Phases, each printing one JSON line per item:
    with --calibrate (the pick must be (3, 3, 100); exact B1 and B2 launches
    over the warm-up and the timed run, no plain version, the JSON line with
    the reference's keys), then with int8 KV (B3);
+7e. quantization algorithms (quant_algos_phase): OPT-6.7B at full width
+   from one bf16 tree drawn on the card, the default calibration prompts (4
+   x 64 tokens), each flow quantizing on the card (its seconds and peak
+   memory, no plain version on the card), then generate through main_path
+   (b16, 256 + 32, exact launches, median of 3): w8a8-static+int8kv
+   (static_int8_quantize at alpha 0.5, 32 layers; B1, B3), smoothquant-
+   auto-int8 (autotune_alpha's KL for each alpha, the fold at the best, int8
+   weight-only records; B1, B2, B14), gptq-int4-g128 (gptq_quantize_params,
+   4 bits, g 128, the first 4 layers, the seconds a layer of the solves and
+   of the Hessians; B13), the same tree retagged onto W4A8 (B11) and
+   act-order over one layer (B13); accuracy (lia_tpu_torch.run_accuracy.main
+   --self-test, 32 records at b16, OPT-6.7B static-int8: n 32, a finite ppl,
+   exact B1 launches); modules (indirect_access_kv_cache_attention over a
+   bf16 and an int8 cache, B2 and B3, paged_attention, B5, each against its
+   kernel's plain version, varlen_attention against attention one sequence
+   at a time); quant_parity (OPT-6.7B width at 2 layers: the fold, the
+   static records and a GPTQ solve on equal inputs, card against CPU; the
+   bf16 calibration on the card against the CPU's fp32 one; the three
+   flows' trees, card against CPU logits);
 8. parity: OPT-6.7B width at 2 layers, prefill + 4 decode steps on the card
    (bf16, kernels) against the CPU (fp32, plain versions) over the same tree:
    bf16 weights with both KV types, and int8dyn+int8kv, w4a8+int8kv (gate
@@ -341,12 +360,14 @@ TIERED = [
 # speculative phase (the host-KV and host-attention cells decode at 15-84
 # tokens/s and the fully streamed one at 56) and for the head-dim phases
 # (tier-h50-p3-ring3, tier-h50-p3's ring of 3, tier-h50-p3-beam,
-# tier-h50-p3-int8dyn and tier-h50-p0-beam at 4), and, for the ALiBi
-# families' phases, tier-h50-p3 (with its breakdown and tier-h50-p3-spec4)
+# tier-h50-p3-int8dyn and tier-h50-p0-beam at 4), for the ALiBi
+# families' phases tier-h50-p3 (with its breakdown and tier-h50-p3-spec4)
 # from 32 to 8 layers and tier-h50-p0, tier-h0-p3-int8kv,
-# tier-h50-p0-p2-mb4 and tier-h50-p3-ring3 from 8 to 4
-TIER_DEPTH = {"tier-h50-p3": 8, "tier-h50-p0": 4, "tier-h0-p3-int8kv": 4, "tier-h50-p0-p2-mb4": 4,
-              "tier-h50-p0-beam": 4, "tier-h50-p3-ring3": 4, "tier-h50-p3-beam": 8, "tier-h50-p3-int8dyn": 8}
+# tier-h50-p0-p2-mb4 and tier-h50-p3-ring3 from 8 to 4, and, for the
+# quantization algorithms' phase, tier-h50-p3, tier-h50-p3-beam and
+# tier-h50-p3-int8dyn from 8 to 4
+TIER_DEPTH = {"tier-h50-p3": 4, "tier-h50-p0": 4, "tier-h0-p3-int8kv": 4, "tier-h50-p0-p2-mb4": 4,
+              "tier-h50-p0-beam": 4, "tier-h50-p3-ring3": 4, "tier-h50-p3-beam": 4, "tier-h50-p3-int8dyn": 4}
 TIER_COPY_BYTES = {}  # the weight stream's bytes per decode step of each tiered configuration
 TIERED_MEASURED = {}  # each tiered configuration's model, residency, policies and median decode rate
 H2D = {}  # the h2d phase's copy rates
@@ -385,8 +406,9 @@ BEAM_PROMPT_LENS = (256, 240, 200, 160)
 BEAM_PROMPT, BEAM_PADS, BEAM_TLEN = 256, (0, 7, 31, 100), 16  # the beam kernels' check shape
 SCORE_CONT = 32  # scoring: 16 records of a 256-token context and a 32-token continuation
 # the serving and speculative phases' depth: the first layers of OPT-6.7B
-# (32 before the ALiBi families' phases came)
-SERVING_LAYERS = SPEC_LAYERS = 16
+# (32 before the ALiBi families' phases came, 16 before the quantization
+# algorithms' phase)
+SERVING_LAYERS = SPEC_LAYERS = 8
 SERVING = [
     ("serve-slab", dict()),
     ("serve-slab-int8kv", dict(kv_quantized=True)),
@@ -3503,12 +3525,13 @@ SERVE_TIER_REQUESTS = 32  # the serving workload's first 32 requests
 # (name, batcher options, hbm_percentage, (prefill, decode) policy, depth: None
 # for full depth, else the first n layers of the tiered phase's host tree; cut
 # from 32, 8 and 8 layers to make room for the automatic-placement phases,
-# then from 16, 4 and 8 to 4, 2 and 4 for the ALiBi families' phases)
+# then from 16, 4 and 8 to 4, 2 and 4 for the ALiBi families' phases, then
+# from 4 to 2 for the quantization algorithms' phase)
 SERVING_TIERED = [
-    ("serve-tier-h50-p3", dict(), 50, (3, 3), 4),
-    ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 4),
+    ("serve-tier-h50-p3", dict(), 50, (3, 3), 2),
+    ("serve-tier-h50-p3-paged", dict(paged=True), 50, (3, 3), 2),
     ("serve-tier-h50-p0-p2", dict(), 50, (0, 2), 2),
-    ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 4),
+    ("serve-tier-h50-p3-spec4", dict(speculate_k=SPEC_K), 50, (3, 3), 2),
 ]
 # serve-paged-proc: every second request a repetition penalty and a minimum,
 # every fourth (from the second) a no-repeat n-gram size
@@ -3570,9 +3593,9 @@ def serving_tier_expected(cfg, cb, stats: dict, admissions: int, names) -> dict:
 def serving_tier_phase(ca, cm, cfg, tree):
     """The serving lines over the tiered phase's host tree at OPT-6.7B width,
     max_batch 16, max_len 1024: the workload's first SERVE_TIER_REQUESTS
-    requests under serve-tier-h50-p3 (16 layers, slab, bf16 KV), -paged and
-    -p0-p2 (host KV, host attention at decode) at 4 layers and -spec4 (prompt
-    lookup, k = 4) at 8 (SERVING_TIERED); then serve-paged-proc, resident at full depth
+    requests under serve-tier-h50-p3 (slab, bf16 KV), -paged, -p0-p2 (host
+    KV, host attention at decode) and -spec4 (prompt lookup, k = 4) at the
+    depths of SERVING_TIERED; then serve-paged-proc, resident at full depth
     over the whole 64-request workload with the per-request processors
     (proc_kwargs): no n-gram request repeats a 3-gram. Returns (the launches
     by line, serve-tier-h50-p3's batcher for the device breakdowns)."""
@@ -4002,7 +4025,7 @@ def alibi_parity(ca, cm) -> None:
 
 
 def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool = True, gate=None,
-           stacked_per_layer: int = 0, layers: int = 2, tree=None):
+           stacked_per_layer: int = 0, layers: int = 2, tree=None, tol=None):
     """``model``'s width (OPT-6.7B by default) at ``layers`` layers, one tree on both
     sides: the card (bf16 model, kernels) against the CPU (fp32 model, plain
     versions; quantized records move as they are), projections fused unless
@@ -4010,7 +4033,9 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
     MLP on, the card runs it at every layer of the prefill's 2 x 64 rows and
     of each step; with the stacked W4A8 route on, ``stacked_per_layer`` linears
     of each layer run the stacked entry at each decode step). ``tree``: the
-    (card, CPU fp32) pair of a bf16 tree already made (:func:`parity_tree`)."""
+    (card, CPU fp32) pair of a bf16 tree already made (:func:`parity_tree`) or
+    of a quantized one; ``tol``: the logits' tolerance where it is not the
+    weights' activation mode's."""
     from lia_tpu_torch.config import QuantConfig
     from lia_tpu_torch.models import transformer as T
     from lia_tpu_torch.models.registry import get_config
@@ -4061,7 +4086,8 @@ def parity(label: str, kv: str, quant=None, model: str = "opt-6.7b", fuse: bool 
           f"parity {label}: {fused} fused-MLP launches")
     check(stacked == stacked_per_layer * cfg.num_layers * len(steps), f"parity {label}: {stacked} stacked launches")
     err = (gpu - cpu).abs().max().item()
-    tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
+    if tol is None:
+        tol = PARITY_TOL_INT8_ACT if (quant or {}).get("act_quant") == "dynamic" else PARITY_TOL
     emit({"phase": "parity", "config": label, "model": model, "kv": kv, "layers": layers, "batch": 2, "prompt": 64,
           "gates": gate or {}, "fused_mlp_launches": fused, "w4a8_matmul_stacked_launches": stacked,
           "decode_steps": 4, "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
@@ -4090,13 +4116,13 @@ HEAD_DIM_HEADS = [("opt-2.7b heads D=80 (N 32, N_kv 32)", 32, 32, 80, True),
                   ("D=256 G=4 (N 16, N_kv 4)", 16, 4, 256, False)]
 # (model, layers or None for full depth, KV types, the KV types timed): the
 # families run through generate(fused=True) at full width (Falcon-7B's int8-KV
-# run untimed since the head-dim cells came; since the ALiBi families' phases
-# Falcon-7B and OPT-2.7B at 16 of their 32 layers, GPT-J-6B at 14 of 28 and
-# GPT-NeoX-20B at 22 of 44)
-FAMILY_CELLS = [("falcon-7b", 16, ("none", "int8"), ("none",)), ("chatglm3-6b", 4, ("none",), ()),
+# run untimed since the head-dim cells came; since the quantization
+# algorithms' phase Falcon-7B and OPT-2.7B at 8 of their 32 layers, GPT-J-6B
+# at 7 of 28 and GPT-NeoX-20B at 11 of 44, half the ALiBi slice's depths)
+FAMILY_CELLS = [("falcon-7b", 8, ("none", "int8"), ("none",)), ("chatglm3-6b", 4, ("none",), ()),
                 ("baichuan2-7b", 4, ("none",), ()), ("stablelm-2-1.6b", 4, ("none",), ()),
-                ("opt-2.7b", 16, ("none", "int8"), ("none", "int8")), ("gpt-j-6b", 14, ("none", "int8"), ()),
-                ("gpt-neox-20b", 22, ("none",), ()), ("stablelm-3b", 4, ("none",), ()),
+                ("opt-2.7b", 8, ("none", "int8"), ("none", "int8")), ("gpt-j-6b", 7, ("none", "int8"), ()),
+                ("gpt-neox-20b", 11, ("none",), ()), ("stablelm-3b", 4, ("none",), ()),
                 ("codegen-2b", 4, ("none",), ()), ("codegen-6b", 4, ("none",), ())]
 # (model, KV): the families at 2 layers, card against CPU (parity)
 FAMILY_PARITY = [("falcon-7b", "none"), ("falcon-7b", "int8"), ("chatglm3-6b", "none"), ("chatglm3-6b", "int8"),
@@ -5003,6 +5029,408 @@ def cli_phase(ca, cm) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the quantization algorithms (SmoothQuant, static INT8, GPTQ), the accuracy
+# runner and the public fused-op API
+# ---------------------------------------------------------------------------
+
+QUANT_ALPHA = 0.5  # the static-INT8 flow's SmoothQuant alpha (the reference's default)
+GPTQ_LAYERS = 4  # GPTQ at OPT-6.7B's width over the tree's first layers
+GPTQ_ACTORDER_LAYERS = 1
+ACT_PARITY_TOL = 5e-2  # activation maxima, card (bf16 forward) against CPU (fp32): of the tap's largest
+ARITH_TOL = 1e-5  # the flows' own arithmetic on equal inputs, card against CPU (fp32): of the largest
+GPTQ_CODE_AGREEMENT = 0.999  # codes equal on equal inputs, card against CPU (0.99995-0.99996 read on the H100)
+
+
+@contextlib.contextmanager
+def timed_solves(record: list):
+    """Every GPTQ solve (``gptq_quantize_matrix``) timed on the card's clock
+    for the duration, its seconds appended to ``record``: the rest of a
+    layer's time is its Hessians and propagation."""
+    from lia_tpu_torch.ops import gptq
+
+    solve = gptq.gptq_quantize_matrix
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(*a, **kw)
+        torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+
+    gptq.gptq_quantize_matrix = timed
+    try:
+        yield record
+    finally:
+        gptq.gptq_quantize_matrix = solve
+
+
+def quantize_timed(ca, cm, label: str, fn):
+    """Run one quantization flow on the card: its seconds (synchronised),
+    peak device memory over it, and no plain version on the card."""
+    from lia_tpu_torch.ops import cuda_mlp
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with plain_calls(ca, cm, cuda_mlp) as plain:
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(not plain, f"{label}: plain versions ran on the card while quantizing: {plain}")
+    return out, dict(quantize_s=secs, quantize_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     quantize_extra_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def on_card(tree) -> bool:
+    from lia_tpu_torch.runtime.weight_manager import tree_tensors
+
+    return all(t.is_cuda for t in tree_tensors(tree))
+
+
+def quant_algos_phase(ca, cm, cfg, prompts) -> dict:
+    """The quantization algorithms at OPT-6.7B's full width, from one bf16
+    tree drawn on the card (seed 0), over the default calibration prompts
+    (4 x 64 tokens), each flow quantizing on the card (no tensor of the tree
+    leaves it) and then generating b16, 256 + 32 greedy tokens through
+    main_path (exact launches, no plain version; prefill ms and decode
+    tokens/s, median of 3):
+
+    - w8a8-static+int8kv: static_int8_quantize at alpha 0.5 over all 32
+      layers (int8 x int8 torch._int_mm with static activation scales), int8
+      KV (B1, B3);
+    - smoothquant-auto-int8: autotune_alpha over the default alphas (each
+      alpha's KL printed), then the fold at the chosen alpha and int8
+      per-channel weight-only records, bf16 KV (B1, B2, B14 for the four
+      linears and the head);
+    - gptq-int4-g128: gptq_quantize_params at 4 bits, g 128 over the first 4
+      layers, seconds a layer for the Hessians and the solves (B13), the same
+      tree retagged onto W4A8 (B11), act-order over one layer (B13).
+
+    Then ``accuracy`` (lia_tpu_torch.run_accuracy.main, --self-test, 32
+    records at b16, OPT-6.7B static-int8 at full depth on the card: n and a
+    finite ppl; accuracy is printed, not gated: bf16 greedy flips on
+    flat-margin random weights) and the ``modules`` checks; returns the
+    launches of each generating line."""
+    from lia_tpu_torch.api import _default_calib
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.ops import smoothquant as sq
+    from lia_tpu_torch.ops.gptq import gptq_quantize_params
+    from lia_tpu_torch.ops.quant import retag_dynamic_act
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params
+
+    calib = _default_calib(cfg)
+    L = cfg.num_layers
+    tree = device_dummy_params(cfg, seed=0)
+    launches = {}
+
+    def cell(label, qcfg, qtree, kv, per_forward, info):
+        check(on_card(qtree), f"{label}: the quantized tree left the card")
+        out = main_path(ca, cm, label, qcfg, lambda: qtree, prompts, kv, per_forward, timed=True)
+        launches.update({name: counts for name, (counts, _) in out.items()})
+        emit({"phase": "quant_algos", "config": label, "model": cfg.name, "layers": qcfg.num_layers,
+              "calibration": [len(calib), len(calib[0])], **info})
+
+    # every flow quantizes from the bf16 tree first; the tree is freed before
+    # the cells generate, so their engines run beside no more than their own trees
+    cells = []
+    q, info = quantize_timed(ca, cm, "w8a8-static+int8kv",
+                             lambda: sq.static_int8_quantize(cfg, tree, calib, alpha=QUANT_ALPHA)[0])
+    fmts = {rec.fmt for grp in q["layers"].values() for rec in grp.values() if hasattr(rec, "fmt")}
+    check(fmts == {"static_int8"}, f"w8a8-static: formats {fmts}")
+    cells.append(("w8a8-static+int8kv", cfg, q, "int8", {}, {**info, "alpha": QUANT_ALPHA}))
+
+    qc = QuantConfig(weight_dtype="int8", group_size=-1)
+
+    def smooth():
+        best, report = sq.autotune_alpha(cfg, tree, calib, qc)
+        qtree, _ = sq.smoothquant_quantize(cfg, tree, calib, qc, alpha=best)
+        return qtree, best, report
+
+    (q, best, report), info = quantize_timed(ca, cm, "smoothquant-auto-int8", smooth)
+    check(best in sq.DEFAULT_ALPHAS and all(np.isfinite(v) for v in report.values()),
+          f"smoothquant autotune: {best} {report}")
+    cells.append(("smoothquant-auto-int8", cfg, q, "none", {"woq_matmul": 4 * L + 1},
+                  {**info, "alpha": best, "kl_by_alpha": report}))
+
+    cfg4 = cfg.replace(num_layers=GPTQ_LAYERS)
+    with timed_solves([]) as solves:
+        g4, info = quantize_timed(ca, cm, "gptq-int4-g128", lambda: gptq_quantize_params(
+            cfg4, first_layers(tree, GPTQ_LAYERS), calib, bits=4, group_size=128))
+    check(len(solves) == 4 * GPTQ_LAYERS, f"gptq: {len(solves)} solves for {GPTQ_LAYERS} layers")
+    solve_s = sum(solves)
+    info.update(solve_s_per_layer=solve_s / GPTQ_LAYERS,
+                hessian_and_propagation_s_per_layer=(info["quantize_s"] - solve_s) / GPTQ_LAYERS,
+                solve_s_by_hessian=solves[:4], rows_per_layer=3 * cfg.hidden_size + cfg.ffn_size,
+                full_depth_estimate_s=info["quantize_s"] / GPTQ_LAYERS * L)
+    check(g4["layers"]["attn"]["wq"].fmt == "woq_int4z" and g4["layers"]["attn"]["wq"].z is not None,
+          "gptq: not woq_int4z")
+    cells.append(("gptq-int4-g128", cfg4, g4, "none", {"woq4z_matmul": 4 * GPTQ_LAYERS}, info))
+    cells.append(("gptq-int4-g128 retagged w4a8", cfg4, retag_dynamic_act(g4), "none",
+                  {"w4a8_matmul": 4 * GPTQ_LAYERS}, {"retagged": "woq_int4z_dyn"}))
+    cfg1 = cfg.replace(num_layers=GPTQ_ACTORDER_LAYERS)
+    g1, info = quantize_timed(ca, cm, "gptq-int4-g128-actorder", lambda: gptq_quantize_params(
+        cfg1, first_layers(tree, GPTQ_ACTORDER_LAYERS), calib, bits=4, group_size=128, actorder=True))
+    cells.append(("gptq-int4-g128-actorder", cfg1, g1, "none", {"woq4z_matmul": 4 * GPTQ_ACTORDER_LAYERS},
+                  {**info, "actorder": True}))
+    del tree, q, g4, g1
+    torch.cuda.empty_cache()
+    while cells:
+        cell(*cells.pop(0))
+        torch.cuda.empty_cache()
+    phase_time("quantization flows")
+
+    accuracy_line(ca, cm, cfg)
+    modules_checks(ca)
+    return launches
+
+
+ACCURACY_ARGS = ["-m", "opt-6.7b", "--dummy-weights", "--self-test", "--limit", "32", "--batch-size", "16",
+                 "--weight-dtype", "static-int8"]
+
+
+def accuracy_line(ca, cm, cfg) -> None:
+    """run_accuracy.main in process on the card: the static-INT8 flow at full
+    depth, 32 self-test records at b16. Exact B1 launches: the flow's two
+    calibration passes (fold, then the static scales) and, for each of the
+    two batches, the self-test's prefill, the scoring pass and the greedy
+    check's prefill, each at every layer; no decode step (one new token)."""
+    import io
+
+    from lia_tpu_torch import run_accuracy
+    from lia_tpu_torch.ops import cuda_mlp
+
+    reset_counts(ca, cm)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with plain_calls(ca, cm, cuda_mlp) as plain, contextlib.redirect_stdout(buf):
+        rc = run_accuracy.main(ACCURACY_ARGS)
+    secs = time.perf_counter() - t0
+    counts = launch_counts(ca, cm)
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    L, batches = cfg.num_layers, 32 // 16
+    want = {name: 0 for name in counts}
+    want["flash_attention_prefill"] = 2 * L + 3 * batches * L
+    emit({"phase": "accuracy", "argv": ACCURACY_ARGS, "seconds": secs, "launches": counts,
+          "plain_calls_on_card": len(plain), **report})
+    check(rc == 0 and report["n"] == 32 and np.isfinite(report["ppl"]), f"accuracy: {report}")
+    check(not plain, f"accuracy: plain versions ran on the card: {plain}")
+    check(counts == want, f"accuracy: launches {counts} != expected {want}")
+    torch.cuda.empty_cache()
+
+
+def modules_checks(ca) -> None:
+    """The public fused-op API at OPT-6.7B's heads (B 16, N 32, D 128):
+    indirect_access_kv_cache_attention over a bf16 cache (B2) and an int8
+    cache (B3), each against its kernel's plain version on the same inputs
+    and writing the fresh token into its slot; paged_attention (B5) over a
+    shuffled pool; varlen_attention (plain code, as in the reference) against
+    attention run one sequence at a time. One launch of each kernel a call."""
+    import torch.nn.functional as F
+
+    from lia_tpu_torch import modules as M
+    from lia_tpu_torch.ops.quant import quantize_kv
+
+    randn = check_randn("modules_checks")
+    pads = [0, 3, 7, 15] * 4
+    mask = torch.zeros(B, 320, dtype=torch.bool, device="cuda")
+    for b, p in enumerate(pads):
+        mask[b, p:PAST] = True
+    length = torch.tensor(PAST, dtype=torch.int32, device="cuda")
+    q, kn, vn = randn(B, 1, N, D), randn(B, 1, N, D), randn(B, 1, N, D)
+    kf, vf = kn.transpose(1, 2).contiguous(), vn.transpose(1, 2).contiguous()
+    for kind, kernel in (("bf16", "decode_attention_fresh"), ("int8", "decode_attention_fresh_int8")):
+        k, v = randn(2, B, N, 320, D), randn(2, B, N, 320, D)
+        if kind == "int8":
+            kq, vq = quantize_kv(k.float()), quantize_kv(v.float())
+            cache = M.KVCache(kq, vq, length, mask)
+            ref = ca.decode_attention_fresh_int8_plain(q, kf, vf, kq.q.clone(), kq.s.clone(), vq.q.clone(),
+                                                       vq.s.clone(), 1, mask, length)
+        else:
+            cache = M.KVCache(k, v, length, mask)
+            ref = ca.decode_attention_fresh_plain(q, kf, vf, k.clone(), v.clone(), 1, mask, length)
+        before = ca.launch_counts()[kernel]
+        out, cache = M.indirect_access_kv_cache_attention(q, kn, vn, cache, layer_idx=1)
+        torch.cuda.synchronize()
+        n = ca.launch_counts()[kernel] - before
+        err = (out.float() - ref.float()).abs().max().item()
+        written = cache.k.q[1, :, :, PAST] if kind == "int8" else cache.k[1, :, :, PAST]
+        want = quantize_kv(kf[:, :, 0].float()).q if kind == "int8" else kf[:, :, 0]
+        emit({"phase": "modules", "check": f"indirect_access_kv_cache_attention, {kind} cache", "kernel": kernel,
+              "launches": n, "max_abs_err": err, "tol": KERNEL_TOL})
+        check(n == 1 and err <= KERNEL_TOL and bool(torch.isfinite(out).all()),
+              f"indirect_access_kv_cache_attention {kind}: {n} launches, err {err}")
+        check(bool((written == want).all()), f"indirect_access_kv_cache_attention {kind}: fresh token not written")
+
+    bs, P = 16, 24
+    nb = B * P + 1
+    pool = M.PagedKVCache(randn(nb, N, bs, D), randn(nb, N, bs, D))
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(0))[: B * P] + 1
+    table = perm.reshape(B, P).to(torch.int32).cuda()
+    lens = torch.tensor([1 + (37 * b) % (P * bs) for b in range(B)], dtype=torch.int32, device="cuda")
+    before = ca.launch_counts()["paged_decode_attention"]
+    out = M.paged_attention(q, pool, table, lens)
+    torch.cuda.synchronize()
+    n = ca.launch_counts()["paged_decode_attention"] - before
+    ref = ca.paged_decode_attention_plain(q, pool.k[None], pool.v[None], 0, table, lens)
+    err = (out.float() - ref.float()).abs().max().item()
+    emit({"phase": "modules", "check": "paged_attention", "kernel": "paged_decode_attention", "launches": n,
+          "max_abs_err": err, "tol": KERNEL_TOL})
+    check(n >= 1 and err <= KERNEL_TOL and bool(torch.isfinite(out).all()), f"paged_attention: {n} launches, err {err}")
+
+    lens = [256, 100, 37, 500]
+    T = sum(lens) + 11  # padded
+    qv, kv, vv = (randn(T, N, D, dtype=torch.float32) for _ in range(3))
+    out = M.varlen_attention(qv, kv, vv, torch.tensor(lens, device="cuda"))
+    err, off = 0.0, 0
+    for n_ in lens:
+        s = slice(off, off + n_)
+        ref = F.scaled_dot_product_attention(qv[s].transpose(0, 1), kv[s].transpose(0, 1), vv[s].transpose(0, 1),
+                                             is_causal=True).transpose(0, 1)
+        err = max(err, (out[s] - ref).abs().max().item())
+        off += n_
+    emit({"phase": "modules", "check": "varlen_attention (fp32)", "max_abs_err": err, "tol": 1e-4,
+          "padding_zero": bool((out[off:] == 0).all())})
+    check(err <= 1e-4 and bool((out[off:] == 0).all()), f"varlen_attention: err {err}")
+
+
+def quant_parity() -> None:
+    """OPT-6.7B's width at 2 layers, one bf16 tree (seed 1, drawn on the
+    card) and its fp32 copy on the CPU, the default calibration prompts:
+
+    - the flows' arithmetic on equal inputs (the card's fp32 tree equal to
+      the CPU's bit for bit), fp32 (fp64 for the solver) on the card against
+      the CPU: the load-time quantizers (int8, int4 g 128, NF4 g 64, static)
+      of layer 0-1's wq bit for bit, the SmoothQuant fold at alpha 0.5 and
+      the static records from
+      the CPU's activation maxima (folded weights and static scales within
+      ARITH_TOL of their largest, codes agreeing on at least
+      GPTQ_CODE_AGREEMENT), and the GPTQ solve (4 bits, g 128) of layer 0's
+      q/k/v against the CPU's Hessian: codes agreeing on at least
+      GPTQ_CODE_AGREEMENT, each column's first differing code one step
+      apart, and the scales and zeros of every group up to that code's
+      within ARITH_TOL and equal (a column's later groups start from
+      weights that the differing code's error moved, so they may differ);
+    - the calibration on the card (bf16 model; its forward passes run the
+      flash prefill kernel, which takes bf16 only) against the CPU (fp32):
+      the activation maxima within ACT_PARITY_TOL of each tap's largest (a
+      whole GPTQ flow on the CPU at this width, with fc2's 16384-row solve,
+      would take minutes, so its solver is held on layer 0's q/k/v above);
+    - the card's three trees run prefill + 4 decode steps on the card (bf16)
+      and, moved to the CPU, there (fp32): logits within PARITY_TOL
+      (PARITY_TOL_INT8_ACT for W8A8's int8 activations), as parity()."""
+    from lia_tpu_torch.api import _default_calib
+    from lia_tpu_torch.config import QuantConfig
+    from lia_tpu_torch.models.registry import get_config
+    from lia_tpu_torch.ops import smoothquant as sq
+    from lia_tpu_torch.ops.gptq import _gram, gptq_quantize_matrix, gptq_quantize_params
+    from lia_tpu_torch.ops.quant import quantize_params_static, quantize_weight, quantize_weight_static
+    from lia_tpu_torch.runtime.weight_manager import tree_tensors
+    from lia_tpu_torch.utils.checkpoint import device_dummy_params, to_device
+
+    cfg = get_config("opt-6.7b").replace(num_layers=2)
+    cfg32 = cfg.replace(dtype="float32")
+    calib = _default_calib(cfg)
+    tree = device_dummy_params(cfg, seed=1)
+    cpu = to_device(tree, "cpu", torch.float32)
+    card32 = to_device(tree, "cuda", torch.float32)
+    t0 = time.perf_counter()
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    # the flows' arithmetic on equal inputs
+    leaves = zip(tree_tensors(card32), tree_tensors(cpu))
+    check(all(torch.equal(a.cpu(), b) for a, b in leaves), "quant parity: the card's fp32 tree is not the CPU's")
+    act_cpu = sq.collect_act_scales(cfg32, cpu, calib)
+    fold_cpu = sq.apply_smoothquant(cfg32, cpu, act_cpu, alpha=QUANT_ALPHA)
+    fold_card = sq.apply_smoothquant(cfg32, card32, {k: v.cuda() for k, v in act_cpu.items()}, alpha=QUANT_ALPHA)
+    fold_errs = {f"{g}.{k}": rel(fold_card["layers"][g][k], fold_cpu["layers"][g][k])
+                 for g, k in (("ln1", "scale"), ("ln2", "scale"), ("attn", "wq"), ("attn", "wv"), ("mlp", "w1"))}
+    fold_err = max(fold_errs.values())
+    st_cpu = quantize_params_static(cfg32, fold_cpu, act_cpu)
+    st_card = quantize_params_static(cfg32, fold_card, {k: v.cuda() for k, v in act_cpu.items()})
+    agree, z_err = [], 0.0
+    for g, ws in st_cpu["layers"].items():
+        for k, rec in ws.items():
+            if hasattr(rec, "fmt"):
+                agree.append((st_card["layers"][g][k].q.cpu() == rec.q).float().mean().item())
+                z_err = max(z_err, rel(st_card["layers"][g][k].z, rec.z), rel(st_card["layers"][g][k].s, rec.s))
+    # the load-time quantizers on the card against the CPU, bit for bit
+    w_card, w_cpu = card32["layers"]["attn"]["wq"], cpu["layers"]["attn"]["wq"]
+    quantizers_equal = {}
+    for label, kw in (("int8", dict(weight_dtype="int8", group_size=-1)),
+                      ("int4-g128", dict(weight_dtype="int4", group_size=128)),
+                      ("nf4-g64", dict(weight_dtype="nf4", group_size=64))):
+        a, b = quantize_weight(w_card, QuantConfig(**kw)), quantize_weight(w_cpu, QuantConfig(**kw))
+        quantizers_equal[label] = torch.equal(a.q.cpu(), b.q) and torch.equal(a.s.cpu(), b.s)
+    amax = act_cpu["qkv"].amax(dim=-1)
+    a, b = quantize_weight_static(w_card, amax.cuda()), quantize_weight_static(w_cpu, amax)
+    quantizers_equal["static"] = all(torch.equal(x.cpu(), y) for x, y in zip((a.q, a.s, a.z), (b.q, b.s, b.z)))
+    from lia_tpu_torch.ops.smoothquant import Calibration, tapped_layer
+    from lia_tpu_torch.models import transformer as T
+
+    cal = Calibration(cfg32, cpu, calib, cfg.pad_token_id)
+    with torch.inference_mode():
+        a1 = tapped_layer(cfg32, T.layer_params(cpu["layers"], 0), cal.embed(cfg32, cpu), cal)[1][0]
+    H = _gram(a1, cal.valid.float()).double()
+    lp0 = T.layer_params(cpu["layers"], 0)["attn"]
+    w_qkv = torch.cat([lp0[n] for n in ("wq", "wk", "wv")], dim=1)
+    sol_cpu = gptq_quantize_matrix(w_qkv, H, bits=4, group_size=128)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sol_card = gptq_quantize_matrix(w_qkv.cuda(), H.cuda(), bits=4, group_size=128)
+    torch.cuda.synchronize()
+    solve_card_s = time.perf_counter() - t1
+    (c_card, s_card, z_card), (c_cpu, s_cpu, z_cpu) = [t.cpu() for t in sol_card], sol_cpu
+    diff = c_card != c_cpu  # [K, N]
+    gptq_agree = 1.0 - diff.double().mean().item()
+    K, ng = diff.shape[0], s_cpu.shape[0]
+    cols = diff.any(dim=0).nonzero().flatten()
+    first = torch.full((diff.shape[1],), K)  # each column's first differing row (K: none)
+    first[cols] = diff[:, cols].int().argmax(dim=0)
+    steps = (c_card[first[cols], cols] - c_cpu[first[cols], cols]).abs()
+    before = torch.arange(ng)[:, None] <= (first // (K // ng))[None, :]  # groups whose scale precedes it
+    gptq_s_err = ((s_card - s_cpu).abs() / s_cpu.abs().max())[before].max().item()
+    gptq_z_equal = bool((z_card == z_cpu)[before].all())
+    emit({"phase": "quant_parity", "check": "arithmetic on equal inputs", "fold_max_rel_err": fold_err,
+          "fold_rel_err_by_leaf": fold_errs, "quantizers_bit_equal": quantizers_equal,
+          "static_codes_agreement_min": min(agree),
+          "static_scales_max_rel_err": z_err, "gptq_qkv_rows": K, "gptq_qkv_cols": int(w_qkv.shape[1]),
+          "gptq_codes_agreement": gptq_agree, "gptq_columns_differing": int(cols.numel()),
+          "gptq_first_difference_steps": sorted(set(steps.tolist())),
+          "gptq_scales_before_first_difference_max_rel_err": gptq_s_err,
+          "gptq_scales_max_rel_err": rel(s_card, s_cpu), "gptq_zeros_before_first_difference_equal": gptq_z_equal,
+          "gptq_qkv_solve_card_s": solve_card_s, "tol": ARITH_TOL, "min_agreement": GPTQ_CODE_AGREEMENT})
+    check(fold_err <= ARITH_TOL and z_err <= ARITH_TOL and min(agree) >= GPTQ_CODE_AGREEMENT,
+          f"quant parity: fold {fold_err}, static scales {z_err}, static codes {min(agree)}")
+    check(all(quantizers_equal.values()), f"quant parity: quantizers card against CPU {quantizers_equal}")
+    check(gptq_agree >= GPTQ_CODE_AGREEMENT and bool((steps == 1).all()) and gptq_s_err <= ARITH_TOL
+          and gptq_z_equal, f"quant parity: gptq codes {gptq_agree}, first differences {steps.unique().tolist()}, "
+          f"scales before them {gptq_s_err}, zeros before them equal {gptq_z_equal}")
+    del fold_cpu, fold_card, st_cpu, st_card, card32, sol_card, sol_cpu
+
+    # each flow whole: the card (bf16) against the CPU (fp32)
+    act_card = sq.collect_act_scales(cfg, tree, calib)
+    act_err = {k: (act_card[k].float().cpu() - act_cpu[k]).abs().max().item() / act_cpu[k].abs().max().item()
+               for k in act_cpu}
+    qc = QuantConfig(weight_dtype="int8", group_size=-1)
+    trees = {"w8a8-static": (sq.static_int8_quantize(cfg, tree, calib, alpha=QUANT_ALPHA)[0], PARITY_TOL_INT8_ACT),
+             "smoothquant-0.5-int8": (sq.smoothquant_quantize(cfg, tree, calib, qc, alpha=QUANT_ALPHA)[0],
+                                      PARITY_TOL),
+             "gptq-int4-g128": (gptq_quantize_params(cfg, tree, calib, bits=4, group_size=128), PARITY_TOL)}
+    emit({"phase": "quant_parity", "check": "flows, card bf16 against CPU fp32", "act_max_rel_err": act_err,
+          "act_tol": ACT_PARITY_TOL, "seconds": time.perf_counter() - t0})
+    check(max(act_err.values()) <= ACT_PARITY_TOL, f"quant parity: activation maxima {act_err}")
+    for label, (qtree, tol) in trees.items():
+        parity(f"quant {label}", "none", tree=(qtree, to_device(qtree, "cpu", torch.float32)), tol=tol)
+    del trees, tree, cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5109,6 +5537,10 @@ def main() -> int:
     phase_time("main path and parity")
     alibi_parity(ca, cm)  # every kernel with slopes inside the models, 4 layers
     phase_time("alibi parity")
+
+    launches.update(quant_algos_phase(ca, cm, cfg, prompts))
+    quant_parity()
+    phase_time("quantization algorithms")
 
     tier_launches, tree = tiered_phase(ca, cm, cfg, prompts)
     launches.update(tier_launches)

@@ -4,9 +4,13 @@
     engine = load_engine("opt-6.7b", dummy=True, weight_dtype="int8", auto_placement=True, batch=16)
     out = engine.generate([[1, 2, 3]], GenerationConfig(max_new_tokens=32))
 
-What the port lacks raises ``NotImplementedError`` naming its ``ROADMAP.md``
-queue A item: the GPTQ algorithm, SmoothQuant and the static-int8
-calibration flow (A11), the encoder-decoder and vision families (A12).
+The quantization algorithms run on the tree's device before the engine is
+built: ``gptq=True`` (:mod:`lia_tpu_torch.ops.gptq`), ``smoothquant=alpha``
+or ``"auto"`` with a weight-only ``weight_dtype``, and
+``weight_dtype="static-int8"`` (W8A8; :mod:`lia_tpu_torch.ops.smoothquant`),
+each over :func:`_default_calib`'s prompts. What the port lacks raises
+``NotImplementedError`` naming its ``ROADMAP.md`` queue A item: the
+encoder-decoder and vision families (A12), tensor parallelism (A13).
 """
 
 from __future__ import annotations
@@ -56,8 +60,7 @@ def load_engine(
     and ``hbm_percentage`` for ``batch`` prompts of ``in_len`` tokens and
     ``out_len`` new ones. ``device`` defaults to the card (``"cuda"``)."""
     cfg = get_config(model).replace(dtype=dtype)
-    refuse_unported(cfg, gptq=gptq, gptq_actorder=gptq_actorder, smoothquant=smoothquant is not None,
-                    static_int8=weight_dtype == "static-int8")
+    refuse_unported(cfg)
     if device is None:
         import torch
 
@@ -74,16 +77,73 @@ def load_engine(
 
         runtime = runtime.replace(prefill_policy=-1, decode_policy=-1, hbm_percentage=-1)
         runtime = resolve_auto_policies(cfg, runtime, batch, in_len, out_len)
-    return InferenceEngine(cfg, load_params_for(cfg, quant, checkpoint, gptq_checkpoint, dummy, seed, device),
+    if smoothquant is not None and not quant.enabled:
+        raise ValueError("smoothquant= migrates outliers BEFORE weight quantization — pass a "
+                         "WOQ weight_dtype ('int8'/'int4') alongside it")
+    flow = quant_flow(cfg, quant, _default_calib(cfg), gptq=gptq, gptq_actorder=gptq_actorder,
+                      smoothquant=smoothquant)
+    return InferenceEngine(cfg, load_params_for(cfg, quant, checkpoint, gptq_checkpoint, dummy, seed, device, flow),
                            runtime, device=device)
 
 
-def refuse_unported(cfg, tp: int = 1, **asked: bool) -> None:
-    """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item of each
-    asked-for option the port lacks: the encoder-decoder and vision families
-    (A12), tensor parallelism (A13), the quantization algorithms of ``asked``
-    (``gptq``, ``gptq_actorder``, ``smoothquant``, ``static_int8``: A11)."""
-    missing = [f"{name} (A11)" for name, on in asked.items() if on]
+def quant_flow(cfg, quant: QuantConfig, calib, gptq: bool = False, gptq_actorder: bool = False,
+               smoothquant=None, alphas=None, log=None):
+    """The quantization algorithm asked for, as a function of the fp tree
+    (run on the tree's device), or None for round to nearest (or none):
+
+    - ``weight_dtype="static-int8"`` first: W8A8 after a SmoothQuant fold at
+      ``smoothquant`` (an alpha or ``"auto"``; 0.5 if None);
+    - then ``gptq``: 8 bits for int8, else 4; group 128 unless
+      ``group_size`` is set; with ``act_quant="dynamic"`` 4-bit codes are
+      retagged onto the W4A8 kernel;
+    - then ``smoothquant`` with ``quant``'s weight-only format: an alpha, or
+      ``"auto"`` over ``alphas`` (the default sweep if None).
+
+    ``calib``: the calibration prompts. ``log`` (``print`` in the CLI) is
+    given the reference's ``[lia-tpu]`` line once the flow has run."""
+    say = log or (lambda line: None)
+    if quant.weight_dtype == "static-int8":
+        from lia_tpu_torch.ops.smoothquant import static_int8_quantize
+
+        def static8(p):
+            p, used = static_int8_quantize(cfg, p, calib, alpha=0.5 if smoothquant is None else smoothquant)
+            say(f"[lia-tpu] static-int8 (W8A8) calibrated; smoothquant alpha={used}")
+            return p
+
+        return static8
+    if gptq:
+        from lia_tpu_torch.ops.gptq import gptq_quantize_params
+        from lia_tpu_torch.ops.quant import retag_dynamic_act
+
+        bits = 8 if quant.weight_dtype == "int8" else 4
+        g = quant.group_size if quant.group_size > 0 else 128
+
+        def solve(p):
+            p = gptq_quantize_params(cfg, p, calib, bits=bits, group_size=g, actorder=gptq_actorder)
+            if quant.act_quant == "dynamic" and bits == 4:
+                p = retag_dynamic_act(p)  # GPTQ's codes on the W4A8 kernel
+            say(f"[lia-tpu] gptq quantized (bits={bits}, group={g}, actorder={gptq_actorder}, "
+                f"act_quant={quant.act_quant})")
+            return p
+
+        return solve
+    if smoothquant is not None and quant.enabled:
+        from lia_tpu_torch.ops.smoothquant import smoothquant_quantize
+
+        def smooth(p):
+            p, used = smoothquant_quantize(cfg, p, calib, quant, alpha=smoothquant, alphas=alphas)
+            say(f"[lia-tpu] smoothquant folded with alpha={used}")
+            return p
+
+        return smooth
+    return None
+
+
+def refuse_unported(cfg, tp: int = 1) -> None:
+    """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item of what
+    the port lacks: the encoder-decoder and vision families (A12), tensor
+    parallelism (A13)."""
+    missing = []
     if tp > 1:
         missing.append(f"tp={tp} (A13)")
     if cfg.encoder_decoder or cfg.family in ("git", "llava") or cfg.vision_hidden:
@@ -93,15 +153,22 @@ def refuse_unported(cfg, tp: int = 1, **asked: bool) -> None:
 
 
 def load_params_for(cfg, quant: QuantConfig, checkpoint: Optional[str] = None,
-                    gptq_checkpoint: Optional[str] = None, dummy: bool = False, seed: int = 0, device="cuda"):
-    """The parameter tree from the first weight source given (see :func:`load_engine`)."""
+                    gptq_checkpoint: Optional[str] = None, dummy: bool = False, seed: int = 0, device="cuda",
+                    flow=None):
+    """The parameter tree from the first weight source given (see
+    :func:`load_engine`). ``flow`` (:func:`quant_flow`) quantizes the fp
+    tree of a checkpoint or of dummy weights on ``device``; without it the
+    tree is quantized by round to nearest where ``quant`` asks (dummy trees
+    drawn in quantized form)."""
     import torch
 
     if checkpoint:
         from lia_tpu_torch.ops.quant import quantize_params
-        from lia_tpu_torch.utils.checkpoint import load_hf_checkpoint
+        from lia_tpu_torch.utils.checkpoint import load_hf_checkpoint, to_device
 
         params = load_hf_checkpoint(cfg, checkpoint)
+        if flow is not None:
+            return flow(to_device(params, device))
         return quantize_params(cfg, params, quant) if quant.enabled else params
     if gptq_checkpoint:
         from lia_tpu_torch.utils import safetensors
@@ -115,8 +182,19 @@ def load_params_for(cfg, quant: QuantConfig, checkpoint: Optional[str] = None,
     if dummy:
         from lia_tpu_torch.utils.checkpoint import device_dummy_params, init_dummy_params
 
-        q = quant if quant.enabled else None
+        q = quant if quant.enabled and flow is None else None
         if torch.device(device).type == "cuda":
-            return device_dummy_params(cfg, seed=seed, device=device, quant=q)
-        return init_dummy_params(cfg, seed=seed, quant=q)
+            params = device_dummy_params(cfg, seed=seed, device=device, quant=q)
+        else:
+            params = init_dummy_params(cfg, seed=seed, quant=q)
+        return params if flow is None else flow(params)
     raise ValueError("provide checkpoint=, gptq_checkpoint=, or dummy=True")
+
+
+def _default_calib(cfg, n: int = 4):
+    """Synthetic calibration prompts for the quantization flows without a
+    dataset: ``n`` prompts of 64 tokens from ``default_rng(0)``, as the reference's."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [list(rng.integers(10, min(cfg.vocab_size - 10, 30000), size=64)) for _ in range(n)]

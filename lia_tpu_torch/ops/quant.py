@@ -5,9 +5,12 @@
 :data:`QUANT_FORMATS`) and, for the asymmetric and static formats, ``z``.
 int4 and NF4 codes are packed two per byte with the reference's GLOBAL
 half-split: byte ``r`` of a ``[K/2, N]`` weight holds row ``r`` in its low
-nibble and row ``K/2 + r`` in its high nibble. The quantizers run in numpy on
-the host, as the reference's do without its native library, so codes and
-scales are bit-equal for equal inputs.
+nibble and row ``K/2 + r`` in its high nibble. The quantizers take a tensor,
+quantized on its own device a layer at a time (the card quantizes a tree
+without copying it to the host), or a numpy array, quantized as a CPU
+tensor. They divide in fp32 and round half to even (``torch.round``, as the
+reference's numpy quantizers use ``np.rint``), so their codes and scales are
+bit-equal to the reference's for equal inputs.
 
 :func:`quantized_matmul` dispatches by format:
 
@@ -120,72 +123,98 @@ def stacked_ref(rec: QuantizedWeight, idx: int, layers: torch.Tensor) -> Quantiz
     return QuantizedWeightRef(rec.q, rec.s, rec.fmt, rec.z, idx, layers[idx])
 
 
-def _np(w) -> np.ndarray:
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` correctly rounded, as numpy divides. On the card, dividing by
+    a Python number multiplies by its reciprocal, up to one ulp off, which
+    moves a scale's rounding and, where the grid meets a tie, a code or a
+    zero-point; a divisor on the tensor's device keeps the true division."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _tensor(w) -> torch.Tensor:
+    """A tensor as it is; a numpy (or array-like) weight as an fp32 CPU tensor."""
     if isinstance(w, torch.Tensor):
-        return w.detach().float().cpu().numpy()
-    return np.asarray(w, np.float32)
-
-
-def _rec(q: np.ndarray, s: np.ndarray, fmt: str, z=None) -> QuantizedWeight:
-    return QuantizedWeight(
-        torch.from_numpy(np.ascontiguousarray(q)), torch.from_numpy(np.ascontiguousarray(s)),
-        fmt, None if z is None else torch.from_numpy(np.ascontiguousarray(z)),
-    )
+        return w
+    return torch.from_numpy(np.require(w, np.float32, "W"))
 
 
 # ---------------------------------------------------------------------------
-# Quantize (host-side numpy, at load time)
+# Quantize (at load time, on the weight's device)
 # ---------------------------------------------------------------------------
+
+
+def _pack_halves(codes):
+    """Codes ``[..., K, N]`` in 0..15 → half-split bytes ``[..., K/2, N]``."""
+    K = codes.shape[-2]
+    return (codes[..., : K // 2, :] & 0xF) | (codes[..., K // 2 :, :] << 4)
+
+
+def _weight_formats(qc: QuantConfig):
+    """(int8 format, int4 format) of ``qc``'s activation mode."""
+    if qc.act_quant != "dynamic":
+        return "woq_int8", "woq_int4"
+    if qc.weight_dtype == "int8":
+        return "woq_int8_dyn", "woq_int4"
+    if qc.weight_dtype == "int4":
+        return "woq_int8", "woq_int4_dyn"
+    # NF4 codebook values are not integers: no int8 product exists
+    raise ValueError("act_quant='dynamic' needs int8 or int4 weights")
+
+
+def _quantize_slab(w: torch.Tensor, weight_dtype: str, g: int):
+    """One ``[K, N]`` weight (fp32, on its device) → (codes, scales ``[K/g, N]``):
+    the reference's numpy arithmetic (fp32 division, round half to even)."""
+    K, N = w.shape
+    wg = w.reshape(K // g, g, N)
+    if weight_dtype == "nf4":
+        scale = torch.clamp(wg.abs().amax(dim=-2, keepdim=True), min=1e-8)
+        bounds = torch.from_numpy(_NF4_BOUNDARIES).to(w.device)
+        codes = torch.searchsorted(bounds, (wg / scale).contiguous()).to(torch.uint8).reshape(K, N)
+        return _pack_halves(codes), scale.squeeze(-2)
+    qmax = 127.0 if weight_dtype == "int8" else 7.0
+    scale = torch.clamp(true_div(wg.abs().amax(dim=-2, keepdim=True), qmax), min=1e-8)
+    q = torch.round(wg / scale).clamp_(-qmax - 1, qmax).to(torch.int8).reshape(K, N)
+    if weight_dtype == "int4":  # biased nibbles in [0, 15]
+        return _pack_halves((q + 8).to(torch.uint8)), scale.squeeze(-2)
+    return q, scale.squeeze(-2)
+
+
+def _per_layer(w: torch.Tensor, fn, rows: int, dtype):
+    """``fn`` over each ``[K, N]`` slab of ``w`` ``[..., K, N]`` (one slab's fp32
+    copy at a time, so a stacked tree quantizes within one layer's working
+    memory): codes ``[..., rows, N]`` of ``dtype`` and the scales ``fn`` gives."""
+    *lead, K, N = w.shape
+    flat = w.detach().reshape(-1, K, N)
+    q = s = None
+    for i in range(flat.shape[0]):
+        qi, si = fn(flat[i].float())
+        if q is None:
+            q = torch.empty((flat.shape[0], rows, N), dtype=dtype, device=w.device)
+            s = torch.empty((flat.shape[0], *si.shape), dtype=torch.float32, device=w.device)
+        q[i], s[i] = qi, si
+    return q.reshape(*lead, rows, N), s.reshape(*lead, *s.shape[1:])
 
 
 def quantize_weight(w, qc: QuantConfig) -> QuantizedWeight:
     """Quantize ``[..., in, out]`` symmetric per-(group, out-channel); group_size
-    -1 is one group over the whole ``in`` axis (per-out-channel scales)."""
-    w = _np(w)
+    -1 is one group over the whole ``in`` axis (per-out-channel scales). A
+    tensor is quantized on its device, a numpy array as a CPU tensor."""
     *lead, K, N = w.shape
     g = K if qc.group_size <= 0 else qc.group_size
     if K % g:
         raise ValueError(f"in-dim {K} not divisible by group size {g}")
     ng = K // g
-    fmt8, fmt4 = "woq_int8", "woq_int4"
-    if qc.act_quant == "dynamic":
-        if qc.weight_dtype == "int8":
-            if ng != 1:
-                raise ValueError(
-                    "act_quant='dynamic' with int8 needs per-channel scales (group_size=-1): "
-                    "the int32 dot sums the whole K axis"
-                )
-            fmt8 = "woq_int8_dyn"
-        elif qc.weight_dtype == "int4":
-            fmt4 = "woq_int4_dyn"
-        else:  # NF4 codebook values are not integers: no int8 product exists
-            raise ValueError("act_quant='dynamic' needs int8 or int4 weights")
-
-    if qc.weight_dtype == "nf4":
-        # per-group absmax to [-1, 1], nearest codebook entry, half-split packed
-        wg = w.reshape(*lead, ng, g, N)
-        scale = np.maximum(np.abs(wg).max(axis=-2, keepdims=True), 1e-8)
-        codes = np.searchsorted(_NF4_BOUNDARIES, wg / scale).astype(np.uint8).reshape(*lead, K, N)
-        s = scale.squeeze(-2).astype(np.float32)
-        packed = (codes[..., : K // 2, :] & 0xF) | (codes[..., K // 2 :, :] << 4)
-        return _rec(packed, s, "woq_nf4")
-
-    if qc.weight_dtype == "int8":
-        qmax = 127.0
-    elif qc.weight_dtype == "int4":
-        qmax = 7.0
-    else:
+    fmt8, fmt4 = _weight_formats(qc)
+    if fmt8 == "woq_int8_dyn" and ng != 1:
+        raise ValueError("act_quant='dynamic' with int8 needs per-channel scales (group_size=-1): "
+                         "the int32 dot sums the whole K axis")
+    if qc.weight_dtype not in ("int8", "int4", "nf4"):
         raise ValueError(qc.weight_dtype)
-    wg = w.reshape(*lead, ng, g, N)
-    scale = np.maximum(np.abs(wg).max(axis=-2, keepdims=True) / qmax, 1e-8)
-    q = np.rint(wg / scale).clip(-qmax - 1, qmax).astype(np.int8).reshape(*lead, K, N)
-    s = scale.squeeze(-2).astype(np.float32)
-    if qc.weight_dtype == "int4":
-        # biased nibbles in [0, 15], two per byte, global half-split
-        b = (q + 8).astype(np.uint8)
-        packed = (b[..., : K // 2, :] & 0xF) | (b[..., K // 2 :, :] << 4)
-        return _rec(packed, s, fmt4)
-    return _rec(q, s, fmt8)
+    fmt = {"int8": fmt8, "int4": fmt4, "nf4": "woq_nf4"}[qc.weight_dtype]
+    packed = qc.weight_dtype != "int8"
+    q, s = _per_layer(_tensor(w), lambda x: _quantize_slab(x, qc.weight_dtype, g), K // 2 if packed else K,
+                      torch.uint8 if packed else torch.int8)
+    return QuantizedWeight(q, s, fmt)
 
 
 def retag_dynamic_act(params):
@@ -203,17 +232,54 @@ def retag_dynamic_act(params):
     return params
 
 
+def _static_slab(w: torch.Tensor):
+    s = torch.clamp(true_div(w.abs().amax(dim=-2, keepdim=True), 127.0), min=1e-8)
+    return torch.round(w / s).clamp_(-128, 127).to(torch.int8), s
+
+
 def quantize_weight_static(w, act_amax) -> QuantizedWeight:
     """W8A8 static quantization of ``[..., K, N]``: symmetric per-out-channel
     int8 weights; ``z = act_amax / 127`` is the static activation scale, one
-    per leading index."""
-    w = _np(w)
+    per leading index. A tensor is quantized on its device (``act_amax`` with
+    it), a numpy array as a CPU tensor."""
     *lead, K, N = w.shape
-    s = np.maximum(np.abs(w).max(axis=-2, keepdims=True) / 127.0, 1e-8)
-    q = np.rint(w / s).clip(-128, 127).astype(np.int8)
-    act_scale = np.maximum(np.asarray(act_amax, np.float32) / 127.0, 1e-8)
-    act_scale = np.broadcast_to(act_scale, tuple(lead)).copy()
-    return _rec(q, s.astype(np.float32), "static_int8", act_scale)
+    w = _tensor(w)
+    q, s = _per_layer(w, _static_slab, K, torch.int8)
+    amax = _tensor(act_amax).to(device=w.device, dtype=torch.float32)
+    act_scale = torch.clamp(true_div(amax, 127.0), min=1e-8).expand(tuple(lead)).clone()
+    return QuantizedWeight(q, s, "static_int8", act_scale)
+
+
+# The activation maximum (collect_act_scales' tap) that sets each decoder
+# linear's static scale.
+STATIC_TAPS = {
+    ("attn", "wq"): "qkv", ("attn", "wk"): "qkv", ("attn", "wv"): "qkv",
+    ("attn", "wo"): "wo_in",
+    ("mlp", "w1"): "mlp_in", ("mlp", "wg"): "mlp_in",
+    ("mlp", "w2"): "w2_in",
+}
+
+
+def quantize_params_static(cfg: ModelConfig, params: Dict[str, Any], act_scales: Dict[str, Any]):
+    """Static-INT8 (W8A8) quantization of every decoder-layer linear
+    (``[L, K, N]``), on the tree's device. ``act_scales``: the per-channel
+    activation maxima of :func:`lia_tpu_torch.ops.smoothquant.collect_act_scales`,
+    reduced here to one static per-tensor scale per (layer, linear).
+    Embeddings, norms, biases and the head stay as they are."""
+    out = dict(params)
+    new_layers: Dict[str, Any] = {}
+    for grp_name, grp in params["layers"].items():
+        new_grp: Dict[str, Any] = {}
+        for k, v in grp.items():
+            obs = STATIC_TAPS.get((grp_name, k))
+            if obs is not None and not is_quantized(v) and v.ndim == 3:
+                amax = _tensor(act_scales[obs]).float().amax(dim=-1)  # [L]
+                new_grp[k] = quantize_weight_static(v, amax)
+            else:
+                new_grp[k] = v
+        new_layers[grp_name] = new_grp
+    out["layers"] = new_layers
+    return out
 
 
 def _quantize_layer_tree(layers: Dict[str, Any], qc: QuantConfig) -> Dict[str, Any]:
@@ -255,7 +321,7 @@ def quantize_params(cfg: ModelConfig, params: Dict[str, Any], qc: QuantConfig):
 def quantize_tied_head(embed, qc: QuantConfig) -> QuantizedWeight:
     """Quantized transposed ``[E, V]`` head copy for tied embeddings; the fp
     table stays for the token gather."""
-    return quantize_head_2d(np.ascontiguousarray(_np(embed).T), qc)
+    return quantize_head_2d(_tensor(embed).detach().T, qc)
 
 
 def head_config(E: int, V: int, qc: QuantConfig):
@@ -281,10 +347,11 @@ def quantize_head_2d(w, qc: QuantConfig) -> QuantizedWeight:
     """Quantize an ``[E, V]`` head as :func:`head_config` says; the pad columns
     are exact zeros, and :func:`lia_tpu_torch.models.transformer.lm_head`
     slices them off."""
-    w = _np(w)
     E, V = w.shape
     hqc, Vp = head_config(E, V, qc)
-    return quantize_weight(np.pad(w, ((0, 0), (0, Vp - V))) if Vp > V else w, hqc)
+    if Vp > V:
+        w = torch.nn.functional.pad(_tensor(w), (0, Vp - V))
+    return quantize_weight(w, hqc)
 
 
 # ---------------------------------------------------------------------------

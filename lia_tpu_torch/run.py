@@ -6,10 +6,16 @@
         --input-tokens 256 --prefill-policy auto --decoding-policy auto --hbm-percentage auto --calibrate
 
 The reference's flags for what the port does, and ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions). ``--tp``, ``--gptq``,
-``--gptq-actorder``, ``--smoothquant`` and ``--weight-dtype static-int8`` raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; ``--no-pallas`` is
-refused as the engine refuses ``use_pallas=False``. ``--prompt`` and
+``cuda``; ``cpu`` runs the kernels' plain versions). The quantization
+algorithms run on the device before the engine is built, over
+``--calib-iters`` synthetic prompts: ``--gptq`` (with ``--gptq-actorder``;
+4 or 8 bits by ``--weight-dtype``; retagged onto W4A8 with ``--act-quant
+dynamic``), ``--smoothquant ALPHA|auto`` with a weight-only
+``--weight-dtype`` (``auto`` sweeps ``--alpha-min`` to ``--alpha-max`` by
+``--alpha-step``) and ``--weight-dtype static-int8`` (W8A8, at the
+``--smoothquant`` alpha or 0.5). ``--tp`` raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item; ``--no-pallas`` is refused as the engine
+refuses ``use_pallas=False``. ``--prompt`` and
 ``--tokenizer`` are left out (they need ``transformers`` and a local
 tokenizer). ``--profile`` writes a ``torch.profiler`` trace. Prints the
 reference's ``[warmup i]`` / ``[iter i]`` lines, the latency summary and one
@@ -25,7 +31,7 @@ import time
 
 import numpy as np
 
-from lia_tpu_torch.api import load_params_for, refuse_unported
+from lia_tpu_torch.api import _default_calib, load_params_for, quant_flow, refuse_unported
 from lia_tpu_torch.config import GenerationConfig, QuantConfig, RuntimeConfig
 from lia_tpu_torch.engine.engine import InferenceEngine
 from lia_tpu_torch.models.registry import get_config
@@ -76,9 +82,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--kv-cache-dtype", default="none", choices=["none", "int8"])
     p.add_argument("--act-quant", default="none", choices=["none", "dynamic"],
                    help="dynamic: per-token int8 activations")
-    p.add_argument("--gptq", action="store_true", help="GPTQ-quantize at load (not ported)")
-    p.add_argument("--gptq-actorder", action="store_true", help="GPTQ act-order (not ported)")
-    p.add_argument("--smoothquant", default=None, metavar="ALPHA", help="SmoothQuant (not ported)")
+    p.add_argument("--gptq", action="store_true",
+                   help="GPTQ-quantize at load on calibration prompts; bits follow --weight-dtype (int4/int8)")
+    p.add_argument("--gptq-actorder", action="store_true", help="GPTQ act-order (desc Hessian diagonal), static groups")
+    p.add_argument("--smoothquant", default=None, metavar="ALPHA",
+                   help="SmoothQuant outlier migration before WOQ: a float alpha, or 'auto' to sweep")
+    p.add_argument("--alpha-min", type=float, default=0.3, help="smoothquant autotune sweep start")
+    p.add_argument("--alpha-max", type=float, default=0.8, help="smoothquant autotune sweep end")
+    p.add_argument("--alpha-step", type=float, default=0.1, help="smoothquant autotune sweep step")
+    p.add_argument("--calib-iters", type=int, default=4, help="calibration prompts for the quantization flows")
     p.add_argument("--save-quantized", default=None, metavar="PATH",
                    help="save the (quantized) parameter tree after load")
     p.add_argument("--quantized-checkpoint", default=None, metavar="PATH",
@@ -95,14 +107,27 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def _alpha_sweep(args):
+    return [round(float(a), 4) for a in np.arange(args.alpha_min, args.alpha_max + 1e-9, args.alpha_step)]
+
+
+def _flow(cfg, runtime, args):
+    """The quantization algorithm the flags ask for (:func:`quant_flow`),
+    printing the reference's ``[lia-tpu]`` line when it has run, or None."""
+    sq = args.smoothquant if runtime.quant.enabled else None
+    return quant_flow(cfg, runtime.quant, _default_calib(cfg, args.calib_iters), gptq=args.gptq,
+                      gptq_actorder=args.gptq_actorder,
+                      smoothquant=None if sq is None else ("auto" if sq == "auto" else float(sq)),
+                      alphas=_alpha_sweep(args), log=print)
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     cfg = get_config(args.model).replace(dtype=args.dtype)
     if not args.benchmark:
         print(f"[lia-tpu] {cfg.name}: params≈{cfg.num_params/1e9:.2f}B; pass --benchmark to run")
         return 0
-    refuse_unported(cfg, tp=args.tp, gptq=args.gptq, gptq_actorder=args.gptq_actorder,
-                    smoothquant=args.smoothquant is not None, static_int8=args.weight_dtype == "static-int8")
+    refuse_unported(cfg, tp=args.tp)
     runtime = RuntimeConfig(
         prefill_policy=args.prefill_policy,
         decode_policy=args.decoding_policy,
@@ -142,10 +167,9 @@ def main(argv=None) -> int:
         from lia_tpu_torch.utils.checkpoint import load_params
 
         params = load_params(args.quantized_checkpoint)
-    elif args.checkpoint:
-        params = load_params_for(cfg, runtime.quant, checkpoint=args.checkpoint)
-    else:  # dummy weights, drawn in quantized form where asked
-        params = load_params_for(cfg, runtime.quant, dummy=True, device=args.device)
+    else:  # a checkpoint, or dummy weights (drawn in quantized form where no algorithm runs)
+        params = load_params_for(cfg, runtime.quant, checkpoint=args.checkpoint, dummy=not args.checkpoint,
+                                 device=args.device, flow=_flow(cfg, runtime, args))
     if args.save_quantized:
         from lia_tpu_torch.utils.checkpoint import save_params
 

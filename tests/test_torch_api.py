@@ -5,9 +5,12 @@ the ``run`` CLI and hypertune.
 ``lia_tpu.load_engine``'s greedy tokens exactly for an OPT and a llama-layout
 model, resident, under a tiered runtime (hbm 50, policies (0, 2)) and under
 ``auto_placement`` (both packages' profile patched to one that holds half the
-layers); what the port lacks raises naming its ROADMAP.md item; the CLI
-prints the reference's JSON keys; hypertune's candidates are the reference's,
-and a failed candidate is recorded with its message.
+layers); GPTQ, SmoothQuant (alpha 0.5, int8) and static-int8 give
+``lia_tpu.load_engine``'s tokens, and SmoothQuant without a weight-only
+format raises its ValueError; what the port lacks raises naming its
+ROADMAP.md item; the CLI prints the reference's JSON keys, and its three
+quantization flows run; hypertune's candidates are the reference's, and a
+failed candidate is recorded with its message.
 """
 
 import dataclasses
@@ -92,13 +95,32 @@ def test_load_engine_quantized_dummy_equals_lia_tpu():
                                   np.asarray(ref))
 
 
-@pytest.mark.parametrize("kw,item", [(dict(gptq=True), "A11"), (dict(smoothquant=0.5), "A11"),
-                                     (dict(weight_dtype="static-int8"), "A11"), (dict(model="t5-tiny"), "A12"),
-                                     (dict(model="llava-tiny"), "A12")])
+@pytest.mark.parametrize("kw,item", [(dict(model="t5-tiny"), "A12"), (dict(model="llava-tiny"), "A12")])
 def test_unported_load_engine_options_raise(kw, item):
     kw = {"model": "opt-tiny", **kw}
     with pytest.raises(NotImplementedError, match=item):
         load_engine(kw.pop("model"), dummy=True, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(gptq=True), dict(smoothquant=0.5, weight_dtype="int8"),
+                                dict(weight_dtype="static-int8")])
+def test_load_engine_quantization_flows_equal_lia_tpu(kw):
+    """The three algorithms over the dummy fp tree and the default
+    calibration prompts give lia_tpu.load_engine's fp32 tokens."""
+    j = lia_tpu.load_engine("opt-tiny", dtype="float32", dummy=True, **kw)
+    t = load_engine("opt-tiny", dtype="float32", dummy=True, device="cpu", **kw)
+    fmt = {"gptq": "woq_int4z", "smoothquant": "woq_int8", "weight_dtype": "static_int8"}[next(iter(kw))]
+    assert t.params["layers"]["attn"]["wqkv"].fmt == fmt
+    ref = j.generate(PROMPTS, JGen(max_new_tokens=NEW)).sequences
+    np.testing.assert_array_equal(t.generate(PROMPTS, GenerationConfig(max_new_tokens=NEW)).sequences,
+                                  np.asarray(ref))
+
+
+def test_smoothquant_needs_a_weight_only_format():
+    with pytest.raises(ValueError, match="WOQ weight_dtype"):
+        lia_tpu.load_engine("opt-tiny", dummy=True, smoothquant=0.5)
+    with pytest.raises(ValueError, match="WOQ weight_dtype"):
+        load_engine("opt-tiny", dummy=True, device="cpu", smoothquant=0.5)
 
 
 def test_load_engine_needs_a_source_and_defaults_to_the_card():
@@ -125,12 +147,28 @@ def test_cli_prints_the_reference_json(capsys, tmp_path):
     assert json.load(open(tmp_path / "summary.json")) == summary
 
 
-@pytest.mark.parametrize("argv,item", [(["--tp", "2"], "A13"), (["--gptq"], "A11"), (["--smoothquant", "auto"], "A11"),
-                                       (["--weight-dtype", "static-int8"], "A11"), (["-m", "t5-tiny"], "A12"),
+@pytest.mark.parametrize("argv,item", [(["--tp", "2"], "A13"), (["-m", "t5-tiny"], "A12"),
                                        (["--no-pallas"], "use_pallas=False")])
 def test_cli_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         run.main(CLI + argv)
+
+
+@pytest.mark.parametrize("argv,line", [
+    (["--gptq"], "[lia-tpu] gptq quantized (bits=4, group=128, actorder=False, act_quant=none)"),
+    (["--smoothquant", "auto", "--weight-dtype", "int8", "--alpha-min", "0.4", "--alpha-max", "0.6"],
+     "[lia-tpu] smoothquant folded with alpha="),
+    (["--weight-dtype", "static-int8"], "[lia-tpu] static-int8 (W8A8) calibrated; smoothquant alpha=0.5"),
+])
+def test_cli_quantization_flows_run(argv, line, capsys):
+    """The CLI's three flows print the reference's line and its JSON keys."""
+    assert run.main(CLI + argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert any(x.startswith(line) for x in lines), lines
+    if "auto" in argv:
+        alpha = float(next(x for x in lines if x.startswith(line))[len(line):])
+        assert alpha in (0.4, 0.5, 0.6)
+    assert set(json.loads(lines[-1])) == set(JLatency([0.1, 0.01, 0.01]).summary(2)) | {"model"}
 
 
 def test_hypertune_candidates_equal_lia_tpu():
